@@ -1,0 +1,175 @@
+"""``python -m stamp_tpu_torch`` — the ``stamp`` CLI of the PyTorch port.
+
+The argument surface and the YAML schema (``stamp_tpu.utils.config.
+StampConfig``) are those of ``python -m stamp_tpu``.  Ported so far: ``init``,
+``config`` and ``preprocess`` (the ImageViT extractors); every other
+subcommand exits non-zero and names the JAX package's command.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import shutil
+import sys
+from pathlib import Path
+
+import yaml
+
+import stamp_tpu
+
+STAMP_FACTORY_SETTINGS = Path(stamp_tpu.__file__).with_name("config.yaml")
+
+_logger = logging.getLogger("stamp")
+
+_COMMANDS = {
+    "init": "Create a new STAMP configuration file at the path specified by --config",
+    "preprocess": "Preprocess whole-slide images into feature vectors",
+    "encode_slides": "Encode patch-level features into slide-level embeddings",
+    "encode_patients": "Encode features into patient-level embeddings",
+    "train": "Train a Vision Transformer model",
+    "crossval": "Train a Vision Transformer model with cross validation for "
+    "modeling.n_splits folds",
+    "deploy": "Deploy a trained Vision Transformer model",
+    "statistics": "Generate AUROCs and AUPRCs with 95%%CI for a trained Vision "
+    "Transformer model",
+    "config": "Print the loaded configuration",
+    "export_ckpt": "Convert a model checkpoint between this framework's npz format "
+    "and the reference's Lightning .ckpt",
+    "heatmaps": "Generate heatmaps for a trained model",
+}
+_PORTED = {"init", "config", "preprocess"}
+
+
+def _configure_logging() -> None:
+    _logger.setLevel(logging.DEBUG)
+    if not any(getattr(h, "_stamp_torch", False) for h in _logger.handlers):
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setLevel(logging.INFO)
+        handler.setFormatter(logging.Formatter("%(asctime)s\t%(levelname)s\t%(message)s"))
+        handler._stamp_torch = True  # type: ignore[attr-defined]
+        _logger.addHandler(handler)
+
+
+def _add_file_handle_(logger: logging.Logger, *, output_dir: Path) -> None:
+    output_dir.mkdir(exist_ok=True, parents=True)
+    file_handler = logging.FileHandler(output_dir / "logfile.log")
+    file_handler.setLevel(logging.DEBUG)
+    file_handler.setFormatter(logging.Formatter("%(asctime)s\t%(levelname)s\t%(message)s"))
+    logger.addHandler(file_handler)
+
+
+def _run_preprocess(section, profile: bool) -> None:
+    from stamp_tpu.utils import profiling
+    from stamp_tpu_torch.preprocessing.extract import extract_
+    from stamp_tpu_torch.utils.device import resolve_device
+
+    if profile:  # per-stage wall-time table into the log (no device trace yet)
+        profiling.timer.enabled = True
+        profiling.timer.reset()
+    try:
+        extract_(
+            output_dir=section.output_dir,
+            wsi_dir=section.wsi_dir,
+            wsi_list=section.wsi_list,
+            cache_dir=section.cache_dir,
+            tile_size_um=section.tile_size_um,
+            tile_size_px=section.tile_size_px,
+            extractor=section.extractor,
+            max_workers=section.max_workers,
+            device=resolve_device(section.device),
+            default_slide_mpp=section.default_slide_mpp,
+            brightness_cutoff=section.brightness_cutoff,
+            canny_cutoff=section.canny_cutoff,
+            cache_tiles_ext=section.cache_tiles_ext,
+            generate_hash=section.generate_hash,
+            macenko_normalization=section.macenko_normalization,
+            # only an explicit YAML value pins the numeric mode; otherwise
+            # the STAMP_INT8_EXTRACTION env var is in charge
+            extractor_precision=(
+                section.extractor_precision
+                if "extractor_precision" in section.model_fields_set
+                else None
+            ),
+        )
+    finally:
+        if profile:
+            _logger.info("profile — per-stage wall time:\n" + profiling.timer.report())
+            profiling.timer.enabled = False
+
+
+def _run_cli(args: argparse.Namespace) -> None:
+    if args.command not in _PORTED:
+        raise NotImplementedError(
+            f"`{args.command}` is not yet ported — run `python -m stamp_tpu {args.command}`"
+        )
+    if args.command == "init":
+        if args.config_file_path.exists():
+            _logger.info(
+                f"Refusing to overwrite existing config file at "
+                f"{args.config_file_path.absolute()}"
+            )
+        else:
+            shutil.copy(STAMP_FACTORY_SETTINGS, args.config_file_path)
+            _logger.info(f"Created new config file at {args.config_file_path.absolute()}")
+        return
+
+    from stamp_tpu.utils.config import StampConfig
+
+    with open(args.config_file_path) as config_yaml:
+        config = StampConfig.model_validate(yaml.safe_load(config_yaml))
+    if args.command == "config":
+        print(yaml.dump(config.model_dump(mode="json", exclude_none=True)))
+        return
+
+    section = config.preprocessing
+    if section is None:
+        raise ValueError("no preprocessing configuration supplied")
+    _add_file_handle_(_logger, output_dir=section.output_dir)
+    _logger.info(
+        "using the following configuration:\n"
+        f"{yaml.dump(section.model_dump(mode='json', exclude_none=True))}"
+    )
+    _run_preprocess(section, args.profile)
+
+
+def main(argv: list[str] | None = None) -> None:
+    _configure_logging()
+    parser = argparse.ArgumentParser(
+        prog="stamp",
+        description="STAMP: Solid Tumor Associative Modeling in Pathology "
+        "(PyTorch/CUDA port)",
+    )
+    parser.add_argument(
+        "--config",
+        "-c",
+        type=Path,
+        dest="config_file_path",
+        default=Path("config.yaml"),
+        help="Path to config file. Default: config.yaml",
+    )
+    parser.add_argument(
+        "--profile",
+        action="store_true",
+        help="Log a per-stage wall-time table for the command.",
+    )
+    subparsers = parser.add_subparsers(dest="command")
+    for name, help_text in _COMMANDS.items():
+        sub = subparsers.add_parser(name, help=help_text)
+        if name == "export_ckpt":
+            sub.add_argument("src", type=Path, help="checkpoint to convert")
+            sub.add_argument("dst", type=Path, help="output path")
+
+    args = parser.parse_args(argv)
+    if args.command is None:
+        parser.print_help()
+        sys.exit(1)
+    try:
+        _run_cli(args)
+    except Exception as e:
+        _logger.exception(e)
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Every source under ``csrc/`` exposes a plain C interface (no PyTorch
+headers), so ``nvcc`` compiles them into one shared library in seconds and
+``ctypes`` loads it.  The library file is named by a hash of the sources and
+the flags: an edited source builds a new library, a stale one is never
+loaded.  Nothing here runs at import time — the CPU test suite imports this
+module on machines with no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stamp_tpu_torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers / shared memory / spills per kernel, into the build log
+]  # fmt: skip
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+# C entry points: name → argtypes (pointers and the stream as c_void_p, so
+# ctypes never truncates a 64-bit address).  Each returns a cudaError_t.
+_SIGNATURES = {
+    # qkv, out, batch, n, heads, head_dim, device, stream
+    "stamp_fused_qkv_attn": [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
+    # x, gamma, beta, weight, dense_bias|NULL, out, m, n, k, eps, device, stream
+    "stamp_ln_dense": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
+        _INT, _PTR,
+    ],
+}  # fmt: skip
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Path of the shared library for the current sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libstamp_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").is_file():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are compiled at first use and "
+            "need the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)"
+        )
+    return found
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+
+    The ptxas report goes to ``<library>.log``.  A failed build raises with
+    nvcc's stderr."""
+    lib_path = library_path()
+    if lib_path.is_file():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building the CUDA kernels failed ({' '.join(cmd)}):\n{proc.stderr}"
+        )
+    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.stamp_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.stamp_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = load_library().stamp_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

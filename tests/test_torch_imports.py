@@ -1,0 +1,77 @@
+"""The port imports neither JAX nor flax, and imports without triton,
+h5py, nvcc or a GPU.  Checked in a fresh interpreter: this test process has jax
+loaded already (tests/conftest.py)."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib.abc
+import json
+import sys
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    # act as if triton and h5py were not installed, whatever this machine has
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("triton", "h5py"):
+            raise ModuleNotFoundError(f"No module named {name!r}")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+import stamp_tpu_torch.__main__
+import stamp_tpu_torch.io.h5
+import stamp_tpu_torch.models.vit_image
+import stamp_tpu_torch.ops._build as build
+import stamp_tpu_torch.ops.flash_attention
+import stamp_tpu_torch.ops.ln_dense
+import stamp_tpu_torch.preprocessing.extract
+import stamp_tpu_torch.preprocessing.extractor
+import stamp_tpu_torch.preprocessing.extractor.zoo
+import stamp_tpu_torch.utils.device
+
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "flax": sorted(m for m in sys.modules if m == "flax" or m.startswith("flax.")),
+    "triton": "triton" in sys.modules,
+    "h5py": "h5py" in sys.modules,
+    "library_loaded": build._lib is not None,
+}))
+"""
+
+
+def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.path.dirname(sys.executable)  # no nvcc on the path
+    env["HOME"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert seen == {
+        "jax": [], "flax": [], "triton": False, "h5py": False, "library_loaded": False
+    }
+
+
+def test_port_sources_name_no_jax_import():
+    """No module of the port (nor chip_smoke.py) has an import of jax/flax."""
+    sources = sorted((REPO / "stamp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for src in sources:
+        for line in src.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "flax", "jaxlib"), f"{src}: {line}"
