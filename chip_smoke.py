@@ -20,10 +20,28 @@ Phases (each prints at least one line; any failure exits non-zero):
 5. whole model: the same UNI2 weights on 8 tiles through the kernel path
    and the plain path on the card (per-tile cosine), and the steady-state
    forward rate at batch 64.
+3b. flash kernels: ``flash_mha`` and ``flash_alibi_mha`` (f32) against their
+   plain versions at the deploy shapes [8, 4097, 64] and [8, 16385, 64] with
+   the last 40% of keys masked, and at ragged small shapes and d = 32, 128;
+   the median time of each, with ``F.scaled_dot_product_attention`` as the
+   library control of ``flash_mha``.
+6. deploy: ``python -m stamp_tpu_torch -c config.yaml --profile deploy``
+   in-process, an ensemble of two MIL ViT checkpoints at the default width
+   (``vit`` and ``vit`` + ALiBi, random weights, UNI2 inputs of width 1536)
+   on four patients of 2,500 to 20,000 tiles (T = 4,097 … 32,769 after
+   bucket padding and CLS); checks the three CSVs and that each flash
+   kernel ran 2 layers × 4 patients times, then holds the kernel path
+   against the plain path on the card for the patients with T ≤ 16,385.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
-checkout of the repository, the script exits non-zero and prints no result.
+Phases run in the order 1, 2, 3, 3b, 4, 5, 6 and print their wall time.
+The line before the last is ``{"kernels": [...]}``: each kernel's launches
+on its main path (phase 4 or 6), its largest error against its plain
+version, its time, the plain version's and the library control's, and the
+least time the card could take for the same work (``bound_ms``: the larger
+of the bytes over 3.35 TB/s and the operations over the H100 SXM's peak
+rate for their type).  The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA card, or outside a checkout of the repository, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -54,6 +72,31 @@ COSINE_MIN = 0.99
 
 UNI2_TOKENS = 265  # (224/14)² patches + 1 cls + 8 register tokens
 BATCH = 64
+
+# max |kernel − plain| / max |plain| on the f32 flash kernels.  Their q·kᵀ
+# and P·V run in TF32 (10-bit mantissa: each operand rounded by up to
+# 2^-11 ≈ 4.9e-4 relative); the errors of a 64-term dot mostly cancel, and
+# the softmax averages them further.  5e-3 leaves a margin of ten and still
+# fails a masking or indexing fault, whose error is of order one.
+FLASH_TOL = 5e-3
+# ALiBi's D·V is a 3×TF32 split (22 of f32's 24 mantissa bits per operand)
+# summed per 64-key tile, then across tiles in rounded f32.  Phase 3b also
+# holds the kernel and the plain version against an f64 D·V: the plain f32
+# GEMM is the less accurate of the two, near 1e-5 of max |ref| at
+# T = 16,385.  1e-4 holds that and refuses plain TF32 (order 1e-3).
+DACC_TOL = 1e-4
+# deploy: class probabilities, kernel path against plain path
+PROB_TOL = 1e-3
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bounds in the kernels line
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
+
+# deploy cohort: tiles per patient → T = bucket + CLS = 4,097 … 32,769
+DEPLOY_TILES = (2500, 6000, 12000, 20000)
+UNI2_DIM = 1536
+MIL_LAYERS = 2
+MIL_HEADS = 8
 
 
 def _fail(msg: str) -> None:
@@ -351,6 +394,300 @@ def phase_whole_model(card: str) -> None:
         check("UNI2, LayerScale γ = 1", model(x).float(), plain_path(model, x).float())
 
 
+def _bound(nbytes: float, flops: dict[str, float]) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the bytes over the
+    memory rate against the operations over the peak rate of their type
+    (summed over types)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_FLOPS[kind] for kind, n in flops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _mean_pairwise_distance(coords) -> float:
+    """Mean Euclidean distance over all ordered pairs of [N, 2] coordinates
+    on the card, in row blocks, summed in f64."""
+    import torch
+
+    c = coords.double()
+    total = sum(torch.cdist(c[i : i + 4096], c).sum().item() for i in range(0, len(c), 4096))
+    return total / len(c) ** 2
+
+
+def _flash_inputs(gen, bh: int, t: int, d: int):
+    """q, k, v ~ N(0, 1) f32; the last 40% of keys masked (as bucket padding
+    leaves them); coordinates on a 256 µm grid; dist_scale = 1 / the mean
+    pairwise distance of the valid tiles, so that the post-softmax bias is
+    not 10⁴× the softmax branch (as with running_mean = 1)."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    q, k, v = (torch.randn(bh, t, d, device=dev, generator=gen) for _ in range(3))
+    n_valid = max(1, t - (2 * t) // 5)
+    key_mask = (torch.arange(t, device=dev) < n_valid).expand(bh, t).contiguous()
+    side = math.isqrt(n_valid - 1) + 1
+    idx = torch.arange(t, device=dev)
+    grid = torch.stack([idx % side, idx // side], dim=-1).float() * 256.0
+    coords = grid.expand(bh, t, 2).contiguous()
+    mean = _mean_pairwise_distance(grid[:n_valid]) if n_valid > 1 else 1.0
+    dist_scale = torch.full((bh,), 1.0 / max(mean, 1.0), device=dev)
+    return q, k, v, key_mask, coords, dist_scale
+
+
+def phase_flash_kernels(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    gen = torch.Generator(device="cuda:0").manual_seed(1)
+    rows: dict = {"flash_mha": [], "flash_alibi_mha": []}
+    shapes = ((3, 1, 64), (3, 300, 64), (2, 130, 32), (2, 200, 128), (8, 4097, 64), (8, 16385, 64))
+    for bh, t, d in shapes:
+        q, k, v, mask, coords, ds = _flash_inputs(gen, bh, t, d)
+        # pairs the function must score: every query against every valid key
+        pairs = t * mask.sum().item()
+        io_bytes = 4 * q.numel() * 4 + mask.numel()  # q, k, v in, out out (f32); mask
+
+        out, lse = attn._flash_forward(q, k, v, mask)
+        want, want_lse = attn._flash_forward_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _error(out, want)
+        _, rel_lse = _error(lse, want_lse)
+        row = dict(shape=[bh, t, d], max_abs_err=abs_err, rel_err=rel_err, lse_rel_err=rel_lse)
+        if not (rel_err <= FLASH_TOL and rel_lse <= FLASH_TOL):
+            _fail(f"flash_mha {row}: beyond {FLASH_TOL}")
+        del want, want_lse
+        if t >= 4097:
+            bound, by = _bound(io_bytes, {"tf32": 4 * d * pairs})
+            sdpa_mask = mask[:, None, None, :]
+
+            def sdpa(q=q, k=k, v=v, m=sdpa_mask):
+                return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], attn_mask=m)[:, 0]
+
+            tm = _compare_timed(
+                lambda: attn.flash_mha(q, k, v, mask), lambda: attn.flash_mha_reference(q, k, v, mask), sdpa, iters=3
+            )
+            _, rel_sdpa = _error(sdpa(), out)
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=tm["control"],
+                        sdpa_rel_diff=rel_sdpa, bound_ms=bound, bound_by=by)  # fmt: skip
+        print(f"[3b flash] flash_mha {json.dumps(row)} on {card}")
+        rows["flash_mha"].append(row)
+
+        out, out_sm, dacc, lse = attn._flash_alibi_forward(q, k, v, coords, coords, ds, mask)
+        want_sm, want_dacc, want_lse = attn._flash_alibi_forward_reference(q, k, v, coords, coords, mask)
+        want = want_sm - ds[:, None, None] * want_dacc
+        torch.cuda.synchronize()
+        abs_err, rel_err = _error(out, want)
+        errs = {
+            "softmax_rel_err": _error(out_sm, want_sm)[1],
+            "dacc_rel_err": _error(dacc, want_dacc)[1],
+            "lse_rel_err": _error(lse, want_lse)[1],
+        }
+        if t >= 4097:  # both against an f64 D·V of the first sequence
+            c = coords[0].double()
+            dist64 = torch.cdist(c, c).masked_fill_(~mask[0][None, :], 0.0)
+            dacc64 = dist64 @ v[0].double()
+            errs |= {"dacc_rel_err_f64": _error(dacc[0], dacc64)[1],
+                     "plain_dacc_rel_err_f64": _error(want_dacc[0], dacc64)[1]}  # fmt: skip
+            del dist64, dacc64
+        row = dict(shape=[bh, t, d], max_abs_err=abs_err, rel_err=rel_err, **errs)
+        if not (max(rel_err, errs["softmax_rel_err"], errs["lse_rel_err"]) <= FLASH_TOL
+                and errs["dacc_rel_err"] <= DACC_TOL):  # fmt: skip
+            _fail(f"flash_alibi_mha {row}: beyond {FLASH_TOL} (dacc {DACC_TOL})")
+        del want, want_sm, want_dacc, want_lse
+        if t >= 4097:
+            alibi_bytes = io_bytes + 2 * coords.numel() * 4 + ds.numel() * 4
+            bound, by = _bound(alibi_bytes, {"tf32": 4 * d * pairs, "fp32": 2 * d * pairs})
+            args = (q, k, v, coords, coords, ds, mask)
+            tm = _compare_timed(
+                lambda: attn.flash_alibi_mha(*args), lambda: attn.flash_alibi_mha_reference(*args), iters=3
+            )
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, bound_ms=bound, bound_by=by)
+        print(f"[3b flash] flash_alibi_mha {json.dumps(row)} on {card}")
+        rows["flash_alibi_mha"].append(row)
+        del q, k, v, out, out_sm, dacc, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _write_deploy_cohort(root: Path) -> tuple[list[tuple[str, int]], float]:
+    """Four patients' UNI2 feature files (fp16, the port's own writer),
+    slide.csv and a two-class clini.csv; returns the patients and the
+    cohort's mean pairwise tile distance."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+
+    rng = np.random.default_rng(2)
+    features = root / "features"
+    patients, weighted, n_pairs = [], 0.0, 0
+    for i, n in enumerate(DEPLOY_TILES):
+        side = math.isqrt(n - 1) + 1
+        idx = np.arange(n)
+        coords = (np.stack([idx % side, idx // side], axis=1) * 256.0).astype(np.float32)
+        feats = rng.standard_normal((n, UNI2_DIM), dtype=np.float32).astype(np.float16)
+        name = f"patient-{i}"
+        write_tile_feats_atomic(
+            output_path=features / f"{name}.h5", feats=feats, coords_um=coords, extractor_id="uni2",
+            tile_size_um=256.0, tile_size_px=224, code_hash="chip-smoke",
+        )  # fmt: skip
+        weighted += _mean_pairwise_distance(torch.from_numpy(coords).cuda()) * n * n
+        n_pairs += n * n
+        patients.append((name, n))
+    pd.DataFrame({"FILENAME": [f"{p}.h5" for p, _ in patients], "PATIENT": [p for p, _ in patients]}).to_csv(
+        root / "slide.csv", index=False
+    )
+    labels = ["high", "low", "low", "high"]
+    pd.DataFrame({"PATIENT": [p for p, _ in patients], "isup": labels}).to_csv(root / "clini.csv", index=False)
+    return patients, weighted / n_pairs
+
+
+def phase_deploy(card: str) -> dict:
+    import numpy as np
+    import pandas as pd
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.io.h5 import read_feats
+    from stamp_tpu_torch.modeling.checkpoint import save_checkpoint
+    from stamp_tpu_torch.modeling.config import VitModelParams
+    from stamp_tpu_torch.modeling.deploy import _bucket_size, load_model_from_ckpt
+    from stamp_tpu_torch.modeling.tasks import LitTileClassifier
+    from stamp_tpu_torch.models import vision_transformer as vit
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    root = WORK / "deploy"
+    patients, mean_dist = _write_deploy_cohort(root)
+    checkpoints = []
+    for use_alibi in (False, True):
+        # the repo's default MIL ViT width: dim_model 512, 8 heads of 64, 2 layers
+        model = LitTileClassifier(
+            model_class=vit.VisionTransformer, ground_truth_label="isup", categories=["high", "low"],
+            category_weights=[1.0, 1.0], dim_input=UNI2_DIM, model_name="vit",
+            **VitModelParams(use_alibi=use_alibi).model_dump(),
+        )  # fmt: skip
+        vit.init_random_weights_(model.module, torch.Generator().manual_seed(10 + use_alibi))
+        if use_alibi:
+            for name, buf in model.module.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.fill_(mean_dist)
+        path = root / ("vit-alibi.ckpt" if use_alibi else "vit.ckpt")
+        save_checkpoint(path, hyper_parameters=model.checkpoint_hparams(),
+                        variables=vit.variables_to_jax(model.module.state_dict()))  # fmt: skip
+        checkpoints.append(path)
+    out = root / "out"
+    config = root / "config.yaml"
+    config.write_text(yaml.safe_dump({"deployment": {
+        "output_dir": str(out), "checkpoint_paths": [str(c) for c in checkpoints],
+        "clini_table": str(root / "clini.csv"), "slide_table": str(root / "slide.csv"),
+        "feature_dir": str(root / "features"), "ground_truth_label": "isup", "accelerator": "cuda",
+    }}))  # fmt: skip
+
+    attn.FLASH_MHA_LAUNCHES = 0
+    attn.FLASH_ALIBI_MHA_LAUNCHES = 0
+    t0 = time.perf_counter()
+    main(["-c", str(config), "--profile", "deploy"])  # exits non-zero on failure
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_mha": attn.FLASH_MHA_LAUNCHES, "flash_alibi_mha": attn.FLASH_ALIBI_MHA_LAUNCHES}
+    expected = MIL_LAYERS * len(patients)
+    if launches != {"flash_mha": expected, "flash_alibi_mha": expected}:
+        _fail(f"flash launches {launches}, expected {expected} each ({MIL_LAYERS} layers × {len(patients)} patients)")
+
+    columns = ["PATIENT", "isup", "pred", "isup_high", "isup_low", "loss"]
+    csv = {}
+    for name in ("patient-preds-0.csv", "patient-preds-1.csv", "patient-preds_95_confidence_interval.csv"):
+        df = pd.read_csv(out / name)
+        probs = df[["isup_high", "isup_low"]].to_numpy()
+        if list(df.columns) != columns or len(df) != len(patients):
+            _fail(f"{name}: columns {list(df.columns)}, {len(df)} rows; expected {columns}, {len(patients)}")
+        if not np.isfinite(probs).all() or not np.allclose(probs.sum(axis=1), 1.0, atol=1e-5):
+            _fail(f"{name}: probabilities not finite or not summing to 1: {probs}")
+        csv[name] = df.set_index("PATIENT")
+
+    # per patient: the forward on the kernel path (timed) against the CSVs
+    # the main path wrote, and against the plain path on the card for T ≤ 16,385
+    def forward(module, bags, coords, key_mask):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with torch.inference_mode():
+            logits = module(bags, coords=coords, key_mask=key_mask)
+        probs = torch.softmax(logits.double(), dim=-1)[0].cpu().numpy()
+        return probs, (time.perf_counter() - start) * 1e3
+
+    per_patient, max_diff = [], 0.0
+    dev = torch.device("cuda:0")
+    for index, path in enumerate(checkpoints):
+        task_model, variables = load_model_from_ckpt(path)
+        module = task_model.module
+        module.load_state_dict(vit.variables_from_jax(variables))
+        module.to(dev).eval()
+        for name, n in patients:
+            feats, info = read_feats(root / "features" / f"{name}.h5")
+            bucket = _bucket_size(n)
+            bags = torch.zeros(1, bucket, UNI2_DIM, device=dev)
+            bags[0, :n] = torch.from_numpy(feats).to(dev)
+            coords = torch.zeros(1, bucket, 2, device=dev)
+            coords[0, :n] = torch.from_numpy(info.coords_um).to(dev)
+            key_mask = (torch.arange(bucket, device=dev) < n)[None]
+            forward(module, bags, coords, key_mask)  # warm-up
+            probs, ms = forward(module, bags, coords, key_mask)
+            row = dict(checkpoint=path.name, patient=name, tiles=n, seq_len=bucket + 1, forward_ms=ms)
+            if n == max(DEPLOY_TILES):
+                _profile_forward(card, path.name, lambda: forward(module, bags, coords, key_mask))
+            written = csv[f"patient-preds-{index}.csv"].loc[name, ["isup_high", "isup_low"]].to_numpy(float)
+            if not np.abs(probs - written).max() <= 1e-5:
+                _fail(f"{row}: kernel-path probabilities {probs} differ from the CSV's {written}")
+            if bucket + 1 <= 16385:
+                kernel_fns = (attn.flash_mha, attn.flash_alibi_mha)
+                attn.flash_mha, attn.flash_alibi_mha = attn.flash_mha_reference, attn.flash_alibi_mha_reference
+                try:
+                    plain, plain_ms = forward(module, bags, coords, key_mask)
+                finally:
+                    attn.flash_mha, attn.flash_alibi_mha = kernel_fns
+                diff = float(np.abs(probs - plain).max())
+                max_diff = max(max_diff, diff)
+                row |= dict(plain_forward_ms=plain_ms, prob_max_abs_diff=diff)
+                if not diff <= PROB_TOL:
+                    _fail(f"{row}: kernel path against plain path {diff} > {PROB_TOL}")
+            print(f"[6 deploy] {json.dumps(row)} on {card}")
+            per_patient.append(row)
+            del bags, coords
+            torch.cuda.empty_cache()
+        module.to("cpu")
+    row = dict(patients=len(patients), checkpoints=len(checkpoints), launches=launches, wall_s=wall,
+               mean_pairwise_distance_um=mean_dist, prob_max_abs_diff=max_diff)  # fmt: skip
+    print(f"[6 deploy] {json.dumps(row)} on {card}")
+    return row
+
+
+def _profile_forward(card: str, what: str, fn) -> None:
+    """Device time by kernel of one forward (``torch.profiler``), and the
+    share of the forward's wall time the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = fn()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:6]
+    rows = [dict(kernel=e.key[:60], calls=e.count, device_ms=e.device_time_total / 1e3) for e in top]
+    print(
+        f"[6 deploy] profile {what}, largest patient: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); top kernels {json.dumps(rows)} on {card}"
+    )
+
+
+def _timed_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    result = fn(*args)
+    print(f"[{name}] phase wall time {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> None:
     try:
         import torch
@@ -358,44 +695,79 @@ def main() -> None:
         _fail(f"PyTorch is not installed: {e}")
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this smoke test needs a CUDA GPU")
-    if not (REPO / "stamp_tpu_torch").is_dir() or not (REPO / "stamp_tpu").is_dir():
+    if not (REPO / "stamp_tpu_torch").is_dir():
         _fail(f"run from a checkout of the repository ({REPO} has no stamp_tpu_torch/)")
     sys.path.insert(0, str(REPO))
     shutil.rmtree(WORK, ignore_errors=True)
 
-    kind, card = phase_device()
-    phase_build()
-    kernels = phase_kernels(card)
-    main_path = phase_main_path(card)
-    phase_whole_model(card)
+    kind, card = _timed_phase("1 device", phase_device)
+    _timed_phase("2 build", phase_build)
+    kernels = _timed_phase("3 kernels", phase_kernels, card)
+    flash = _timed_phase("3b flash", phase_flash_kernels, card)
+    main_path = _timed_phase("4 main path", phase_main_path, card)
+    _timed_phase("5 whole model", phase_whole_model, card)
+    deploy = _timed_phase("6 deploy", phase_deploy, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
-    attn_row = kernels["fused_qkv_mha"][0]
-    ln_rows = kernels["ln_dense"]
-    summary = {
-        "kernels": [
+    attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
+    b, n, three_dim = attn_row["shape"]
+    attn_bound = _bound(
+        b * n * three_dim * 2 * 4 / 3,  # qkv read once (bf16), out written once
+        {"bf16": 4 * b * attn_row["heads"] * n * n * attn_row["head_dim"]},
+    )
+    ln_rows = kernels["ln_dense"]  # the three sites of one block
+    ln_bounds = [
+        _bound(2 * (r["m"] * r["k"] + r["k"] * r["n"] + r["m"] * r["n"]), {"bf16": 2 * r["m"] * r["k"] * r["n"]})
+        for r in ln_rows
+    ]
+    flash_rows = {name: next(r for r in rows if r["shape"][1] == 16385) for name, rows in flash.items()}
+    summary = {"kernels": [
+        {
+            "name": "fused_qkv_mha",
+            "route": "cuda",
+            "source": "stamp_tpu_torch/ops/csrc/fused_qkv_attn.cu",
+            "replaces": "stamp_tpu/ops/flash_attention.py:589",
+            "launches": main_path["launches"]["fused_qkv_mha"],
+            "max_abs_err": max(r["max_abs_err"] for r in kernels["fused_qkv_mha"]),
+            "ms": attn_row["ms"],
+            "plain_ms": attn_row["plain_ms"],
+            "bound_ms": attn_bound[0],
+            "bound_by": attn_bound[1],
+            "library_ms": attn_row["sdpa_bf16_ms"],
+        },
+        {
+            "name": "ln_dense",
+            "route": "cuda",
+            "source": "stamp_tpu_torch/ops/csrc/ln_dense.cu",
+            "replaces": "stamp_tpu/ops/ln_dense.py:185",
+            "launches": main_path["launches"]["ln_dense"],
+            "max_abs_err": max(r["max_abs_err"] for r in ln_rows),
+            "ms": sum(r["ms"] for r in ln_rows),
+            "plain_ms": sum(r["plain_ms"] for r in ln_rows),
+            "bound_ms": sum(t for t, _ in ln_bounds),
+            "bound_by": "operations" if all(by == "operations" for _, by in ln_bounds) else "bytes",
+            "library_ms": sum(r["layer_norm_linear_bf16_ms"] for r in ln_rows),
+        },
+        *(
             {
-                "name": "fused_qkv_mha",
+                "name": name,
                 "route": "cuda",
-                "source": "stamp_tpu_torch/ops/csrc/fused_qkv_attn.cu",
-                "replaces": "stamp_tpu/ops/flash_attention.py:589",
-                "launches": main_path["launches"]["fused_qkv_mha"],
-                "max_abs_err": max(r["max_abs_err"] for r in kernels["fused_qkv_mha"]),
-                "ms": attn_row["ms"],  # UNI2 shape, batch 64
-                "plain_ms": attn_row["plain_ms"],
-            },
-            {
-                "name": "ln_dense",
-                "route": "cuda",
-                "source": "stamp_tpu_torch/ops/csrc/ln_dense.cu",
-                "replaces": "stamp_tpu/ops/ln_dense.py:185",
-                "launches": main_path["launches"]["ln_dense"],
-                "max_abs_err": max(r["max_abs_err"] for r in ln_rows),
-                "ms": sum(r["ms"] for r in ln_rows),  # the three sites of one block
-                "plain_ms": sum(r["plain_ms"] for r in ln_rows),
-            },
-        ]
-    }
+                "source": "stamp_tpu_torch/ops/csrc/flash_attn.cu",
+                "replaces": replaces,
+                "launches": deploy["launches"][name],
+                "max_abs_err": max(r["max_abs_err"] for r in flash[name]),
+                "ms": flash_rows[name]["ms"],  # [8, 16385, 64], 40% of keys masked
+                "plain_ms": flash_rows[name]["plain_ms"],
+                "bound_ms": flash_rows[name]["bound_ms"],
+                "bound_by": flash_rows[name]["bound_by"],
+                "library_ms": flash_rows[name]["library_ms"],
+            }
+            for name, replaces in (
+                ("flash_mha", "stamp_tpu/ops/flash_attention.py:307"),
+                ("flash_alibi_mha", "stamp_tpu/ops/flash_attention.py:950"),
+            )
+        ),
+    ]}
     print(json.dumps(summary))
     print(
         json.dumps(

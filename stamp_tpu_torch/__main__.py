@@ -1,8 +1,9 @@
 """``python -m stamp_tpu_torch`` — the ``stamp`` CLI of the PyTorch port.
 
-The argument surface and the YAML schema (``stamp_tpu.utils.config.
-StampConfig``) are those of ``python -m stamp_tpu``.  Ported so far: ``init``,
-``config`` and ``preprocess`` (the ImageViT extractors); every other
+The argument surface and the YAML schema (``StampConfig``, the port's copy
+of ``stamp_tpu/utils/config.py``) are those of ``python -m stamp_tpu``.
+Ported so far: ``init``, ``config``, ``preprocess`` (the ImageViT
+extractors) and ``deploy`` (tile-level ViT checkpoints); every other
 subcommand exits non-zero and names the JAX package's command.
 """
 
@@ -16,9 +17,7 @@ from pathlib import Path
 
 import yaml
 
-import stamp_tpu
-
-STAMP_FACTORY_SETTINGS = Path(stamp_tpu.__file__).with_name("config.yaml")
+STAMP_FACTORY_SETTINGS = Path(__file__).with_name("config.yaml")
 
 _logger = logging.getLogger("stamp")
 
@@ -38,7 +37,6 @@ _COMMANDS = {
     "and the reference's Lightning .ckpt",
     "heatmaps": "Generate heatmaps for a trained model",
 }
-_PORTED = {"init", "config", "preprocess"}
 
 
 def _configure_logging() -> None:
@@ -59,43 +57,59 @@ def _add_file_handle_(logger: logging.Logger, *, output_dir: Path) -> None:
     logger.addHandler(file_handler)
 
 
-def _run_preprocess(section, profile: bool) -> None:
-    from stamp_tpu.utils import profiling
+def _run_preprocess(section) -> None:
     from stamp_tpu_torch.preprocessing.extract import extract_
     from stamp_tpu_torch.utils.device import resolve_device
 
-    if profile:  # per-stage wall-time table into the log (no device trace yet)
-        profiling.timer.enabled = True
-        profiling.timer.reset()
-    try:
-        extract_(
-            output_dir=section.output_dir,
-            wsi_dir=section.wsi_dir,
-            wsi_list=section.wsi_list,
-            cache_dir=section.cache_dir,
-            tile_size_um=section.tile_size_um,
-            tile_size_px=section.tile_size_px,
-            extractor=section.extractor,
-            max_workers=section.max_workers,
-            device=resolve_device(section.device),
-            default_slide_mpp=section.default_slide_mpp,
-            brightness_cutoff=section.brightness_cutoff,
-            canny_cutoff=section.canny_cutoff,
-            cache_tiles_ext=section.cache_tiles_ext,
-            generate_hash=section.generate_hash,
-            macenko_normalization=section.macenko_normalization,
-            # only an explicit YAML value pins the numeric mode; otherwise
-            # the STAMP_INT8_EXTRACTION env var is in charge
-            extractor_precision=(
-                section.extractor_precision
-                if "extractor_precision" in section.model_fields_set
-                else None
-            ),
-        )
-    finally:
-        if profile:
-            _logger.info("profile — per-stage wall time:\n" + profiling.timer.report())
-            profiling.timer.enabled = False
+    extract_(
+        output_dir=section.output_dir,
+        wsi_dir=section.wsi_dir,
+        wsi_list=section.wsi_list,
+        cache_dir=section.cache_dir,
+        tile_size_um=section.tile_size_um,
+        tile_size_px=section.tile_size_px,
+        extractor=section.extractor,
+        max_workers=section.max_workers,
+        device=resolve_device(section.device),
+        default_slide_mpp=section.default_slide_mpp,
+        brightness_cutoff=section.brightness_cutoff,
+        canny_cutoff=section.canny_cutoff,
+        cache_tiles_ext=section.cache_tiles_ext,
+        generate_hash=section.generate_hash,
+        macenko_normalization=section.macenko_normalization,
+        # only an explicit YAML value pins the numeric mode; otherwise
+        # the STAMP_INT8_EXTRACTION env var is in charge
+        extractor_precision=(
+            section.extractor_precision
+            if "extractor_precision" in section.model_fields_set
+            else None
+        ),
+    )
+
+
+def _run_deploy(section) -> None:
+    from stamp_tpu_torch.modeling.deploy import deploy_categorical_model_
+    from stamp_tpu_torch.utils.device import resolve_device
+
+    deploy_categorical_model_(
+        output_dir=section.output_dir,
+        checkpoint_paths=section.checkpoint_paths,
+        clini_table=section.clini_table,
+        slide_table=section.slide_table,
+        feature_dir=section.feature_dir,
+        patient_label=section.patient_label,
+        filename_label=section.filename_label,
+        drop_patients_with_missing_ground_truth=section.drop_patients_with_missing_ground_truth,
+        device=resolve_device(section.accelerator),
+        ground_truth_label=section.ground_truth_label,
+        time_label=section.time_label,
+        status_label=section.status_label,
+    )
+
+
+# command → (config section, runner)
+_RUNNERS = {"preprocess": ("preprocessing", _run_preprocess), "deploy": ("deployment", _run_deploy)}
+_PORTED = {"init", "config", *_RUNNERS}
 
 
 def _run_cli(args: argparse.Namespace) -> None:
@@ -114,7 +128,8 @@ def _run_cli(args: argparse.Namespace) -> None:
             _logger.info(f"Created new config file at {args.config_file_path.absolute()}")
         return
 
-    from stamp_tpu.utils.config import StampConfig
+    from stamp_tpu_torch.utils import profiling
+    from stamp_tpu_torch.utils.config import StampConfig
 
     with open(args.config_file_path) as config_yaml:
         config = StampConfig.model_validate(yaml.safe_load(config_yaml))
@@ -122,15 +137,24 @@ def _run_cli(args: argparse.Namespace) -> None:
         print(yaml.dump(config.model_dump(mode="json", exclude_none=True)))
         return
 
-    section = config.preprocessing
+    section_name, run = _RUNNERS[args.command]
+    section = getattr(config, section_name)
     if section is None:
-        raise ValueError("no preprocessing configuration supplied")
+        raise ValueError(f"no {section_name} configuration supplied")
     _add_file_handle_(_logger, output_dir=section.output_dir)
     _logger.info(
         "using the following configuration:\n"
         f"{yaml.dump(section.model_dump(mode='json', exclude_none=True))}"
     )
-    _run_preprocess(section, args.profile)
+    if args.profile:  # per-stage wall-time table into the log (no device trace yet)
+        profiling.timer.enabled = True
+        profiling.timer.reset()
+    try:
+        run(section)
+    finally:
+        if args.profile:
+            _logger.info("profile — per-stage wall time:\n" + profiling.timer.report())
+            profiling.timer.enabled = False
 
 
 def main(argv: list[str] | None = None) -> None:

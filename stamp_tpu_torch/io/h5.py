@@ -13,20 +13,31 @@ here for exactly the objects such a file holds:
   h5py reads them back as ``str``, ``numpy.float64`` and ``numpy.int64``,
   as it does for the files h5py writes.
 
-``read_h5`` parses files of this layout (for checks on machines without
-h5py); anything else is read with h5py.  The format follows the HDF5 File
-Format Specification version 3.0.
+``read_h5`` parses files of this layout (superblock version 2, which h5py
+does not write by default).  The feature readers of the deploy path
+(``get_coords``, ``read_feats``, ``detect_feature_type``; counterparts of
+``stamp_tpu/io/h5.py:27-177``) read this layout without h5py, so the port
+runs where h5py is missing; any other file they open with h5py, imported
+inside the function.  The format follows the HDF5 File Format Specification
+version 3.0.
 """
 
 from __future__ import annotations
 
+import logging
+import mmap
 import struct
+from dataclasses import dataclass
 from pathlib import Path
 from tempfile import NamedTemporaryFile
 
 import numpy as np
+from packaging.version import Version
 
-import stamp_tpu
+import stamp_tpu_torch
+from stamp_tpu_torch.types import Microns, SlideMPP, TilePixels
+
+_logger = logging.getLogger("stamp")
 
 _SIGNATURE = b"\x89HDF\r\n\x1a\n"
 _UNDEF = 0xFFFFFFFFFFFFFFFF
@@ -241,7 +252,7 @@ def write_tile_feats_atomic(
     """Atomically write a tile-level feature file with the attrs of
     ``stamp_tpu.io.h5.write_tile_feats_atomic``."""
     attrs: dict[str, str | int | float] = {
-        "stamp_version": stamp_tpu.__version__,
+        "stamp_version": stamp_tpu_torch.__version__,
         "extractor": str(extractor_id),
         "unit": "um",
         "tile_size_um": float(tile_size_um),
@@ -292,9 +303,16 @@ def _decode_dtype(body: bytes) -> np.dtype | str:
     raise ValueError(f"unsupported datatype class byte {cls:#x}")
 
 
-def read_h5(path: Path) -> tuple[dict[str, np.ndarray], dict[str, str | int | float]]:
-    """(datasets, root attrs) of a file written by ``write_h5``."""
-    buf = Path(path).read_bytes()
+def read_h5(
+    path: Path, *, datasets: bool = True
+) -> tuple[dict[str, np.ndarray], dict[str, str | int | float]]:
+    """(datasets, root attrs) of a file written by ``write_h5``.  The file is
+    memory-mapped, so with ``datasets=False`` only its headers are read."""
+    with open(path, "rb") as fp, mmap.mmap(fp.fileno(), 0, access=mmap.ACCESS_READ) as buf:
+        return _parse_h5(buf, Path(path), with_datasets=datasets)
+
+
+def _parse_h5(buf, path: Path, *, with_datasets: bool):
     if buf[:8] != _SIGNATURE or buf[8] != 2:
         raise ValueError(f"{path}: not a version-2 superblock HDF5 file")
     if lookup3(buf[:44]) != struct.unpack_from("<I", buf, 44)[0]:
@@ -304,7 +322,7 @@ def read_h5(path: Path) -> tuple[dict[str, np.ndarray], dict[str, str | int | fl
     datasets: dict[str, np.ndarray] = {}
     attrs: dict[str, str | int | float] = {}
     for kind, body in _messages(buf, root):
-        if kind == _LINK:
+        if kind == _LINK and with_datasets:
             n = body[3]
             name = body[4 : 4 + n].decode()
             (addr,) = struct.unpack_from("<Q", body, 4 + n)
@@ -313,7 +331,9 @@ def read_h5(path: Path) -> tuple[dict[str, np.ndarray], dict[str, str | int | fl
             shape = struct.unpack_from(f"<{ndims}Q", parts[_DATASPACE], 4)
             dtype = _decode_dtype(parts[_DATATYPE])
             _v, _cls, data_addr, nbytes = struct.unpack_from("<BBQQ", parts[_LAYOUT])
-            datasets[name] = np.frombuffer(buf, dtype, count=nbytes // dtype.itemsize, offset=data_addr).reshape(shape)
+            count = nbytes // dtype.itemsize
+            # a copy, so that no array holds on to the mapping
+            datasets[name] = np.frombuffer(buf, dtype, count=count, offset=data_addr).reshape(shape).copy()
         elif kind == _ATTRIBUTE:
             _v, _f, name_len, dt_len, sp_len, _enc = struct.unpack_from("<BBHHHB", body)
             p = 9
@@ -334,3 +354,144 @@ def read_h5(path: Path) -> tuple[dict[str, np.ndarray], dict[str, str | int | fl
             else:
                 attrs[name] = np.frombuffer(data, dtype, count=1)[0]
     return datasets, attrs
+
+
+# --- the feature readers of the deploy path -----------------------------------
+
+
+def _is_own_layout(path: Path) -> bool:
+    """Whether ``path`` has the superblock version ``write_h5`` writes."""
+    with open(path, "rb") as fp:
+        head = fp.read(9)
+    return len(head) == 9 and head[:8] == _SIGNATURE and head[8] == 2
+
+
+def _read_feature_file(path: Path, *, datasets: bool = True) -> tuple[dict[str, np.ndarray], dict]:
+    """(datasets, root attrs) of a feature file of either layout."""
+    if _is_own_layout(path):
+        return read_h5(path, datasets=datasets)
+    import h5py
+
+    with h5py.File(path, "r") as h5:
+        attrs = dict(h5.attrs)
+        arrays = {
+            name: np.asarray(h5[name])
+            for name in (h5 if datasets else ())
+            if isinstance(h5[name], h5py.Dataset)
+        }
+    return arrays, attrs
+
+
+@dataclass
+class CoordsInfo:
+    coords_um: np.ndarray
+    tile_size_um: Microns
+    tile_size_px: TilePixels | None = None
+
+    @property
+    def mpp(self) -> SlideMPP:
+        if not self.tile_size_px:
+            raise RuntimeError(
+                "tile size in pixels is not available. "
+                "Please reextract them using `stamp preprocess`."
+            )
+        return SlideMPP(self.tile_size_um / self.tile_size_px)
+
+
+def get_stride(coords: np.ndarray) -> float:
+    """Minimum step width between any two coordinates (reference data.py:1150-1161)."""
+    xs = np.unique(coords[:, 0])
+    ys = np.unique(coords[:, 1])
+    return float(
+        min(
+            np.diff(xs).min() if len(xs) > 1 else np.inf,
+            np.diff(ys).min() if len(ys) > 1 else np.inf,
+        )
+    )
+
+
+def get_coords(datasets: dict[str, np.ndarray], attrs: dict, filename: str | Path) -> CoordsInfo:
+    """Tile coordinates in µm from a feature file's datasets and root attrs,
+    handling every historic layout as ``stamp_tpu.io.h5.get_coords`` does:
+
+      - no ``coords`` dataset at all (multiplex bypass): fake (i, 0) coords
+      - STAMP v2:     attrs ``tile_size`` + ``unit == "um"``
+      - current:      attrs ``tile_size_um`` (+ optional ``tile_size_px``)
+      - historic:     stride ≈ 224 → coords are 224px-units of 256µm tiles
+    """
+    if "coords" not in datasets:
+        n = datasets["patch_embeddings"].shape[0]
+        coords_um = np.stack([np.arange(n), np.zeros(n)], axis=1).astype(np.float32)
+        return CoordsInfo(coords_um, Microns(0.0), TilePixels(0))
+
+    coords = datasets["coords"]
+    tile_size_um: Microns | None = None
+    tile_size_px: TilePixels | None = None
+    coords_um: np.ndarray | None = None
+
+    if (tile_size := attrs.get("tile_size", None)) and attrs.get("unit", None) == "um":
+        # STAMP v2 format
+        tile_size_um = Microns(float(tile_size))
+        coords_um = coords
+    elif tile_size := attrs.get("tile_size_um", None):
+        # Newer STAMP format
+        tile_size_um = Microns(float(tile_size))
+        coords_um = coords
+    elif round(float(attrs.get("tile_size", get_stride(coords.astype(np.float32))))) == 224:
+        # Historic STAMP format: coordinates have unit 256um/224px
+        _logger.debug(
+            f"{filename}: tile stride is roughly 224, assuming "
+            "coordinates have unit 256um/224px (historic STAMP format)"
+        )
+        tile_size_um = Microns(256.0)
+        tile_size_px = TilePixels(224)
+        coords_um = coords / 224 * 256
+
+    if (version_str := attrs.get("stamp_version")) and (
+        extraction_version := Version(str(version_str))
+    ) > Version(stamp_tpu_torch.__version__):
+        raise RuntimeError(
+            "features were extracted with a newer version of stamp, please "
+            f"update your stamp to at least version {extraction_version}."
+        )
+
+    if not tile_size_px and "tile_size_px" in attrs:
+        tile_size_px = TilePixels(int(attrs["tile_size_px"]))
+
+    if not tile_size_um or coords_um is None:
+        raise RuntimeError(
+            "unable to infer coordinates from feature file. "
+            "Please reextract them using `stamp preprocess`."
+        )
+    return CoordsInfo(np.asarray(coords_um, dtype=np.float32), tile_size_um, tile_size_px)
+
+
+def detect_feature_type(feature_dir: Path) -> str:
+    """Feature level ('tile' / 'slide' / 'patient') from the h5 attrs of
+    every file under ``feature_dir`` (reference data.py:424-457)."""
+    feature_types: set[str] = set()
+    files_checked = 0
+    for file in feature_dir.rglob("*.h5"):
+        files_checked += 1
+        _, attrs = _read_feature_file(file, datasets=False)
+        feat_type = attrs.get("feat_type")
+        if feat_type is not None or attrs.get("encoder") is not None:
+            feature_types.add(str(feat_type))
+        else:
+            feature_types.add("tile")
+
+    if files_checked == 0:
+        raise RuntimeError("No .h5 feature files found in feature_dir.")
+    if len(feature_types) > 1:
+        raise RuntimeError(
+            f"Multiple feature types detected in {feature_dir}: {feature_types}. "
+            "All feature files must have the same type."
+        )
+    return feature_types.pop()
+
+
+def read_feats(h5_path: Path | str) -> tuple[np.ndarray, CoordsInfo]:
+    """A tile feature file → (feats [N, F] float32, coords info)."""
+    datasets, attrs = _read_feature_file(Path(h5_path))
+    feats = datasets["feats"] if "feats" in datasets else datasets["patch_embeddings"]
+    return feats.astype(np.float32, copy=False), get_coords(datasets, attrs, h5_path)

@@ -1,0 +1,303 @@
+"""Attention-MIL Vision Transformer (the default tile-level model), forward.
+
+Counterpart of ``stamp_tpu.models.vision_transformer``: linear projection +
+GELU → prepended CLS token (coordinate (0, 0), always valid) → ``n_layers``
+pre-LN blocks (self-attention and feed-forward residuals) → LayerNorm → CLS
+head.  Attention is vanilla multi-head softmax attention or the reference's
+spatial ALiBi, whose distance bias is subtracted *after* the softmax.
+
+The module tree carries the JAX tree's names (``project``, ``class_token``,
+``block_{i}.attn_norm``, ``block_{i}.mhsa.in_proj|out_proj`` or
+``block_{i}.mhsa.q_proj|k_proj|v_proj|fc|bias_scale``,
+``block_{i}.ff.norm|fc1|fc2``, ``norm``, ``head``); the ALiBi Welford
+statistics (``running_mean``, ``items_so_far``) are buffers.
+``variables_from_jax`` / ``variables_to_jax`` carry weights across exactly.
+
+At ``FLASH_ATTENTION_MIN_SEQ`` tokens or more, attention goes through the
+flash wrappers of ``ops.flash_attention`` (O(T·d) memory; on the CPU their
+plain versions); below it, through the einsum path of ``ops.attention``.
+The JAX module takes the flash kernels only on a TPU; the port takes them on
+any device, so the CPU runs the same branch as the card.
+
+Inference only: ``train=True`` (dropout, the ALiBi Welford update) and
+``sow_weights=True`` (attention maps for heatmaps) raise, and the JAX
+module's ``alibi_mask`` (which its ``VisionTransformer`` never sets) is not
+ported.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from stamp_tpu_torch.ops import flash_attention
+from stamp_tpu_torch.ops.attention import (
+    alibi_attention,
+    multi_head_attention,
+    pairwise_distances,
+)
+
+# At or above this many tokens (tiles + CLS), attention takes the flash
+# kernels: a [T, T] weight matrix per head no longer fits comfortably.
+FLASH_ATTENTION_MIN_SEQ = 4096
+
+_EPS = 1e-6  # flax LayerNorm's default epsilon
+
+
+def _use_flash(seq_len: int) -> bool:
+    return seq_len >= FLASH_ATTENTION_MIN_SEQ
+
+
+def _to_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, s, dim = t.shape
+    return t.reshape(b, s, num_heads, dim // num_heads).transpose(1, 2)
+
+
+def _from_heads(t: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, ...] → contiguous [B·H, S, ...] (the kernels' layout)."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _flat_mask(key_mask: torch.Tensor | None, b: int, h: int, s: int, device) -> torch.Tensor:
+    if key_mask is None:
+        key_mask = torch.ones((b, s), dtype=torch.bool, device=device)
+    return _flat(key_mask[:, None, :].expand(b, h, s))
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Vanilla MHA, torch ``nn.MultiheadAttention`` semantics, fused qkv."""
+
+    def __init__(self, dim: int, num_heads: int) -> None:
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj = nn.Linear(dim, 3 * dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, *, key_mask: torch.Tensor | None) -> torch.Tensor:
+        q, k, v = (_to_heads(t, self.num_heads) for t in self.in_proj(x).chunk(3, dim=-1))
+        b, h, s, d = q.shape
+        if _use_flash(s):
+            km = _flat_mask(key_mask, b, h, s, x.device)
+            out = flash_attention.flash_mha(_flat(q), _flat(k), _flat(v), km).reshape(b, h, s, d)
+        else:
+            out = multi_head_attention(q, k, v, key_mask=key_mask)
+        return self.out_proj(_from_heads(out))
+
+
+class MultiHeadALiBi(nn.Module):
+    """Spatial ALiBi attention (reference vision_tranformer.py:34-154): a
+    learned per-head ``bias_scale`` times the µm distance over the running
+    mean of pairwise distances, subtracted after the softmax."""
+
+    def __init__(self, dim: int, num_heads: int) -> None:
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.fc = nn.Linear(dim, dim)
+        self.bias_scale = nn.Parameter(torch.rand(num_heads))
+        self.register_buffer("running_mean", torch.ones(num_heads))
+        self.register_buffer("items_so_far", torch.ones(num_heads))
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, T, D]
+        *,
+        coords: torch.Tensor,  # [B, T, 2] µm
+        key_mask: torch.Tensor | None,
+    ) -> torch.Tensor:
+        q, k, v = (_to_heads(proj(x), self.num_heads) for proj in (self.q_proj, self.k_proj, self.v_proj))
+        b, h, s, d = q.shape
+        if _use_flash(s):
+            km = _flat_mask(key_mask, b, h, s, x.device)
+            dist_scale = (self.bias_scale / self.running_mean)[None, :].expand(b, h).reshape(b * h)
+            cq = _flat(coords[:, None].expand(b, h, s, 2))
+            out = flash_attention.flash_alibi_mha(
+                _flat(q), _flat(k), _flat(v), cq, cq, dist_scale.contiguous(), km
+            ).reshape(b, h, s, d)
+        else:
+            distances = pairwise_distances(coords, coords)  # [B, T, T]
+            scaled = (
+                distances[:, None, :, :]
+                / self.running_mean[None, :, None, None]
+                * self.bias_scale[None, :, None, None]
+            )
+            out = alibi_attention(q, k, v, scaled_distances=scaled, key_mask=key_mask)
+        return self.fc(_from_heads(out))
+
+
+class FeedForward(nn.Module):
+    """LayerNorm → Linear → GELU → Linear (the dropouts act only in training)."""
+
+    def __init__(self, dim: int, hidden_dim: int) -> None:
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=_EPS)
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(self.norm(x))))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, mlp_dim: int, use_alibi: bool) -> None:
+        super().__init__()
+        self.use_alibi = use_alibi
+        self.attn_norm = nn.LayerNorm(dim, eps=_EPS)
+        self.mhsa: MultiHeadALiBi | MultiHeadSelfAttention = (
+            MultiHeadALiBi(dim, heads) if use_alibi else MultiHeadSelfAttention(dim, heads)
+        )
+        self.ff = FeedForward(dim, mlp_dim)
+
+    def forward(self, x: torch.Tensor, *, coords: torch.Tensor, key_mask: torch.Tensor | None) -> torch.Tensor:
+        h = self.attn_norm(x)
+        if self.use_alibi:
+            attn_out = self.mhsa(h, coords=coords, key_mask=key_mask)
+        else:
+            attn_out = self.mhsa(h, key_mask=key_mask)
+        x = attn_out + x
+        return self.ff(x) + x
+
+
+class VisionTransformer(nn.Module):
+    """MIL aggregator over tile-feature bags (reference vision_tranformer.py:298-384)."""
+
+    supports_coords = True
+
+    def __init__(
+        self,
+        *,
+        dim_output: int,
+        dim_input: int,
+        dim_model: int = 512,
+        n_layers: int = 2,
+        n_heads: int = 8,
+        dim_feedforward: int = 512,
+        dropout: float = 0.0,  # acts only in training
+        use_alibi: bool = False,
+    ) -> None:
+        super().__init__()
+        self.n_layers = n_layers
+        self.project = nn.Linear(dim_input, dim_model)
+        self.class_token = nn.Parameter(torch.randn(dim_model))
+        for i in range(n_layers):
+            self.add_module(
+                f"block_{i}",
+                TransformerBlock(dim_model, n_heads, dim_feedforward, use_alibi),
+            )
+        self.norm = nn.LayerNorm(dim_model, eps=_EPS)
+        self.head = nn.Linear(dim_model, dim_output)
+
+    def forward(
+        self,
+        bags: torch.Tensor,  # [B, T, F]
+        *,
+        coords: torch.Tensor,  # [B, T, 2] µm
+        key_mask: torch.Tensor | None = None,  # [B, T] True = valid tile
+        train: bool = False,
+        sow_weights: bool = False,
+    ) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(
+                "training the MIL ViT is not ported yet; run `python -m stamp_tpu train`"
+            )
+        if sow_weights:
+            raise NotImplementedError(
+                "attention maps (heatmaps) are not ported yet; run `python -m stamp_tpu heatmaps`"
+            )
+        b = bags.shape[0]
+        x = F.gelu(self.project(bags))
+        x = torch.cat([self.class_token.expand(b, 1, -1), x], dim=1)
+        coords = torch.cat([coords.new_zeros(b, 1, 2), coords], dim=1)
+        if key_mask is not None:
+            key_mask = torch.cat([key_mask.new_ones(b, 1), key_mask], dim=1)
+        for i in range(self.n_layers):
+            x = getattr(self, f"block_{i}")(x, coords=coords, key_mask=key_mask)
+        return self.head(self.norm(x)[:, 0])
+
+    @staticmethod
+    def model_params_keys() -> list[str]:
+        return ["dim_model", "n_layers", "n_heads", "dim_feedforward", "dropout", "use_alibi"]
+
+
+# --- weights across the two packages ------------------------------------------
+
+_BUFFERS = ("running_mean", "items_so_far")  # the flax "alibi_stats" collection
+
+
+def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], np.ndarray]:
+    out: dict[tuple[str, ...], np.ndarray] = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out |= _flatten(value, prefix + (str(key),))
+        else:
+            out[prefix + (str(key),)] = np.asarray(value)
+    return out
+
+
+def variables_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX module's variables (``{"params": ..., "alibi_stats": ...}``,
+    numpy leaves as ``load_checkpoint`` returns them) → a ``state_dict`` of
+    :class:`VisionTransformer`.  Dense kernels [in, out] become Linear
+    weights [out, in]; LayerNorm ``scale`` becomes ``weight``."""
+    state: dict[str, torch.Tensor] = {}
+    for collection in ("params", "alibi_stats"):
+        for path, value in _flatten(variables.get(collection, {})).items():
+            *module, leaf = path
+            if leaf == "kernel":
+                leaf, value = "weight", value.T
+            elif leaf == "scale":
+                leaf = "weight"
+            state[".".join([*module, leaf])] = torch.from_numpy(np.array(value, np.float32))
+    return state
+
+
+def variables_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The exact inverse of :func:`variables_from_jax`: a state dict → the
+    JAX module's variable tree with numpy leaves, for ``save_checkpoint``."""
+    variables: dict = {}
+    for name, tensor in state_dict.items():
+        *module, leaf = name.split(".")
+        value = tensor.detach().cpu().numpy().astype(np.float32)
+        collection = "alibi_stats" if leaf in _BUFFERS else "params"
+        if leaf == "weight":
+            leaf, value = ("kernel", value.T.copy()) if value.ndim == 2 else ("scale", value)
+        node = variables.setdefault(collection, {})
+        for part in module:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return variables
+
+
+def init_random_weights_(model: VisionTransformer, generator: torch.Generator) -> VisionTransformer:
+    """Random weights for smoke runs, drawn on the CPU from ``generator``.
+
+    The distributions follow the flax module's initializers (Dense kernels
+    truncated normal with variance 1/fan_in, biases zero, LayerNorm scale
+    one, class token N(0, 1), ``bias_scale`` U[0, 1), ALiBi statistics one),
+    but not its values: the two frameworks' generators differ."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, nn.Linear):
+                std = module.in_features**-0.5 / 0.87962566103423978  # flax lecun_normal
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+                module.bias.zero_()
+            elif isinstance(module, nn.LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+            elif isinstance(module, MultiHeadALiBi):
+                module.bias_scale.uniform_(0.0, 1.0, generator=generator)
+                module.running_mean.fill_(1.0)
+                module.items_so_far.fill_(1.0)
+        model.class_token.normal_(0.0, 1.0, generator=generator)
+    return model

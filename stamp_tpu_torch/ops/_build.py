@@ -38,6 +38,12 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
         _INT, _PTR,
     ],
+    # q, k, v, mask, cq|NULL, ck|NULL, dist_scale|NULL, o, dacc|NULL,
+    # out|NULL, lse, bh, tq, tk, head_dim, scale, alibi, device, stream
+    "stamp_flash_attn_fwd": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _PTR,
+    ],
 }  # fmt: skip
 
 _lock = threading.Lock()

@@ -1,15 +1,26 @@
-"""Multi-head attention read straight off a packed qkv projection.
+"""Attention kernels: packed-qkv attention for the extractor ViTs, and the
+masked flash attention (plain and spatial-ALiBi) of the MIL ViT.
 
-Counterpart of ``stamp_tpu.ops.flash_attention.fused_qkv_mha``.  On a CUDA
-tensor ``fused_qkv_mha`` launches the hand-written kernel in
-``csrc/fused_qkv_attn.cu``; on a CPU tensor it runs the plain PyTorch
-version, ``fused_qkv_mha_reference``.  There is no fallback between the two:
-a CUDA tensor the kernel does not take raises.  Forward only.
+Counterparts of ``stamp_tpu.ops.flash_attention.fused_qkv_mha``,
+``flash_mha`` and ``flash_alibi_mha`` (forward only).  On a CUDA tensor each
+wrapper launches its hand-written kernel (``csrc/fused_qkv_attn.cu``,
+``csrc/flash_attn.cu``); on a CPU tensor it runs the plain PyTorch version
+beside it (``*_reference``).  There is no fallback between the two: a CUDA
+tensor a kernel does not take raises.
 
-Both follow the Pallas kernel's order of operations: scores q·kᵀ in f32,
-scaled by d^-1/2 in f32 after the dot, an exact softmax in f32 (max, exp,
-sum, divide), the probabilities cast to the activation dtype before P·V,
-P·V accumulated in f32 and cast once.
+``fused_qkv_mha`` follows the Pallas kernel's order of operations: scores
+q·kᵀ in f32, scaled by d^-1/2 in f32 after the dot, an exact softmax in f32
+(max, exp, sum, divide), the probabilities cast to the activation dtype
+before P·V, P·V accumulated in f32 and cast once.
+
+``flash_mha`` and ``flash_alibi_mha`` take f32 ``[BH, T, d]`` q/k/v and a
+``[BH, T]`` bool key mask (True = valid).  Scores are scaled after the dot,
+masked keys get −1e30, and the output is Σ exp(s − m)·v / Σ exp(s − m) with
+its log-sum-exp.  The ALiBi variant also accumulates D·V, D the per-axis
+Euclidean distance between query and key coordinates (0 for masked keys),
+and returns ``O − dist_scale·(D·V)``: the reference's bias is subtracted
+after the softmax.  The CUDA kernel runs q·kᵀ and P·V in TF32 and D·V in a
+3×TF32 split accurate to f32; the plain versions run everything in f32.
 """
 
 from __future__ import annotations
@@ -18,10 +29,17 @@ import torch
 
 from stamp_tpu_torch.ops import _build
 
-#: kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use)
+#: ``fused_qkv_mha``
 LAUNCHES = 0
+#: ``flash_mha``
+FLASH_MHA_LAUNCHES = 0
+#: ``flash_alibi_mha``
+FLASH_ALIBI_MHA_LAUNCHES = 0
 
-_HEAD_DIMS = (64, 80)  # the kernel's template instances
+_HEAD_DIMS = (64, 80)  # fused_qkv_attn.cu's template instances
+_FLASH_HEAD_DIMS = (32, 64, 128)  # flash_attn.cu's template instances
+_NEG_INF = -1e30
 
 
 def fused_qkv_mha_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -88,3 +106,199 @@ def fused_qkv_mha(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+# --- masked flash attention (the MIL ViT at seq_len >= 4096) -----------------
+
+
+def _pairwise_distances(coords_q: torch.Tensor, coords_k: torch.Tensor) -> torch.Tensor:
+    """[BH, Q, K] Euclidean distances from per-axis differences (the Gram
+    identity cancels catastrophically for nearby µm coordinates)."""
+    dist = (coords_q[:, :, None, 0] - coords_k[:, None, :, 0]).square_()
+    dist += (coords_q[:, :, None, 1] - coords_k[:, None, :, 1]).square_()
+    return dist.sqrt_()
+
+
+def _flash_forward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the flash forward: (out [BH, Q, d], lse
+    [BH, Q]), all in f32.  Materialises the [BH, Q, K] scores, updated in
+    place to keep one such tensor alive."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q, k.transpose(-1, -2)).mul_(scale)
+    s.masked_fill_(~key_mask[:, None, :], _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = s.sub_(m).exp_()
+    denom = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
+    out = torch.matmul(p, v).div_(denom)
+    return out, (m + denom.log()).squeeze(-1)
+
+
+def _flash_alibi_forward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    coords_q: torch.Tensor,
+    coords_k: torch.Tensor,
+    key_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused ALiBi pass: (softmax out, dacc =
+    D·V, lse), all in f32."""
+    out_sm, lse = _flash_forward_reference(q, k, v, key_mask)
+    dist = _pairwise_distances(coords_q.float(), coords_k.float())
+    dist.masked_fill_(~key_mask[:, None, :], 0.0)
+    return out_sm, torch.matmul(dist, v), lse
+
+
+def flash_mha_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of ``flash_mha``."""
+    return _flash_forward_reference(q, k, v, key_mask)[0]
+
+
+def flash_alibi_mha_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    coords_q: torch.Tensor,
+    coords_k: torch.Tensor,
+    dist_scale: torch.Tensor,
+    key_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``flash_alibi_mha``."""
+    out_sm, dacc, _ = _flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
+    return out_sm - dist_scale[:, None, None] * dacc
+
+
+def _check_flash_args(what: str, q, k, v, key_mask, coords_q=None, coords_k=None, dist_scale=None):
+    """Raise on any input the CUDA kernel does not take."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or q.shape[::2] != k.shape[::2]:
+        raise ValueError(
+            f"{what}: q must be [BH, Q, d] and k, v [BH, K, d], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} has no kernel instance {_FLASH_HEAD_DIMS}")
+    if not (0 < bh <= 65535 and tq > 0 and tk > 0):
+        raise ValueError(f"{what}: unsupported shape {tuple(q.shape)}, {tuple(k.shape)}")
+    if key_mask.shape != (bh, tk) or key_mask.dtype != torch.bool:
+        raise ValueError(
+            f"{what}: key_mask must be bool [{bh}, {tk}], got {key_mask.dtype} {tuple(key_mask.shape)}"
+        )
+    tensors = {"q": q, "k": k, "v": v, "key_mask": key_mask}
+    if coords_q is not None:
+        if coords_q.shape != (bh, tq, 2) or coords_k.shape != (bh, tk, 2) or dist_scale.shape != (bh,):
+            raise ValueError(
+                f"{what}: coords must be [BH, Q, 2] / [BH, K, 2] and dist_scale [BH], got "
+                f"{tuple(coords_q.shape)}, {tuple(coords_k.shape)}, {tuple(dist_scale.shape)}"
+            )
+        tensors |= {"coords_q": coords_q, "coords_k": coords_k, "dist_scale": dist_scale}
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, q on {q.device}")
+        if name != "key_mask" and t.dtype != torch.float32:
+            raise TypeError(f"{what}: the CUDA kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+
+
+def _launch_flash(q, k, v, key_mask, coords_q=None, coords_k=None, dist_scale=None):
+    """One launch of ``stamp_flash_attn_fwd``; returns its outputs."""
+    bh, tq, d = q.shape
+    alibi = coords_q is not None
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    dacc = torch.empty_like(q) if alibi else None
+    out = torch.empty_like(q) if alibi else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.load_library().stamp_flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+        ptr(coords_q), ptr(coords_k), ptr(dist_scale),
+        o.data_ptr(), ptr(dacc), ptr(out), lse.data_ptr(),
+        bh, tq, k.shape[1], d, d**-0.5, int(alibi),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "flash_alibi_mha" if alibi else "flash_mha")
+    return o, lse, dacc, out
+
+
+def _flash_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out [BH, Q, d], lse [BH, Q]) of masked flash attention."""
+    if q.device.type == "cpu":
+        return _flash_forward_reference(q, k, v, key_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha: unsupported device {q.device}")
+    _check_flash_args("flash_mha", q, k, v, key_mask)
+    o, lse, _, _ = _launch_flash(q, k, v, key_mask)
+    global FLASH_MHA_LAUNCHES
+    FLASH_MHA_LAUNCHES += 1
+    return o, lse
+
+
+def flash_mha(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+) -> torch.Tensor:
+    """Masked flash attention over flattened (batch×head) sequences.
+
+    Args:
+        q: [BH, Q, d]; k, v: [BH, K, d]; on CUDA f32, contiguous, d in
+            (32, 64, 128).
+        key_mask: [BH, K] bool, True = valid key.
+
+    Returns: [BH, Q, d].
+    """
+    return _flash_forward(q, k, v, key_mask)[0]
+
+
+def _flash_alibi_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    coords_q: torch.Tensor,
+    coords_k: torch.Tensor,
+    dist_scale: torch.Tensor,
+    key_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, softmax out, dacc = D·V, lse) of the fused ALiBi pass."""
+    if q.device.type == "cpu":
+        out_sm, dacc, lse = _flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
+        return out_sm - dist_scale[:, None, None] * dacc, out_sm, dacc, lse
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_alibi_mha: unsupported device {q.device}")
+    _check_flash_args("flash_alibi_mha", q, k, v, key_mask, coords_q, coords_k, dist_scale)
+    o, lse, dacc, out = _launch_flash(q, k, v, key_mask, coords_q, coords_k, dist_scale)
+    global FLASH_ALIBI_MHA_LAUNCHES
+    FLASH_ALIBI_MHA_LAUNCHES += 1
+    return out, o, dacc, lse
+
+
+def flash_alibi_mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    coords_q: torch.Tensor,
+    coords_k: torch.Tensor,
+    dist_scale: torch.Tensor,
+    key_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Fused spatial-ALiBi attention (post-softmax distance bias).
+
+    Args:
+        q: [BH, Q, d]; k, v: [BH, K, d]; coords_q: [BH, Q, 2] and coords_k:
+            [BH, K, 2] in µm; dist_scale: [BH] (bias_scale / running_mean
+            per (batch, head)); on CUDA all f32 and contiguous, d in
+            (32, 64, 128).
+        key_mask: [BH, K] bool, True = valid key.
+
+    Returns: [BH, Q, d] = softmax(q·kᵀ/√d)·v − dist_scale·(D·v).
+    """
+    return _flash_alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask)[0]

@@ -6,8 +6,8 @@ skip-if-h5-exists, per-slide fail-safe, fp16 features in the same ``.h5``
 layout with the same attrs (``stamp_tpu_torch.io.h5``, which needs no
 h5py), the rejection thumbnail, and a ``-{precision}`` dir suffix for
 non-default precisions.
-Tiling and slide reading are ``stamp_tpu.preprocessing.{tiling,wsi}``,
-shared by import.
+Tiling and slide reading are the port's copies of
+``stamp_tpu/preprocessing/{tiling,wsi}.py``.
 
 A producer thread tiles the slide into uint8 batches on a bounded queue
 while the consumer runs the bf16 backbone on the device, so WSI decode,
@@ -34,22 +34,22 @@ import torch
 from PIL import Image
 from tqdm import tqdm
 
-from stamp_tpu.preprocessing.config import ExtractorName
-from stamp_tpu.preprocessing.tiling import (
+from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+from stamp_tpu_torch.preprocessing.config import ExtractorName
+from stamp_tpu_torch.preprocessing.extractor import Extractor
+from stamp_tpu_torch.preprocessing.tiling import (
     MPPExtractionError,
     get_slide_mpp_,
     tiles_with_cache,
 )
-from stamp_tpu.preprocessing.wsi import (
+from stamp_tpu_torch.preprocessing.wsi import (
     UNSUPPORTED_CONTAINER_SUFFIXES,
     UnsupportedFormatError,
     open_slide,
 )
-from stamp_tpu.types import ImageExtension, Microns, SlideMPP, SlidePixels, TilePixels
-from stamp_tpu.utils import profiling
-from stamp_tpu.utils.cache import get_processing_code_hash
-from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
-from stamp_tpu_torch.preprocessing.extractor import Extractor
+from stamp_tpu_torch.types import ImageExtension, Microns, SlideMPP, SlidePixels, TilePixels
+from stamp_tpu_torch.utils import profiling
+from stamp_tpu_torch.utils.cache import get_processing_code_hash
 from stamp_tpu_torch.utils.device import resolve_device
 
 __all__ = ["extract_", "supported_extensions"]

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from stamp_tpu.preprocessing.config import ExtractorName
+from stamp_tpu_torch.preprocessing.config import ExtractorName
 from stamp_tpu_torch.preprocessing.extractor import Extractor, make_vit_extractor
 
 # ExtractorName → make_vit_extractor arguments

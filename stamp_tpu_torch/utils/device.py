@@ -7,24 +7,30 @@ import torch
 
 
 def resolve_device(requested: str | torch.device) -> torch.device:
-    """Map a config ``device`` value onto a ``torch.device``.
+    """Map a config ``device`` / ``accelerator`` value onto a ``torch.device``.
 
-    ``"cpu"`` gives the CPU; ``"auto"``, ``"cuda"`` and ``"cuda:N"`` give a
-    CUDA card and raise when PyTorch sees none, so a GPU run never quietly
-    becomes a CPU run.  A ``torch.device`` passes through unchanged.
+    ``"cpu"`` gives the CPU; ``"auto"``, ``"cuda"``, ``"gpu"`` and
+    ``"cuda:N"`` give a CUDA card and raise when PyTorch sees none, so a GPU
+    run never quietly becomes a CPU run.  ``"tpu"`` raises by name (that is
+    the JAX package's device).  A ``torch.device`` passes through unchanged.
     """
     if isinstance(requested, torch.device):
         return requested
     if requested == "cpu":
         return torch.device("cpu")
-    if requested in ("auto", "cuda") or requested.startswith("cuda:"):
+    if requested == "tpu":
+        raise ValueError(
+            "device 'tpu': the PyTorch port runs on a CUDA GPU or the CPU; "
+            "run `python -m stamp_tpu` for the TPU"
+        )
+    if requested in ("auto", "cuda", "gpu") or requested.startswith("cuda:"):
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {requested!r} asks for a CUDA GPU, but torch.cuda."
-                "is_available() is False; set `device: cpu` in the config to "
-                "run on the CPU"
+                "is_available() is False; set `device: cpu` (or `accelerator: "
+                "cpu`) in the config to run on the CPU"
             )
-        return torch.device("cuda:0" if requested in ("auto", "cuda") else requested)
+        return torch.device(requested if requested.startswith("cuda:") else "cuda:0")
     raise ValueError(
-        f"unknown device {requested!r}: expected 'auto', 'cpu', 'cuda' or 'cuda:N'"
+        f"unknown device {requested!r}: expected 'auto', 'cpu', 'cuda', 'gpu' or 'cuda:N'"
     )

@@ -16,6 +16,16 @@ pytestmark = pytest.mark.cuda
 
 # max |kernel − plain| / max |plain| on bf16 outputs (see chip_smoke.py)
 TOL = 1e-2
+# the same on the f32 flash kernels, whose q·kᵀ and P·V run in TF32
+# (10-bit mantissa, relative step 2^-11 per operand; see chip_smoke.py)
+FLASH_TOL = 5e-3
+# ALiBi's D·V runs in a 3×TF32 split (22 of f32's 24 mantissa bits per
+# operand), summed per 64-key tile and across tiles in rounded f32.  The
+# plain version's own f32 GEMM rounds too, and more: against an f64 D·V
+# (chip_smoke.py phase 3b) the kernel stays near 1e-6 of max |ref| and the
+# plain version near 1e-5 at T = 16,385.  1e-4 holds both and refuses plain
+# TF32, whose error is of order 1e-3.
+DACC_TOL = 1e-4
 
 
 @pytest.fixture
@@ -31,7 +41,8 @@ def _randn(gen, *shape, scale=1.0):
 
 
 def _rel_err(got, want):
-    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff / max(want.float().abs().max().item(), 1e-30)
 
 
 @pytest.mark.parametrize(
@@ -77,3 +88,62 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         lnd.ln_dense(x, g, b, _randn(gen, 16, 8).t())
     with pytest.raises(ValueError, match="unsupported shape"):
         lnd.ln_dense(_randn(gen, 4, 12), _randn(gen, 12), _randn(gen, 12), _randn(gen, 8, 12))
+
+
+def _flash_inputs(gen, bh, t, d, heads=8):
+    """q, k, v ~ N(0, 1), the last 40% of keys masked (bucket padding),
+    coordinates on a 256 µm grid shared by the heads of a batch element,
+    dist_scale = 1 / mean pairwise distance of the valid tiles."""
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=gen) for _ in range(3))
+    n_valid = max(1, t - (2 * t) // 5)
+    key_mask = (torch.arange(t, device="cuda") < n_valid).expand(bh, t).contiguous()
+    side = max(1, int(n_valid**0.5))
+    idx = torch.arange(t, device="cuda")
+    grid = torch.stack([idx % side, idx // side], dim=-1).float() * 256.0
+    coords = grid.expand(bh, t, 2).contiguous()
+    valid = grid[:n_valid]
+    mean = torch.cdist(valid.double(), valid.double()).mean().clamp_min(1.0)
+    dist_scale = torch.rand(bh, device="cuda", generator=gen) / mean.float()
+    return q, k, v, key_mask, coords, dist_scale
+
+
+@pytest.mark.parametrize(
+    "bh,t,d", [(3, 1, 64), (3, 300, 64), (2, 130, 32), (2, 200, 128), (8, 4097, 64)]
+)
+def test_flash_mha_kernel(gen, bh, t, d):
+    q, k, v, key_mask, _, _ = _flash_inputs(gen, bh, t, d)
+    before = attn.FLASH_MHA_LAUNCHES
+    out, lse = attn._flash_forward(q, k, v, key_mask)
+    assert attn.FLASH_MHA_LAUNCHES == before + 1
+    want, want_lse = attn._flash_forward_reference(q, k, v, key_mask)
+    assert out.shape == (bh, t, d) and out.dtype == torch.float32
+    assert _rel_err(out, want) <= FLASH_TOL
+    assert _rel_err(lse, want_lse) <= FLASH_TOL
+
+
+@pytest.mark.parametrize(
+    "bh,t,d", [(3, 1, 64), (3, 300, 64), (2, 130, 32), (2, 200, 128), (8, 4097, 64)]
+)
+def test_flash_alibi_mha_kernel(gen, bh, t, d):
+    q, k, v, key_mask, coords, dist_scale = _flash_inputs(gen, bh, t, d)
+    before = attn.FLASH_ALIBI_MHA_LAUNCHES
+    out, out_sm, dacc, lse = attn._flash_alibi_forward(q, k, v, coords, coords, dist_scale, key_mask)
+    assert attn.FLASH_ALIBI_MHA_LAUNCHES == before + 1
+    want_sm, want_dacc, want_lse = attn._flash_alibi_forward_reference(q, k, v, coords, coords, key_mask)
+    want = want_sm - dist_scale[:, None, None] * want_dacc
+    assert _rel_err(out, want) <= FLASH_TOL
+    assert _rel_err(out_sm, want_sm) <= FLASH_TOL
+    assert _rel_err(lse, want_lse) <= FLASH_TOL
+    assert _rel_err(dacc, want_dacc) <= DACC_TOL
+
+
+def test_flash_kernels_raise_on_what_they_do_not_take(gen):
+    q, k, v, key_mask, coords, dist_scale = _flash_inputs(gen, 2, 10, 64)
+    with pytest.raises(TypeError):
+        attn.flash_mha(q.double(), k.double(), v.double(), key_mask)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn.flash_mha(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous(), key_mask)
+    with pytest.raises(ValueError, match="key_mask"):
+        attn.flash_mha(q, k, v, key_mask.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.flash_alibi_mha(q, k, v, coords.transpose(0, 1).contiguous().transpose(0, 1), coords, dist_scale, key_mask)

@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor flax, and imports without triton,
-h5py, nvcc or a GPU.  Checked in a fresh interpreter: this test process has jax
-loaded already (tests/conftest.py)."""
+"""The port imports neither JAX, flax nor anything of the JAX package
+(``stamp_tpu``), and imports without triton, h5py, nvcc or a GPU.  Checked
+in a fresh interpreter that imports every module of the port: this test
+process has jax and stamp_tpu loaded already (tests/conftest.py)."""
 
 import json
 import os
@@ -26,20 +27,27 @@ class _Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, _Refuse())
 
-import stamp_tpu_torch.__main__
-import stamp_tpu_torch.io.h5
-import stamp_tpu_torch.models.vit_image
+import importlib
+import pkgutil
+
+import stamp_tpu_torch
 import stamp_tpu_torch.ops._build as build
-import stamp_tpu_torch.ops.flash_attention
-import stamp_tpu_torch.ops.ln_dense
-import stamp_tpu_torch.preprocessing.extract
-import stamp_tpu_torch.preprocessing.extractor
-import stamp_tpu_torch.preprocessing.extractor.zoo
-import stamp_tpu_torch.utils.device
+
+imported = []
+for info in pkgutil.walk_packages(stamp_tpu_torch.__path__, "stamp_tpu_torch."):
+    importlib.import_module(info.name)
+    imported.append(info.name)
+
+
+def loaded(top):
+    return sorted(m for m in sys.modules if m == top or m.startswith(top + "."))
+
 
 print(json.dumps({
-    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
-    "flax": sorted(m for m in sys.modules if m == "flax" or m.startswith("flax.")),
+    "imported": imported,
+    "jax": loaded("jax"),
+    "flax": loaded("flax"),
+    "stamp_tpu": loaded("stamp_tpu"),
     "triton": "triton" in sys.modules,
     "h5py": "h5py" in sys.modules,
     "library_loaded": build._lib is not None,
@@ -61,17 +69,29 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    # every module of the port, the deploy slice's among them
+    assert {
+        "stamp_tpu_torch.__main__",
+        "stamp_tpu_torch.modeling.deploy",
+        "stamp_tpu_torch.models.vision_transformer",
+        "stamp_tpu_torch.ops.flash_attention",
+        "stamp_tpu_torch.preprocessing.extract",
+    } <= set(seen.pop("imported"))
     assert seen == {
-        "jax": [], "flax": [], "triton": False, "h5py": False, "library_loaded": False
+        "jax": [], "flax": [], "stamp_tpu": [], "triton": False, "h5py": False,
+        "library_loaded": False,
     }
 
 
 def test_port_sources_name_no_jax_import():
-    """No module of the port (nor chip_smoke.py) has an import of jax/flax."""
+    """No module of the port (nor chip_smoke.py) has an import of jax, flax
+    or the JAX package: ``import stamp_tpu``, ``from stamp_tpu import`` and
+    ``from stamp_tpu.… import`` are refused as much as ``import jax``."""
     sources = sorted((REPO / "stamp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for src in sources:
         for line in src.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                top = words[1].split(".")[0]
-                assert top not in ("jax", "flax", "jaxlib"), f"{src}: {line}"
+                for module in " ".join(words[1:]).split(" import ")[0].split(","):
+                    top = module.strip().split(" ")[0].split(".")[0]
+                    assert top not in ("jax", "flax", "jaxlib", "stamp_tpu"), f"{src}: {line}"
