@@ -32,10 +32,34 @@ Phases (each prints at least one line; any failure exits non-zero):
    bucket padding and CLS); checks the three CSVs and that each flash
    kernel ran 2 layers × 4 patients times, then holds the kernel path
    against the plain path on the card for the patients with T ≤ 16,385.
+3c. backward kernels: the flash backward (dQ and dK/dV kernels) of
+   ``flash_mha`` and ``flash_alibi_mha`` and the distance-weighted sum
+   (f32) against their plain versions at [8, 4097 | 16385, 64] with 40% of
+   keys masked and at ragged small shapes and d = 32, 128; masked keys get
+   exactly zero dK and dV, two runs are bitwise equal; the median time of
+   each, with the backward of ``F.scaled_dot_product_attention`` as the
+   library control of ``flash_mha``'s.  As everywhere in this script the
+   plain versions run with TF32 off (phase 1), so they are f32 throughout.
+7. train: ``python -m stamp_tpu_torch -c config.yaml --profile train``
+   in-process, whole-slide training (``bag_size: null``, 2 epochs) of the
+   default MIL ViT (``vit`` and ``vit`` + ALiBi, width 512, UNI2 inputs) on
+   twelve synthetic patients of 2,100 to 12,000 tiles (T = 4,097, 8,193,
+   16,385) with a planted signal; checks ``metrics.csv``, that each backward
+   kernel ran 2 layers × training steps times, that ``model.ckpt`` deploys,
+   and one training step at T = 8,193 on the kernel path against the plain
+   path, from the initial and from the trained weights; the step time at
+   each T and a ``torch.profiler`` split of one step at T = 16,385.
+8. crossval: ``python -m stamp_tpu_torch -c config.yaml crossval`` on the
+   same cohort (2 folds, 2 epochs, batches of 2, the default ``bag_size`` of
+   512: training on the einsum path, validation and fold exports through
+   the forward kernels); checks each fold's checkpoint, that its metrics
+   and predictions are finite, and holds fold 0's exported probabilities
+   against its checkpoint on the kernel path and the plain path.
 
-Phases run in the order 1, 2, 3, 3b, 4, 5, 6 and print their wall time.
-The line before the last is ``{"kernels": [...]}``: each kernel's launches
-on its main path (phase 4 or 6), its largest error against its plain
+Phases run in the order 1, 2, 3, 3b, 3c, 4, 5, 6, 7, 8 and print their wall
+time.  The line before the last is ``{"kernels": [...]}``: each kernel's
+launches on its main path (phase 4, 6 or 7), its largest error against its
+plain
 version, its time, the plain version's and the library control's, and the
 least time the card could take for the same work (``bound_ms``: the larger
 of the bytes over 3.35 TB/s and the operations over the H100 SXM's peak
@@ -46,6 +70,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -87,6 +112,18 @@ FLASH_TOL = 5e-3
 DACC_TOL = 1e-4
 # deploy: class probabilities, kernel path against plain path
 PROB_TOL = 1e-3
+# the flash backward's dq, dk, dv (and ALiBi's d dist_scale) against the
+# plain f32 backward: five TF32 products per (query, key) pair, each
+# operand rounded by up to 2^-11; as for the forward, 5e-3 of max |ref|
+# leaves a margin and fails any masking or indexing fault (order one)
+BWD_TOL = 5e-3
+# the distance-weighted sum alone against its plain version: the forward's
+# 3×TF32 D·V with per-tile sums (see DACC_TOL)
+DWS_TOL = 1e-4
+# a whole-slide training step, kernel path against plain path: the loss
+# (relative) and every parameter gradient (of its max |ref|)
+STEP_LOSS_TOL = 1e-4
+STEP_GRAD_TOL = 5e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds in the kernels line
 PEAK_BYTES_PER_S = 3.35e12
@@ -94,6 +131,10 @@ PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 
 # deploy cohort: tiles per patient → T = bucket + CLS = 4,097 … 32,769
 DEPLOY_TILES = (2500, 6000, 12000, 20000)
+# training cohort: four patients in each bucket, T = 4,097, 8,193, 16,385
+TRAIN_TILES = (2100, 2600, 3200, 3900, 4400, 5200, 6100, 7300, 8400, 9600, 10900, 12000)
+TRAIN_EPOCHS = 2
+CROSSVAL_EPOCHS = 2
 UNI2_DIM = 1536
 MIL_LAYERS = 2
 MIL_HEADS = 8
@@ -551,10 +592,9 @@ def phase_deploy(card: str) -> dict:
     import yaml
 
     from stamp_tpu_torch.__main__ import main
-    from stamp_tpu_torch.io.h5 import read_feats
     from stamp_tpu_torch.modeling.checkpoint import save_checkpoint
     from stamp_tpu_torch.modeling.config import VitModelParams
-    from stamp_tpu_torch.modeling.deploy import _bucket_size, load_model_from_ckpt
+    from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
     from stamp_tpu_torch.modeling.tasks import LitTileClassifier
     from stamp_tpu_torch.models import vision_transformer as vit
     from stamp_tpu_torch.ops import flash_attention as attn
@@ -610,14 +650,6 @@ def phase_deploy(card: str) -> dict:
 
     # per patient: the forward on the kernel path (timed) against the CSVs
     # the main path wrote, and against the plain path on the card for T ≤ 16,385
-    def forward(module, bags, coords, key_mask):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        with torch.inference_mode():
-            logits = module(bags, coords=coords, key_mask=key_mask)
-        probs = torch.softmax(logits.double(), dim=-1)[0].cpu().numpy()
-        return probs, (time.perf_counter() - start) * 1e3
-
     per_patient, max_diff = [], 0.0
     dev = torch.device("cuda:0")
     for index, path in enumerate(checkpoints):
@@ -626,28 +658,18 @@ def phase_deploy(card: str) -> dict:
         module.load_state_dict(vit.variables_from_jax(variables))
         module.to(dev).eval()
         for name, n in patients:
-            feats, info = read_feats(root / "features" / f"{name}.h5")
-            bucket = _bucket_size(n)
-            bags = torch.zeros(1, bucket, UNI2_DIM, device=dev)
-            bags[0, :n] = torch.from_numpy(feats).to(dev)
-            coords = torch.zeros(1, bucket, 2, device=dev)
-            coords[0, :n] = torch.from_numpy(info.coords_um).to(dev)
-            key_mask = (torch.arange(bucket, device=dev) < n)[None]
-            forward(module, bags, coords, key_mask)  # warm-up
-            probs, ms = forward(module, bags, coords, key_mask)
+            bags, coords, key_mask = _whole_bag(root / "features" / f"{name}.h5", dev)
+            bucket = bags.shape[1]
+            _forward_probs(module, bags, coords, key_mask)  # warm-up
+            probs, ms = _forward_probs(module, bags, coords, key_mask)
             row = dict(checkpoint=path.name, patient=name, tiles=n, seq_len=bucket + 1, forward_ms=ms)
             if n == max(DEPLOY_TILES):
-                _profile_forward(card, path.name, lambda: forward(module, bags, coords, key_mask))
+                _profile_forward(card, path.name, lambda: _forward_probs(module, bags, coords, key_mask))
             written = csv[f"patient-preds-{index}.csv"].loc[name, ["isup_high", "isup_low"]].to_numpy(float)
             if not np.abs(probs - written).max() <= 1e-5:
                 _fail(f"{row}: kernel-path probabilities {probs} differ from the CSV's {written}")
             if bucket + 1 <= 16385:
-                kernel_fns = (attn.flash_mha, attn.flash_alibi_mha)
-                attn.flash_mha, attn.flash_alibi_mha = attn.flash_mha_reference, attn.flash_alibi_mha_reference
-                try:
-                    plain, plain_ms = forward(module, bags, coords, key_mask)
-                finally:
-                    attn.flash_mha, attn.flash_alibi_mha = kernel_fns
+                plain, plain_ms = _forward_probs(module, bags, coords, key_mask, plain=True)
                 diff = float(np.abs(probs - plain).max())
                 max_diff = max(max_diff, diff)
                 row |= dict(plain_forward_ms=plain_ms, prob_max_abs_diff=diff)
@@ -662,6 +684,28 @@ def phase_deploy(card: str) -> dict:
                mean_pairwise_distance_um=mean_dist, prob_max_abs_diff=max_diff)  # fmt: skip
     print(f"[6 deploy] {json.dumps(row)} on {card}")
     return row
+
+
+def _forward_probs(module, bags, coords, key_mask, plain: bool = False) -> tuple:
+    """(class probabilities of one bag, forward ms) in inference mode, on
+    the kernel path or, with ``plain``, through the flash functions' plain
+    versions."""
+    import torch
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    kernel_fns = (attn.flash_mha, attn.flash_alibi_mha)
+    if plain:
+        attn.flash_mha, attn.flash_alibi_mha = attn.flash_mha_reference, attn.flash_alibi_mha_reference
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with torch.inference_mode():
+            logits = module(bags, coords=coords, key_mask=key_mask)
+        probs = torch.softmax(logits.double(), dim=-1)[0].cpu().numpy()
+    finally:
+        attn.flash_mha, attn.flash_alibi_mha = kernel_fns
+    return probs, (time.perf_counter() - start) * 1e3
 
 
 def _profile_forward(card: str, what: str, fn) -> None:
@@ -679,6 +723,464 @@ def _profile_forward(card: str, what: str, fn) -> None:
         f"[6 deploy] profile {what}, largest patient: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); top kernels {json.dumps(rows)} on {card}"
     )
+
+
+def _rel_errs(got, want) -> list[float]:
+    """max |Δ| / max |ref| per gradient.  With one key per sequence the
+    softmax is constant, dS = 0 and the reference dq and dk are exactly 0
+    while the kernel's TF32 dP − D leaves rounding: there the scale of dq and
+    dk is that of dv, the gradient that does not cancel."""
+    floor = want[2].abs().max().item() if want[0].shape[1] == 1 else 1e-30
+    return [(a - b).abs().max().item() / max(b.abs().max().item(), floor) for a, b in zip(got, want)]
+
+
+def phase_flash_backward(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    gen = torch.Generator(device="cuda:0").manual_seed(3)
+    rows: dict = {"flash_mha_bwd": [], "flash_alibi_mha_bwd": [], "dist_weighted_sum": []}
+    shapes = ((3, 1, 64), (3, 300, 64), (2, 130, 32), (2, 200, 128), (8, 4097, 64), (8, 16385, 64))
+    for bh, t, d in shapes:
+        q, k, v, mask, coords, ds = _flash_inputs(gen, bh, t, d)
+        do = torch.randn(bh, t, d, device="cuda:0", generator=gen)
+        n_valid = mask[0].sum().item()
+        pairs = bh * t * n_valid  # (query, valid key) pairs the function needs
+        io_bytes = 8 * q.numel() * 4 + 2 * bh * t * 4 + mask.numel()  # q k v dO O in, dq dk dv out; lse, D; mask
+        masked = ~mask
+
+        # flash_mha: the dQ and dK/dV kernels against the plain backward
+        out, lse = attn._flash_forward(q, k, v, mask)
+        args = (q, k, v, mask, out, lse, do)
+        got = attn._flash_backward(*args)
+        again = attn._flash_backward(*args)
+        want = attn._flash_backward_reference(*args)
+        torch.cuda.synchronize()
+        errs = _rel_errs(got, want)
+        row = dict(shape=[bh, t, d], max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)),
+                   dq_rel_err=errs[0], dk_rel_err=errs[1], dv_rel_err=errs[2])  # fmt: skip
+        if not max(errs) <= BWD_TOL:
+            _fail(f"flash_mha backward {row}: beyond {BWD_TOL}")
+        if got[1][masked].any() or got[2][masked].any():
+            _fail(f"flash_mha backward {row}: masked keys got a nonzero dk or dv")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            _fail(f"flash_mha backward {row}: two runs differ")
+        del got, again, want
+        if t >= 4097:
+            # the backward needs five products per pair: s = q·kᵀ, dP = dO·vᵀ,
+            # dQ, dK and dV (the kernels recompute s and dP in both passes)
+            bound, by = _bound(io_bytes, {"tf32": 5 * 2 * d * pairs})
+            bound_all, _ = _bound(io_bytes, {"tf32": 5 * 2 * d * bh * t * t})
+            qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qg[:, None], kg[:, None], vg[:, None], attn_mask=mask[:, None, None, :])
+            do4 = do[:, None]
+
+            def sdpa_backward():
+                return torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True)
+
+            tm = _compare_timed(
+                lambda: attn._flash_backward(*args), lambda: attn._flash_backward_reference(*args), sdpa_backward, iters=3
+            )
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=tm["control"], bound_ms=bound,
+                        bound_by=by, bound_all_keys_ms=bound_all)  # fmt: skip
+            del qg, kg, vg, sdpa_out
+        print(f"[3c backward] flash_mha_bwd {json.dumps(row)} on {card}")
+        rows["flash_mha_bwd"].append(row)
+
+        # flash_alibi_mha: the same kernels on the softmax output, plus the
+        # bias branch through the distance-weighted sum
+        _, out_sm, dacc, lse = attn._flash_alibi_forward(q, k, v, coords, coords, ds, mask)
+        args = (q, k, v, coords, coords, ds, mask, out_sm, dacc, lse, do)
+        got = attn._flash_alibi_backward(*args)
+        again = attn._flash_alibi_backward(*args)
+        want = attn._flash_alibi_backward_reference(*args)
+        torch.cuda.synchronize()
+        errs = _rel_errs(got[:3], want[:3]) + [_error(got[3], want[3])[1]]
+        row = dict(shape=[bh, t, d], max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)),
+                   dq_rel_err=errs[0], dk_rel_err=errs[1], dv_rel_err=errs[2], ddist_scale_rel_err=errs[3])  # fmt: skip
+        if not max(errs) <= BWD_TOL:
+            _fail(f"flash_alibi_mha backward {row}: beyond {BWD_TOL}")
+        if got[1][masked].any() or got[2][masked].any():
+            _fail(f"flash_alibi_mha backward {row}: masked keys got a nonzero dk or dv")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            _fail(f"flash_alibi_mha backward {row}: two runs differ")
+        del got, again, want
+        if t >= 4097:
+            alibi_bytes = io_bytes + 2 * coords.numel() * 4 + 2 * q.numel() * 4  # + coords, dacc in, dO·s
+            flops = {"tf32": 5 * 2 * d * pairs, "fp32": 2 * d * pairs}
+            bound, by = _bound(alibi_bytes, flops)
+            bound_all, _ = _bound(alibi_bytes, {"tf32": 5 * 2 * d * bh * t * t, "fp32": 2 * d * bh * t * t})
+            tm = _compare_timed(
+                lambda: attn._flash_alibi_backward(*args), lambda: attn._flash_alibi_backward_reference(*args), iters=3
+            )
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, bound_ms=bound, bound_by=by,
+                        bound_all_keys_ms=bound_all)  # fmt: skip
+        print(f"[3c backward] flash_alibi_mha_bwd {json.dumps(row)} on {card}")
+        rows["flash_alibi_mha_bwd"].append(row)
+
+        # the distance-weighted sum alone, as the ALiBi backward calls it
+        # (a = keys, b = queries, every b counts)
+        val = do * ds[:, None, None]
+        got = attn._dist_weighted_sum(coords, coords, val, None)
+        want = attn._dist_weighted_sum_reference(coords, coords, val, None)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _error(got, want)
+        row = dict(shape=[bh, t, d], max_abs_err=abs_err, rel_err=rel_err)
+        if not rel_err <= DWS_TOL:
+            _fail(f"_dist_weighted_sum {row}: beyond {DWS_TOL}")
+        del got, want
+        if t >= 4097:
+            dws_bytes = 2 * coords.numel() * 4 + 2 * val.numel() * 4  # coords in twice, values in, out out
+            # the backward keeps only the valid keys' rows (the kernel
+            # computes every row: the masked ones are work it need not do)
+            bound, by = _bound(dws_bytes, {"fp32": 2 * d * pairs})
+            bound_all, _ = _bound(dws_bytes, {"fp32": 2 * d * bh * t * t})
+            tm = _compare_timed(
+                lambda: attn._dist_weighted_sum(coords, coords, val, None),
+                lambda: attn._dist_weighted_sum_reference(coords, coords, val, None),
+                iters=3,
+            )
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, bound_ms=bound, bound_by=by,
+                        bound_all_keys_ms=bound_all)  # fmt: skip
+        print(f"[3c backward] dist_weighted_sum {json.dumps(row)} on {card}")
+        rows["dist_weighted_sum"].append(row)
+        del q, k, v, do, out, out_sm, dacc, lse, val
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _write_train_cohort(root: Path) -> None:
+    """Twelve patients' UNI2 feature files (fp16, the port's writer) on a
+    256 µm grid, slide.csv and clini.csv; every other patient is positive,
+    with a mean shift along one direction in 30% of its tiles."""
+    import numpy as np
+    import pandas as pd
+
+    from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+
+    rng = np.random.default_rng(4)
+    direction = rng.standard_normal(UNI2_DIM).astype(np.float32)
+    direction /= np.linalg.norm(direction)
+    rows = []
+    for i, n in enumerate(TRAIN_TILES):
+        label = "pos" if i % 2 == 0 else "neg"
+        feats = rng.standard_normal((n, UNI2_DIM), dtype=np.float32)
+        if label == "pos":
+            feats[rng.choice(n, int(0.3 * n), replace=False)] += 2.0 * direction
+        side = math.isqrt(n - 1) + 1
+        idx = np.arange(n)
+        coords = (np.stack([idx % side, idx // side], axis=1) * 256.0).astype(np.float32)
+        write_tile_feats_atomic(
+            output_path=root / "features" / f"pat{i:02d}.h5", feats=feats.astype(np.float16), coords_um=coords,
+            extractor_id="uni2", tile_size_um=256.0, tile_size_px=224, code_hash="chip-smoke",
+        )  # fmt: skip
+        rows.append((f"pat{i:02d}.h5", f"pat{i:02d}", label))
+    pd.DataFrame([r[:2] for r in rows], columns=["FILENAME", "PATIENT"]).to_csv(root / "slide.csv", index=False)
+    pd.DataFrame([r[1:] for r in rows], columns=["PATIENT", "label"]).to_csv(root / "clini.csv", index=False)
+
+
+_COUNTERS = (
+    "FLASH_MHA_LAUNCHES", "FLASH_ALIBI_MHA_LAUNCHES", "FLASH_MHA_BWD_LAUNCHES",
+    "FLASH_ALIBI_MHA_BWD_LAUNCHES", "DIST_WEIGHTED_SUM_LAUNCHES",
+)  # fmt: skip
+
+
+@contextlib.contextmanager
+def _plain_flash():
+    """The flash autograd Functions with their plain forward and backward."""
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    def alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask):
+        out_sm, dacc, lse = attn._flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
+        return out_sm - dist_scale[:, None, None] * dacc, out_sm, dacc, lse
+
+    names = ("_flash_forward", "_flash_alibi_forward", "_flash_backward", "_flash_alibi_backward")
+    saved = [getattr(attn, n) for n in names]
+    plain = (attn._flash_forward_reference, alibi_forward, attn._flash_backward_reference,
+             attn._flash_alibi_backward_reference)  # fmt: skip
+    for name, fn in zip(names, plain):
+        setattr(attn, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in zip(names, saved):
+            setattr(attn, name, fn)
+
+
+def _training_step(module, batch) -> tuple:
+    """Loss and parameter gradients of one training step (no update)."""
+    import torch
+
+    from stamp_tpu_torch.modeling.tasks import weighted_cross_entropy
+
+    bags, coords, key_mask, targets, weights = batch
+    module.zero_grad(set_to_none=True)
+    logits = module(bags, coords=coords, key_mask=key_mask, train=True)
+    loss = weighted_cross_entropy(logits, targets, weights)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), {n: p.grad.detach().clone() for n, p in module.named_parameters()}
+
+
+def _step_against_plain(module, state: dict, batch) -> dict:
+    """One training step from ``state`` on the kernel path and on the plain
+    path: the loss's relative error and the worst gradient's max |Δ| /
+    max |ref|, with the plain step's time."""
+    module.load_state_dict(state)
+    loss, grads = _training_step(module, batch)
+    module.load_state_dict(state)
+    with _plain_flash():
+        t1 = time.perf_counter()
+        plain_loss, plain_grads = _training_step(module, batch)
+        plain_ms = (time.perf_counter() - t1) * 1e3
+    # ALiBi's key bias gets a gradient that is 0 in exact arithmetic
+    # (softmax ignores a shift shared by all keys): its size is rounding on
+    # both paths, held against the largest gradient
+    scale = max(g.abs().max().item() for g in plain_grads.values())
+    grad_errs = {
+        k: (grads[k] - plain_grads[k]).abs().max().item()
+        / (scale if k.endswith("k_proj.bias") else max(plain_grads[k].abs().max().item(), 1e-30))
+        for k in plain_grads
+    }
+    worst = max(grad_errs, key=grad_errs.get)
+    return dict(loss=loss.item(), plain_loss=plain_loss.item(), plain_step_ms=plain_ms,
+                loss_rel_err=abs(loss.item() - plain_loss.item()) / abs(plain_loss.item()),
+                max_grad_rel_err=grad_errs[worst], worst_grad=worst)  # fmt: skip
+
+
+def _whole_bag(path: Path, dev) -> tuple:
+    """A patient's features as the trainer and deploy feed them: padded to
+    their bucket, with coordinates and a key mask ([1, bucket, …])."""
+    import torch
+
+    from stamp_tpu_torch.io.h5 import read_feats
+    from stamp_tpu_torch.modeling.deploy import _bucket_size
+
+    feats, info = read_feats(path)
+    n = len(feats)
+    bucket = _bucket_size(n)
+    bags = torch.zeros(1, bucket, feats.shape[1], device=dev)
+    bags[0, :n] = torch.from_numpy(feats).to(dev)
+    coords = torch.zeros(1, bucket, 2, device=dev)
+    coords[0, :n] = torch.from_numpy(info.coords_um).to(dev)
+    return bags, coords, (torch.arange(bucket, device=dev) < n)[None]
+
+
+def phase_train(card: str) -> dict:
+    import numpy as np
+    import pandas as pd
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
+    from stamp_tpu_torch.models import vision_transformer as vit
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.utils import profiling
+
+    root = WORK / "train"
+    _write_train_cohort(root)
+    dev = torch.device("cuda:0")
+    result: dict = {"runs": {}}
+    for variant, use_alibi in (("vit", False), ("alibi", True)):
+        out = root / variant
+        config = root / f"{variant}.yaml"
+        config.write_text(yaml.safe_dump({
+            "training": {
+                "output_dir": str(out), "clini_table": str(root / "clini.csv"), "slide_table": str(root / "slide.csv"),
+                "feature_dir": str(root / "features"), "ground_truth_label": "label", "task": "classification",
+            },
+            "advanced_config": {
+                "bag_size": None, "max_epochs": TRAIN_EPOCHS, "seed": 0, "accelerator": "cuda", "num_workers": 4,
+                "model_params": {"vit": {"use_alibi": use_alibi}},
+            },
+        }))  # fmt: skip
+        for name in _COUNTERS:
+            setattr(attn, name, 0)
+        t0 = time.perf_counter()
+        main(["-c", str(config), "--profile", "train"])  # exits non-zero on failure
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(attn, name) for name in _COUNTERS}
+        step_s = profiling.timer.seconds["train/step"]
+
+        metrics = pd.read_csv(out / "lightning_logs/version_0/metrics.csv")
+        columns = ["validation_loss", "validation_auroc", "training_loss", "epoch", "step", "learning_rate"]
+        if list(metrics.columns) != columns or len(metrics) != TRAIN_EPOCHS:
+            _fail(f"{variant}: metrics.csv has {list(metrics.columns)} × {len(metrics)}, expected {columns} × {TRAIN_EPOCHS}")
+        if not np.isfinite(metrics[["validation_loss", "training_loss", "learning_rate"]].to_numpy()).all():
+            _fail(f"{variant}: losses or learning rates are not finite: {metrics.to_dict('list')}")
+        steps = int(metrics["step"].iloc[-1])
+        bwd = "FLASH_ALIBI_MHA_BWD_LAUNCHES" if use_alibi else "FLASH_MHA_BWD_LAUNCHES"
+        expected = {name: 0 for name in _COUNTERS if "BWD" in name or "DIST" in name}
+        expected[bwd] = MIL_LAYERS * steps
+        if use_alibi:
+            expected["DIST_WEIGHTED_SUM_LAUNCHES"] = MIL_LAYERS * steps
+        if {name: launches[name] for name in expected} != expected:
+            _fail(f"{variant}: backward launches {launches}, expected {expected} ({MIL_LAYERS} layers × {steps} steps)")
+        model, variables = load_model_from_ckpt(out / "model.ckpt")
+        row = dict(variant=variant, steps=steps, launches=launches, wall_s=wall, train_step_s=step_s,
+                   steps_per_s=steps / step_s, metrics=metrics.to_dict("list"))  # fmt: skip
+        print(f"[7 train] {json.dumps(row)} on {card}")
+        result["runs"][variant] = row
+
+        # one whole-slide step per T on the kernel path (timed), and at
+        # T = 8,193 against the plain path, from the trainer's initial
+        # weights (seed 0, where the TF32 products decide the margin) and
+        # from the trained ones (a confident model: small gradients)
+        module = model.module
+        vit.init_random_weights_(module, torch.Generator().manual_seed(0))
+        initial = {k: t.to(dev, copy=True) for k, t in module.state_dict().items()}
+        module.load_state_dict(vit.variables_from_jax(variables))
+        module.to(dev)
+        start = {k: t.clone() for k, t in module.state_dict().items()}
+        weights = torch.tensor(model.class_weights, device=dev)
+        for n in (TRAIN_TILES[0], TRAIN_TILES[4], TRAIN_TILES[-1]):
+            i = TRAIN_TILES.index(n)
+            bags, coords, key_mask = _whole_bag(root / "features" / f"pat{i:02d}.h5", dev)
+            bucket = bags.shape[1]
+            targets = torch.tensor([[1.0, 0.0] if i % 2 else [0.0, 1.0]], device=dev)
+            batch = (bags, coords, key_mask, targets, weights)
+            times = []
+            for _ in range(4):  # the first call warms up
+                module.load_state_dict(start)
+                t1 = time.perf_counter()
+                _training_step(module, batch)
+                times.append((time.perf_counter() - t1) * 1e3)
+            step_row = dict(variant=variant, tiles=n, seq_len=bucket + 1, step_ms=statistics.median(times[1:]))
+            if bucket + 1 == 8193:
+                for weights_from, state in (("initial", initial), ("trained", start)):
+                    check = _step_against_plain(module, state, batch)
+                    step_row[weights_from] = check
+                    if not (check["loss_rel_err"] <= STEP_LOSS_TOL and check["max_grad_rel_err"] <= STEP_GRAD_TOL):
+                        _fail(f"{variant} step at T = 8193 from the {weights_from} weights: kernel against plain path {check}")
+            if bucket + 1 == 16385:
+                module.load_state_dict(start)
+                _profile_step(card, variant, lambda: _training_step(module, batch))
+            print(f"[7 train] {json.dumps(step_row)} on {card}")
+            result.setdefault("steps", []).append(step_row)
+            del bags, coords
+            torch.cuda.empty_cache()
+        module.to("cpu")
+
+    # the two trained checkpoints deploy as an ensemble on the cohort
+    config = root / "deploy.yaml"
+    config.write_text(yaml.safe_dump({"deployment": {
+        "output_dir": str(root / "deploy"), "checkpoint_paths": [str(root / v / "model.ckpt") for v in ("vit", "alibi")],
+        "clini_table": str(root / "clini.csv"), "slide_table": str(root / "slide.csv"),
+        "feature_dir": str(root / "features"), "ground_truth_label": "label", "accelerator": "cuda",
+    }}))  # fmt: skip
+    main(["-c", str(config), "deploy"])
+    preds = pd.read_csv(root / "deploy" / "patient-preds_95_confidence_interval.csv")
+    probs = preds[["label_neg", "label_pos"]].to_numpy()
+    if len(preds) != len(TRAIN_TILES) or not np.isfinite(probs).all():
+        _fail(f"deploy of the trained checkpoints: {len(preds)} rows, finite {np.isfinite(probs).all()}")
+    print(f"[7 train] trained checkpoints deployed on {len(preds)} patients on {card}")
+    return result
+
+
+def _profile_step(card: str, variant: str, fn) -> None:
+    """Device time by kernel of one training step (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    rows = [dict(kernel=e.key[:60], calls=e.count, device_ms=e.device_time_total / 1e3) for e in top]
+    print(
+        f"[7 train] profile {variant} step at T = 16385: wall {wall_ms:.3f} ms (profiled), device busy "
+        f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); top kernels {json.dumps(rows)} on {card}"
+    )
+
+
+def phase_crossval(card: str) -> dict:
+    import numpy as np
+    import pandas as pd
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
+    from stamp_tpu_torch.models import vision_transformer as vit
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    root = WORK / "train"  # phase 7's cohort
+    out = root / "crossval"
+    config = root / "crossval.yaml"
+    # six training patients a fold in batches of 2: 3 steps an epoch, 6 in
+    # all (the one-cycle schedule is NaN below 4 steps, as in optax)
+    config.write_text(yaml.safe_dump({
+        "crossval": {
+            "output_dir": str(out), "clini_table": str(root / "clini.csv"), "slide_table": str(root / "slide.csv"),
+            "feature_dir": str(root / "features"), "ground_truth_label": "label", "task": "classification",
+            "n_splits": 2,
+        },
+        "advanced_config": {
+            "max_epochs": CROSSVAL_EPOCHS, "batch_size": 2, "seed": 0, "accelerator": "cuda", "num_workers": 4,
+            "model_params": {"vit": {"use_alibi": True}},
+        },
+    }))  # fmt: skip
+    for name in _COUNTERS:
+        setattr(attn, name, 0)
+    t0 = time.perf_counter()
+    main(["-c", str(config), "crossval"])  # exits non-zero on failure
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(attn, name) for name in _COUNTERS}
+    folds = []
+    for fold in range(2):
+        split = out / f"split-{fold}"
+        if not (split / "model.ckpt").is_file() or not (split / "patient-preds.csv").is_file():
+            _fail(f"crossval: {split} lacks model.ckpt or patient-preds.csv")
+        metrics = pd.read_csv(split / "lightning_logs/version_0/metrics.csv")
+        logged = metrics[["validation_loss", "training_loss", "learning_rate"]].to_numpy()
+        if len(metrics) != CROSSVAL_EPOCHS or not np.isfinite(logged).all():
+            _fail(f"crossval: {split} metrics.csv not finite over {CROSSVAL_EPOCHS} epochs: {metrics.to_dict('list')}")
+        preds = pd.read_csv(split / "patient-preds.csv")
+        probs = preds[["label_neg", "label_pos"]].to_numpy()
+        if not np.isfinite(probs).all() or not np.allclose(probs.sum(axis=1), 1.0, atol=1e-5):
+            _fail(f"crossval: {split} probabilities not finite or not summing to 1: {probs}")
+        folds.append(dict(patients=len(preds), metrics=metrics.to_dict("list")))
+    if sum(f["patients"] for f in folds) != len(TRAIN_TILES):
+        _fail(f"crossval: fold predictions cover {folds} patients, expected {len(TRAIN_TILES)} in all")
+    # training at 512 tiles stays on the einsum path; validation (every
+    # epoch) and the fold exports run every held-out bag (T ≥ 4,097)
+    # through the kernels
+    expected = MIL_LAYERS * len(TRAIN_TILES) * (CROSSVAL_EPOCHS + 1)
+    if launches["FLASH_ALIBI_MHA_LAUNCHES"] != expected or launches["FLASH_ALIBI_MHA_BWD_LAUNCHES"]:
+        _fail(f"crossval: launches {launches}, expected {expected} forward, no backward")
+
+    # fold 0's exported probabilities against its checkpoint on the kernel
+    # path and on the plain path
+    dev = torch.device("cuda:0")
+    task_model, variables = load_model_from_ckpt(out / "split-0" / "model.ckpt")
+    module = task_model.module
+    module.load_state_dict(vit.variables_from_jax(variables))
+    module.to(dev).eval()
+    written = pd.read_csv(out / "split-0" / "patient-preds.csv").set_index("PATIENT")
+    max_diff = 0.0
+    for patient in written.index:
+        bags, coords, key_mask = _whole_bag(root / "features" / f"{patient}.h5", dev)
+        probs, _ = _forward_probs(module, bags, coords, key_mask)
+        plain, _ = _forward_probs(module, bags, coords, key_mask, plain=True)
+        csv = written.loc[patient, ["label_neg", "label_pos"]].to_numpy(float)
+        if not np.abs(probs - csv).max() <= 1e-5:
+            _fail(f"crossval: {patient}'s kernel-path probabilities {probs} differ from split-0's CSV {csv}")
+        max_diff = max(max_diff, float(np.abs(probs - plain).max()))
+        del bags, coords
+    if not max_diff <= PROB_TOL:
+        _fail(f"crossval: fold 0's export, kernel path against plain path {max_diff} > {PROB_TOL}")
+    module.to("cpu")
+    torch.cuda.empty_cache()
+    row = dict(folds=folds, launches=launches, wall_s=wall, fold0_prob_max_abs_diff=max_diff)
+    print(f"[8 crossval] {json.dumps(row)} on {card}")
+    return row
 
 
 def _timed_phase(name: str, fn, *args):
@@ -704,9 +1206,12 @@ def main() -> None:
     _timed_phase("2 build", phase_build)
     kernels = _timed_phase("3 kernels", phase_kernels, card)
     flash = _timed_phase("3b flash", phase_flash_kernels, card)
+    backward = _timed_phase("3c backward", phase_flash_backward, card)
     main_path = _timed_phase("4 main path", phase_main_path, card)
     _timed_phase("5 whole model", phase_whole_model, card)
     deploy = _timed_phase("6 deploy", phase_deploy, card)
+    trained = _timed_phase("7 train", phase_train, card)
+    _timed_phase("8 crossval", phase_crossval, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
@@ -721,6 +1226,12 @@ def main() -> None:
         for r in ln_rows
     ]
     flash_rows = {name: next(r for r in rows if r["shape"][1] == 16385) for name, rows in flash.items()}
+    bwd_rows = {name: next(r for r in rows if r["shape"][1] == 16385) for name, rows in backward.items()}
+    train_launches = {  # phase 7: the vit run for flash_mha's backward, the ALiBi run for the rest
+        "flash_mha_bwd": trained["runs"]["vit"]["launches"]["FLASH_MHA_BWD_LAUNCHES"],
+        "flash_alibi_mha_bwd": trained["runs"]["alibi"]["launches"]["FLASH_ALIBI_MHA_BWD_LAUNCHES"],
+        "dist_weighted_sum": trained["runs"]["alibi"]["launches"]["DIST_WEIGHTED_SUM_LAUNCHES"],
+    }
     summary = {"kernels": [
         {
             "name": "fused_qkv_mha",
@@ -765,6 +1276,26 @@ def main() -> None:
             for name, replaces in (
                 ("flash_mha", "stamp_tpu/ops/flash_attention.py:307"),
                 ("flash_alibi_mha", "stamp_tpu/ops/flash_attention.py:950"),
+            )
+        ),
+        *(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "stamp_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                "replaces": replaces,
+                "launches": train_launches[name],
+                "max_abs_err": max(r["max_abs_err"] for r in backward[name]),
+                "ms": bwd_rows[name]["ms"],  # [8, 16385, 64], 40% of keys masked
+                "plain_ms": bwd_rows[name]["plain_ms"],
+                "bound_ms": bwd_rows[name]["bound_ms"],
+                "bound_by": bwd_rows[name]["bound_by"],
+                "library_ms": bwd_rows[name]["library_ms"],
+            }
+            for name, replaces in (
+                ("flash_mha_bwd", "stamp_tpu/ops/flash_attention.py:236"),
+                ("flash_alibi_mha_bwd", "stamp_tpu/ops/flash_attention.py:867"),
+                ("dist_weighted_sum", "stamp_tpu/ops/flash_attention.py:702"),
             )
         ),
     ]}

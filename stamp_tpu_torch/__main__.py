@@ -3,8 +3,11 @@
 The argument surface and the YAML schema (``StampConfig``, the port's copy
 of ``stamp_tpu/utils/config.py``) are those of ``python -m stamp_tpu``.
 Ported so far: ``init``, ``config``, ``preprocess`` (the ImageViT
-extractors) and ``deploy`` (tile-level ViT checkpoints); every other
-subcommand exits non-zero and names the JAX package's command.
+extractors), ``train`` and ``crossval`` (the tile-level ``vit`` backbone)
+and ``deploy`` (tile-level ViT checkpoints); every other subcommand exits
+non-zero and names the JAX package's command.  As in the JAX CLI,
+``advanced_config.seed`` seeds the run (``utils.seed.Seed``) before any
+command runs.
 """
 
 from __future__ import annotations
@@ -107,8 +110,35 @@ def _run_deploy(section) -> None:
     )
 
 
-# command → (config section, runner)
-_RUNNERS = {"preprocess": ("preprocessing", _run_preprocess), "deploy": ("deployment", _run_deploy)}
+def _run_train(config, section) -> None:
+    from stamp_tpu_torch.modeling.train import train_categorical_model_
+    from stamp_tpu_torch.utils.device import resolve_device
+
+    if section.task is None:
+        raise ValueError("task must be set in training configuration")
+    advanced = config.advanced_config
+    train_categorical_model_(config=section, advanced=advanced, device=resolve_device(advanced.accelerator))
+
+
+def _run_crossval(config, section) -> None:
+    from stamp_tpu_torch.modeling.crossval import categorical_crossval_
+    from stamp_tpu_torch.utils.device import resolve_device
+
+    if section.task is None:
+        raise ValueError("task must be set in crossval configuration")
+    advanced = config.advanced_config
+    categorical_crossval_(config=section, advanced=advanced, device=resolve_device(advanced.accelerator))
+
+
+# command → (config section, runner(config, section))
+_RUNNERS = {
+    "preprocess": ("preprocessing", lambda config, section: _run_preprocess(section)),
+    "train": ("training", _run_train),
+    "crossval": ("crossval", _run_crossval),
+    "deploy": ("deployment", lambda config, section: _run_deploy(section)),
+}
+# commands that take advanced_config (a default one when the YAML has none)
+_NEEDS_ADVANCED = {"train", "crossval"}
 _PORTED = {"init", "config", *_RUNNERS}
 
 
@@ -128,11 +158,17 @@ def _run_cli(args: argparse.Namespace) -> None:
             _logger.info(f"Created new config file at {args.config_file_path.absolute()}")
         return
 
+    from stamp_tpu_torch.modeling.config import AdvancedConfig, MlpModelParams, ModelParams, VitModelParams
     from stamp_tpu_torch.utils import profiling
     from stamp_tpu_torch.utils.config import StampConfig
+    from stamp_tpu_torch.utils.seed import Seed
 
     with open(args.config_file_path) as config_yaml:
         config = StampConfig.model_validate(yaml.safe_load(config_yaml))
+    if args.command in _NEEDS_ADVANCED and config.advanced_config is None:
+        config.advanced_config = AdvancedConfig(model_params=ModelParams(vit=VitModelParams(), mlp=MlpModelParams()))
+    if config.advanced_config is not None and config.advanced_config.seed is not None:
+        Seed.set(config.advanced_config.seed)
     if args.command == "config":
         print(yaml.dump(config.model_dump(mode="json", exclude_none=True)))
         return
@@ -150,7 +186,7 @@ def _run_cli(args: argparse.Namespace) -> None:
         profiling.timer.enabled = True
         profiling.timer.reset()
     try:
-        run(section)
+        run(config, section)
     finally:
         if args.profile:
             _logger.info("profile — per-stage wall time:\n" + profiling.timer.report())

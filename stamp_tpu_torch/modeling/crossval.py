@@ -1,0 +1,287 @@
+"""K-fold cross-validation with ``splits.json`` resumability.
+
+Counterpart of ``stamp_tpu/modeling/crossval.py:48-449`` for tile-level
+features: the same ``splits.json`` schema (files interchange with the JAX
+package and the reference), the same folds (``modeling.splits.KFold`` for
+regression, ``StratifiedKFold`` on the class or the survival status
+otherwise, ``shuffle=True, random_state=0``: scikit-learn's indices
+without scikit-learn), an atomic write of the splits file, one category
+inventory for every fold, folds skipped when their ``patient-preds.csv``
+exists and re-exported from ``model.ckpt`` when only that exists, and each
+fold trained on the other folds with the held-out fold as its early-stop
+validation set.  The held-out predictions go through the port's deploy
+path.  Folds run one after another in one process (the JAX package's
+fleet partition of folds is parallel training, not ported).
+"""
+
+from __future__ import annotations
+
+import logging
+from collections.abc import Mapping, Sequence
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+from pydantic import BaseModel
+
+from stamp_tpu_torch.modeling.config import AdvancedConfig, CrossvalConfig
+from stamp_tpu_torch.modeling.data import (
+    BatchIterator,
+    PatientData,
+    _not_ported,
+    create_dataset,
+    load_patient_data_,
+    log_patient_class_summary,
+)
+from stamp_tpu_torch.modeling.deploy import (
+    _predict_impl,
+    _to_prediction_df,
+    _to_regression_prediction_df,
+    _to_survival_prediction_df,
+    load_model_from_ckpt,
+)
+from stamp_tpu_torch.modeling.splits import KFold, StratifiedKFold
+from stamp_tpu_torch.modeling.train import setup_model_from_dataloaders, train_model_
+from stamp_tpu_torch.modeling.transforms import VaryPrecisionTransform
+from stamp_tpu_torch.types import GroundTruth, PatientId
+
+_logger = logging.getLogger("stamp")
+
+
+class _Split(BaseModel):
+    train_patients: set[PatientId]
+    test_patients: set[PatientId]
+
+
+class _Splits(BaseModel):
+    splits: Sequence[_Split]
+
+
+def _stratification_labels(task: str | None, patients: Sequence[PatientData]) -> np.ndarray | None:
+    """What StratifiedKFold stratifies on: the class for classification, the
+    event status for survival, nothing for regression."""
+    if task == "classification":
+        return np.array([p.ground_truth for p in patients])
+    if task == "survival":
+        statuses = []
+        for p in patients:
+            gt = p.ground_truth
+            status = gt[1] if isinstance(gt, (tuple, list)) and len(gt) == 2 else gt
+            statuses.append(int(status) if status is not None else 0)
+        return np.array(statuses)
+    return None
+
+
+def _generate_splits(patient_to_data: Mapping[PatientId, PatientData], *, n_splits: int, task: str | None) -> _Splits:
+    """The reference's folds (crossval.py:373-426): the same splitter,
+    shuffle=True, random_state=0."""
+    splitter_cls = KFold if task == "regression" else StratifiedKFold
+    _logger.info(f"Using {splitter_cls.__name__} for cross-validation splits")
+    ids = np.array(list(patient_to_data.keys()))
+    strat = _stratification_labels(task, list(patient_to_data.values()))
+    splitter = splitter_cls(n_splits=n_splits, shuffle=True, random_state=0)
+    fold_iter = splitter.split(ids) if strat is None else splitter.split(ids, strat)
+    return _Splits(
+        splits=[_Split(train_patients=set(ids[tr]), test_patients=set(ids[te])) for tr, te in fold_iter]
+    )
+
+
+def _load_or_create_splits(
+    splits_file: Path, patient_to_data: Mapping[PatientId, PatientData], *, n_splits: int, task: str | None
+) -> _Splits:
+    if splits_file.exists():
+        _logger.debug(f"reading splits from {splits_file}")
+        splits = _Splits.model_validate_json(splits_file.read_text())
+    else:
+        splits = _generate_splits(patient_to_data, n_splits=n_splits, task=task)
+        # atomic write: a reader never sees a half-written file
+        tmp = splits_file.with_suffix(".json.tmp")
+        tmp.write_text(splits.model_dump_json(indent=4))
+        tmp.rename(splits_file)
+
+    covered = {pid for split in splits.splits for pid in (*split.train_patients, *split.test_patients)}
+    if unknown := covered - patient_to_data.keys():
+        raise RuntimeError(
+            "The splits file contains some patients we don't have information "
+            f"for in the clini / slide table: {unknown}"
+        )
+    if uncovered := patient_to_data.keys() - covered:
+        _logger.warning(f"Some of the entries in the clini / slide table are not in the crossval split: {uncovered}")
+    return splits
+
+
+def _single_target_categories(patient_to_data: Mapping[PatientId, PatientData]) -> list[GroundTruth]:
+    return sorted({p.ground_truth for p in patient_to_data.values() if p.ground_truth is not None})
+
+
+def _fit_fold(
+    *,
+    split: _Split,
+    split_dir: Path,
+    patient_to_data: Mapping[PatientId, PatientData],
+    feature_type: str,
+    categories: Sequence[GroundTruth] | None,
+    config: CrossvalConfig,
+    advanced: AdvancedConfig,
+    device: torch.device,
+) -> tuple[Any, Any]:
+    """Train this fold's model (the held-out fold is the early-stop
+    validation set)."""
+    train_ids = [pid for pid in split.train_patients if pid in patient_to_data]
+    test_ids = [pid for pid in split.test_patients if pid in patient_to_data]
+    transform = VaryPrecisionTransform(min_fraction_bits=1) if config.use_vary_precision_transform else None
+    train_ds, train_categories = create_dataset(
+        feature_type=feature_type,
+        task=config.task,
+        patient_data=[patient_to_data[pid] for pid in train_ids],
+        bag_size=advanced.bag_size,
+        shuffle=True,
+        transform=transform,
+        categories=categories,
+    )
+    test_ds, _ = create_dataset(
+        feature_type=feature_type,
+        task=config.task,
+        patient_data=[patient_to_data[pid] for pid in test_ids],
+        bag_size=None,
+        shuffle=False,
+        categories=train_categories,
+    )
+    train_dl = BatchIterator(train_ds, batch_size=advanced.batch_size, shuffle=True)
+    test_dl = BatchIterator(test_ds, batch_size=1, shuffle=False)
+    model = setup_model_from_dataloaders(
+        train_dl=train_dl,
+        task=config.task,
+        train_categories=train_categories,
+        dim_feats=int(train_ds[0][0].shape[-1]),
+        train_patients=train_ids,
+        valid_patients=test_ids,
+        feature_type=feature_type,
+        advanced=advanced,
+        ground_truth_label=config.ground_truth_label,
+        time_label=config.time_label,
+        status_label=config.status_label,
+        clini_table=config.clini_table,
+        slide_table=config.slide_table,
+        feature_dir=config.feature_dir,
+    )
+    return train_model_(
+        output_dir=split_dir,
+        model=model,
+        train_dl=train_dl,
+        valid_dl=test_dl,
+        max_epochs=advanced.max_epochs,
+        patience=advanced.patience,
+        device=device,
+        pad_train_buckets=advanced.bag_size is None,
+    )
+
+
+def _export_fold_predictions(
+    *,
+    split: _Split,
+    split_dir: Path,
+    model: Any,
+    variables: Any,
+    patient_to_data: Mapping[PatientId, PatientData],
+    feature_type: str,
+    categories: Sequence[GroundTruth] | None,
+    config: CrossvalConfig,
+    device: torch.device,
+) -> None:
+    """Held-out-fold predictions → ``split-i/patient-preds.csv``."""
+    test_ids = [pid for pid in split.test_patients if pid in patient_to_data]
+    test_ds, _ = create_dataset(
+        feature_type=feature_type,
+        task=config.task,
+        patient_data=[patient_to_data[pid] for pid in test_ids],
+        bag_size=None,
+        shuffle=False,
+        categories=categories,
+    )
+    predictions = _predict_impl(
+        model=model,
+        variables=variables,
+        test_dl=BatchIterator(test_ds, batch_size=1, shuffle=False),
+        patient_ids=test_ids,
+        device=device,
+    )
+    if config.task in ("regression", "classification") and config.ground_truth_label is None:
+        raise RuntimeError(f"Ground truth label is required for {config.task}")
+    builder = {
+        "classification": _to_prediction_df,
+        "regression": _to_regression_prediction_df,
+        "survival": _to_survival_prediction_df,
+    }[config.task]
+    builder(
+        categories=list(categories or []),
+        patient_to_ground_truth={pid: p.ground_truth for pid, p in patient_to_data.items()},
+        predictions=predictions,
+        patient_label=config.patient_label,
+        ground_truth_label=config.ground_truth_label,
+        cut_off=model.hparams.get("train_pred_median", None),
+    ).to_csv(split_dir / "patient-preds.csv", index=False)
+
+
+def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, device: torch.device) -> None:
+    """``stamp crossval`` (reference crossval.py:338-449)."""
+    if config.task is None:
+        raise ValueError("task must be set to 'classification' | 'regression' | 'survival'")
+    if advanced.mesh_shape:
+        raise _not_ported("sharded training (mesh_shape)", "crossval")
+    patient_to_data, feature_type = load_patient_data_(
+        feature_dir=config.feature_dir,
+        clini_table=config.clini_table,
+        slide_table=config.slide_table,
+        task=config.task,
+        ground_truth_label=config.ground_truth_label,
+        time_label=config.time_label,
+        status_label=config.status_label,
+        patient_label=config.patient_label,
+        filename_label=config.filename_label,
+        drop_patients_with_missing_ground_truth=config.drop_patients_with_missing_ground_truth,
+        command="crossval",
+    )
+    _logger.info(f"Detected feature type: {feature_type}")
+
+    config.output_dir.mkdir(parents=True, exist_ok=True)
+    splits = _load_or_create_splits(
+        config.output_dir / "splits.json", patient_to_data, n_splits=config.n_splits, task=config.task
+    )
+
+    # one category inventory for every fold, so heads and CSVs line up
+    categories: Sequence[GroundTruth] = []
+    if config.task == "classification":
+        categories = config.categories or _single_target_categories(patient_to_data)
+        log_patient_class_summary(patient_to_data=patient_to_data)
+
+    for split_i, split in enumerate(splits.splits):
+        split_dir = config.output_dir / f"split-{split_i}"
+        if (split_dir / "patient-preds.csv").exists():
+            _logger.info(f"skipping training for split {split_i}, as a model checkpoint is already present")
+            continue
+        if (split_dir / "model.ckpt").exists():
+            model, variables = load_model_from_ckpt(split_dir / "model.ckpt")
+        else:
+            model, variables = _fit_fold(
+                split=split,
+                split_dir=split_dir,
+                patient_to_data=patient_to_data,
+                feature_type=feature_type,
+                categories=categories,
+                config=config,
+                advanced=advanced,
+                device=device,
+            )
+        _export_fold_predictions(
+            split=split,
+            split_dir=split_dir,
+            model=model,
+            variables=variables,
+            patient_to_data=patient_to_data,
+            feature_type=feature_type,
+            categories=categories,
+            config=config,
+            device=device,
+        )

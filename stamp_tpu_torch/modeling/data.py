@@ -1,25 +1,33 @@
-"""Data layer of the deploy path: tables, patient assembly, whole-slide bags.
+"""Data layer of the train, crossval and deploy paths on tile-level features.
 
-Counterpart of the parts of ``stamp_tpu.modeling.data`` that ``stamp
-deploy`` reaches on tile-level features (``stamp_tpu/modeling/data.py:77-1025``):
-clini/slide-table parsing with the same column, missing-value and
-survival-status rules, the patient ↔ feature-file assembly, the tile-level
-``BagDataset`` with ``bag_size=None`` (the whole slide, every tile of every
-slide of a patient), ``create_dataset`` and an in-order ``BatchIterator``.
-Batches are numpy: ``(bags [B, T, F], coords [B, T, 2], bag_sizes [B],
-targets)``.
+Counterpart of ``stamp_tpu.modeling.data`` (``stamp_tpu/modeling/data.py:
+77-1025``) for tile-level features: clini/slide-table parsing with the same
+column, missing-value and survival-status rules, the patient ↔ feature-file
+assembly (``load_patient_data_``), the tile-level ``BagDataset`` (every
+tile of every slide of a patient, or a bag of ``bag_size`` tiles sampled
+with ``rng.permutation``, equidistant when deterministic, zero-padded when
+short), ``create_dataset`` and ``BatchIterator`` (epoch shuffling, per-item
+bag seeds drawn up front, a thread pool for ``num_workers > 1``).  Batches
+are numpy: ``(bags [B, T, F], coords [B, T, 2], bag_sizes [B], targets)``.
+
+The random draws are the JAX package's, in its order, from the same
+``Seed.numpy_rng()``: an iterator draws the epoch permutation (when it
+shuffles), then one seed per item, and each item samples its bag from
+``np.random.default_rng(seed)``; a dataset item fetched directly draws from
+the shared generator.  So both packages sample the same bags from one seed.
 
 Feature files are read by ``stamp_tpu_torch.io.h5.read_feats`` (the port's
-own layout without h5py, any other through h5py).  Not ported yet: bag
-sampling and shuffling (training), file-like tables, slide/patient-level
-features and multi-target ground truths; the last two raise
-``NotImplementedError``.
+own layout without h5py, any other through h5py).  Not ported yet:
+file-like tables, slide/patient-level features and multi-target ground
+truths; the last two raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import logging
+from collections import deque
 from collections.abc import Callable, Iterable, Iterator, Mapping, Sequence
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import KW_ONLY, dataclass
 from pathlib import Path
 from typing import Any, Generic, cast
@@ -27,7 +35,7 @@ from typing import Any, Generic, cast
 import numpy as np
 import pandas as pd
 
-from stamp_tpu_torch.io.h5 import read_feats
+from stamp_tpu_torch.io.h5 import detect_feature_type, read_feats
 from stamp_tpu_torch.types import (
     Category,
     FeaturePath,
@@ -36,12 +44,14 @@ from stamp_tpu_torch.types import (
     PatientId,
     Task,
 )
+from stamp_tpu_torch.utils.seed import Seed
 
 __all__ = [
     "PatientData",
     "BagDataset",
     "BatchIterator",
     "create_dataset",
+    "load_patient_data_",
     "read_table",
     "filter_complete_patient_data_",
     "slide_to_patient_from_slide_table_",
@@ -50,8 +60,8 @@ __all__ = [
 _logger = logging.getLogger("stamp")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; run `python -m stamp_tpu deploy`")
+def _not_ported(what: str, command: str = "deploy") -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; run `python -m stamp_tpu {command}`")
 
 
 @dataclass
@@ -275,6 +285,62 @@ def _clini_ground_truths(
     )
 
 
+def load_patient_data_(
+    *,
+    clini_table: Path,
+    slide_table: Path | None,
+    feature_dir: Path,
+    patient_label: PandasLabel,
+    filename_label: PandasLabel,
+    task: Task,
+    ground_truth_label: PandasLabel | Sequence[PandasLabel] | None,
+    time_label: PandasLabel | None,
+    status_label: PandasLabel | None,
+    drop_patients_with_missing_ground_truth: bool = True,
+    command: str = "train",
+) -> tuple[Mapping[PatientId, PatientData], str]:
+    """The training cohort: {patient: (ground truth, feature files)} and the
+    feature level, detected from the h5 attributes (reference
+    data.py:1204-1294).  Tile-level features only; ``command`` names the
+    JAX package's command in the error for the others."""
+    feature_type = detect_feature_type(feature_dir)
+    if feature_type != "tile":
+        raise _not_ported(f"training on {feature_type}-level features", command)
+    if not isinstance(ground_truth_label, str) and ground_truth_label is not None:
+        raise _not_ported("multi-target training", command)
+    if slide_table is None:
+        raise ValueError("A slide table is required for tile/slide-level features")
+    patient_to_data = filter_complete_patient_data_(
+        patient_to_ground_truth=_clini_ground_truths(
+            task=task,
+            clini_table=clini_table,
+            patient_label=patient_label,
+            ground_truth_label=ground_truth_label,
+            time_label=time_label,
+            status_label=status_label,
+        ),
+        slide_to_patient=slide_to_patient_from_slide_table_(
+            slide_table_path=slide_table,
+            feature_dir=feature_dir,
+            patient_label=patient_label,
+            filename_label=filename_label,
+        ),
+        drop_patients_with_missing_ground_truth=drop_patients_with_missing_ground_truth,
+    )
+    return patient_to_data, feature_type
+
+
+def log_patient_class_summary(*, patient_to_data: Mapping[PatientId, PatientData]) -> None:
+    """Log the cohort's class distribution (reference data.py:1297-1339)."""
+    from collections import Counter
+
+    ground_truths = [gt for p in patient_to_data.values() if (gt := p.ground_truth) is not None]
+    if not ground_truths:
+        _logger.warning("No ground truths available for summary.")
+        return
+    _logger.info(f"Class distribution: {dict(Counter(ground_truths))}")
+
+
 # ---------------------------------------------------------------------------
 # Target encoding (reference data.py:146-252)
 # ---------------------------------------------------------------------------
@@ -331,15 +397,45 @@ def _parse_targets(
 # ---------------------------------------------------------------------------
 
 
+def _to_fixed_size_bag(
+    bag: np.ndarray,
+    coords: np.ndarray,
+    bag_size: int,
+    *,
+    deterministic: bool,
+    rng: np.random.Generator,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """A bag of ``bag_size`` tiles (reference data.py:811-862): a random
+    subset (``rng.permutation``), equidistant indices when deterministic,
+    and zero rows after the tiles of a smaller bag."""
+    n_tiles = bag.shape[0]
+    if n_tiles <= bag_size:
+        bag_idxs = np.arange(n_tiles)
+    elif deterministic:
+        bag_idxs = np.round(np.linspace(0, n_tiles - 1, num=bag_size)).astype(np.int64)
+    else:
+        bag_idxs = rng.permutation(n_tiles)[:bag_size]
+
+    bag_samples = bag[bag_idxs]
+    coord_samples = coords[bag_idxs]
+    if (pad := bag_size - bag_samples.shape[0]) > 0:
+        bag_samples = np.concatenate([bag_samples, np.zeros((pad, bag_samples.shape[1]), dtype=bag.dtype)])
+        coord_samples = np.concatenate([coord_samples, np.zeros((pad, coord_samples.shape[1]), dtype=coords.dtype)])
+    return bag_samples, coord_samples, min(bag_size, n_tiles)
+
+
 @dataclass
 class BagDataset:
-    """Whole-slide bags from ``.h5`` feature files: every tile of every
-    slide of a patient, in file order (reference data.py:532-655 with
-    ``bag_size=None``)."""
+    """Bags from ``.h5`` feature files: every tile of every slide of a
+    patient, in file order, or with ``bag_size`` a fixed-size sample of them
+    (reference data.py:532-655)."""
 
     _: KW_ONLY
     bags: Sequence[Iterable[FeaturePath]]
     ground_truths: np.ndarray
+    bag_size: int | None = None
+    transform: Callable[[np.ndarray], np.ndarray] | None = None
+    deterministic: bool = False
 
     def __post_init__(self) -> None:
         if len(self.bags) != len(self.ground_truths):
@@ -348,11 +444,26 @@ class BagDataset:
     def __len__(self) -> int:
         return len(self.bags)
 
-    def __getitem__(self, index: int) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+    def __getitem__(
+        self, index: int, rng: np.random.Generator | None = None
+    ) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+        """``rng`` overrides the shared ``Seed.numpy_rng()`` for the bag
+        draw (the iterator passes a per-item generator)."""
         bag = [read_feats(bag_file) for bag_file in self.bags[index]]
         feats = np.concatenate([feats for feats, _ in bag])
         coords_um = np.concatenate([info.coords_um for _, info in bag])
-        return feats, coords_um, len(feats), self.ground_truths[index]
+        if self.transform is not None:
+            feats = self.transform(feats)
+        if self.bag_size is None:
+            return feats, coords_um, len(feats), self.ground_truths[index]
+        bag_feats, bag_coords, size = _to_fixed_size_bag(
+            feats,
+            coords_um,
+            self.bag_size,
+            deterministic=self.deterministic,
+            rng=rng if rng is not None else Seed.numpy_rng(),
+        )
+        return bag_feats, bag_coords, size, self.ground_truths[index]
 
 
 def _stack_targets(targets: list[np.ndarray]) -> np.ndarray:
@@ -367,27 +478,85 @@ def _stack_targets(targets: list[np.ndarray]) -> np.ndarray:
     return np.stack(fixed)
 
 
+def _sliding_window_map(pool, fn, n: int, depth: int) -> Iterator:
+    """``map(fn, range(n))`` over a thread pool with at most ``depth`` items
+    in flight: ordered results, bounded memory."""
+    pending: deque = deque(pool.submit(fn, j) for j in range(min(depth, n)))
+    for j in range(n):
+        result = pending.popleft().result()
+        if (ahead := j + depth) < n:
+            pending.append(pool.submit(fn, ahead))
+        yield result
+
+
 class BatchIterator:
     """Yields ``(bags [B, T, F], coords [B, T, 2], bag_sizes [B], targets)``
-    numpy batches of a :class:`BagDataset` in order; the last batch may be
-    short.  Bags of one batch must have the same tile count (the deploy
-    path uses batches of one)."""
+    numpy batches of a :class:`BagDataset`; the last batch may be short
+    unless ``drop_last``.  Bags of one batch must have the same tile count
+    (fixed ``bag_size``, or batches of one).
 
-    def __init__(self, dataset: BagDataset, *, batch_size: int) -> None:
+    Each pass draws, from ``rng`` (``Seed.numpy_rng()`` by default), the
+    epoch order when ``shuffle`` and then one bag seed per item, before any
+    item is read, so the sampled bags do not depend on ``num_workers``.
+    ``num_workers > 1`` reads items on a thread pool (h5 reads and numpy
+    release the GIL) with a bounded look-ahead."""
+
+    def __init__(
+        self,
+        dataset: BagDataset,
+        *,
+        batch_size: int,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        rng: np.random.Generator | None = None,
+        num_workers: int = 1,
+    ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = rng
+        self.num_workers = max(1, num_workers)
+
+    @property
+    def rng(self) -> np.random.Generator:
+        if self._rng is None:
+            self._rng = Seed.numpy_rng()
+        return self._rng
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator:
-        for start in range(0, len(self.dataset), self.batch_size):
-            items = [self.dataset[i] for i in range(start, min(start + self.batch_size, len(self.dataset)))]
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            order = self.rng.permutation(order)
+        seeds = self.rng.integers(0, 2**63, size=len(order))
+        dataset = self.dataset
+
+        def fetch(j: int):
+            return dataset.__getitem__(int(order[j]), rng=np.random.default_rng(seeds[j]))
+
+        if self.num_workers > 1:
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                yield from self._batched(_sliding_window_map(pool, fetch, len(order), self.num_workers * 4), len(order))
+        else:
+            yield from self._batched(map(fetch, range(len(order))), len(order))
+
+    def _batched(self, items: Iterator, n_items: int) -> Iterator:
+        for start in range(0, n_items, self.batch_size):
+            count = min(self.batch_size, n_items - start)
+            if self.drop_last and count < self.batch_size:
+                return
+            batch = [next(items) for _ in range(count)]
             yield (
-                np.stack([it[0] for it in items]),
-                np.stack([it[1] for it in items]),
-                np.array([it[2] for it in items], dtype=np.int32),
-                _stack_targets([it[3] for it in items]),
+                np.stack([it[0] for it in batch]),
+                np.stack([it[1] for it in batch]),
+                np.array([it[2] for it in batch], dtype=np.int32),
+                _stack_targets([it[3] for it in batch]),
             )
 
 
@@ -396,12 +565,22 @@ def create_dataset(
     feature_type: str,
     task: Task,
     patient_data: Sequence[PatientData],
+    bag_size: int | None = None,
+    shuffle: bool = False,
+    transform: Callable[[np.ndarray], np.ndarray] | None = None,
     categories: Sequence[Category] | None = None,
 ) -> tuple[BagDataset, Sequence[Category]]:
-    """The tile-level whole-slide dataset and its categories (reference
-    data.py:321-421 for ``feature_type="tile"``, ``bag_size=None``)."""
+    """The tile-level dataset and its categories (reference data.py:321-421
+    for ``feature_type="tile"``); bags are sampled at random when
+    ``shuffle``, equidistantly otherwise."""
     if feature_type != "tile":
         raise _not_ported(f"deployment on {feature_type}-level features")
     targets, cats = _parse_targets(patient_data=patient_data, task=task, categories=categories)
-    ds = BagDataset(bags=[list(p.feature_files) for p in patient_data], ground_truths=targets)
+    ds = BagDataset(
+        bags=[list(p.feature_files) for p in patient_data],
+        ground_truths=targets,
+        bag_size=bag_size,
+        transform=transform,
+        deterministic=not shuffle,
+    )
     return ds, cats

@@ -22,14 +22,15 @@ class ModelName(StrEnum):
     BARSPOON = "barspoon"
 
 
-def load_model_class(task: Task, feature_type: str, model_name: ModelName):
-    """Returns (TaskModelClass, ModuleClass); imports deferred."""
+def load_model_class(task: Task, feature_type: str, model_name: ModelName, *, command: str = "deploy"):
+    """Returns (TaskModelClass, ModuleClass); imports deferred.  ``command``
+    is the JAX package's command the error names for what is not ported."""
     from stamp_tpu_torch.modeling import tasks
 
     if feature_type != "tile" or model_name != ModelName.VIT:
         raise NotImplementedError(
             f"the {model_name.value!s} backbone on {feature_type}-level features is not "
-            "ported yet; run `python -m stamp_tpu deploy`"
+            f"ported yet; run `python -m stamp_tpu {command}`"
         )
     from stamp_tpu_torch.models.vision_transformer import VisionTransformer
 

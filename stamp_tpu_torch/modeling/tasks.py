@@ -1,25 +1,96 @@
-"""Task wrappers around the backbones, forward side.
+"""Task wrappers around the backbones.
 
-Counterpart of the forward half of ``stamp_tpu.modeling.tasks``
-(``stamp_tpu/modeling/tasks.py:54-190``, ``:538-554``): the wrapper owns the
-hyper-parameter record a checkpoint stores, the version gate, the module it
-builds from those hyper-parameters and the output width of each task.  The
-tile-level classifier, regressor and survival wrappers are ported; losses,
-optimizers, validation metrics and the Cox losses wait for the training
-slice, and the slide/patient-level and multi-target wrappers raise.
+Counterpart of ``stamp_tpu.modeling.tasks`` (``stamp_tpu/modeling/tasks.py:
+36-412``, ``:538-554``) for the tile-level classifier, regressor and
+survival model: the hyper-parameter record a checkpoint stores, the version
+gate, the module built from those hyper-parameters, the per-task loss, the
+learning-rate schedule and optimizer, and the validation metrics.
+
+Loss semantics are the JAX package's, which are not PyTorch's defaults:
+  * classification: −mean over the batch of Σ_c w_c·t_c·log p_c
+    (``weighted_cross_entropy``), not ``F.cross_entropy(weight=…)``, which
+    divides by the summed weights of the targets;
+  * regression: L1;
+  * survival: the Efron-tied Cox negative partial log-likelihood
+    (``ops/cox.py``), validated by Harrell's C-index and the Breslow loss.
+The schedule is ``optax.cosine_onecycle_schedule`` (``cosine_onecycle_schedule``
+here, value for value), whose step boundaries differ from
+``torch.optim.lr_scheduler.OneCycleLR``; AdamW has optax's defaults and
+decays every parameter.  Slide/patient-level and multi-target wrappers are
+not ported (``registry.load_model_class`` raises).
 """
 
 from __future__ import annotations
 
-from collections.abc import Sequence
+import ctypes
+import ctypes.util
+import functools
+from collections.abc import Callable, Iterable, Sequence
 from typing import Any, ClassVar
 
 import numpy as np
+import torch
 from packaging.version import Version
 from torch import nn
 
 import stamp_tpu_torch
 from stamp_tpu_torch.modeling.checkpoint import check_version_compatibility
+from stamp_tpu_torch.ops.cox import cox_loss_breslow, neg_partial_log_likelihood
+
+
+def weighted_cross_entropy(
+    logits: torch.Tensor,  # [B, C]
+    targets: torch.Tensor,  # [B, C] soft / one-hot
+    weights: torch.Tensor | None,  # [C]
+) -> torch.Tensor:
+    """Mean over the batch of −Σ_c w_c·t_c·log p_c."""
+    logp = torch.log_softmax(logits, dim=-1)
+    if weights is not None:
+        logp = logp * weights[None, :]
+    return -torch.mean(torch.sum(targets * logp, dim=-1))
+
+
+@functools.cache
+def _cosf() -> Callable[[float], float]:
+    """The C library's single-precision cosine, which XLA's f32 cosine on
+    the CPU calls: numpy's and a rounded f64 cosine differ from it in the
+    last bit for some arguments."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).cosf
+    fn.argtypes = [ctypes.c_float]
+    fn.restype = ctypes.c_float
+    return fn
+
+
+def cosine_onecycle_schedule(
+    transition_steps: int,
+    peak_value: float,
+    pct_start: float = 0.3,
+    div_factor: float = 25.0,
+    final_div_factor: float = 1e4,
+) -> Callable[[int], float]:
+    """``optax.cosine_onecycle_schedule``, value for value: a cosine rise
+    from peak/div to peak over the first ``int(pct_start·T)`` steps, a
+    cosine fall to peak/(div·final_div) at step T, constant after.  The
+    arithmetic follows optax's types (f64 bounds and values, an f32 cosine
+    and interpolation); at T = 1 the first segment is empty and, as in optax,
+    every value is NaN."""
+    if transition_steps <= 0:
+        raise ValueError("A linear onecycle schedule was set with a non-positive `transition_steps`")
+    bounds = np.array([0, int(pct_start * transition_steps), int(transition_steps)])
+    values = np.cumprod([peak_value / div_factor, div_factor, 1.0 / (div_factor * final_div_factor)])
+    sizes = bounds[1:] - bounds[:-1]
+    half_span = ((values[:-1] - values[1:]) / 2.0).astype(np.float32)
+    ends = values[1:].astype(np.float32)
+
+    def schedule(count: int) -> float:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            pct = (count - bounds[:-1]) / sizes
+            cos = np.array([_cosf()(float(x)) for x in (np.pi * pct).astype(np.float32)], np.float32)
+            interp = ends + half_span * (cos + np.float32(1.0))
+        indicator = (bounds[:-1] <= count) & (count < bounds[1:])
+        return float(indicator.dot(interp) + (bounds[-1] <= count) * values[-1])
+
+    return schedule
 
 
 def _filter_model_params(model_class, metadata: dict) -> dict:
@@ -28,10 +99,12 @@ def _filter_model_params(model_class, metadata: dict) -> dict:
 
 
 class TaskModel:
-    """Base wrapper: hparams record, version gate, the module."""
+    """Base wrapper: hparams record, version gate, the module, optimizer."""
 
     supported_features: ClassVar[list[str]] = []
     task_name: ClassVar[str] = ""
+    #: (metric, "min" | "max") for early stopping and the best checkpoint
+    monitor: ClassVar[tuple[str, str]] = ("validation_loss", "min")
 
     def __init__(
         self,
@@ -50,18 +123,19 @@ class TaskModel:
         check_version_compatibility(stamp_version)
 
         self.model_class = model_class
+        self.total_steps = int(total_steps)
+        self.max_lr = float(max_lr)
+        self.div_factor = float(div_factor)
         self.train_patients = list(train_patients)
         self.valid_patients = list(valid_patients)
         self.metadata = metadata
-        # the training fields are kept so that a checkpoint the port writes
-        # carries the record the JAX package writes
         self.hparams: dict[str, Any] = {
             "task": self.task_name,
             "supported_features": self.supported_features[0],
             "dim_input": int(dim_input),
-            "total_steps": int(total_steps),
-            "max_lr": float(max_lr),
-            "div_factor": float(div_factor),
+            "total_steps": self.total_steps,
+            "max_lr": self.max_lr,
+            "div_factor": self.div_factor,
             "train_patients": self.train_patients,
             "valid_patients": self.valid_patients,
             "stamp_version": str(stamp_version),
@@ -69,6 +143,7 @@ class TaskModel:
         }
         self.dim_input = int(dim_input)
         self.module: nn.Module = self._build_module()
+        self.uses_coords = bool(getattr(self.module, "supports_coords", False))
 
     @property
     def dim_output(self) -> int:
@@ -77,6 +152,31 @@ class TaskModel:
     def _build_module(self) -> nn.Module:
         params = _filter_model_params(self.model_class, self.metadata)
         return self.model_class(dim_input=self.dim_input, dim_output=self.dim_output, **params)
+
+    def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def validation_metrics(self, outputs: list[np.ndarray], targets: list[np.ndarray]) -> dict[str, float]:
+        raise NotImplementedError
+
+    def lr_schedule(self) -> Callable[[int], float]:
+        """The learning rate after ``count`` optimizer updates; the optimizer
+        and the per-epoch ``learning_rate`` log both read it."""
+        return cosine_onecycle_schedule(
+            transition_steps=max(self.total_steps, 1),
+            peak_value=self.max_lr,
+            pct_start=0.3,
+            div_factor=self.div_factor,
+            final_div_factor=1e4,
+        )
+
+    def make_optimizer(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW:
+        """AdamW as ``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-8, weight
+        decay 1e-2 on every parameter).  The caller sets each step's learning
+        rate from ``lr_schedule`` (optax applies ``schedule(count)``, count =
+        updates done so far); it starts at 0 because the schedule can be NaN
+        (T = 1), which ``AdamW`` refuses at construction."""
+        return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
 
     def checkpoint_hparams(self) -> dict[str, Any]:
         return dict(self.hparams, model_class=None)
@@ -101,6 +201,7 @@ class LitTileClassifier(TaskModel):
         if len(categories) != len(category_weights):
             raise ValueError("the number of category weights has to match the number of categories!")
         self.categories = categories
+        self.class_weights = category_weights
         self.ground_truth_label = ground_truth_label
         self._n_outputs = len(categories)
         super().__init__(
@@ -116,6 +217,37 @@ class LitTileClassifier(TaskModel):
     def dim_output(self) -> int:
         return self._n_outputs
 
+    def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        return weighted_cross_entropy(outputs, targets, torch.from_numpy(self.class_weights).to(outputs.device))
+
+    def validation_metrics(self, outputs, targets) -> dict[str, float]:
+        from stamp_tpu_torch.modeling.splits import roc_auc_score
+
+        logits = np.concatenate(outputs)
+        t = np.concatenate(targets)
+        # per-patient CE, averaged: the epoch mean over batch-1 steps
+        logp = logits - _np_logsumexp(logits)
+        losses = -np.sum(t * logp * self.class_weights[None, :], axis=-1)
+        metrics = {"validation_loss": float(np.mean(losses))}
+        y_true = t.argmax(axis=-1)
+        probs = np.exp(logp)
+        if len(np.unique(y_true)) > 1:
+            try:
+                if probs.shape[1] == 2:
+                    auroc = roc_auc_score(y_true, probs[:, 1])
+                else:
+                    auroc = roc_auc_score(y_true, probs, multi_class="ovr", average="macro")
+            except ValueError:  # e.g. a class of the head missing from the validation set
+                pass
+            else:
+                metrics["validation_auroc"] = float(auroc)
+        return metrics
+
+
+def _np_logsumexp(x: np.ndarray) -> np.ndarray:
+    m = x.max(axis=-1, keepdims=True)
+    return m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True))
+
 
 class LitTileRegressor(TaskModel):
     supported_features = ["tile"]
@@ -130,10 +262,19 @@ class LitTileRegressor(TaskModel):
             **kwargs,
         )
 
+    def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        return torch.mean(torch.abs(outputs - targets))
+
+    def validation_metrics(self, outputs, targets) -> dict[str, float]:
+        p = np.concatenate(outputs).reshape(-1)
+        t = np.concatenate(targets).reshape(-1)
+        return {"validation_loss": float(np.mean(np.abs(p - t)))}
+
 
 class LitTileSurvival(TaskModel):
     supported_features = ["tile"]
     task_name = "survival"
+    monitor = ("val_cindex", "max")
 
     def __init__(
         self,
@@ -156,6 +297,33 @@ class LitTileSurvival(TaskModel):
         )
         if self.train_pred_median is not None:
             self.hparams["train_pred_median"] = self.train_pred_median
+
+    def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        return neg_partial_log_likelihood(outputs.reshape(-1), targets[:, 0], targets[:, 1])
+
+    def validation_metrics(self, outputs, targets) -> dict[str, float]:
+        from stamp_tpu_torch.statistics.survival_util import concordance_index
+
+        scores = np.concatenate(outputs).reshape(-1)
+        y = np.concatenate(targets)
+        times, events = y[:, 0], y[:, 1]
+        valid = ~(np.isnan(times) | np.isnan(events) | np.isnan(scores))
+        metrics: dict[str, float] = {}
+        if valid.sum() > 1 and events[valid].sum() > 0:
+            try:
+                # higher risk = shorter survival: negate (reference models/__init__.py:686-694)
+                metrics["val_cindex"] = concordance_index(times[valid], -scores[valid], events[valid].astype(int))
+            except ZeroDivisionError:
+                pass
+            # Breslow validation loss (reference models/__init__.py:707-711)
+            metrics["val_cox_loss"] = float(
+                cox_loss_breslow(
+                    torch.from_numpy(scores[valid]), torch.from_numpy(times[valid]), torch.from_numpy(events[valid])
+                )
+            )
+        if "val_cindex" not in metrics:
+            metrics["val_cindex"] = float("nan")
+        return metrics
 
 
 def instantiate_from_hparams(hparams: dict[str, Any]) -> TaskModel:

@@ -1,0 +1,525 @@
+"""Training: the ``stamp train`` workflow and the single-device engine.
+
+Counterpart of ``stamp_tpu/modeling/train.py:61-978`` (its single-device
+path) for the tile-level ``vit`` backbone: the stratified 75/25 split
+(``modeling.splits.train_test_split``, scikit-learn's indices without
+scikit-learn), class weights with the under-population warning, default
+model selection, AdamW with the one-cycle cosine schedule, early stopping
+and save_top_k=1 on the task's monitor (``val_cindex``↑ for survival,
+``validation_loss``↓ otherwise), the ``lightning_logs/version_0/
+metrics.csv`` log with the JAX package's columns, ``checkpoint-final.ckpt``
+when no epoch improved, and the best checkpoint copied to ``model.ckpt``.
+
+The engine runs on an explicit ``torch.device``.  ``bag_size: null``
+trains on whole slides: each bag is padded to a power of two of at least
+512 tiles and attended with a key mask, so bags of 4,096 tiles and more
+reach the flash kernels and their backward.  Validation runs whole bags,
+bucket-padded the same way, under ``torch.inference_mode()``.  Host →
+device copies go through pinned memory.  The random draws (split, epoch
+order, bag seeds, the initial batch the JAX package reads for its
+initialisation) follow the JAX package's order from ``Seed.numpy_rng()``;
+initial weights come from ``Seed.torch_generator()`` and differ from
+flax's.  Not ported (each raises ``NotImplementedError`` naming ``python -m
+stamp_tpu train``): other backbones, multi-target ground truths, slide- and
+patient-level features and ``mesh_shape`` (sharded training).
+"""
+
+from __future__ import annotations
+
+import csv
+import logging
+import math
+import shutil
+from collections.abc import Callable, Iterator, Mapping, Sequence
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from stamp_tpu_torch.modeling.checkpoint import save_checkpoint
+from stamp_tpu_torch.modeling.config import AdvancedConfig, TrainConfig
+from stamp_tpu_torch.modeling.data import (
+    BatchIterator,
+    PatientData,
+    _not_ported,
+    _parse_survival_status,
+    create_dataset,
+    load_patient_data_,
+)
+from stamp_tpu_torch.modeling.registry import ModelName, load_model_class
+from stamp_tpu_torch.modeling.splits import train_test_split
+from stamp_tpu_torch.modeling.tasks import TaskModel
+from stamp_tpu_torch.modeling.transforms import VaryPrecisionTransform
+from stamp_tpu_torch.models.vision_transformer import init_random_weights_, variables_to_jax
+from stamp_tpu_torch.types import Category, PandasLabel, PatientId, Task
+from stamp_tpu_torch.utils import profiling
+from stamp_tpu_torch.utils.seed import Seed
+
+_logger = logging.getLogger("stamp")
+
+
+def train_categorical_model_(*, config: TrainConfig, advanced: AdvancedConfig, device: torch.device) -> None:
+    """``stamp train`` (reference train.py:45-99)."""
+    if config.task is None:
+        raise ValueError("task must be set to 'classification' | 'regression' | 'survival'")
+    if advanced.mesh_shape:
+        raise _not_ported("sharded training (mesh_shape)", "train")
+
+    patient_to_data, feature_type = load_patient_data_(
+        feature_dir=config.feature_dir,
+        clini_table=config.clini_table,
+        slide_table=config.slide_table,
+        task=config.task,
+        ground_truth_label=config.ground_truth_label,
+        time_label=config.time_label,
+        status_label=config.status_label,
+        patient_label=config.patient_label,
+        filename_label=config.filename_label,
+        drop_patients_with_missing_ground_truth=config.drop_patients_with_missing_ground_truth,
+    )
+    _logger.info(f"Detected feature type: {feature_type}")
+
+    model, train_dl, valid_dl = setup_model_for_training(
+        patient_to_data=patient_to_data,
+        categories=config.categories,
+        task=config.task,
+        advanced=advanced,
+        ground_truth_label=config.ground_truth_label,
+        time_label=config.time_label,
+        status_label=config.status_label,
+        clini_table=config.clini_table,
+        slide_table=config.slide_table,
+        feature_dir=config.feature_dir,
+        train_transform=(
+            VaryPrecisionTransform(min_fraction_bits=1) if config.use_vary_precision_transform else None
+        ),
+        feature_type=feature_type,
+    )
+    train_model_(
+        output_dir=config.output_dir,
+        model=model,
+        train_dl=train_dl,
+        valid_dl=valid_dl,
+        max_epochs=advanced.max_epochs,
+        patience=advanced.patience,
+        device=device,
+        pad_train_buckets=advanced.bag_size is None,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Setup (reference train.py:102-501)
+# ---------------------------------------------------------------------------
+
+
+def _stratification(task: Task, ground_truths: list) -> list | None:
+    """What the split stratifies on: the class, the survival status, or
+    nothing (regression)."""
+    if task == "classification":
+        return ground_truths
+    if task != "survival":
+        return None
+    statuses: list[int] = []
+    for gt in ground_truths:
+        if isinstance(gt, (tuple, list)) and len(gt) == 2:
+            if gt[1] is None:
+                raise ValueError("Missing survival status for a patient; cannot stratify")
+            statuses.append(int(gt[1]))
+        else:
+            parts = str(gt).split()
+            statuses.append(int(_parse_survival_status(parts[1] if len(parts) >= 2 else parts[0])))
+    return statuses
+
+
+def setup_dataloaders_for_training(
+    *,
+    patient_to_data: Mapping[PatientId, PatientData],
+    task: Task,
+    categories: Sequence[Category] | None,
+    bag_size: int | None,
+    batch_size: int,
+    num_workers: int,
+    train_transform: Callable | None,
+    feature_type: str,
+) -> tuple[BatchIterator, BatchIterator, Sequence[Category], int, Sequence[PatientId], Sequence[PatientId]]:
+    """Stratified split + train/valid iterators (reference train.py:354-501)."""
+    ground_truths = [p.ground_truth for p in patient_to_data.values() if p.ground_truth is not None]
+    _logger.info(f"Task: {feature_type} {task}")
+    if len(ground_truths) != len(patient_to_data):
+        raise ValueError("patient_to_data must have a ground truth defined for all targets!")
+
+    train_patients, valid_patients = train_test_split(
+        list(patient_to_data), stratify=_stratification(task, ground_truths), shuffle=True, random_state=0
+    )
+    train_ds, train_categories = create_dataset(
+        feature_type=feature_type,
+        task=task,
+        patient_data=[patient_to_data[pid] for pid in train_patients],
+        bag_size=bag_size,
+        shuffle=True,
+        transform=train_transform,
+        categories=categories,
+    )
+    valid_ds, _ = create_dataset(
+        feature_type=feature_type,
+        task=task,
+        patient_data=[patient_to_data[pid] for pid in valid_patients],
+        bag_size=None,
+        shuffle=False,
+        categories=train_categories,
+    )
+    if bag_size is None:
+        # whole-slide training: bags are ragged, so one slide per step; the
+        # engine bucket-pads and masks
+        if batch_size != 1:
+            _logger.info("bag_size is null (whole-slide training): forcing batch_size=1")
+        batch_size = 1
+    train_dl = BatchIterator(train_ds, batch_size=batch_size, shuffle=True, num_workers=num_workers)
+    valid_dl = BatchIterator(valid_ds, batch_size=1, shuffle=False, num_workers=num_workers)
+    dim_feats = int(train_ds[0][0].shape[-1])
+    return train_dl, valid_dl, train_categories, dim_feats, train_patients, valid_patients
+
+
+def _compute_class_weights_and_check_categories(
+    *, train_dl: BatchIterator, train_categories: Sequence[str]
+) -> np.ndarray:
+    """Inverse-frequency class weights, normalised to sum to 1 (reference
+    train.py:567-621)."""
+    category_counts = np.asarray(train_dl.dataset.ground_truths).sum(axis=0)
+    cat_ratio_reciprocal = category_counts.sum() / category_counts
+    category_weights = cat_ratio_reciprocal / cat_ratio_reciprocal.sum()
+    if len(train_categories) <= 1:
+        raise ValueError(f"not enough categories to train on: {train_categories}")
+    elif (category_counts < 16).any():
+        underpopulated = {
+            category: int(count)
+            for category, count in zip(train_categories, category_counts.tolist(), strict=True)
+            if count < 16
+        }
+        _logger.warning(
+            "Some categories do not have enough samples to meaningfully train "
+            f"a model: {underpopulated}. You may want to consider removing these "
+            "categories; the model will likely overfit on the few samples available."
+        )
+    return category_weights.astype(np.float32)
+
+
+def _resolve_model_and_params(*, task: Task, feature_type: str, advanced: AdvancedConfig) -> tuple[type, Any, dict]:
+    """Model defaulting (reference train.py:153-194): ``vit`` for tiles."""
+    if advanced.model_name is None:
+        advanced.model_name = ModelName.VIT if feature_type == "tile" else ModelName.MLP
+        _logger.info(
+            f"No model specified, defaulting to '{advanced.model_name.value}' for feature type '{feature_type}'"
+        )
+    lit_class, model_class = load_model_class(task, feature_type, advanced.model_name, command="train")
+    model_specific_params = advanced.model_params.model_dump().get(advanced.model_name.value) or {}
+    return lit_class, model_class, model_specific_params
+
+
+def setup_model_from_dataloaders(
+    *,
+    train_dl: BatchIterator,
+    task: Task,
+    train_categories: Sequence[Category],
+    dim_feats: int,
+    train_patients: Sequence[PatientId],
+    valid_patients: Sequence[PatientId],
+    feature_type: str,
+    advanced: AdvancedConfig,
+    ground_truth_label,
+    time_label: PandasLabel | None,
+    status_label: PandasLabel | None,
+    clini_table: Path,
+    slide_table: Path | None,
+    feature_dir: Path,
+) -> TaskModel:
+    """The task wrapper with the JAX package's hyper-parameter record
+    (reference train.py:236-351)."""
+    category_weights: Any = []
+    if task == "classification":
+        category_weights = _compute_class_weights_and_check_categories(
+            train_dl=train_dl, train_categories=train_categories
+        )
+    lit_class, model_class, model_specific_params = _resolve_model_and_params(
+        task=task, feature_type=feature_type, advanced=advanced
+    )
+    assert advanced.model_name is not None  # set by _resolve_model_and_params
+    common_params = {
+        "categories": train_categories,
+        "category_weights": category_weights,
+        "dim_input": dim_feats,
+        "total_steps": len(train_dl) * advanced.max_epochs,
+        "max_lr": advanced.max_lr,
+        "div_factor": advanced.div_factor,
+        "model_name": advanced.model_name.value,
+        "ground_truth_label": ground_truth_label,
+        "time_label": time_label,
+        "status_label": status_label,
+        "train_patients": list(train_patients),
+        "valid_patients": list(valid_patients),
+        "clini_table": str(clini_table),
+        "slide_table": str(slide_table) if slide_table is not None else None,
+        "feature_dir": str(feature_dir),
+    }
+    if task != "classification":
+        common_params.pop("categories")
+        common_params.pop("category_weights")
+    if task != "survival":
+        common_params.pop("time_label")
+        common_params.pop("status_label")
+    _logger.info(
+        f"Instantiating model '{advanced.model_name.value}' with parameters: {model_specific_params}"
+    )
+    return lit_class(model_class=model_class, **common_params, **model_specific_params)
+
+
+def setup_model_for_training(
+    *,
+    patient_to_data: Mapping[PatientId, PatientData],
+    task: Task,
+    categories: Sequence[Category] | None,
+    train_transform: Callable | None,
+    feature_type: str,
+    advanced: AdvancedConfig,
+    ground_truth_label,
+    time_label: PandasLabel | None,
+    status_label: PandasLabel | None,
+    clini_table: Path,
+    slide_table: Path | None,
+    feature_dir: Path,
+) -> tuple[TaskModel, BatchIterator, BatchIterator]:
+    """Reference train.py:102-233."""
+    train_dl, valid_dl, train_categories, dim_feats, train_patients, valid_patients = (
+        setup_dataloaders_for_training(
+            patient_to_data=patient_to_data,
+            task=task,
+            categories=categories,
+            bag_size=advanced.bag_size,
+            batch_size=advanced.batch_size,
+            num_workers=advanced.num_workers,
+            train_transform=train_transform,
+            feature_type=feature_type,
+        )
+    )
+    model = setup_model_from_dataloaders(
+        train_dl=train_dl,
+        task=task,
+        train_categories=train_categories,
+        dim_feats=dim_feats,
+        train_patients=train_patients,
+        valid_patients=valid_patients,
+        feature_type=feature_type,
+        advanced=advanced,
+        ground_truth_label=ground_truth_label,
+        time_label=time_label,
+        status_label=status_label,
+        clini_table=clini_table,
+        slide_table=slide_table,
+        feature_dir=feature_dir,
+    )
+    return model, train_dl, valid_dl
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+
+def _bucket_size(n: int, *, minimum: int = 512) -> int:
+    """Next power of two ≥ n (≥ minimum): the JAX package's bucket, kept so
+    that the same bags reach the flash kernels at the same lengths."""
+    if n <= minimum:
+        return minimum
+    return 1 << math.ceil(math.log2(n))
+
+
+def _pad_tile_batch(batch, bucket: int):
+    """Pad a tile batch's tile dimension to ``bucket``: (batch, key_mask)."""
+    bags, coords, sizes, targets = batch
+    b, t, f = bags.shape
+    if t < bucket:
+        bags = np.concatenate([bags, np.zeros((b, bucket - t, f), dtype=bags.dtype)], axis=1)
+        coords = np.concatenate([coords, np.zeros((b, bucket - t, 2), dtype=coords.dtype)], axis=1)
+    key_mask = np.arange(bucket)[None, :] < np.asarray(sizes)[:, None]
+    return (bags, coords, sizes, targets), key_mask
+
+
+class _EpochLogger:
+    """CSV metrics log in Lightning's CSVLogger layout
+    (``lightning_logs/version_0/metrics.csv``), rewritten every epoch."""
+
+    def __init__(self, output_dir: Path) -> None:
+        self.log_dir = output_dir / "lightning_logs" / "version_0"
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.log_dir / "metrics.csv"
+        self.rows: list[dict] = []
+        self.keys: list[str] = []
+
+    def log(self, row: dict) -> None:
+        self.rows.append(row)
+        for k in row:
+            if k not in self.keys:
+                self.keys.append(k)
+        with open(self.path, "w", newline="") as fp:
+            writer = csv.DictWriter(fp, fieldnames=self.keys)
+            writer.writeheader()
+            for r in self.rows:
+                writer.writerow(r)
+
+
+def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch array on ``device``, through pinned memory for a card."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
+def _init_module(model: TaskModel) -> None:
+    """Initial weights from the global seed (flax's initializers'
+    distributions; the values differ from the JAX package's)."""
+    init_random_weights_(model.module, Seed.torch_generator())
+
+
+def _bucketed(batches) -> Iterator:
+    """Whole-slide bags padded to power-of-two buckets, with key masks."""
+    for batch in batches:
+        yield _pad_tile_batch(batch, _bucket_size(batch[0].shape[1]))
+
+
+def train_model_(
+    *,
+    output_dir: Path,
+    model: TaskModel,
+    train_dl: BatchIterator,
+    valid_dl: BatchIterator,
+    max_epochs: int,
+    patience: int,
+    device: torch.device,
+    pad_train_buckets: bool = False,
+) -> tuple[TaskModel, Any]:
+    """Train ``model`` on ``device``; the best checkpoint goes to
+    ``output_dir/model.ckpt``.  Returns (task model, best variable tree).
+
+    ``pad_train_buckets`` is whole-slide training (``bag_size: null``):
+    each ragged bag is padded to a power-of-two bucket and attended with a
+    key mask."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    if pad_train_buckets and not model.uses_coords:
+        raise ValueError(
+            "bag_size: null (whole-slide training) requires a mask-capable tile model (e.g. vit); "
+            f"use a fixed bag_size with {type(model.module).__name__}."
+        )
+    monitor_metric, mode = model.monitor
+    sign = 1.0 if mode == "min" else -1.0
+    is_survival = model.task_name == "survival"
+
+    # the JAX package reads one training batch for its initialisation: the
+    # same draws from the shared generator keep the two packages' bags equal
+    first_pass = iter(train_dl)
+    next(first_pass)
+    first_pass.close()
+    _init_module(model)
+    module = model.module.to(device)
+    optimizer = model.make_optimizer(module.parameters())
+    schedule = model.lr_schedule()
+    generator = Seed.torch_generator(device)
+
+    logger = _EpochLogger(output_dir)
+    best_value = math.inf
+    best_variables = None
+    best_ckpt_path: Path | None = None
+    wait = 0
+    global_step = 0
+
+    for epoch in range(max_epochs):
+        train_losses: list[torch.Tensor] = []
+        train_outputs: list[np.ndarray] = []
+        for (bags, coords, _sizes, targets), key_mask in (
+            _bucketed(train_dl) if pad_train_buckets else ((b, None) for b in train_dl)
+        ):
+            with profiling.stage("train/step"):
+                outputs = module(
+                    _to_device(bags, device),
+                    coords=_to_device(coords, device),
+                    key_mask=None if key_mask is None else _to_device(key_mask, device),
+                    train=True,
+                    generator=generator,
+                )
+                loss = model.loss(outputs, _to_device(targets, device))
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                for group in optimizer.param_groups:
+                    group["lr"] = schedule(global_step)  # optax: schedule(updates done so far)
+                optimizer.step()
+                if profiling.timer.enabled and device.type == "cuda":
+                    torch.cuda.synchronize(device)  # the device time belongs to the step
+            train_losses.append(loss.detach())
+            if is_survival:
+                train_outputs.append(outputs.detach().float().cpu().numpy().reshape(-1))
+            global_step += 1
+
+        if not train_losses:
+            raise ValueError(
+                "training epoch produced zero steps — the dataloader yielded "
+                "no usable batches (empty cohort or every batch filtered); "
+                "a silent nan-loss epoch would leave the model untrained."
+            )
+        train_loss = float(np.mean([loss.float().cpu().numpy() for loss in train_losses]))
+        if is_survival and train_outputs:
+            model.train_pred_median = float(np.median(np.concatenate(train_outputs)))
+            model.hparams["train_pred_median"] = model.train_pred_median
+
+        val_outputs: list[np.ndarray] = []
+        val_targets: list[np.ndarray] = []
+        with profiling.stage("train/eval"), torch.inference_mode():
+            for batch in valid_dl:
+                (bags, coords, _sizes, targets), key_mask = _pad_tile_batch(batch, _bucket_size(batch[0].shape[1]))
+                out = module(
+                    _to_device(bags, device),
+                    coords=_to_device(coords, device),
+                    key_mask=_to_device(key_mask, device),
+                )
+                val_outputs.append(out.float().cpu().numpy())
+                val_targets.append(targets)
+
+        metrics = model.validation_metrics(val_outputs, val_targets)
+        metrics["training_loss"] = train_loss
+        metrics["epoch"] = epoch
+        metrics["step"] = global_step
+        metrics["learning_rate"] = schedule(max(global_step - 1, 0))
+        if is_survival and model.train_pred_median is not None:
+            metrics["train_pred_median"] = model.train_pred_median
+        logger.log(metrics)
+
+        current = metrics.get(monitor_metric, math.nan)
+        _logger.info(
+            f"epoch {epoch}: "
+            + " ".join(f"{k}={v:.4f}" for k, v in metrics.items() if k not in ("epoch", "step") and isinstance(v, float))
+        )
+        if not math.isnan(current) and sign * current < best_value:
+            best_value = sign * current
+            wait = 0
+            best_variables = variables_to_jax(module.state_dict())
+            ckpt_dir = output_dir / "checkpoints"
+            new_ckpt_path = ckpt_dir / f"checkpoint-epoch={epoch:02d}-{monitor_metric}={current:0.3f}.ckpt"
+            ckpt_dir.mkdir(exist_ok=True, parents=True)
+            if best_ckpt_path is not None and best_ckpt_path.exists():
+                best_ckpt_path.unlink()  # save_top_k=1
+            save_checkpoint(new_ckpt_path, hyper_parameters=model.checkpoint_hparams(), variables=best_variables)
+            best_ckpt_path = new_ckpt_path
+        else:
+            wait += 1
+            if wait >= patience:
+                _logger.info(f"early stopping at epoch {epoch}")
+                break
+
+    if best_ckpt_path is None:
+        # no epoch improved (e.g. an all-nan monitor): save the final state
+        best_variables = variables_to_jax(module.state_dict())
+        best_ckpt_path = output_dir / "checkpoints" / "checkpoint-final.ckpt"
+        save_checkpoint(best_ckpt_path, hyper_parameters=model.checkpoint_hparams(), variables=best_variables)
+    shutil.copy(best_ckpt_path, output_dir / "model.ckpt")
+    return model, best_variables

@@ -1,4 +1,4 @@
-"""Attention-MIL Vision Transformer (the default tile-level model), forward.
+"""Attention-MIL Vision Transformer (the default tile-level model).
 
 Counterpart of ``stamp_tpu.models.vision_transformer``: linear projection +
 GELU → prepended CLS token (coordinate (0, 0), always valid) → ``n_layers``
@@ -14,15 +14,24 @@ statistics (``running_mean``, ``items_so_far``) are buffers.
 ``variables_from_jax`` / ``variables_to_jax`` carry weights across exactly.
 
 At ``FLASH_ATTENTION_MIN_SEQ`` tokens or more, attention goes through the
-flash wrappers of ``ops.flash_attention`` (O(T·d) memory; on the CPU their
-plain versions); below it, through the einsum path of ``ops.attention``.
-The JAX module takes the flash kernels only on a TPU; the port takes them on
-any device, so the CPU runs the same branch as the card.
+flash wrappers of ``ops.flash_attention`` (O(T·d) memory, differentiable;
+on the CPU their plain versions); below it, through the einsum path of
+``ops.attention``.  The JAX module takes the flash kernels only on a TPU;
+the port takes them on any device, so the CPU runs the same branch as the
+card.
 
-Inference only: ``train=True`` (dropout, the ALiBi Welford update) and
-``sow_weights=True`` (attention maps for heatmaps) raise, and the JAX
-module's ``alibi_mask`` (which its ``VisionTransformer`` never sets) is not
-ported.
+``train=True`` is the JAX module's training forward
+(``stamp_tpu/models/vision_transformer.py:43-46, 90-121, 166-207, 279-281,
+355``): dropout after ``project`` and inside the feed-forward, drawn from
+the ``generator`` the caller passes; vanilla attention takes the flash path
+in training only when ``dropout`` is 0 (the kernels have no attention
+dropout), ALiBi always does; each ALiBi block updates its Welford running
+mean once per training forward, under ``no_grad``, from the mean pairwise
+distance of the bag (streamed on the flash path, dense on the einsum path;
+the CLS token at (0, 0) counts as a tile, as in the JAX module) and uses the
+updated mean in the same forward.  ``sow_weights=True`` (attention maps for
+heatmaps) raises, and the JAX module's ``alibi_mask`` (which its
+``VisionTransformer`` never sets) is not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from torch import nn
 from stamp_tpu_torch.ops import flash_attention
 from stamp_tpu_torch.ops.attention import (
     alibi_attention,
+    dropout,
+    mean_pairwise_distance,
     multi_head_attention,
     pairwise_distances,
 )
@@ -76,20 +87,30 @@ def _flat_mask(key_mask: torch.Tensor | None, b: int, h: int, s: int, device) ->
 class MultiHeadSelfAttention(nn.Module):
     """Vanilla MHA, torch ``nn.MultiheadAttention`` semantics, fused qkv."""
 
-    def __init__(self, dim: int, num_heads: int) -> None:
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj = nn.Linear(dim, 3 * dim)
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, *, key_mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        key_mask: torch.Tensor | None,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         q, k, v = (_to_heads(t, self.num_heads) for t in self.in_proj(x).chunk(3, dim=-1))
         b, h, s, d = q.shape
-        if _use_flash(s):
+        # the flash kernels have no attention dropout: in training they are
+        # taken only when dropout is off (the MIL default)
+        if _use_flash(s) and not (train and self.dropout > 0.0):
             km = _flat_mask(key_mask, b, h, s, x.device)
             out = flash_attention.flash_mha(_flat(q), _flat(k), _flat(v), km).reshape(b, h, s, d)
         else:
-            out = multi_head_attention(q, k, v, key_mask=key_mask)
+            out = multi_head_attention(q, k, v, key_mask=key_mask, dropout_rate=self.dropout, generator=generator)
         return self.out_proj(_from_heads(out))
 
 
@@ -115,10 +136,27 @@ class MultiHeadALiBi(nn.Module):
         *,
         coords: torch.Tensor,  # [B, T, 2] µm
         key_mask: torch.Tensor | None,
+        train: bool = False,
     ) -> torch.Tensor:
         q, k, v = (_to_heads(proj(x), self.num_heads) for proj in (self.q_proj, self.k_proj, self.v_proj))
         b, h, s, d = q.shape
-        if _use_flash(s):
+        use_flash = _use_flash(s)
+        if not use_flash:
+            distances = pairwise_distances(coords, coords)  # [B, T, T]
+        if train:
+            # Welford update (reference vision_tranformer.py:23-31), reduced
+            # to the scalar mean pairwise distance of this bag
+            with torch.no_grad():
+                if use_flash:
+                    mean_d = mean_pairwise_distance(coords, mask=key_mask)
+                elif key_mask is not None:
+                    pair_w = (key_mask[:, :, None] & key_mask[:, None, :]).to(distances.dtype)
+                    mean_d = torch.sum(distances * pair_w) / torch.clamp_min(torch.sum(pair_w), 1.0)
+                else:
+                    mean_d = torch.mean(distances)
+                self.running_mean.copy_(self.running_mean + (mean_d - self.running_mean) / self.items_so_far)
+                self.items_so_far.add_(1.0)
+        if use_flash:
             km = _flat_mask(key_mask, b, h, s, x.device)
             dist_scale = (self.bias_scale / self.running_mean)[None, :].expand(b, h).reshape(b * h)
             cq = _flat(coords[:, None].expand(b, h, s, 2))
@@ -126,7 +164,6 @@ class MultiHeadALiBi(nn.Module):
                 _flat(q), _flat(k), _flat(v), cq, cq, dist_scale.contiguous(), km
             ).reshape(b, h, s, d)
         else:
-            distances = pairwise_distances(coords, coords)  # [B, T, T]
             scaled = (
                 distances[:, None, :, :]
                 / self.running_mean[None, :, None, None]
@@ -137,36 +174,46 @@ class MultiHeadALiBi(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """LayerNorm → Linear → GELU → Linear (the dropouts act only in training)."""
+    """LayerNorm → Linear → GELU → Dropout → Linear → Dropout."""
 
-    def __init__(self, dim: int, hidden_dim: int) -> None:
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0) -> None:
         super().__init__()
+        self.dropout = dropout
         self.norm = nn.LayerNorm(dim, eps=_EPS)
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(self.norm(x))))
+    def forward(self, x: torch.Tensor, *, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = dropout(F.gelu(self.fc1(self.norm(x))), self.dropout, generator)
+        return dropout(self.fc2(x), self.dropout, generator)
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_dim: int, use_alibi: bool) -> None:
+    def __init__(self, dim: int, heads: int, mlp_dim: int, use_alibi: bool, dropout: float = 0.0) -> None:
         super().__init__()
         self.use_alibi = use_alibi
         self.attn_norm = nn.LayerNorm(dim, eps=_EPS)
         self.mhsa: MultiHeadALiBi | MultiHeadSelfAttention = (
-            MultiHeadALiBi(dim, heads) if use_alibi else MultiHeadSelfAttention(dim, heads)
+            MultiHeadALiBi(dim, heads) if use_alibi else MultiHeadSelfAttention(dim, heads, dropout)
         )
-        self.ff = FeedForward(dim, mlp_dim)
+        self.ff = FeedForward(dim, mlp_dim, dropout)
 
-    def forward(self, x: torch.Tensor, *, coords: torch.Tensor, key_mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        coords: torch.Tensor,
+        key_mask: torch.Tensor | None,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         h = self.attn_norm(x)
         if self.use_alibi:
-            attn_out = self.mhsa(h, coords=coords, key_mask=key_mask)
+            attn_out = self.mhsa(h, coords=coords, key_mask=key_mask, train=train)
         else:
-            attn_out = self.mhsa(h, key_mask=key_mask)
+            attn_out = self.mhsa(h, key_mask=key_mask, train=train, generator=generator)
         x = attn_out + x
-        return self.ff(x) + x
+        return self.ff(x, generator=generator) + x
 
 
 class VisionTransformer(nn.Module):
@@ -183,17 +230,18 @@ class VisionTransformer(nn.Module):
         n_layers: int = 2,
         n_heads: int = 8,
         dim_feedforward: int = 512,
-        dropout: float = 0.0,  # acts only in training
+        dropout: float = 0.0,
         use_alibi: bool = False,
     ) -> None:
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = dropout
         self.project = nn.Linear(dim_input, dim_model)
         self.class_token = nn.Parameter(torch.randn(dim_model))
         for i in range(n_layers):
             self.add_module(
                 f"block_{i}",
-                TransformerBlock(dim_model, n_heads, dim_feedforward, use_alibi),
+                TransformerBlock(dim_model, n_heads, dim_feedforward, use_alibi, dropout),
             )
         self.norm = nn.LayerNorm(dim_model, eps=_EPS)
         self.head = nn.Linear(dim_model, dim_output)
@@ -206,23 +254,23 @@ class VisionTransformer(nn.Module):
         key_mask: torch.Tensor | None = None,  # [B, T] True = valid tile
         train: bool = False,
         sow_weights: bool = False,
+        generator: torch.Generator | None = None,  # training: the dropout draws
     ) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "training the MIL ViT is not ported yet; run `python -m stamp_tpu train`"
-            )
         if sow_weights:
             raise NotImplementedError(
                 "attention maps (heatmaps) are not ported yet; run `python -m stamp_tpu heatmaps`"
             )
+        if train and self.dropout > 0.0 and generator is None:
+            raise ValueError("training with dropout draws its masks from a generator; pass one")
+        generator = generator if train else None  # no dropout outside training
         b = bags.shape[0]
-        x = F.gelu(self.project(bags))
+        x = dropout(F.gelu(self.project(bags)), self.dropout, generator)
         x = torch.cat([self.class_token.expand(b, 1, -1), x], dim=1)
         coords = torch.cat([coords.new_zeros(b, 1, 2), coords], dim=1)
         if key_mask is not None:
             key_mask = torch.cat([key_mask.new_ones(b, 1), key_mask], dim=1)
         for i in range(self.n_layers):
-            x = getattr(self, f"block_{i}")(x, coords=coords, key_mask=key_mask)
+            x = getattr(self, f"block_{i}")(x, coords=coords, key_mask=key_mask, train=train, generator=generator)
         return self.head(self.norm(x)[:, 0])
 
     @staticmethod

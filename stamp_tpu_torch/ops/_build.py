@@ -44,6 +44,16 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
         _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _PTR,
     ],
+    # q, k, v, mask, dout, lse, dvec, dq, dk, dv, bh, tq, tk, head_dim,
+    # scale, device, stream
+    "stamp_flash_attn_bwd": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _PTR,
+    ],
+    # ca, cb, val, mask|NULL, out, bh, ta, tb, head_dim, device, stream
+    "stamp_dist_weighted_sum": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR,
+    ],
 }  # fmt: skip
 
 _lock = threading.Lock()

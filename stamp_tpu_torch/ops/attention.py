@@ -13,8 +13,9 @@ matrix).  Two details are the reference's and are kept:
 
 Invalid keys (``key_mask`` False) are excluded from the softmax and zeroed
 afterwards, so a bucket-padded bag gives the result of the unpadded one.
-Inference only: the JAX module's attention dropout and the streamed mean
-pairwise distance of ALiBi training are not ported yet.
+Training adds attention dropout (drawn from an explicit generator) and
+``mean_pairwise_distance``, the ALiBi Welford statistic streamed in row
+blocks (``stamp_tpu/ops/attention.py:77-115``).
 """
 
 from __future__ import annotations
@@ -37,17 +38,30 @@ def masked_softmax(
     return weights.masked_fill(~key_mask, 0.0)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 − rate
+    (a uniform draw below it) and scale the kept ones by 1 / (1 − rate).
+    Identity without a generator (inference) or at rate 0."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def multi_head_attention(
     q: torch.Tensor,  # [B, H, Q, D]
     k: torch.Tensor,  # [B, H, K, D]
     v: torch.Tensor,  # [B, H, K, D]
     *,
     key_mask: torch.Tensor | None = None,  # [B, K] True = valid
+    dropout_rate: float = 0.0,
+    generator: torch.Generator | None = None,  # training: dropout on the weights
 ) -> torch.Tensor:
     """Scaled-dot-product attention. Returns [B, H, Q, D]."""
     logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     mask = key_mask[:, None, None, :] if key_mask is not None else None
-    return torch.matmul(masked_softmax(logits, mask), v)
+    weights = dropout(masked_softmax(logits, mask), dropout_rate, generator)
+    return torch.matmul(weights, v)
 
 
 def pairwise_distances(coords_q: torch.Tensor, coords_k: torch.Tensor) -> torch.Tensor:
@@ -55,6 +69,26 @@ def pairwise_distances(coords_q: torch.Tensor, coords_k: torch.Tensor) -> torch.
     p=2 semantics, from per-axis differences)."""
     diff = coords_q[:, :, None, :] - coords_k[:, None, :, :]
     return torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1), 0.0))
+
+
+def mean_pairwise_distance(
+    coords: torch.Tensor,  # [B, T, 2]
+    *,
+    mask: torch.Tensor | None = None,  # [B, T] True = valid tile
+    block: int = 512,
+) -> torch.Tensor:
+    """Mean Euclidean distance over all ordered pairs of valid tiles, in
+    row blocks of ``block`` tiles (no [B, T, T] tensor): the scalar the ALiBi
+    Welford update needs on the flash path.  With ``mask`` (bucket-padded
+    bags) only valid–valid pairs count."""
+    col_valid = mask.to(coords.dtype) if mask is not None else coords.new_ones(coords.shape[:2])
+    total = coords.new_zeros(())
+    for start in range(0, coords.shape[1], block):
+        d = pairwise_distances(coords[:, start : start + block], coords)  # [B, block, T]
+        row_valid = col_valid[:, start : start + block]
+        total = total + torch.sum(d * row_valid[:, :, None] * col_valid[:, None, :])
+    n_pairs = torch.sum(torch.sum(col_valid, dim=1) ** 2)
+    return total / torch.clamp_min(n_pairs, 1.0)
 
 
 def alibi_attention(

@@ -53,6 +53,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "tf32_tiles.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;  // queries per block
@@ -84,45 +86,6 @@ struct Smem {
   static constexpr int kBytes = (3 * kBlockQ * kLd + kBlockK + 2 * kBlockK) * 4;
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// c += a·b for one 16×8×8 TF32 tile.  Fragments (g = lane / 4, t = lane % 4):
-// a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g];
-// c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
-__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// rows [row0, row0 + 64) of a [n, D] f32 matrix into shared memory, 16 bytes
-// a thread; rows >= n are zero.  With `tf32`, values are stored rounded.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n,
-                                          bool tf32) {
-  constexpr int kLd = Smem<D>::kLd;
-  constexpr int kVecs = D / 4;
-  for (int i = threadIdx.x; i < kBlockQ * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (long)(row0 + r) * D + c);
-    if (tf32) {
-      val.x = __uint_as_float(to_tf32(val.x));
-      val.y = __uint_as_float(to_tf32(val.y));
-      val.z = __uint_as_float(to_tf32(val.z));
-      val.w = __uint_as_float(to_tf32(val.w));
-    }
-    *reinterpret_cast<float4*>(dst + r * kLd + c) = val;
-  }
-}
-
 template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
   static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
@@ -144,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
   const float* qw = qs + warp * 16 * kLd;
 
-  load_tile<D>(qs, p.q + (long)bh * p.tq * D, q0, p.tq, true);
+  load_rows<D, kBlockQ, kThreads>(qs, p.q + (long)bh * p.tq * D, q0, p.tq, true);
 
   float cqx[2] = {0.f, 0.f}, cqy[2] = {0.f, 0.f};
   if constexpr (kAlibi) {
@@ -174,8 +137,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
 
   for (int k0 = 0; k0 < p.tk; k0 += kBlockK) {
     __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(ks, p.k + (long)bh * p.tk * D, k0, p.tk, true);
-    load_tile<D>(vs, p.v + (long)bh * p.tk * D, k0, p.tk, false);
+    load_rows<D, kBlockK, kThreads>(ks, p.k + (long)bh * p.tk * D, k0, p.tk, true);
+    load_rows<D, kBlockK, kThreads>(vs, p.v + (long)bh * p.tk * D, k0, p.tk, false);
     if (threadIdx.x < kBlockK) {
       const int key = k0 + threadIdx.x;
       const bool in_range = key < p.tk;
@@ -277,32 +240,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
 #pragma unroll
           for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
         }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t hi[4], lo[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = j * 8 + 2 * t + (e & 1);
-            const float dx = cqx[e >> 1] - cks[2 * key];
-            const float dy = cqy[e >> 1] - cks[2 * key + 1];
-            const float dist = sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
-            const float d = valid[key] > 0.f ? dist : 0.f;
-            hi[e] = to_tf32(d);
-            lo[e] = to_tf32(d - __uint_as_float(hi[e]));
-          }
-          const float* v0 = vs + (j * 8 + 2 * t) * kLd;
-          const float* v1 = v0 + kLd;
-#pragma unroll
-          for (int n = 0; n < kDaccChunk; ++n) {
-            const float x0 = v0[(n0 + n) * 8 + g], x1 = v1[(n0 + n) * 8 + g];
-            const uint32_t h0 = to_tf32(x0), h1 = to_tf32(x1);
-            const uint32_t l0 = to_tf32(x0 - __uint_as_float(h0));
-            const uint32_t l1 = to_tf32(x1 - __uint_as_float(h1));
-            mma_tf32(tile[n], hi[0], hi[2], hi[1], hi[3], h0, h1);
-            mma_tf32(tile[n], hi[0], hi[2], hi[1], hi[3], l0, l1);
-            mma_tf32(tile[n], lo[0], lo[2], lo[1], lo[3], h0, h1);
-          }
-        }
+        dist_dv_tile<kLd, kDaccChunk>(tile, cqx, cqy, cks, valid, vs, n0, g, t);
 #pragma unroll
         for (int n = 0; n < kDaccChunk; ++n) {
 #pragma unroll

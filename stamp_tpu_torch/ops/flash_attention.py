@@ -1,12 +1,13 @@
 """Attention kernels: packed-qkv attention for the extractor ViTs, and the
 masked flash attention (plain and spatial-ALiBi) of the MIL ViT.
 
-Counterparts of ``stamp_tpu.ops.flash_attention.fused_qkv_mha``,
-``flash_mha`` and ``flash_alibi_mha`` (forward only).  On a CUDA tensor each
-wrapper launches its hand-written kernel (``csrc/fused_qkv_attn.cu``,
-``csrc/flash_attn.cu``); on a CPU tensor it runs the plain PyTorch version
-beside it (``*_reference``).  There is no fallback between the two: a CUDA
-tensor a kernel does not take raises.
+Counterparts of ``stamp_tpu.ops.flash_attention.fused_qkv_mha`` (forward)
+and of ``flash_mha`` and ``flash_alibi_mha`` with their custom VJPs.  On a
+CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/fused_qkv_attn.cu``, ``csrc/flash_attn.cu``, and for the backward
+``csrc/flash_attn_bwd.cu``); on a CPU tensor it runs the plain PyTorch
+version beside it (``*_reference``).  There is no fallback between the two:
+a CUDA tensor a kernel does not take raises.
 
 ``fused_qkv_mha`` follows the Pallas kernel's order of operations: scores
 q·kᵀ in f32, scaled by d^-1/2 in f32 after the dot, an exact softmax in f32
@@ -21,6 +22,15 @@ Euclidean distance between query and key coordinates (0 for masked keys),
 and returns ``O − dist_scale·(D·V)``: the reference's bias is subtracted
 after the softmax.  The CUDA kernel runs q·kᵀ and P·V in TF32 and D·V in a
 3×TF32 split accurate to f32; the plain versions run everything in f32.
+
+Both are ``torch.autograd.Function``s whose backward is the JAX package's
+(``_flash_core_bwd``, ``_alibi_core_bwd``): the probabilities are recomputed
+from the saved lse, D = rowsum(dO∘O) is plain torch, and dQ, dK, dV come
+from two kernels (TF32 products).  The ALiBi backward runs them on its
+softmax output and adds the bias branch: dV −= Dᵀ·(dist_scale·dO) on valid
+keys, through the distance-weighted-sum kernel (f32-accurate), and
+d dist_scale = −Σ dO∘(D·V) in plain torch.  Coordinates and the mask get
+no gradient.
 """
 
 from __future__ import annotations
@@ -36,6 +46,12 @@ LAUNCHES = 0
 FLASH_MHA_LAUNCHES = 0
 #: ``flash_alibi_mha``
 FLASH_ALIBI_MHA_LAUNCHES = 0
+#: the backward of ``flash_mha`` (its dQ and dK/dV kernels)
+FLASH_MHA_BWD_LAUNCHES = 0
+#: the backward of ``flash_alibi_mha`` (the same two kernels)
+FLASH_ALIBI_MHA_BWD_LAUNCHES = 0
+#: ``_dist_weighted_sum`` (the ALiBi backward's bias branch)
+DIST_WEIGHTED_SUM_LAUNCHES = 0
 
 _HEAD_DIMS = (64, 80)  # fused_qkv_attn.cu's template instances
 _FLASH_HEAD_DIMS = (32, 64, 128)  # flash_attn.cu's template instances
@@ -254,9 +270,9 @@ def flash_mha(
             (32, 64, 128).
         key_mask: [BH, K] bool, True = valid key.
 
-    Returns: [BH, Q, d].
+    Returns: [BH, Q, d].  Differentiable in q, k and v.
     """
-    return _flash_forward(q, k, v, key_mask)[0]
+    return _FlashMHA.apply(q, k, v, key_mask)
 
 
 def _flash_alibi_forward(
@@ -300,5 +316,220 @@ def flash_alibi_mha(
         key_mask: [BH, K] bool, True = valid key.
 
     Returns: [BH, Q, d] = softmax(q·kᵀ/√d)·v − dist_scale·(D·v).
+    Differentiable in q, k, v and dist_scale.
     """
-    return _flash_alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask)[0]
+    return _FlashALiBiMHA.apply(q, k, v, coords_q, coords_k, dist_scale, key_mask)
+
+
+# --- backward (whole-slide training) -------------------------------------------
+
+
+def _flash_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the flash backward (``_flash_core_bwd``):
+    (dq, dk, dv), all in f32, from the forward's output and lse.
+    Materialises the [BH, Q, K] probabilities, updated in place to keep two
+    such tensors alive."""
+    scale = q.shape[-1] ** -0.5
+    dvec = (do * out).sum(dim=-1, keepdim=True)
+    p = torch.matmul(q, k.transpose(-1, -2)).mul_(scale)
+    p.masked_fill_(~key_mask[:, None, :], _NEG_INF)
+    p = p.sub_(lse[:, :, None]).exp_()
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = torch.matmul(do, v.transpose(-1, -2)).sub_(dvec).mul_(p).mul_(scale)
+    del p
+    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+
+
+def _dist_weighted_sum_reference(
+    coords_a: torch.Tensor,
+    coords_b: torch.Tensor,
+    values: torch.Tensor,
+    b_mask: torch.Tensor | None,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``_dist_weighted_sum``: [BH, A, d] ←
+    Σ_b ‖c_a − c_b‖·values_b over the b that ``b_mask`` keeps (every b
+    with ``None``), in f32."""
+    dist = _pairwise_distances(coords_a.float(), coords_b.float())
+    if b_mask is not None:
+        dist.masked_fill_(~b_mask[:, None, :], 0.0)
+    return torch.matmul(dist, values)
+
+
+def _launch_flash_bwd(q, k, v, key_mask, out, lse, do):
+    """The dQ and dK/dV kernels (``stamp_flash_attn_bwd``) on the card."""
+    dvec = (do * out).sum(dim=-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _build.load_library().stamp_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[2] ** -0.5,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "flash attention backward")
+    return dq, dk, dv
+
+
+def _check_bwd_args(what: str, q, out, lse, do) -> None:
+    """Raise on backward inputs the CUDA kernels do not take."""
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
+        raise ValueError(
+            f"{what}: out and dO must be {tuple(q.shape)} and lse {tuple(q.shape[:2])}, got "
+            f"{tuple(out.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}"
+        )
+    for name, t in {"out": out, "lse": lse, "dO": do}.items():
+        if t.device != q.device or t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32 on {q.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+
+
+def _flash_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_mha`` for the upstream gradient ``do``."""
+    if q.device.type == "cpu":
+        return _flash_backward_reference(q, k, v, key_mask, out, lse, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha backward: unsupported device {q.device}")
+    _check_flash_args("flash_mha backward", q, k, v, key_mask)
+    _check_bwd_args("flash_mha backward", q, out, lse, do)
+    grads = _launch_flash_bwd(q, k, v, key_mask, out, lse, do)
+    global FLASH_MHA_BWD_LAUNCHES
+    FLASH_MHA_BWD_LAUNCHES += 1
+    return grads
+
+
+def _dist_weighted_sum(
+    coords_a: torch.Tensor,
+    coords_b: torch.Tensor,
+    values: torch.Tensor,
+    b_mask: torch.Tensor | None,
+) -> torch.Tensor:
+    """[BH, A, d] ← Σ_b ‖c_a − c_b‖·values_b over the b that ``b_mask``
+    ([BH, B] bool, or ``None`` for every b) keeps; f32-accurate.
+
+    Its own transpose: the VJP of ``dacc = D·V`` wrt V is ``Dᵀ·dO``, this
+    function with the coordinate sides swapped."""
+    if values.device.type == "cpu":
+        return _dist_weighted_sum_reference(coords_a, coords_b, values, b_mask)
+    if values.device.type != "cuda":
+        raise ValueError(f"_dist_weighted_sum: unsupported device {values.device}")
+    bh, tb, d = values.shape
+    ta = coords_a.shape[1]
+    if coords_a.shape != (bh, ta, 2) or coords_b.shape != (bh, tb, 2) or d not in _FLASH_HEAD_DIMS:
+        raise ValueError(
+            f"_dist_weighted_sum: coords must be [BH, A, 2] / [BH, B, 2] and values [BH, B, d] with d in "
+            f"{_FLASH_HEAD_DIMS}, got {tuple(coords_a.shape)}, {tuple(coords_b.shape)}, {tuple(values.shape)}"
+        )
+    if not (0 < bh <= 65535 and ta > 0 and tb > 0):
+        raise ValueError(f"_dist_weighted_sum: unsupported shape {tuple(values.shape)}, A = {ta}")
+    if b_mask is not None and (b_mask.shape != (bh, tb) or b_mask.dtype != torch.bool):
+        raise ValueError(f"_dist_weighted_sum: b_mask must be bool [{bh}, {tb}], got {b_mask.dtype} {tuple(b_mask.shape)}")
+    for name, t in {"coords_a": coords_a, "coords_b": coords_b, "values": values, "b_mask": b_mask}.items():
+        if t is None:
+            continue
+        if t.device != values.device:
+            raise ValueError(f"_dist_weighted_sum: {name} is on {t.device}, values on {values.device}")
+        if name != "b_mask" and t.dtype != torch.float32:
+            raise TypeError(f"_dist_weighted_sum: the CUDA kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"_dist_weighted_sum: {name} must be contiguous and 16-byte aligned")
+    out = torch.empty((bh, ta, d), dtype=torch.float32, device=values.device)
+    err = _build.load_library().stamp_dist_weighted_sum(
+        coords_a.data_ptr(), coords_b.data_ptr(), values.data_ptr(),
+        None if b_mask is None else b_mask.data_ptr(), out.data_ptr(),
+        bh, ta, tb, d, values.device.index, torch.cuda.current_stream(values.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "_dist_weighted_sum")
+    global DIST_WEIGHTED_SUM_LAUNCHES
+    DIST_WEIGHTED_SUM_LAUNCHES += 1
+    return out
+
+
+def _alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias):
+    """The post-softmax bias branch of ``_alibi_core_bwd``: (dv with the
+    bias term on valid keys, d dist_scale = −Σ dO∘dacc per (batch·head))."""
+    ddist_scale = -(do * dacc).sum(dim=(1, 2))
+    dv = dv - torch.where(key_mask[:, :, None], dv_bias, 0.0)
+    return dv, ddist_scale
+
+
+def _flash_alibi_backward_reference(q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse, do):
+    """Plain PyTorch version of the ALiBi backward: (dq, dk, dv, d dist_scale)."""
+    dq, dk, dv = _flash_backward_reference(q, k, v, key_mask, out_sm, lse, do)
+    dv_bias = _dist_weighted_sum_reference(coords_k, coords_q, do * dist_scale[:, None, None], None)
+    return (dq, dk, *_alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias))
+
+
+def _flash_alibi_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    coords_q: torch.Tensor,
+    coords_k: torch.Tensor,
+    dist_scale: torch.Tensor,
+    key_mask: torch.Tensor,
+    out_sm: torch.Tensor,
+    dacc: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv, d dist_scale) of ``flash_alibi_mha`` for ``do``."""
+    args = (q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse, do)
+    if q.device.type == "cpu":
+        return _flash_alibi_backward_reference(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_alibi_mha backward: unsupported device {q.device}")
+    _check_flash_args("flash_alibi_mha backward", q, k, v, key_mask, coords_q, coords_k, dist_scale)
+    _check_bwd_args("flash_alibi_mha backward", q, out_sm, lse, do)
+    dq, dk, dv = _launch_flash_bwd(q, k, v, key_mask, out_sm, lse, do)
+    global FLASH_ALIBI_MHA_BWD_LAUNCHES
+    FLASH_ALIBI_MHA_BWD_LAUNCHES += 1
+    dv_bias = _dist_weighted_sum(coords_k, coords_q, do * dist_scale[:, None, None], None)
+    return (dq, dk, *_alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias))
+
+
+class _FlashMHA(torch.autograd.Function):
+    """``flash_mha`` with the flash backward (``_flash_core`` and its VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask):
+        out, lse = _flash_forward(q, k, v, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse, do.contiguous())
+        return dq, dk, dv, None
+
+
+class _FlashALiBiMHA(torch.autograd.Function):
+    """``flash_alibi_mha`` with its backward (``_alibi_core`` and its VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, coords_q, coords_k, dist_scale, key_mask):
+        out, out_sm, dacc, lse = _flash_alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask)
+        ctx.save_for_backward(q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv, ddist_scale = _flash_alibi_backward(*ctx.saved_tensors, do.contiguous())
+        return dq, dk, dv, None, None, ddist_scale, None

@@ -147,3 +147,78 @@ def test_flash_kernels_raise_on_what_they_do_not_take(gen):
         attn.flash_mha(q, k, v, key_mask.float())
     with pytest.raises(ValueError, match="contiguous"):
         attn.flash_alibi_mha(q, k, v, coords.transpose(0, 1).contiguous().transpose(0, 1), coords, dist_scale, key_mask)
+
+
+# backward: the TF32 products (five of them) against the plain f32 backward
+BWD_TOL = 5e-3
+
+
+def _bwd_rel_errs(got, want):
+    """max |Δ| / max |ref| of each gradient.  With one key per sequence
+    softmax is constant, dS = 0 and the reference dq and dk are exactly 0
+    while the kernel's TF32 dP − D leaves rounding: there the scale of dq and
+    dk is taken from dv, the gradient that does not cancel."""
+    floor = want[2].abs().max().item() if want[0].shape[1] == 1 and len(want) == 3 else 1e-30
+    return [
+        (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), floor)
+        for a, b in zip(got, want)
+    ]
+
+
+@pytest.mark.parametrize(
+    "bh,t,d", [(3, 1, 64), (3, 300, 64), (2, 130, 32), (2, 200, 128), (8, 4097, 64)]
+)
+def test_flash_mha_backward_kernels(gen, bh, t, d):
+    q, k, v, key_mask, _, _ = _flash_inputs(gen, bh, t, d)
+    do = torch.randn(bh, t, d, device="cuda", generator=gen)
+    out, lse = attn._flash_forward_reference(q, k, v, key_mask)
+    before = attn.FLASH_MHA_BWD_LAUNCHES
+    got = attn._flash_backward(q, k, v, key_mask, out, lse, do)
+    assert attn.FLASH_MHA_BWD_LAUNCHES == before + 1
+    want = attn._flash_backward_reference(q, k, v, key_mask, out, lse, do)
+    assert max(_bwd_rel_errs(got, want)) <= BWD_TOL
+    masked = ~key_mask
+    assert not got[1][masked].any() and not got[2][masked].any()  # dk, dv of masked keys
+    again = attn._flash_backward(q, k, v, key_mask, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise equal
+
+
+@pytest.mark.parametrize("bh,t,d", [(3, 300, 64), (2, 200, 128), (8, 4097, 64)])
+def test_flash_alibi_mha_backward_kernels(gen, bh, t, d):
+    q, k, v, key_mask, coords, dist_scale = _flash_inputs(gen, bh, t, d)
+    do = torch.randn(bh, t, d, device="cuda", generator=gen)
+    out_sm, dacc, lse = attn._flash_alibi_forward_reference(q, k, v, coords, coords, key_mask)
+    args = (q, k, v, coords, coords, dist_scale, key_mask, out_sm, dacc, lse, do)
+    before = (attn.FLASH_ALIBI_MHA_BWD_LAUNCHES, attn.DIST_WEIGHTED_SUM_LAUNCHES)
+    got = attn._flash_alibi_backward(*args)
+    assert (attn.FLASH_ALIBI_MHA_BWD_LAUNCHES, attn.DIST_WEIGHTED_SUM_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = attn._flash_alibi_backward_reference(*args)
+    assert max(_bwd_rel_errs(got, want)) <= BWD_TOL
+    masked = ~key_mask
+    assert not got[1][masked].any() and not got[2][masked].any()
+    again = attn._flash_alibi_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("bh,ta,tb,d", [(3, 1, 1, 64), (3, 300, 200, 64), (2, 130, 70, 32), (2, 90, 200, 128)])
+def test_dist_weighted_sum_kernel(gen, bh, ta, tb, d):
+    side = 40
+    ca = (torch.randint(0, side, (bh, ta, 2), device="cuda", generator=gen) * 256.0).float()
+    cb = (torch.randint(0, side, (bh, tb, 2), device="cuda", generator=gen) * 256.0).float()
+    val = torch.randn(bh, tb, d, device="cuda", generator=gen)
+    b_mask = torch.rand(bh, tb, device="cuda", generator=gen) < 0.8
+    before = attn.DIST_WEIGHTED_SUM_LAUNCHES
+    for mask in (b_mask, None):
+        got = attn._dist_weighted_sum(ca, cb, val, mask)
+        assert _rel_err(got, attn._dist_weighted_sum_reference(ca, cb, val, mask)) <= DACC_TOL
+    assert attn.DIST_WEIGHTED_SUM_LAUNCHES == before + 2
+
+
+def test_flash_autograd_functions_launch_the_backward_kernels(gen):
+    q, k, v, key_mask, coords, dist_scale = _flash_inputs(gen, 2, 300, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, dist_scale)]
+    before = (attn.FLASH_MHA_BWD_LAUNCHES, attn.FLASH_ALIBI_MHA_BWD_LAUNCHES)
+    attn.flash_mha(*leaves[:3], key_mask).sum().backward()
+    attn.flash_alibi_mha(*leaves[:3], coords, coords, leaves[3], key_mask).sum().backward()
+    assert (attn.FLASH_MHA_BWD_LAUNCHES, attn.FLASH_ALIBI_MHA_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(leaf.grad).all() for leaf in leaves)

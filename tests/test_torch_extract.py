@@ -210,7 +210,7 @@ def test_auto_device_raises_without_cuda(synthetic_slide, tmp_path, stamp_logger
     assert not list((tmp_path / "out").rglob("*.h5"))
 
 
-@pytest.mark.parametrize("command", ["train", "crossval", "statistics", "heatmaps"])
+@pytest.mark.parametrize("command", ["encode_slides", "encode_patients", "statistics", "heatmaps"])
 def test_unported_subcommands_exit_nonzero(command, tmp_path, stamp_logger_handlers, caplog):
     from stamp_tpu_torch.__main__ import main
 

@@ -1,5 +1,6 @@
 """The port imports neither JAX, flax nor anything of the JAX package
-(``stamp_tpu``), and imports without triton, h5py, nvcc or a GPU.  Checked
+(``stamp_tpu``), and imports without triton, h5py, scikit-learn, nvcc or a
+GPU (the card's machine has no h5py and no scikit-learn).  Checked
 in a fresh interpreter that imports every module of the port: this test
 process has jax and stamp_tpu loaded already (tests/conftest.py)."""
 
@@ -18,9 +19,10 @@ import sys
 
 
 class _Refuse(importlib.abc.MetaPathFinder):
-    # act as if triton and h5py were not installed, whatever this machine has
+    # act as if triton, h5py and scikit-learn were not installed, whatever
+    # this machine has
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("triton", "h5py"):
+        if name.split(".")[0] in ("triton", "h5py", "sklearn"):
             raise ModuleNotFoundError(f"No module named {name!r}")
         return None
 
@@ -50,6 +52,7 @@ print(json.dumps({
     "stamp_tpu": loaded("stamp_tpu"),
     "triton": "triton" in sys.modules,
     "h5py": "h5py" in sys.modules,
+    "sklearn": "sklearn" in sys.modules,
     "library_loaded": build._lib is not None,
 }))
 """
@@ -69,17 +72,20 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    # every module of the port, the deploy slice's among them
+    # every module of the port, the deploy and training slices' among them
     assert {
         "stamp_tpu_torch.__main__",
+        "stamp_tpu_torch.modeling.crossval",
         "stamp_tpu_torch.modeling.deploy",
+        "stamp_tpu_torch.modeling.splits",
+        "stamp_tpu_torch.modeling.train",
         "stamp_tpu_torch.models.vision_transformer",
         "stamp_tpu_torch.ops.flash_attention",
         "stamp_tpu_torch.preprocessing.extract",
     } <= set(seen.pop("imported"))
     assert seen == {
         "jax": [], "flax": [], "stamp_tpu": [], "triton": False, "h5py": False,
-        "library_loaded": False,
+        "sklearn": False, "library_loaded": False,
     }
 
 

@@ -101,12 +101,18 @@ def test_variables_round_trip_exactly(use_alibi):
 
 
 def test_inference_only():
-    model = torch_vit.VisionTransformer(**_DIMS)
+    """Attention maps (heatmaps) are not ported and raise; the training
+    forward runs (tests/test_torch_train.py holds it against the JAX module)
+    and updates the ALiBi statistics once."""
+    model = torch_vit.VisionTransformer(**_DIMS, use_alibi=True)
     bags, coords, key_mask = (torch.from_numpy(a) for a in _bag())
-    with pytest.raises(NotImplementedError, match="training"):
-        model(bags, coords=coords, key_mask=key_mask, train=True)
     with pytest.raises(NotImplementedError, match="heatmaps"):
         model(bags, coords=coords, key_mask=key_mask, sow_weights=True)
+    out = model(bags, coords=coords, key_mask=key_mask, train=True, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out).all() and out.requires_grad
+    assert float(model.block_0.mhsa.items_so_far[0]) == 2.0
+    with pytest.raises(ValueError, match="generator"):  # dropout never silently off
+        torch_vit.VisionTransformer(**_DIMS, dropout=0.1)(bags, coords=coords, key_mask=key_mask, train=True)
 
 
 def test_init_random_weights_is_seeded():
@@ -119,3 +125,17 @@ def test_init_random_weights_is_seeded():
     assert float(a.block_0.mhsa.running_mean[0]) == 1.0
     bias_scale = a.block_0.mhsa.bias_scale.detach()
     assert 0.0 <= float(bias_scale.min()) and float(bias_scale.max()) < 1.0
+
+
+def test_training_dropout_draws_from_the_generator():
+    """With dropout, a training forward depends on the generator's draws
+    (equal seeds give equal logits) and differs from the eval forward."""
+    model = torch_vit.VisionTransformer(**_DIMS, dropout=0.5)
+    bags, coords, key_mask = (torch.from_numpy(a) for a in _bag())
+
+    def run(seed):
+        return model(bags, coords=coords, key_mask=key_mask, train=True, generator=torch.Generator().manual_seed(seed))
+
+    torch.testing.assert_close(run(3), run(3), rtol=0, atol=0)
+    assert not torch.equal(run(3), run(4))
+    assert not torch.equal(run(3), model(bags, coords=coords, key_mask=key_mask))
