@@ -56,10 +56,37 @@ Phases (each prints at least one line; any failure exits non-zero):
    and predictions are finite, and holds fold 0's exported probabilities
    against its checkpoint on the kernel path and the plain path.
 
-Phases run in the order 1, 2, 3, 3b, 3c, 4, 5, 6, 7, 8 and print their wall
-time.  The line before the last is ``{"kernels": [...]}``: each kernel's
-launches on its main path (phase 4, 6 or 7), its largest error against its
-plain
+3d. int8 kernel: ``ln_quant_dense`` against its plain version at the three
+   UNI2 int8 sites (M = 16,960) and a ragged shape, its int8 activations
+   (read back through an identity weight) against the plain quantization;
+   the median time of each site beside ``torch._int_mm`` on the
+   pre-quantized activation (the library control) and the bf16
+   ``ln_dense`` kernel.
+3e. TITAN kernel: ``flash_alibi2d_mha`` (f32) against its plain version at
+   [12, 4097 | 16385, 64] on the grid of a slide-shaped tissue region with
+   the CLS token at (0, 0), and at ragged small shapes, N < 64 and N = 1;
+   the median time beside ``F.scaled_dot_product_attention`` f32 with the
+   [12, N, N] bias materialised outside the timed region.
+4b. int8 main path: phase 4's ``preprocess`` with ``extractor_precision:
+   int8``: the ``uni2-int8`` directory, ``precision = "int8"``, 72
+   ``ln_quant_dense`` launches per int8 forward (none in the calibration
+   forward), per-tile cosine against phase 4's bf16 features; the
+   steady-state int8 and bf16 rates at batch 64 in turns, and the int8
+   model on the kernel path against its plain path.
+9. TITAN: ``python -m stamp_tpu_torch -c config.yaml --profile
+   encode_slides`` and ``encode_patients`` in-process at full width
+   (random weights) on synthetic CONCH1.5 slides of 1,500, 4,096, 10,000
+   (two) and 16,384 tiles and one patient of the two 10,000-tile slides
+   (the virtual slide, 20,000 tiles); checks the h5 contract and 12 kernel
+   launches for each slide or patient of at least 2,048 tiles (none below),
+   the 4,096-tile embedding on the kernel path against the plain path, the
+   seconds per slide, and a ``torch.profiler`` split of the 16,384-tile
+   slide.
+
+Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9 and
+print their wall time.  The line before the last is ``{"kernels": [...]}``:
+each kernel's launches on its main path (phase 4, 4b, 6, 7 or 9), its
+largest error against its plain
 version, its time, the plain version's and the library control's, and the
 least time the card could take for the same work (``bound_ms``: the larger
 of the bytes over 3.35 TB/s and the operations over the H100 SXM's peak
@@ -125,9 +152,16 @@ DWS_TOL = 1e-4
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 5e-3
 
+# whole-model per-tile cosine, int8 (W8A8) features against bf16 ones
+INT8_COSINE_MIN = 0.98
+# TITAN's slide embedding, kernel path against plain path: max |Δ| / max |ref|
+# (the flash kernel's TF32 products, FLASH_TOL, through 12 layers) and cosine
+TITAN_TOL = 1e-2
+TITAN_COSINE_MIN = 0.999
+
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds in the kernels line
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
 
 # deploy cohort: tiles per patient → T = bucket + CLS = 4,097 … 32,769
 DEPLOY_TILES = (2500, 6000, 12000, 20000)
@@ -138,6 +172,12 @@ CROSSVAL_EPOCHS = 2
 UNI2_DIM = 1536
 MIL_LAYERS = 2
 MIL_HEADS = 8
+# TITAN cohort: CONCH1.5 slides of these tile counts (users encode slides of
+# 5,000-20,000 tiles), and one patient of the two 10,000-tile slides
+TITAN_TILES = {"slide-1500": 1500, "slide-4096": 4096, "slide-10000": 10000, "slide-10000b": 10000,
+               "slide-16384": 16384}  # fmt: skip
+TITAN_PATIENT = ("slide-10000", "slide-10000b")
+TITAN_LAYERS = 12
 
 
 def _fail(msg: str) -> None:
@@ -296,6 +336,152 @@ def phase_kernels(card: str) -> dict:
     return results
 
 
+def _identity_readback(lnd, x, g, beta, s_x):
+    """The int8 activations the ``ln_quant_dense`` kernel forms, read back
+    through an identity weight (w_scale 1, no bias): out = q·s_x/127 in
+    bf16, whose 8-bit mantissa holds |q| ≤ 127 to within 0.25 of a step."""
+    import torch
+
+    k = x.shape[1]
+    eye = torch.eye(k, device=x.device, dtype=torch.int8)
+    out = lnd.ln_quant_dense(x, g, beta, s_x, eye, torch.ones(k, device=x.device))
+    return torch.round(out.float() / (s_x / 127.0)).to(torch.int32)
+
+
+def phase_quant_kernels(card: str) -> dict:
+    """3d: ``ln_quant_dense`` against its plain version at the UNI2 int8
+    sites and a ragged shape; its int8 activations against the plain
+    quantization; times beside ``torch._int_mm`` on the pre-quantized
+    activation (cuBLASLt's int8 GEMM, no LayerNorm) and the bf16
+    ``ln_dense`` kernel at the same shape."""
+    import torch
+
+    from stamp_tpu_torch.models.vit_image import _quantized_dense_site
+    from stamp_tpu_torch.ops import ln_dense as lnd
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=gen)).to(torch.bfloat16)
+
+    rows = []
+    m = BATCH * UNI2_TOKENS
+    for k, n, site in ((1536, 4608, "norm1→qkv"), (1536, 8192, "norm2→fc1"), (4096, 1536, "mlp.norm→fc2"), (272, 200, "ragged")):
+        rows_m = 1000 if site == "ragged" else m
+        x = randn(rows_m, k)
+        g = (1.0 + 0.1 * torch.randn(k, device=dev, generator=gen)).to(torch.bfloat16)
+        beta = randn(k, scale=0.1)
+        w = randn(n, k, scale=k**-0.5)
+        bias = randn(n, scale=0.1)
+        quant = _quantized_dense_site(w, None)
+        wq, ws = quant["weight_q"], quant["w_scale"]
+        # the calibrated scale: max |LN(x)| of this batch, with 5% headroom
+        y = lnd.layer_norm_f32(x, g, beta, 1e-6).to(torch.bfloat16)
+        s_x = y.abs().max().float().clamp_min(1e-6) * 1.05
+        xq = lnd.quantize_activation(y, s_x)
+        del y
+        args = (x, g, beta, s_x, wq, ws, bias)
+        got = lnd.ln_quant_dense(*args)
+        want = lnd.ln_quant_dense_reference(*args)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _error(got, want)
+        step = (_identity_readback(lnd, x, g, beta, s_x) - xq.int()).abs()
+        row = dict(site=site, m=rows_m, k=k, n=n, max_abs_err=abs_err, rel_err=rel_err,
+                   q_share_one_step=(step == 1).float().mean().item(), q_max_step=step.max().item())  # fmt: skip
+        del got, want, step
+        if not rel_err <= KERNEL_TOL or row["q_max_step"] > 1:
+            _fail(f"ln_quant_dense {row}: beyond {KERNEL_TOL}, or a quantized value off by more than one step")
+        if site != "ragged":
+            t = _compare_timed(lambda: lnd.ln_quant_dense(*args), lambda: lnd.ln_quant_dense_reference(*args),
+                               lambda: torch._int_mm(xq, wq.t()))  # fmt: skip
+            t_bf16 = statistics.median(_time_ms(lambda: lnd.ln_dense(x, g, beta, w, bias), 5))
+            nbytes = 2 * m * k + k * n + 4 * n + 2 * n + 4 * k + 2 * m * n  # x, W_q, w_scale, bias, γβ in; out
+            bound, by = _bound(nbytes, {"int8": 2 * m * k * n})
+            row |= dict(ms=t["kernel"], plain_ms=t["plain"], int_mm_ms=t["control"], ln_dense_bf16_ms=t_bf16,
+                        bound_ms=bound, bound_by=by, kernel_tops=2 * m * k * n / t["kernel"] / 1e9)  # fmt: skip
+        print(f"[3d quant] ln_quant_dense {json.dumps(row)} on {card}")
+        rows.append(row)
+        del x, w, wq, xq, args
+    torch.cuda.empty_cache()
+    return {"ln_quant_dense": rows}
+
+
+def _alibi2d_inputs(gen, bh: int, n: int, d: int):
+    """q, k, v ~ N(0, 1) f32; the integer grid positions of a slide-shaped
+    (elliptical) tissue region, CLS at (0, 0) as TITAN places it; TITAN's
+    slopes for bh heads."""
+    import torch
+
+    from stamp_tpu_torch.models.slide_encoders import alibi_slopes
+
+    dev = torch.device("cuda:0")
+    q, k, v = (torch.randn(bh, n, d, device=dev, generator=gen) for _ in range(3))
+    grid = _tissue_grid(max(n - 1, 1))[: n - 1]
+    coords = torch.cat([torch.zeros(1, 2), torch.from_numpy(grid).float()]).to(dev)
+    slopes = torch.from_numpy(alibi_slopes(bh)).to(dev)
+    return q, k, v, coords.expand(bh, n, 2).contiguous(), slopes
+
+
+def _tissue_grid(n: int):
+    """[n, 2] int64 grid cells of an elliptical region (1.6:1), row by row."""
+    import numpy as np
+
+    a = math.sqrt(1.6 * n / math.pi) + 2
+    b = a / 1.6
+    ys, xs = np.mgrid[0 : int(2 * b) + 1, 0 : int(2 * a) + 1]
+    inside = ((xs - a) / a) ** 2 + ((ys - b) / b) ** 2 <= 1.0
+    cells = np.stack([xs[inside], ys[inside]], axis=1).astype(np.int64)
+    if len(cells) < n:
+        raise ValueError(f"ellipse holds {len(cells)} cells, {n} asked for")
+    return cells[:n]
+
+
+def phase_alibi2d_kernels(card: str) -> dict:
+    """3e: ``flash_alibi2d_mha`` against its plain version at TITAN's
+    shapes ([12, 4097 | 16385, 64]) and at ragged small ones, N < 64 and
+    N = 1; times beside SDPA f32 with the [12, N, N] bias materialised
+    (built outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    gen = torch.Generator(device="cuda:0").manual_seed(5)
+    rows = []
+    for bh, n, d in ((3, 1, 64), (12, 37, 64), (12, 300, 64), (2, 130, 32), (2, 200, 128), (12, 4097, 64), (12, 16385, 64)):
+        q, k, v, coords, slopes = _alibi2d_inputs(gen, bh, n, d)
+        got = attn.flash_alibi2d_mha(q, k, v, coords, slopes)
+        want = attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _error(got, want)
+        row = dict(shape=[bh, n, d], max_abs_err=abs_err, rel_err=rel_err)
+        del want
+        if not rel_err <= FLASH_TOL:
+            _fail(f"flash_alibi2d_mha {row}: beyond {FLASH_TOL}")
+        if n >= 4097:
+            io_bytes = 4 * q.numel() * 4 + coords.numel() * 4 + slopes.numel() * 4  # q k v in, out; coords; slopes
+            bound, by = _bound(io_bytes, {"tf32": 4 * d * bh * n * n})
+            bias = attn._pairwise_distances(coords, coords).mul_(-slopes[:, None, None])
+            bias[:, 0, :] = 0.0
+            bias[:, :, 0] = 0.0
+
+            def sdpa(q=q, k=k, v=v, bias=bias):
+                return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=bias[None])[0]
+
+            t = _compare_timed(lambda: attn.flash_alibi2d_mha(q, k, v, coords, slopes),
+                               lambda: attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes), sdpa, iters=3)  # fmt: skip
+            row |= dict(ms=t["kernel"], plain_ms=t["plain"], sdpa_f32_dense_bias_ms=t["control"],
+                        sdpa_rel_diff=_error(sdpa(), got)[1], bound_ms=bound, bound_by=by,
+                        kernel_tflops=4 * d * bh * n * n / t["kernel"] / 1e9)  # fmt: skip
+            del bias
+        print(f"[3e alibi2d] flash_alibi2d_mha {json.dumps(row)} on {card}")
+        rows.append(row)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return {"flash_alibi2d_mha": rows}
+
+
 def _write_slide(path: Path) -> None:
     """3072×3072 px of texture at 1 µm/px: 12×12 tissue tiles of 256 µm."""
     import numpy as np
@@ -373,6 +559,97 @@ def phase_main_path(card: str) -> dict:
                forward_s=forward_s, forward_tiles_per_s=n / forward_s)  # fmt: skip
     print(f"[4 main path] {json.dumps(row)} on {card}")
     return row
+
+
+def _sorted_by_coords(datasets) -> tuple:
+    import numpy as np
+
+    coords = datasets["coords"]
+    order = np.lexsort((coords[:, 1], coords[:, 0]))
+    return datasets["feats"][order].astype(np.float32), coords[order]
+
+
+def phase_int8_main_path(card: str, bf16_row: dict) -> dict:
+    """4b: ``preprocess`` with ``extractor_precision: int8`` through the CLI
+    on phase 4's slide: the ``-int8`` directory, the ``precision``
+    attribute, 72 ``ln_quant_dense`` launches per int8 forward (none in the
+    calibration forward), per-tile cosine against phase 4's bf16 features;
+    then the steady-state int8 and bf16 forward rates at batch 64, and the
+    int8 model on the kernel path against its plain path."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.io.h5 import read_h5
+    from stamp_tpu_torch.models import vit_image
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.ops import ln_dense as lnd
+    from stamp_tpu_torch.preprocessing import extract
+    from stamp_tpu_torch.preprocessing.extractor import set_int8_extraction
+    from stamp_tpu_torch.preprocessing.extractor.zoo import resolve_extractor
+
+    config = yaml.safe_load((WORK / "config.yaml").read_text())
+    out = WORK / "features_int8"
+    config["preprocessing"] |= {"output_dir": str(out), "extractor_precision": "int8"}
+    (WORK / "config_int8.yaml").write_text(yaml.safe_dump(config))
+
+    attn.LAUNCHES = lnd.LAUNCHES = lnd.QUANT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    main(["-c", str(WORK / "config_int8.yaml"), "--profile", "preprocess"])  # exits non-zero on failure
+    wall = time.perf_counter() - t0
+    launches = {"ln_quant_dense": lnd.QUANT_LAUNCHES, "ln_dense": lnd.LAUNCHES, "fused_qkv_mha": attn.LAUNCHES}
+    h5s = sorted(out.rglob("*.h5"))
+    if len(h5s) != 1 or h5s[0].parent.name != "uni2-int8":
+        _fail(f"expected one h5 under {out / 'uni2-int8'}, found {h5s}")
+    datasets, attrs = read_h5(h5s[0])
+    feats, coords = _sorted_by_coords(datasets)
+    bf16, bf16_coords = _sorted_by_coords(read_h5(next((WORK / "features").rglob("*.h5")))[0])
+    n = len(coords)
+    batches = math.ceil(n / BATCH)
+    # the calibration forward (observe mode) runs attention but no fused LN
+    expected = {"ln_quant_dense": 72 * batches, "ln_dense": 0, "fused_qkv_mha": 24 * (batches + 1)}
+    if attrs.get("precision") != "int8" or launches != expected:
+        _fail(f"precision {attrs.get('precision')!r}, launches {launches}; expected 'int8', {expected}")
+    if not np.array_equal(coords, bf16_coords) or not np.isfinite(feats).all():
+        _fail("int8 features: other tiles than phase 4's, or not finite")
+    cos = (feats * bf16).sum(1) / (np.linalg.norm(feats, axis=1) * np.linalg.norm(bf16, axis=1))
+    if not cos.min() >= INT8_COSINE_MIN:
+        _fail(f"int8 against bf16 features: min per-tile cosine {cos.min()} < {INT8_COSINE_MIN}")
+    forward_s = extract.profiling.timer.seconds["preprocess/device_forward"]
+    row = dict(tiles=n, batches=batches, launches=launches, wall_s=wall, forward_s=forward_s,
+               forward_tiles_per_s=n / forward_s, bf16_forward_tiles_per_s=bf16_row["forward_tiles_per_s"],
+               min_cosine_vs_bf16=float(cos.min()), mean_cosine_vs_bf16=float(cos.mean()))  # fmt: skip
+    print(f"[4b int8 main path] {json.dumps(row)} on {card}")
+
+    # steady state at batch 64 (the first int8 forward calibrates), in turns
+    dev = torch.device("cuda:0")
+    tiles = np.random.default_rng(1).integers(60, 200, (BATCH, 224, 224, 3), dtype=np.uint8)
+    set_int8_extraction(True)
+    try:
+        ext8 = resolve_extractor("uni2", dev)
+    finally:
+        set_int8_extraction(None)
+    ext16 = resolve_extractor("uni2", dev)
+    ext8.forward(tiles)
+    t = _compare_timed(lambda: ext8.forward(tiles), lambda: ext16.forward(tiles), iters=3)
+    steady = dict(int8_ms=t["kernel"], int8_tiles_per_s=BATCH / t["kernel"] * 1e3,
+                  bf16_ms=t["plain"], bf16_tiles_per_s=BATCH / t["plain"] * 1e3)  # fmt: skip
+    # the int8 model on its kernel path against its plain path (8 tiles)
+    got = ext8.forward(tiles[:8])
+    vit_image.ln_quant_dense = lnd.ln_quant_dense_reference
+    try:
+        want = ext8.forward(tiles[:8])
+    finally:
+        vit_image.ln_quant_dense = lnd.ln_quant_dense
+    cos8 = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1).min().item()
+    steady |= dict(int8_kernel_vs_plain_min_cosine=cos8, int8_kernel_vs_plain_max_abs_diff=(got - want).abs().max().item())
+    print(f"[4b int8 main path] steady-state forward, batch {BATCH}: {json.dumps(steady)} on {card}")
+    if not cos8 >= COSINE_MIN:
+        _fail(f"int8 whole model, kernel against plain path: min cosine {cos8} < {COSINE_MIN}")
+    del ext8, ext16
+    torch.cuda.empty_cache()
+    return row | steady
 
 
 def phase_whole_model(card: str) -> None:
@@ -708,7 +985,7 @@ def _forward_probs(module, bags, coords, key_mask, plain: bool = False) -> tuple
     return probs, (time.perf_counter() - start) * 1e3
 
 
-def _profile_forward(card: str, what: str, fn) -> None:
+def _profile_forward(card: str, what: str, fn, tag: str = "6 deploy") -> None:
     """Device time by kernel of one forward (``torch.profiler``), and the
     share of the forward's wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
@@ -720,7 +997,7 @@ def _profile_forward(card: str, what: str, fn) -> None:
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:6]
     rows = [dict(kernel=e.key[:60], calls=e.count, device_ms=e.device_time_total / 1e3) for e in top]
     print(
-        f"[6 deploy] profile {what}, largest patient: wall {wall_ms:.3f} ms, device busy "
+        f"[{tag}] profile {what}, largest input: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); top kernels {json.dumps(rows)} on {card}"
     )
 
@@ -1183,6 +1460,132 @@ def phase_crossval(card: str) -> dict:
     return row
 
 
+def _write_titan_cohort(root: Path) -> None:
+    """CONCH1.5 tile features (768-d fp16, ``extractor=conch1_5``, the
+    port's writer) of slide-shaped tissue regions on a 256 µm grid, and a
+    slide table with one patient of two slides."""
+    import numpy as np
+    import pandas as pd
+
+    from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+
+    rng = np.random.default_rng(6)
+    for name, n in TITAN_TILES.items():
+        write_tile_feats_atomic(
+            output_path=root / "features" / f"{name}.h5",
+            feats=rng.standard_normal((n, 768), dtype=np.float32).astype(np.float16),
+            coords_um=(_tissue_grid(n) * 256.0).astype(np.float32), extractor_id="conch1_5",
+            tile_size_um=256.0, tile_size_px=224, code_hash="chip-smoke",
+        )  # fmt: skip
+    pd.DataFrame({"PATIENT": ["patient-A"] * 2, "FILENAME": [f"{s}.h5" for s in TITAN_PATIENT]}).to_csv(
+        root / "slide.csv", index=False
+    )
+
+
+def phase_titan(card: str) -> dict:
+    """9: ``encode_slides`` and ``encode_patients`` with ``encoder: titan``
+    through the CLI at full width (random weights): the h5 contract, 12
+    ``flash_alibi2d_mha`` launches for every slide or patient of ≥ 2,048
+    tiles and none below; the 4,096-tile embedding on the kernel path
+    against the plain path; seconds per slide, and a ``torch.profiler``
+    split of the 16,384-tile slide."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.encoding.encoder.titan import Titan
+    from stamp_tpu_torch.io.h5 import read_feats, read_h5
+    from stamp_tpu_torch.models import slide_encoders
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.utils import profiling
+
+    root = WORK / "titan"
+    _write_titan_cohort(root)
+    os.environ["STAMP_RANDOM_WEIGHTS"] = "1"
+    runs = {}
+    for command, section in (("encode_slides", "slide_encoding"), ("encode_patients", "patient_encoding")):
+        fields = {"encoder": "titan", "output_dir": str(root / "out"), "feat_dir": str(root / "features"),
+                  "device": "cuda", "generate_hash": False}  # fmt: skip
+        if command == "encode_patients":
+            fields["slide_table"] = str(root / "slide.csv")
+        (root / f"{command}.yaml").write_text(yaml.safe_dump({section: fields}))
+        attn.FLASH_ALIBI2D_LAUNCHES = 0
+        t0 = time.perf_counter()
+        main(["-c", str(root / f"{command}.yaml"), "--profile", command])  # exits non-zero on failure
+        torch.cuda.synchronize()
+        runs[command] = dict(launches=attn.FLASH_ALIBI2D_LAUNCHES, wall_s=time.perf_counter() - t0,
+                             forward_s=profiling.timer.seconds["encode/forward"])  # fmt: skip
+    large = sum(n >= 2048 for n in TITAN_TILES.values())
+    expected = {"encode_slides": TITAN_LAYERS * large, "encode_patients": TITAN_LAYERS}
+    if {c: r["launches"] for c, r in runs.items()} != expected:
+        _fail(f"flash_alibi2d_mha launches {runs}, expected {expected} (12 layers × slides and patients ≥ 2,048 tiles)")
+    outputs = {p.stem: read_h5(p) for p in sorted((root / "out").rglob("*.h5"))}
+    if set(outputs) != {*TITAN_TILES, "patient-A"}:
+        _fail(f"encoded files {sorted(outputs)}, expected {sorted(TITAN_TILES)} and patient-A")
+    for name, (datasets, attrs) in outputs.items():
+        feat_type = "patient" if name == "patient-A" else "slide"
+        if (datasets["feats"].shape != (768,) or not np.isfinite(datasets["feats"]).all()
+                or attrs["encoder"] != "titan" or attrs["feat_type"] != feat_type
+                or attrs["precision"] != "torch.float32"):  # fmt: skip
+            _fail(f"{name}: feats {datasets['feats'].shape}, attrs {attrs}")
+
+    # per slide: the encoder on the kernel path (timed; deterministic, so it
+    # repeats the CLI's embedding) and, at 4,096 tiles, on the plain path
+    encoder = Titan()
+    dev = torch.device("cuda:0")
+    per_slide = []
+    for name, n in TITAN_TILES.items():
+        feats, coords = read_feats(root / "features" / f"{name}.h5")
+        embed = lambda: encoder._generate_slide_embedding(feats, dev, coords=coords)  # noqa: E731
+        embed()  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = embed()
+            times.append(time.perf_counter() - t1)
+        row = dict(slide=name, tiles=n, kernel_path=n >= 2048, seconds=statistics.median(times),
+                   cli_max_abs_diff=float(np.abs(got - outputs[name][0]["feats"]).max()))  # fmt: skip
+        if n == 4096:
+            saved = slide_encoders.flash_alibi2d_mha
+            slide_encoders.flash_alibi2d_mha = attn.flash_alibi2d_mha_reference
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                plain = embed()
+                row["plain_seconds"] = time.perf_counter() - t1
+            finally:
+                slide_encoders.flash_alibi2d_mha = saved
+            abs_err, rel_err = _error(torch.from_numpy(got), torch.from_numpy(plain))
+            cos = float(np.dot(got, plain) / (np.linalg.norm(got) * np.linalg.norm(plain)))
+            row |= dict(vs_plain_max_abs_err=abs_err, vs_plain_rel_err=rel_err, vs_plain_cosine=cos)
+            if not (rel_err <= TITAN_TOL and cos >= TITAN_COSINE_MIN):
+                _fail(f"TITAN at 4,096 tiles, kernel against plain path: {row}")
+        if row["cli_max_abs_diff"] > 1e-5:
+            _fail(f"{name}: the encoder's embedding differs from the CLI's: {row}")
+        if n == max(TITAN_TILES.values()):
+            _profile_forward(card, f"TITAN {name}", lambda: (None, 1e3 * _timed(embed)), tag="9 titan")
+        print(f"[9 titan] {json.dumps(row)} on {card}")
+        per_slide.append(row)
+    encoder.model.to("cpu")
+    torch.cuda.empty_cache()
+    summary = dict(runs=runs, slides=per_slide)
+    print(f"[9 titan] {json.dumps(runs)} on {card}")
+    return summary
+
+
+def _timed(fn) -> float:
+    """Seconds of one synchronised call of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def _timed_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -1207,11 +1610,15 @@ def main() -> None:
     kernels = _timed_phase("3 kernels", phase_kernels, card)
     flash = _timed_phase("3b flash", phase_flash_kernels, card)
     backward = _timed_phase("3c backward", phase_flash_backward, card)
+    quant = _timed_phase("3d quant", phase_quant_kernels, card)
+    alibi2d = _timed_phase("3e alibi2d", phase_alibi2d_kernels, card)
     main_path = _timed_phase("4 main path", phase_main_path, card)
+    int8_path = _timed_phase("4b int8 main path", phase_int8_main_path, card, main_path)
     _timed_phase("5 whole model", phase_whole_model, card)
     deploy = _timed_phase("6 deploy", phase_deploy, card)
     trained = _timed_phase("7 train", phase_train, card)
     _timed_phase("8 crossval", phase_crossval, card)
+    titan = _timed_phase("9 titan", phase_titan, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
@@ -1232,6 +1639,8 @@ def main() -> None:
         "flash_alibi_mha_bwd": trained["runs"]["alibi"]["launches"]["FLASH_ALIBI_MHA_BWD_LAUNCHES"],
         "dist_weighted_sum": trained["runs"]["alibi"]["launches"]["DIST_WEIGHTED_SUM_LAUNCHES"],
     }
+    quant_rows = [r for r in quant["ln_quant_dense"] if r["site"] != "ragged"]
+    alibi2d_row = next(r for r in alibi2d["flash_alibi2d_mha"] if r["shape"][1] == 16385)
     summary = {"kernels": [
         {
             "name": "fused_qkv_mha",
@@ -1298,6 +1707,32 @@ def main() -> None:
                 ("dist_weighted_sum", "stamp_tpu/ops/flash_attention.py:702"),
             )
         ),
+        {
+            "name": "ln_quant_dense",
+            "route": "cuda",
+            "source": "stamp_tpu_torch/ops/csrc/ln_quant_dense.cu",
+            "replaces": "stamp_tpu/ops/ln_dense.py:377",
+            "launches": int8_path["launches"]["ln_quant_dense"],
+            "max_abs_err": max(r["max_abs_err"] for r in quant["ln_quant_dense"]),
+            "ms": sum(r["ms"] for r in quant_rows),  # the three UNI2 sites, M = 16,960
+            "plain_ms": sum(r["plain_ms"] for r in quant_rows),
+            "bound_ms": sum(r["bound_ms"] for r in quant_rows),
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in quant_rows) else "bytes",
+            "library_ms": sum(r["int_mm_ms"] for r in quant_rows),
+        },
+        {
+            "name": "flash_alibi2d_mha",
+            "route": "cuda",
+            "source": "stamp_tpu_torch/ops/csrc/flash_alibi2d.cu",
+            "replaces": "stamp_tpu/ops/flash_attention.py:433",
+            "launches": sum(r["launches"] for r in titan["runs"].values()),
+            "max_abs_err": max(r["max_abs_err"] for r in alibi2d["flash_alibi2d_mha"]),
+            "ms": alibi2d_row["ms"],  # [12, 16385, 64]
+            "plain_ms": alibi2d_row["plain_ms"],
+            "bound_ms": alibi2d_row["bound_ms"],
+            "bound_by": alibi2d_row["bound_by"],
+            "library_ms": alibi2d_row["sdpa_f32_dense_bias_ms"],
+        },
     ]}
     print(json.dumps(summary))
     print(

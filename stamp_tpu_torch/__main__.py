@@ -3,7 +3,8 @@
 The argument surface and the YAML schema (``StampConfig``, the port's copy
 of ``stamp_tpu/utils/config.py``) are those of ``python -m stamp_tpu``.
 Ported so far: ``init``, ``config``, ``preprocess`` (the ImageViT
-extractors), ``train`` and ``crossval`` (the tile-level ``vit`` backbone)
+extractors, bf16 and int8), ``encode_slides`` and ``encode_patients`` (the
+TITAN encoder), ``train`` and ``crossval`` (the tile-level ``vit`` backbone)
 and ``deploy`` (tile-level ViT checkpoints); every other subcommand exits
 non-zero and names the JAX package's command.  As in the JAX CLI,
 ``advanced_config.seed`` seeds the run (``utils.seed.Seed``) before any
@@ -110,6 +111,37 @@ def _run_deploy(section) -> None:
     )
 
 
+def _run_encode_slides(section) -> None:
+    from stamp_tpu_torch.encoding.init import init_slide_encoder_
+    from stamp_tpu_torch.utils.device import resolve_device
+
+    init_slide_encoder_(
+        encoder=section.encoder,
+        output_dir=section.output_dir,
+        feat_dir=section.feat_dir,
+        device=resolve_device(section.device),
+        agg_feat_dir=section.agg_feat_dir,
+        generate_hash=section.generate_hash,
+    )
+
+
+def _run_encode_patients(section) -> None:
+    from stamp_tpu_torch.encoding.init import init_patient_encoder_
+    from stamp_tpu_torch.utils.device import resolve_device
+
+    init_patient_encoder_(
+        encoder=section.encoder,
+        output_dir=section.output_dir,
+        feat_dir=section.feat_dir,
+        slide_table_path=section.slide_table,
+        patient_label=section.patient_label,
+        filename_label=section.filename_label,
+        device=resolve_device(section.device),
+        agg_feat_dir=section.agg_feat_dir,
+        generate_hash=section.generate_hash,
+    )
+
+
 def _run_train(config, section) -> None:
     from stamp_tpu_torch.modeling.train import train_categorical_model_
     from stamp_tpu_torch.utils.device import resolve_device
@@ -133,6 +165,8 @@ def _run_crossval(config, section) -> None:
 # command → (config section, runner(config, section))
 _RUNNERS = {
     "preprocess": ("preprocessing", lambda config, section: _run_preprocess(section)),
+    "encode_slides": ("slide_encoding", lambda config, section: _run_encode_slides(section)),
+    "encode_patients": ("patient_encoding", lambda config, section: _run_encode_patients(section)),
     "train": ("training", _run_train),
     "crossval": ("crossval", _run_crossval),
     "deploy": ("deployment", lambda config, section: _run_deploy(section)),

@@ -273,6 +273,41 @@ def write_tile_feats_atomic(
     tmp_path.rename(output_path)
 
 
+def write_pooled_feats_atomic(
+    *,
+    output_path: Path,
+    feats: np.ndarray,
+    encoder_id: str,
+    precision: str,
+    feat_type: str,
+    code_hash: str,
+    source_precision: str | None = None,
+) -> None:
+    """Atomically write a slide- or patient-level feature file with the
+    datasets and attrs of ``stamp_tpu.io.h5.write_pooled_feats_atomic``.
+    ``source_precision`` carries the numeric mode of the tile extraction
+    when it was not the default (int8 provenance survives pooling)."""
+    attrs: dict[str, str | int | float] = {
+        "version": stamp_tpu_torch.__version__,
+        "encoder": str(encoder_id),
+        "precision": str(precision),
+        "stamp_version": stamp_tpu_torch.__version__,
+        "code_hash": code_hash,
+        "feat_type": feat_type,
+    }
+    if source_precision is not None:
+        attrs["source_precision"] = source_precision
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    with NamedTemporaryFile(dir=output_path.parent, delete=False) as tmp:
+        tmp_path = Path(tmp.name)
+    try:
+        write_h5(tmp_path, {"feats": np.asarray(feats)}, attrs)
+    except BaseException:
+        tmp_path.unlink(missing_ok=True)
+        raise
+    tmp_path.rename(output_path)
+
+
 # --- reading back what write_h5 wrote ----------------------------------------
 
 

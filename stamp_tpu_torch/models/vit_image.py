@@ -11,6 +11,14 @@ norm1→qkv, norm2→fc1, SwiGLU's inner norm→fc2), and attention runs off the
 packed qkv projection (``ops.flash_attention.fused_qkv_mha``).  On CUDA
 tensors both launch their hand-written kernels; on CPU tensors their plain
 PyTorch versions run.
+
+The block matmuls are ``QuantDense`` layers with the JAX package's three
+precisions (``ViTConfig.quant``): "off" (bf16), "observe" (bf16, recording
+each site's activation maximum for calibration) and "int8" (W8A8: int8
+weights per output channel, static per-tensor activation scales), where the
+LayerNorm-fed sites run ``ops.ln_dense.ln_quant_dense``.  The int8 helpers
+at the bottom (``quantize_vit_params``, ``calibrate_act_stats``) mirror
+``stamp_tpu/models/vit_image.py:438-506`` on timm-named state dicts.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stamp_tpu_torch.ops.flash_attention import fused_qkv_mha
-from stamp_tpu_torch.ops.ln_dense import ln_dense
+from stamp_tpu_torch.ops.ln_dense import layer_norm_f32, ln_dense, ln_quant_dense, quantize_activation
 
 
 @dataclass(frozen=True)
@@ -47,7 +55,10 @@ class ViTConfig:
     # normalization applied on device before the backbone
     mean: tuple[float, float, float] = (0.485, 0.456, 0.406)
     std: tuple[float, float, float] = (0.229, 0.224, 0.225)
-    # block-Dense precision; only "off" (bf16 everywhere) is ported so far
+    # block-Dense precision: "off" = bf16 everywhere; "observe" = bf16 +
+    # record per-matmul activation maxima (calibration pass); "int8" = W8A8
+    # matmuls with per-out-channel weight scales and static (calibrated)
+    # per-tensor activation scales.  See `quantize_vit_params`.
     quant: Literal["off", "observe", "int8"] = "off"
     extra: dict[str, Any] = field(default_factory=dict)
 
@@ -60,9 +71,68 @@ class ViTConfig:
         return (1 if self.class_token else 0) + self.num_reg_tokens
 
 
-def _ln_linear(x: torch.Tensor, norm: nn.LayerNorm, linear: nn.Linear) -> torch.Tensor:
-    """``linear(norm(x))`` with the LayerNorm fused into the matmul."""
-    return ln_dense(x, norm.weight, norm.bias, linear.weight, linear.bias, eps=norm.eps)
+_QUANT_MODES = ("off", "observe", "int8")
+
+
+class QuantDense(nn.Module):
+    """``nn.Linear`` with the JAX package's int8 (W8A8) inference modes
+    (``stamp_tpu.models.vit_image.QuantDense``).
+
+    "off" and "observe" hold ``weight`` [N, K] and ``bias`` as ``nn.Linear``
+    does, so timm checkpoints load unchanged; "observe" also keeps
+    ``amax``, the running max |input| in f32 of the last calibration pass
+    (an attribute, not state).  "int8" holds ``weight_q`` (int8 [N, K], the
+    transpose of the JAX package's ``kernel_q``), ``w_scale`` (f32 [N]),
+    ``amax`` (f32, the calibrated activation max) and ``bias``, all state.
+
+    ``forward(x, norm)`` with a LayerNorm marks ``x`` as pre-normalization:
+    "off" fuses it into the matmul (``ln_dense``), "int8" into the quantized
+    matmul (``ln_quant_dense``, dense bias added in f32 before the cast as
+    the fused JAX branch does), "observe" applies it unfused.  An int8 site
+    without a LayerNorm quantizes, takes an exact integer product and adds
+    the bias after the cast to the activation dtype, as the JAX package's
+    unfused branch does."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, mode: str = "off") -> None:
+        super().__init__()
+        if mode not in _QUANT_MODES:
+            raise ValueError(f"QuantDense mode {mode!r} is not one of {_QUANT_MODES}")
+        self.mode = mode
+        if mode == "int8":
+            self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8))
+            self.register_buffer("w_scale", torch.ones(out_features))
+            self.register_buffer("amax", torch.ones(()))
+        else:
+            self.weight = nn.Parameter(torch.empty(out_features, in_features))
+            self.amax: torch.Tensor | None = None
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor, norm: nn.LayerNorm | None = None) -> torch.Tensor:
+        if self.mode == "off":
+            if norm is not None:
+                return ln_dense(x, norm.weight, norm.bias, self.weight, self.bias, eps=norm.eps)
+            return F.linear(x, self.weight, self.bias)
+        if self.mode == "observe":
+            if norm is not None:
+                x = layer_norm_f32(x, norm.weight, norm.bias, norm.eps).to(x.dtype)
+            amax = x.abs().max().float()
+            self.amax = amax if self.amax is None else torch.maximum(self.amax, amax)
+            y = F.linear(x, self.weight.to(x.dtype))
+        else:
+            # 5% headroom over the calibration max, in f32 on the device
+            s_x = self.amax.clamp_min(1e-6) * 1.05
+            if norm is not None:
+                return ln_quant_dense(
+                    x, norm.weight, norm.bias, s_x, self.weight_q, self.w_scale, self.bias, eps=norm.eps
+                )
+            # the JAX package leaves this product to XLA, outside any Pallas
+            # kernel: here cuBLASLt's int8 GEMM on the card, exact i32 sums
+            acc = torch._int_mm(quantize_activation(x, s_x).reshape(-1, x.shape[-1]), self.weight_q.t())
+            y = (acc.float() * (s_x / 127.0) * self.w_scale.float()).to(x.dtype)
+            y = y.reshape(*x.shape[:-1], -1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 class _LayerScale(nn.Module):
@@ -85,26 +155,25 @@ class _PatchEmbed(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool) -> None:
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool, quant: str) -> None:
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = QuantDense(dim, 3 * dim, bias=qkv_bias, mode=quant)
+        self.proj = QuantDense(dim, dim, mode=quant)
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-        qkv = _ln_linear(x, norm, self.qkv)
-        return self.proj(fused_qkv_mha(qkv, self.num_heads))
+        return self.proj(fused_qkv_mha(self.qkv(x, norm), self.num_heads))
 
 
 class _Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, act: str) -> None:
+    def __init__(self, dim: int, hidden: int, act: str, quant: str) -> None:
         super().__init__()
         self.act = act
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = QuantDense(dim, hidden, mode=quant)
+        self.fc2 = QuantDense(hidden, dim, mode=quant)
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-        h = _ln_linear(x, norm, self.fc1)
+        h = self.fc1(x, norm)
         h = F.gelu(h) if self.act == "gelu" else F.silu(h)
         return self.fc2(h)
 
@@ -113,15 +182,15 @@ class _SwiGLU(nn.Module):
     """timm SwiGLUPacked: fc1 emits ``hidden`` features split into halves,
     gate = silu(x1)·x2, then an inner LayerNorm (fused into fc2)."""
 
-    def __init__(self, dim: int, hidden: int) -> None:
+    def __init__(self, dim: int, hidden: int, quant: str) -> None:
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = QuantDense(dim, hidden, mode=quant)
         self.norm = nn.LayerNorm(hidden // 2, eps=1e-6)
-        self.fc2 = nn.Linear(hidden // 2, dim)
+        self.fc2 = QuantDense(hidden // 2, dim, mode=quant)
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-        x1, x2 = _ln_linear(x, norm, self.fc1).chunk(2, dim=-1)
-        return _ln_linear(F.silu(x1) * x2, self.norm, self.fc2)
+        x1, x2 = self.fc1(x, norm).chunk(2, dim=-1)
+        return self.fc2(F.silu(x1) * x2, self.norm)
 
 
 class _Block(nn.Module):
@@ -130,9 +199,12 @@ class _Block(nn.Module):
         dim = cfg.embed_dim
         hidden = int(dim * cfg.mlp_ratio)
         self.norm1 = nn.LayerNorm(dim, eps=cfg.norm_eps)
-        self.attn = _Attention(dim, cfg.num_heads, cfg.qkv_bias)
+        self.attn = _Attention(dim, cfg.num_heads, cfg.qkv_bias, cfg.quant)
         self.norm2 = nn.LayerNorm(dim, eps=cfg.norm_eps)
-        self.mlp = _SwiGLU(dim, hidden) if cfg.ffn == "swiglu" else _Mlp(dim, hidden, cfg.act)
+        if cfg.ffn == "swiglu":
+            self.mlp = _SwiGLU(dim, hidden, cfg.quant)
+        else:
+            self.mlp = _Mlp(dim, hidden, cfg.act, cfg.quant)
         if cfg.init_values is not None:
             self.ls1 = _LayerScale(dim, cfg.init_values)
             self.ls2 = _LayerScale(dim, cfg.init_values)
@@ -149,11 +221,8 @@ class ImageViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig) -> None:
         super().__init__()
-        if cfg.quant != "off":
-            raise NotImplementedError(
-                f"ImageViT quant={cfg.quant!r}: the int8 (W8A8) path is not "
-                "ported yet (ROADMAP.md Queue B, ln_quant_dense)"
-            )
+        if cfg.quant not in _QUANT_MODES:
+            raise ValueError(f"ImageViT quant={cfg.quant!r} is not one of {_QUANT_MODES}")
         self.cfg = cfg
         dim = cfg.embed_dim
         self.patch_embed = _PatchEmbed(cfg.patch_size, dim)
@@ -213,7 +282,9 @@ def init_random_weights_(model: ImageViT, generator: torch.Generator) -> ImageVi
     different numbers for the same seed."""
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d)):
+            if isinstance(module, (nn.Linear, nn.Conv2d)) or (
+                isinstance(module, QuantDense) and module.mode != "int8"
+            ):
                 fan_in = module.weight[0].numel()
                 module.weight.normal_(0.0, fan_in**-0.5, generator=generator)
                 if module.bias is not None:
@@ -272,7 +343,10 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: ViTConfig) -> dict[st
     The exact inverse of ``stamp_tpu.models.vit_image.convert_torch_state_dict``:
     the patch kernel goes [ph, pw, 3, D] → [D, 3, ph, pw], dense kernels
     [in, out] → [out, in]; register tokens, LayerScale and the SwiGLU inner
-    norm are carried over.  Leaves are array-likes (numpy)."""
+    norm are carried over.  An int8 tree (``quantize_vit_params``) maps
+    ``kernel_q`` [in, out] → ``weight_q`` [out, in] and ``w_scale`` as it
+    is, and an ``act_stats`` collection each site's ``amax``.  Leaves are
+    array-likes (numpy)."""
     params = variables["params"]
 
     def t(a: Any, *transpose: int) -> torch.Tensor:
@@ -291,10 +365,18 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: ViTConfig) -> dict[st
     if cfg.num_reg_tokens:
         sd["reg_token"] = t(params["reg_token"])
 
-    def dense(prefix: str, leaf: Mapping[str, Any]) -> None:
-        sd[prefix + ".weight"] = t(leaf["kernel"], 1, 0)
+    act_stats = variables.get("act_stats", {})
+
+    def dense(prefix: str, leaf: Mapping[str, Any], stats: Mapping[str, Any] | None) -> None:
+        if "kernel_q" in leaf:  # an int8 site (quantize_vit_params)
+            sd[prefix + ".weight_q"] = t(leaf["kernel_q"], 1, 0)
+            sd[prefix + ".w_scale"] = t(leaf["w_scale"])
+        else:
+            sd[prefix + ".weight"] = t(leaf["kernel"], 1, 0)
         if "bias" in leaf:
             sd[prefix + ".bias"] = t(leaf["bias"])
+        if stats is not None:
+            sd[prefix + ".amax"] = t(stats["amax"])
 
     def norm(prefix: str, leaf: Mapping[str, Any]) -> None:
         sd[prefix + ".weight"] = t(leaf["scale"])
@@ -305,10 +387,9 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: ViTConfig) -> dict[st
         p = f"blocks.{i}."
         norm(p + "norm1", block["norm1"])
         norm(p + "norm2", block["norm2"])
-        dense(p + "attn.qkv", block["attn"]["qkv"])
-        dense(p + "attn.proj", block["attn"]["proj"])
-        dense(p + "mlp.fc1", block["mlp"]["fc1"])
-        dense(p + "mlp.fc2", block["mlp"]["fc2"])
+        stats = act_stats.get(f"block_{i}", {})
+        for branch, site in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")):
+            dense(f"{p}{branch}.{site}", block[branch][site], stats.get(branch, {}).get(site))
         if "norm" in block["mlp"]:
             norm(p + "mlp.norm", block["mlp"]["norm"])
         if "ls1_gamma" in block:
@@ -316,6 +397,65 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: ViTConfig) -> dict[st
             sd[p + "ls2.gamma"] = t(block["ls2_gamma"])
     norm("norm", params["norm"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# int8 (W8A8) post-training quantization
+# ---------------------------------------------------------------------------
+
+
+def _quantized_dense_site(weight: torch.Tensor, bias: torch.Tensor | None) -> dict[str, torch.Tensor]:
+    """A Dense site's ``weight`` [N, K] → the int8 QuantDense state:
+    ``w_scale = max(max|W[n, :]|, 1e-8) / 127`` (f32, per output channel,
+    computed where the weight lies) and ``weight_q = clip(round(W /
+    w_scale), −127, 127)`` (int8); the bias rides along."""
+    w = weight.float()
+    scale = torch.clamp_min(w.abs().amax(dim=1), 1e-8) / 127.0
+    out = {"weight_q": torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8), "w_scale": scale}
+    if bias is not None:
+        out["bias"] = bias
+    return out
+
+
+def quantize_sites(state_dict: Mapping[str, torch.Tensor], sites) -> dict[str, torch.Tensor]:
+    """Pre-quantize the Dense weights at explicit module paths (e.g.
+    ``"blocks.0.attn.qkv"``) of a state dict; every listed site must be a
+    QuantDense of the int8-mode module.  Everything else (patch embedding,
+    LayerNorms, LayerScale) stays as it is."""
+    sd = dict(state_dict)
+    for site in sites:
+        sd.update({
+            f"{site}.{name}": value
+            for name, value in _quantized_dense_site(sd.pop(f"{site}.weight"), sd.pop(f"{site}.bias", None)).items()
+        })  # fmt: skip
+    return sd
+
+
+def vit_quant_sites(depth: int) -> list[str]:
+    """The QuantDense sites of an ImageViT block stack."""
+    return [f"blocks.{i}.{site}" for i in range(depth) for site in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")]
+
+
+def quantize_vit_params(state_dict: Mapping[str, torch.Tensor], cfg: ViTConfig) -> dict[str, torch.Tensor]:
+    """Pre-quantize an ``ImageViT(cfg)`` state dict for ``quant="int8"``."""
+    return quantize_sites(state_dict, vit_quant_sites(cfg.depth))
+
+
+def calibrate_act_stats(model: ImageViT, images: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One observe-mode forward recording each matmul's activation maximum.
+
+    ``model`` is an ``ImageViT`` with ``cfg.quant == "observe"``;
+    ``images`` must already be normalized like the real input.  Returns the
+    ``<site>.amax`` entries (f32, on the model's device) to load beside the
+    quantized weights."""
+    if model.cfg.quant != "observe":
+        raise ValueError(f"calibrate_act_stats needs an observe-mode model, not quant={model.cfg.quant!r}")
+    sites = {name: m for name, m in model.named_modules() if isinstance(m, QuantDense)}
+    for module in sites.values():
+        module.amax = None
+    with torch.inference_mode():
+        model(images)
+    return {f"{name}.amax": module.amax for name, module in sites.items()}
 
 
 # Architecture configs for the extractor zoo, field for field those of

@@ -38,6 +38,18 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
         _INT, _PTR,
     ],
+    # x, gamma, beta, s_x, weight_q, w_scale, dense_bias|NULL, out, m, n, k,
+    # eps, device, stream
+    "stamp_ln_quant_dense": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+        ctypes.c_float, _INT, _PTR,
+    ],
+    # q, k, v, coords, slopes, out, bh, n, head_dim, scale, exempt_first,
+    # device, stream
+    "stamp_flash_alibi2d_fwd": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
+        _INT, _INT, _PTR,
+    ],
     # q, k, v, mask, cq|NULL, ck|NULL, dist_scale|NULL, o, dacc|NULL,
     # out|NULL, lse, bh, tq, tk, head_dim, scale, alibi, device, stream
     "stamp_flash_attn_fwd": [

@@ -1,13 +1,15 @@
-"""Attention kernels: packed-qkv attention for the extractor ViTs, and the
-masked flash attention (plain and spatial-ALiBi) of the MIL ViT.
+"""Attention kernels: packed-qkv attention for the extractor ViTs, the
+masked flash attention (plain and spatial-ALiBi) of the MIL ViT, and the
+pre-softmax 2-D-ALiBi flash attention of the TITAN slide encoder.
 
-Counterparts of ``stamp_tpu.ops.flash_attention.fused_qkv_mha`` (forward)
-and of ``flash_mha`` and ``flash_alibi_mha`` with their custom VJPs.  On a
-CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/fused_qkv_attn.cu``, ``csrc/flash_attn.cu``, and for the backward
-``csrc/flash_attn_bwd.cu``); on a CPU tensor it runs the plain PyTorch
-version beside it (``*_reference``).  There is no fallback between the two:
-a CUDA tensor a kernel does not take raises.
+Counterparts of ``stamp_tpu.ops.flash_attention.fused_qkv_mha`` (forward),
+of ``flash_mha`` and ``flash_alibi_mha`` with their custom VJPs, and of
+``flash_alibi2d_mha`` (forward).  On a CUDA tensor each wrapper launches its
+hand-written kernel (``csrc/fused_qkv_attn.cu``, ``csrc/flash_attn.cu``, for
+the backward ``csrc/flash_attn_bwd.cu``, ``csrc/flash_alibi2d.cu``); on a
+CPU tensor it runs the plain PyTorch version beside it (``*_reference``).
+There is no fallback between the two: a CUDA tensor a kernel does not take
+raises.
 
 ``fused_qkv_mha`` follows the Pallas kernel's order of operations: scores
 q·kᵀ in f32, scaled by d^-1/2 in f32 after the dot, an exact softmax in f32
@@ -533,3 +535,90 @@ class _FlashALiBiMHA(torch.autograd.Function):
     def backward(ctx, do):
         dq, dk, dv, ddist_scale = _flash_alibi_backward(*ctx.saved_tensors, do.contiguous())
         return dq, dk, dv, None, None, ddist_scale, None
+
+
+# --- pre-softmax 2-D ALiBi flash attention (the TITAN slide encoder) ---------
+
+#: ``flash_alibi2d_mha``
+FLASH_ALIBI2D_LAUNCHES = 0
+
+
+def flash_alibi2d_mha_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    coords: torch.Tensor,
+    slopes: torch.Tensor,
+    *,
+    exempt_first: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``flash_alibi2d_mha``, all in f32.
+    Materialises the [BH, N, N] scores, updated in place to keep two such
+    tensors alive."""
+    bias = _pairwise_distances(coords.float(), coords.float()).mul_(-slopes.float()[:, None, None])
+    if exempt_first:
+        bias[:, 0, :] = 0.0
+        bias[:, :, 0] = 0.0
+    s = torch.matmul(q, k.transpose(-1, -2)).mul_(q.shape[-1] ** -0.5).add_(bias)
+    del bias
+    p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    denom = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
+    return torch.matmul(p, v).div_(denom)
+
+
+def flash_alibi2d_mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    coords: torch.Tensor,
+    slopes: torch.Tensor,
+    *,
+    exempt_first: bool = True,
+) -> torch.Tensor:
+    """Pre-softmax 2-D-ALiBi flash attention (``stamp_tpu.ops.
+    flash_attention.flash_alibi2d_mha``; forward only, as there).
+
+    Args:
+        q, k, v: [BH, N, d]; queries and keys share the sequence.
+        coords: [BH, N, 2] positions (tile-grid units for TITAN).
+        slopes: [BH] ALiBi slope per (batch·head).
+        exempt_first: no bias on row 0 and column 0 (the CLS token).
+
+    Returns: [BH, N, d] = softmax(q·kᵀ·d^-1/2 − slope·‖c_i − c_j‖)·v.  On
+    CUDA every tensor is f32, contiguous and 16-byte aligned, d in
+    (32, 64, 128).
+    """
+    if q.device.type == "cpu":
+        return flash_alibi2d_mha_reference(q, k, v, coords, slopes, exempt_first=exempt_first)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_alibi2d_mha: unsupported device {q.device}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"flash_alibi2d_mha: q, k, v must be [BH, N, d], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    bh, n, d = q.shape
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_alibi2d_mha: head_dim {d} has no kernel instance {_FLASH_HEAD_DIMS}")
+    if not (0 < bh <= 65535 and n > 0):
+        raise ValueError(f"flash_alibi2d_mha: unsupported shape {tuple(q.shape)}")
+    if coords.shape != (bh, n, 2) or slopes.shape != (bh,):
+        raise ValueError(
+            f"flash_alibi2d_mha: coords must be [{bh}, {n}, 2] and slopes [{bh}], got "
+            f"{tuple(coords.shape)}, {tuple(slopes.shape)}"
+        )
+    for name, t in {"q": q, "k": k, "v": v, "coords": coords, "slopes": slopes}.items():
+        if t.device != q.device:
+            raise ValueError(f"flash_alibi2d_mha: {name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash_alibi2d_mha: the CUDA kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_alibi2d_mha: {name} must be contiguous and 16-byte aligned")
+    out = torch.empty_like(q)
+    err = _build.load_library().stamp_flash_alibi2d_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), coords.data_ptr(), slopes.data_ptr(), out.data_ptr(),
+        bh, n, d, d**-0.5, int(exempt_first), q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "flash_alibi2d_mha")
+    global FLASH_ALIBI2D_LAUNCHES
+    FLASH_ALIBI2D_LAUNCHES += 1
+    return out

@@ -8,6 +8,14 @@ the normalized activation to device memory; on a CPU tensor it runs the
 plain PyTorch version, ``ln_dense_reference``.  There is no fallback between
 the two: a CUDA tensor the kernel does not take raises.  Unlike the TPU
 kernel there is no tile gate — every row count launches.  Forward only.
+
+``ln_quant_dense`` is the int8 (W8A8) counterpart,
+``stamp_tpu.ops.ln_dense.ln_quant_dense``: LayerNorm, static per-tensor
+int8 quantization, an int8 matmul with exact i32 sums and an f32 dequantize,
+as the kernel in ``csrc/ln_quant_dense.cu`` on a CUDA tensor and as
+``ln_quant_dense_reference`` on a CPU tensor.  Its JAX VJP (the plain
+formulation differentiated, the quantize blocking the gradient to x) is not
+ported: the int8 extractor runs inference only.
 """
 
 from __future__ import annotations
@@ -18,6 +26,16 @@ from stamp_tpu_torch.ops import _build
 
 #: kernel launches since the last reset (the main path's proof of use)
 LAUNCHES = 0
+
+
+def layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (two-pass mean and variance), as
+    the JAX package's kernels and their references compute it."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    c = xf - mean
+    var = (c * c).mean(dim=-1, keepdim=True)
+    return c * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
 def ln_dense_reference(
@@ -33,11 +51,7 @@ def ln_dense_reference(
     LayerNorm in f32 (two-pass mean and variance), cast to ``x.dtype``,
     a matmul with f32 accumulation against ``weight [N, K]``, the dense bias
     added in f32, one cast to ``x.dtype``."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    c = xf - mean
-    var = (c * c).mean(dim=-1, keepdim=True)
-    y = (c * torch.rsqrt(var + eps) * scale.float() + bias.float()).to(x.dtype)
+    y = layer_norm_f32(x, scale, bias, eps).to(x.dtype)
     acc = torch.matmul(y.float(), weight.to(x.dtype).float().t())
     if dense_bias is not None:
         acc = acc + dense_bias.float()
@@ -109,4 +123,121 @@ def ln_dense(
     _build.check(err, "ln_dense")
     global LAUNCHES
     LAUNCHES += 1
+    return out.reshape(*x.shape[:-1], n)
+
+
+# --- int8 (W8A8): LayerNorm → quantize → int8 matmul → dequantize ------------
+
+#: ``ln_quant_dense`` kernel launches since the last reset
+QUANT_LAUNCHES = 0
+
+
+def quantize_activation(y: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """Static per-tensor int8 quantization of an activation, as the JAX
+    package's ``QuantDense`` and its fused kernel do it:
+    ``clip(round_half_even(y_f32 · (127 / s_x)), −127, 127)``, the factor
+    formed in f32 first."""
+    return torch.clamp(torch.round(y.float() * (127.0 / s_x)), -127, 127).to(torch.int8)
+
+
+def int8_matmul_exact(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """``a_q [M, K] @ w_q [N, K]ᵀ`` of int8 operands as int32, exactly: the
+    products are summed in f64, whose 53-bit mantissa holds every partial
+    sum (|Σ| ≤ 127² · K), on any device and at any shape."""
+    return torch.matmul(a_q.double(), w_q.double().t()).to(torch.int32)
+
+
+def ln_quant_dense_reference(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    s_x: torch.Tensor,
+    weight_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    dense_bias: torch.Tensor | None = None,
+    *,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's semantics on ``x [M, K]``
+    (``stamp_tpu.ops.ln_dense.ln_quant_dense_reference``): LayerNorm in f32
+    (two-pass), cast to ``x.dtype``, quantized with the static scale
+    ``s_x``, an exact int8 product with ``weight_q [N, K]`` summed as
+    integers, dequantized as ``acc · (s_x / 127) · w_scale`` in f32, the
+    dense bias added in f32, one cast to ``x.dtype``."""
+    y = layer_norm_f32(x, scale, bias, eps).to(x.dtype)
+    acc = int8_matmul_exact(quantize_activation(y, s_x), weight_q)
+    out = acc.float() * (s_x / 127.0) * w_scale.float()
+    if dense_bias is not None:
+        out = out + dense_bias.float()
+    return out.to(x.dtype)
+
+
+def ln_quant_dense(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    s_x: torch.Tensor,
+    weight_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    dense_bias: torch.Tensor | None = None,
+    *,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """``dequant(int8_dot(quantize(LayerNorm(x)), weight_q)) + dense_bias``
+    as one kernel (``stamp_tpu.ops.ln_dense.ln_quant_dense``, forward only).
+
+    ``x``: [..., K] activation; ``scale``/``bias``: [K] LayerNorm
+    parameters; ``s_x``: 0-dim f32 static activation scale (the calibrated
+    amax with headroom), left on the device; ``weight_q``: [N, K] int8 in
+    ``nn.Linear``'s layout (the transpose of the JAX package's
+    ``kernel_q [K, N]``); ``w_scale``: [N] f32 per-output-channel dequant
+    scale; ``dense_bias``: [N] or None.  Returns [..., N] in ``x.dtype``.
+    On CUDA ``x``, ``scale``, ``bias`` and ``dense_bias`` are bfloat16,
+    every tensor is contiguous and 16-byte aligned, and K is a multiple of
+    16.
+    """
+    k = x.shape[-1]
+    n = weight_q.shape[0]
+    x2d = x.reshape(-1, k)
+    if x.device.type == "cpu":
+        out = ln_quant_dense_reference(x2d, scale, bias, s_x, weight_q, w_scale, dense_bias, eps=eps)
+        return out.reshape(*x.shape[:-1], n)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_quant_dense: unsupported device {x.device}")
+    m = x2d.shape[0]
+    dtypes = {"x": torch.bfloat16, "scale": torch.bfloat16, "bias": torch.bfloat16,
+              "s_x": torch.float32, "weight_q": torch.int8, "w_scale": torch.float32}  # fmt: skip
+    tensors = {"x": x, "scale": scale, "bias": bias, "s_x": s_x, "weight_q": weight_q, "w_scale": w_scale}
+    if dense_bias is not None:
+        dtypes["dense_bias"] = torch.bfloat16
+        tensors["dense_bias"] = dense_bias
+    for name, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"ln_quant_dense: {name} is on {t.device}, x on {x.device}")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"ln_quant_dense: the CUDA kernel takes {dtypes[name]} {name}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"ln_quant_dense: {name} must be contiguous and 16-byte aligned")
+    if (tuple(weight_q.shape) != (n, k) or scale.shape != (k,) or bias.shape != (k,)
+            or w_scale.shape != (n,) or s_x.numel() != 1):  # fmt: skip
+        raise ValueError(
+            f"ln_quant_dense: shapes x {tuple(x.shape)}, weight_q {tuple(weight_q.shape)}, "
+            f"scale {tuple(scale.shape)}, bias {tuple(bias.shape)}, w_scale {tuple(w_scale.shape)}, "
+            f"s_x {tuple(s_x.shape)} do not match"
+        )
+    if dense_bias is not None and dense_bias.shape != (n,):
+        raise ValueError(f"ln_quant_dense: dense_bias must be [{n}], got {tuple(dense_bias.shape)}")
+    if k % 16 or not 0 < m <= 65535 * 128 or n <= 0:  # grid.y: 128-row blocks
+        raise ValueError(f"ln_quant_dense: unsupported shape M={m}, K={k}, N={n}")
+
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = _build.load_library().stamp_ln_quant_dense(
+        x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), s_x.data_ptr(),
+        weight_q.data_ptr(), w_scale.data_ptr(),
+        None if dense_bias is None else dense_bias.data_ptr(), out.data_ptr(),
+        m, n, k, eps, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "ln_quant_dense")
+    global QUANT_LAUNCHES
+    QUANT_LAUNCHES += 1
     return out.reshape(*x.shape[:-1], n)

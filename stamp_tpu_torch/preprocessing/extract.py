@@ -249,7 +249,8 @@ def extract_(
     """Extracts features from slides, fail-safe per slide.
 
     ``extractor_precision`` None defers to the STAMP_INT8_EXTRACTION env
-    var; "int8" (from either) raises until the int8 path is ported.
+    var; "int8" (from either) runs the ViT extractor as W8A8, into a
+    ``-int8`` artifact directory with a ``precision`` attribute.
     """
     from stamp_tpu_torch.preprocessing.extractor import set_int8_extraction
     from stamp_tpu_torch.preprocessing.extractor.zoo import resolve_extractor

@@ -32,7 +32,9 @@ from stamp_tpu_torch.models.vit_image import (
     VIT_CONFIGS,
     ImageViT,
     ViTConfig,
+    calibrate_act_stats,
     init_random_weights_,
+    quantize_vit_params,
     select_timm_state_dict,
 )
 
@@ -66,8 +68,8 @@ class Extractor:
     transform_host: Callable[[Image.Image], np.ndarray]
     forward: Callable[[np.ndarray], torch.Tensor]  # uint8 [B,H,W,3] → f32 [B,D]
     precision: str = "bfloat16"
-    """Numeric mode the forward actually runs in — the source of truth for
-    output provenance and artifact dir naming."""
+    """Numeric mode the forward actually runs in ("bfloat16" | "int8") —
+    the source of truth for output provenance and artifact dir naming."""
 
 
 def batch_floor() -> int:
@@ -124,22 +126,29 @@ def make_vit_extractor(
     pool: str | None = None,
     device: torch.device,
 ) -> Extractor:
-    """Build a bf16 ViT extractor from the shared architecture zoo on
-    ``device``."""
-    if _int8_requested():
-        raise NotImplementedError(
-            f"{identifier}: int8 (W8A8) extraction is not ported yet "
-            "(ROADMAP.md Queue B, ln_quant_dense); run bfloat16 or use "
-            "`python -m stamp_tpu preprocess`"
-        )
+    """Build a ViT extractor from the shared architecture zoo on ``device``:
+    bf16, or W8A8 when int8 extraction is requested (``set_int8_extraction``
+    or STAMP_INT8_EXTRACTION=1).  The int8 path mirrors the JAX package's:
+    the first forward calibrates each matmul's activation scale on its
+    (padded) batch in observe mode, then the bf16 block weights are
+    quantized per output channel and dropped, and every forward runs the
+    int8 model."""
     cfg: ViTConfig = VIT_CONFIGS[arch]
     if input_px != cfg.img_size:
         cfg = ViTConfig(**{**cfg.__dict__, "img_size": input_px})
     if pool is not None:
         cfg = ViTConfig(**{**cfg.__dict__, "pool": pool})
+    use_int8 = _int8_requested()
+    if use_int8:
+        _logger.warning(
+            f"{identifier}: int8 (W8A8) inference enabled — features will "
+            "deviate slightly from the fp16/bf16 reference output"
+        )
 
+    # the calibration forward runs in observe mode, whose state is the bf16 one
+    build_cfg = ViTConfig(**{**cfg.__dict__, "quant": "observe"}) if use_int8 else cfg
     with torch.device("meta"):  # no memory and no init until weights arrive
-        model = ImageViT(cfg)
+        model = ImageViT(build_cfg)
     if os.environ.get("STAMP_RANDOM_WEIGHTS") == "1":
         _logger.warning(
             f"{identifier}: using RANDOM weights (STAMP_RANDOM_WEIGHTS=1) — "
@@ -160,7 +169,18 @@ def make_vit_extractor(
         sd = select_timm_state_dict(_load_torch_state_dict(path), model)
         model.load_state_dict(sd, assign=True)
     # inference weights are bf16, like the activations
-    model = model.to(device=device, dtype=torch.bfloat16).eval()
+    models = {"forward": model.to(device=device, dtype=torch.bfloat16).eval()}
+
+    def quantize(images: torch.Tensor) -> None:
+        """Calibrate on ``images``, then swap in the int8 model."""
+        act_stats = calibrate_act_stats(models["forward"], images)
+        with torch.no_grad():
+            qstate = quantize_vit_params(models.pop("forward").state_dict(), cfg)
+        with torch.device("meta"):
+            qmodel = ImageViT(ViTConfig(**{**cfg.__dict__, "quant": "int8"}))
+        # assign: int8 weights, f32 scales and bf16 rest keep their dtypes
+        qmodel.load_state_dict({**qstate, **act_stats}, assign=True)
+        models["forward"] = qmodel.eval()
 
     mean = torch.tensor(cfg.mean, dtype=torch.float32, device=device) * 255.0
     std = torch.tensor(cfg.std, dtype=torch.float32, device=device) * 255.0
@@ -182,8 +202,11 @@ def make_vit_extractor(
             )
         images = torch.from_numpy(batch).to(device)
         with torch.inference_mode():
-            x = (images.float() - mean) / std
-            return model(x.to(torch.bfloat16)).float()[:n]
+            x = ((images.float() - mean) / std).to(torch.bfloat16)
+        if use_int8 and models["forward"].cfg.quant == "observe":
+            quantize(x)  # the first, padded batch calibrates, as in the JAX package
+        with torch.inference_mode():
+            return models["forward"](x).float()[:n]
 
     return Extractor(
         identifier=identifier,
@@ -191,4 +214,5 @@ def make_vit_extractor(
         feat_dim=feat_dim,
         transform_host=_resize_transform(input_px),
         forward=forward,
+        precision="int8" if use_int8 else "bfloat16",
     )

@@ -222,3 +222,91 @@ def test_flash_autograd_functions_launch_the_backward_kernels(gen):
     attn.flash_alibi_mha(*leaves[:3], coords, coords, leaves[3], key_mask).sum().backward()
     assert (attn.FLASH_MHA_BWD_LAUNCHES, attn.FLASH_ALIBI_MHA_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(leaf.grad).all() for leaf in leaves)
+
+
+# --- row 3: ln_quant_dense (W8A8) -----------------------------------------------
+
+
+def _quant_inputs(gen, m, k, n, amax, bias):
+    """bf16 x, γ, β; int8 W_q [n, k] with per-channel f32 scales; the dense
+    bias; s_x from ``amax`` as the port's QuantDense forms it on the device."""
+    x = _randn(gen, m, k)
+    g = (1.0 + 0.1 * torch.randn(k, device="cuda", generator=gen)).bfloat16()
+    b = _randn(gen, k, scale=0.1)
+    wq = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int8)
+    ws = 1e-3 * (0.5 + torch.rand(n, device="cuda", generator=gen))
+    d = _randn(gen, n, scale=0.1) if bias else None
+    s_x = torch.tensor(amax, device="cuda").clamp_min(1e-6) * 1.05
+    return x, g, b, s_x, wq, ws, d
+
+
+@pytest.mark.parametrize(
+    "m,k,n,amax,bias",
+    [
+        (1, 16, 1, 4.0, True),
+        (300, 208, 200, 4.0, True),  # ragged M, N; K = 3¼ chunks of 64
+        (256, 512, 256, 4.0, False),
+        (1000, 1536, 4608, 4.0, True),
+        (130, 96, 72, 1e-9, True),  # s_x clamps at 1e-6·1.05: every nonzero value saturates
+    ],
+)
+def test_ln_quant_dense_kernel(gen, m, k, n, amax, bias):
+    x, g, b, s_x, wq, ws, d = _quant_inputs(gen, m, k, n, amax, bias)
+    before = lnd.QUANT_LAUNCHES
+    got = lnd.ln_quant_dense(x, g, b, s_x, wq, ws, d)
+    assert lnd.QUANT_LAUNCHES == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _rel_err(got, lnd.ln_quant_dense_reference(x, g, b, s_x, wq, ws, d)) <= TOL
+
+
+def test_ln_quant_dense_raises_on_what_it_does_not_take(gen):
+    x, g, b, s_x, wq, ws, d = _quant_inputs(gen, 4, 32, 8, 4.0, True)
+    with pytest.raises(TypeError):
+        lnd.ln_quant_dense(x.float(), g, b, s_x, wq, ws, d)
+    with pytest.raises(TypeError):
+        lnd.ln_quant_dense(x, g, b, s_x, wq.float(), ws, d)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        lnd.ln_quant_dense(x[:, :24].contiguous(), g[:24].contiguous(), b[:24].contiguous(), s_x,
+                           wq[:, :24].contiguous(), ws, d)  # fmt: skip
+    with pytest.raises(ValueError, match="contiguous"):
+        lnd.ln_quant_dense(x, g, b, s_x, wq.t().contiguous().t(), ws, d)
+
+
+# --- row 9: flash_alibi2d_mha (TITAN) --------------------------------------------
+
+
+def _alibi2d_inputs(gen, bh, n, d):
+    """q, k, v ~ N(0, 1); integer grid coordinates of a tissue region with
+    the CLS slot at (0, 0); TITAN's geometric slopes for bh heads."""
+    q, k, v = (torch.randn(bh, n, d, device="cuda", generator=gen) for _ in range(3))
+    side = max(1, int(n**0.5))
+    idx = torch.arange(n, device="cuda")
+    grid = torch.stack([idx % side + 3, idx // side + 5], dim=-1).float()
+    grid[0] = 0.0
+    coords = grid.expand(bh, n, 2).contiguous()
+    slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / bh) for i in range(bh)], device="cuda")
+    return q, k, v, coords, slopes
+
+
+@pytest.mark.parametrize(
+    "bh,n,d", [(3, 1, 64), (12, 37, 64), (12, 300, 64), (2, 130, 32), (2, 200, 128), (12, 4097, 64)]
+)
+def test_flash_alibi2d_mha_kernel(gen, bh, n, d):
+    q, k, v, coords, slopes = _alibi2d_inputs(gen, bh, n, d)
+    for exempt in (True, False):
+        before = attn.FLASH_ALIBI2D_LAUNCHES
+        got = attn.flash_alibi2d_mha(q, k, v, coords, slopes, exempt_first=exempt)
+        assert attn.FLASH_ALIBI2D_LAUNCHES == before + 1
+        want = attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes, exempt_first=exempt)
+        assert got.shape == (bh, n, d) and got.dtype == torch.float32
+        assert _rel_err(got, want) <= FLASH_TOL
+
+
+def test_flash_alibi2d_mha_raises_on_what_it_does_not_take(gen):
+    q, k, v, coords, slopes = _alibi2d_inputs(gen, 2, 10, 64)
+    with pytest.raises(TypeError):
+        attn.flash_alibi2d_mha(q.double(), k.double(), v.double(), coords, slopes)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn.flash_alibi2d_mha(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous(), coords, slopes)
+    with pytest.raises(ValueError, match="coords"):
+        attn.flash_alibi2d_mha(q, k, v, coords[:, :5].contiguous(), slopes)

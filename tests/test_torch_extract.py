@@ -210,16 +210,37 @@ def test_auto_device_raises_without_cuda(synthetic_slide, tmp_path, stamp_logger
     assert not list((tmp_path / "out").rglob("*.h5"))
 
 
-@pytest.mark.parametrize("command", ["encode_slides", "encode_patients", "statistics", "heatmaps"])
+@pytest.mark.parametrize("command", ["statistics", "heatmaps", "export_ckpt"])
 def test_unported_subcommands_exit_nonzero(command, tmp_path, stamp_logger_handlers, caplog):
     from stamp_tpu_torch.__main__ import main
 
     config = tmp_path / "config.yaml"
     config.write_text("{}\n")
+    paths = [str(tmp_path / "model.ckpt"), str(tmp_path / "model.npz")] if command == "export_ckpt" else []
+    with pytest.raises(SystemExit) as exc:
+        main(["-c", str(config), command, *paths])
+    assert exc.value.code != 0
+    assert f"not yet ported — run `python -m stamp_tpu {command}`" in caplog.text
+
+
+@pytest.mark.parametrize("command", ["encode_slides", "encode_patients"])
+@pytest.mark.parametrize("encoder", ["chief", "eagle", "cobra", "gigapath", "prism", "madeleine"])
+def test_unported_encoders_exit_nonzero(command, encoder, tmp_path, stamp_logger_handlers, caplog):
+    """Only TITAN is ported: every other encoder names the JAX package's
+    command."""
+    from stamp_tpu_torch.__main__ import main
+
+    section = "slide_encoding" if command == "encode_slides" else "patient_encoding"
+    fields = {"encoder": encoder, "output_dir": str(tmp_path / "out"), "feat_dir": str(tmp_path), "device": "cpu"}
+    if command == "encode_patients":
+        fields["slide_table"] = str(tmp_path / "slide.csv")
+    config = tmp_path / "config.yaml"
+    config.write_text(yaml.safe_dump({section: fields}))
     with pytest.raises(SystemExit) as exc:
         main(["-c", str(config), command])
     assert exc.value.code != 0
-    assert f"not yet ported — run `python -m stamp_tpu {command}`" in caplog.text
+    assert f"run `python -m stamp_tpu {command}`" in caplog.text
+    assert not (tmp_path / "out").exists() or not list((tmp_path / "out").rglob("*.h5"))
 
 
 def test_int8_and_macenko_raise(synthetic_slide, tmp_path, monkeypatch):
@@ -236,23 +257,22 @@ def test_int8_and_macenko_raise(synthetic_slide, tmp_path, monkeypatch):
     factory = dict(identifier="test-tiny", arch="test-tiny", device=cpu)
     assert make_vit_extractor(**factory).precision == "bfloat16"
 
+    # int8 is ported: requested by the environment or the config layer, it
+    # builds the W8A8 extractor, whose features go to their own directory
     monkeypatch.setenv("STAMP_INT8_EXTRACTION", "1")
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_vit_extractor(**factory)
+    int8 = make_vit_extractor(**factory)
+    assert int8.precision == "int8"
     monkeypatch.delenv("STAMP_INT8_EXTRACTION")
     set_int8_extraction(True)
     try:
-        with pytest.raises(NotImplementedError, match="int8"):
-            make_vit_extractor(**factory)
+        assert make_vit_extractor(**factory).precision == "int8"
     finally:
         set_int8_extraction(None)
-    with pytest.raises(NotImplementedError, match="int8"):
-        extract_(
-            extractor="uni2",
-            extractor_precision="int8",
-            device="cpu",
-            **_extract_kwargs(synthetic_slide, tmp_path / "out"),
-        )
+    extract_(extractor=int8, device="cpu", **_extract_kwargs(synthetic_slide, tmp_path / "out"))
+    (h5_path,) = (tmp_path / "out").rglob("*.h5")
+    assert h5_path.parent.name.startswith("test-tiny-int8-")
+    attrs, feats, _ = _read_h5(h5_path)
+    assert attrs["precision"] == "int8" and feats.shape == (16, 64) and np.isfinite(feats).all()
 
     with pytest.raises(NotImplementedError, match="macenko"):
         extract_(

@@ -72,9 +72,13 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    # every module of the port, the deploy and training slices' among them
+    # every module of the port, the deploy, training and encoding slices' among them
     assert {
         "stamp_tpu_torch.__main__",
+        "stamp_tpu_torch.encoding.encoder._virtual_slide",
+        "stamp_tpu_torch.encoding.encoder.titan",
+        "stamp_tpu_torch.encoding.init",
+        "stamp_tpu_torch.models.slide_encoders",
         "stamp_tpu_torch.modeling.crossval",
         "stamp_tpu_torch.modeling.deploy",
         "stamp_tpu_torch.modeling.splits",

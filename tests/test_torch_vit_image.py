@@ -156,9 +156,26 @@ def test_select_timm_state_dict_aliases_and_missing():
 
 
 def test_quantized_modes_raise():
-    for quant in ("observe", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_vit.ImageViT(torch_vit.ViTConfig(depth=1, quant=quant))
+    """Only the JAX package's three precisions exist: another raises.  The
+    observe and int8 modes build, observe with the bf16 state and int8 with
+    the quantized weights, their scales and the activation maxima."""
+    with pytest.raises(ValueError, match="quant"):
+        torch_vit.ImageViT(torch_vit.ViTConfig(depth=1, quant="fp8"))
+    with pytest.raises(ValueError, match="mode"):
+        torch_vit.QuantDense(4, 4, mode="int4")
+    with torch.device("meta"):
+        keys = {
+            quant: set(torch_vit.ImageViT(torch_vit.ViTConfig(depth=1, quant=quant)).state_dict())
+            for quant in ("off", "observe", "int8")
+        }
+    assert keys["observe"] == keys["off"]
+    site = "blocks.0.attn.qkv"
+    assert {f"{site}.weight_q", f"{site}.w_scale", f"{site}.amax", f"{site}.bias"} <= keys["int8"]
+    assert f"{site}.weight" not in keys["int8"]
+    assert keys["int8"] - keys["off"] == {
+        f"blocks.0.{s}.{name}" for s in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
+        for name in ("weight_q", "w_scale", "amax")
+    }
 
 
 def test_random_init_is_seeded():
