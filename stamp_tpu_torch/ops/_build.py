@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels at first use.
 
 Every source under ``csrc/`` exposes a plain C interface (no PyTorch
-headers), so ``nvcc`` compiles them into one shared library in seconds and
-``ctypes`` loads it.  The library file is named by a hash of the sources and
-the flags: an edited source builds a new library, a stale one is never
-loaded.  Nothing here runs at import time — the CPU test suite imports this
+headers), so ``nvcc`` compiles each into an object, all sources at once in
+parallel, links them into one shared library and ``ctypes`` loads it.  The
+library file is named by a hash of the sources and the flags: an edited
+source builds a new library, a stale one is never loaded.  Nothing here runs at import time — the CPU test suite imports this
 module on machines with no CUDA toolkit.
 """
 
@@ -22,7 +22,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stamp_tpu_torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers / shared memory / spills per kernel, into the build log
 ]  # fmt: skip
 
@@ -33,16 +33,17 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     # qkv, out, batch, n, heads, head_dim, device, stream
     "stamp_fused_qkv_attn": [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
-    # x, gamma, beta, weight, dense_bias|NULL, out, m, n, k, eps, device, stream
+    # x, gamma, beta, weight, dense_bias|NULL, scratch, out, m, n, k, eps,
+    # device, stream
     "stamp_ln_dense": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
-        _INT, _PTR,
-    ],
-    # x, gamma, beta, s_x, weight_q, w_scale, dense_bias|NULL, out, m, n, k,
-    # eps, device, stream
-    "stamp_ln_quant_dense": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
         ctypes.c_float, _INT, _PTR,
+    ],
+    # x, gamma, beta, s_x, weight_q, w_scale, dense_bias|NULL, scratch, out, m,
+    # n, k, eps, device, stream
+    "stamp_ln_quant_dense": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+        _INT, ctypes.c_float, _INT, _PTR,
     ],
     # q, k, v, coords, slopes, out, bh, n, head_dim, scale, exempt_first,
     # device, stream
@@ -67,6 +68,8 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR,
     ],
 }  # fmt: skip
+# entry points that return something else than a cudaError_t: name → (argtypes, restype)
+_OTHER_SIGNATURES = {"stamp_cuda_error_string": ([_INT], ctypes.c_char_p)}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -100,7 +103,8 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
 
     The ptxas report goes to ``<library>.log``.  A failed build raises with
     nvcc's stderr."""
@@ -108,15 +112,33 @@ def build() -> Path:
     if lib_path.is_file():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building the CUDA kernels failed ({' '.join(cmd)}):\n{proc.stderr}"
-        )
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = lib_path.with_name(f"{tag}.tmp.so")
+    try:
+        if failed:
+            raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"linking the CUDA kernels failed ({' '.join(cmd)}):\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    lib_path.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path
 
@@ -127,12 +149,11 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            entry_points = {name: (argtypes, ctypes.c_int) for name, argtypes in _SIGNATURES.items()}
+            for name, (argtypes, restype) in (entry_points | _OTHER_SIGNATURES).items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.stamp_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.stamp_cuda_error_string.restype = ctypes.c_char_p
+                fn.restype = restype
             _lib = lib
         return _lib
 

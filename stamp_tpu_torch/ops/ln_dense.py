@@ -3,11 +3,13 @@
 Counterpart of ``stamp_tpu.ops.ln_dense.ln_dense``: every pre-LN block of
 the extractor ViTs feeds a LayerNorm straight into a matmul (norm1→qkv,
 norm2→fc1 and SwiGLU's inner norm→fc2).  On a CUDA tensor ``ln_dense``
-launches the hand-written kernel in ``csrc/ln_dense.cu``, which never writes
-the normalized activation to device memory; on a CPU tensor it runs the
-plain PyTorch version, ``ln_dense_reference``.  There is no fallback between
-the two: a CUDA tensor the kernel does not take raises.  Unlike the TPU
-kernel there is no tile gate — every row count launches.  Forward only.
+launches the hand-written Hopper kernels in ``csrc/ln_dense.cu`` (row
+statistics, then a TMA-fed wgmma GEMM that applies the LayerNorm to its A
+operand in registers: the normalized activation never reaches device
+memory); on a CPU tensor it runs the plain PyTorch version,
+``ln_dense_reference``.  There is no fallback between the two: a CUDA tensor
+the kernel does not take raises.  Unlike the TPU kernel there is no tile
+gate — every row count launches.  Forward only.
 
 ``ln_quant_dense`` is the int8 (W8A8) counterpart,
 ``stamp_tpu.ops.ln_dense.ln_quant_dense``: LayerNorm, static per-tensor
@@ -58,6 +60,13 @@ def ln_dense_reference(
     return acc.to(x.dtype)
 
 
+def _check_shape(what: str, m: int, k: int, n: int, k_multiple: int) -> None:
+    """Raise on a shape the kernels do not take: TMA needs 16-byte row
+    strides."""
+    if k % k_multiple or m <= 0 or n <= 0:
+        raise ValueError(f"{what}: unsupported shape M={m}, K={k}, N={n}")
+
+
 def ln_dense(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -101,25 +110,15 @@ def ln_dense(
         )
     if dense_bias is not None and dense_bias.shape != (n,):
         raise ValueError(f"ln_dense: dense_bias must be [{n}], got {tuple(dense_bias.shape)}")
-    if k % 8 or not 0 < m <= 65535 * 128 or n <= 0:  # grid.y: 128-row blocks
-        raise ValueError(f"ln_dense: unsupported shape M={m}, K={k}, N={n}")
+    _check_shape("ln_dense", m, k, n, 8)
 
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    lib = _build.load_library()
-    err = lib.stamp_ln_dense(
-        x2d.data_ptr(),
-        scale.data_ptr(),
-        bias.data_ptr(),
-        weight.data_ptr(),
-        None if dense_bias is None else dense_bias.data_ptr(),
-        out.data_ptr(),
-        m,
-        n,
-        k,
-        eps,
-        x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    scratch = torch.empty(2 * k + 2 * m, dtype=torch.float32, device=x.device)  # f32 γ, β; row μ, 1/σ
+    err = _build.load_library().stamp_ln_dense(
+        x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), weight.data_ptr(),
+        None if dense_bias is None else dense_bias.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        m, n, k, eps, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )  # fmt: skip
     _build.check(err, "ln_dense")
     global LAUNCHES
     LAUNCHES += 1
@@ -227,14 +226,14 @@ def ln_quant_dense(
         )
     if dense_bias is not None and dense_bias.shape != (n,):
         raise ValueError(f"ln_quant_dense: dense_bias must be [{n}], got {tuple(dense_bias.shape)}")
-    if k % 16 or not 0 < m <= 65535 * 128 or n <= 0:  # grid.y: 128-row blocks
-        raise ValueError(f"ln_quant_dense: unsupported shape M={m}, K={k}, N={n}")
+    _check_shape("ln_quant_dense", m, k, n, 16)
 
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    scratch = torch.empty(2 * k + 2 * m, dtype=torch.float32, device=x.device)  # f32 γ, β; row μ, 1/σ
     err = _build.load_library().stamp_ln_quant_dense(
         x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), s_x.data_ptr(),
         weight_q.data_ptr(), w_scale.data_ptr(),
-        None if dense_bias is None else dense_bias.data_ptr(), out.data_ptr(),
+        None if dense_bias is None else dense_bias.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         m, n, k, eps, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )  # fmt: skip
     _build.check(err, "ln_quant_dense")

@@ -58,9 +58,17 @@ def test_fused_qkv_mha_kernel(gen, b, n, h, d):
     assert _rel_err(got, attn.fused_qkv_mha_reference(qkv, h)) <= TOL
 
 
-@pytest.mark.parametrize(
-    "m,k,n,bias", [(1, 8, 1, True), (300, 136, 200, True), (256, 512, 256, False), (1000, 1536, 4608, True)]
-)
+# the edges of the kernels' tiles: M off 64 and 128 (1,000; 16,960 = 64·265),
+# K with a tail under one 64-wide box (136, 264), N under 8 and off the tile
+# (1, 7, 200), the UNI2 sites, ViT-L (K = 1024, M = 8·257) and Virchow (1280)
+LN_DENSE_SHAPES = [
+    (1, 8, 1, True), (300, 136, 200, True), (256, 512, 256, False), (1000, 1536, 4608, True),
+    (1000, 264, 200, True), (1000, 264, 7, True), (16960, 1536, 1, False), (16960, 4096, 1536, True),
+    (2056, 1024, 3072, True), (2056, 1280, 3840, True),
+]  # fmt: skip
+
+
+@pytest.mark.parametrize("m,k,n,bias", LN_DENSE_SHAPES)
 def test_ln_dense_kernel(gen, m, k, n, bias):
     x = _randn(gen, m, k)
     g, b = _randn(gen, k), _randn(gen, k)
@@ -71,6 +79,16 @@ def test_ln_dense_kernel(gen, m, k, n, bias):
     assert lnd.LAUNCHES == before + 1
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     assert _rel_err(got, lnd.ln_dense_reference(x, g, b, w, d)) <= TOL
+
+
+def test_ln_dense_kernels_are_deterministic(gen):
+    """No atomics and a fixed order of K: two calls are bitwise equal."""
+    x, g, b = _randn(gen, 1000, 1536), _randn(gen, 1536), _randn(gen, 1536)
+    w, d = _randn(gen, 4608, 1536, scale=1536**-0.5), _randn(gen, 4608)
+    assert torch.equal(lnd.ln_dense(x, g, b, w, d), lnd.ln_dense(x, g, b, w, d))
+    x, g, b, s_x, wq, ws, d = _quant_inputs(gen, 1000, 1536, 4608, 4.0, True)
+    args = (x, g, b, s_x, wq, ws, d)
+    assert torch.equal(lnd.ln_quant_dense(*args), lnd.ln_quant_dense(*args))
 
 
 def test_kernels_raise_on_what_they_do_not_take(gen):
@@ -240,14 +258,31 @@ def _quant_inputs(gen, m, k, n, amax, bias):
     return x, g, b, s_x, wq, ws, d
 
 
+def _quant_steps(x, g, b, s_x):
+    """|kernel − plain| of the int8 activations, in quantization steps: the
+    kernel's read back through an identity weight (w_scale 1, no bias;
+    out = q·s_x/127 in bf16, whose 8-bit mantissa holds |q| ≤ 127 to within
+    0.25 of a step)."""
+    k = x.shape[1]
+    eye = torch.eye(k, device=x.device, dtype=torch.int8)
+    out = lnd.ln_quant_dense(x, g, b, s_x, eye, torch.ones(k, device=x.device))
+    got = torch.round(out.float() / (s_x / 127.0)).to(torch.int32)
+    want = lnd.quantize_activation(lnd.layer_norm_f32(x, g, b, 1e-6).to(torch.bfloat16), s_x).int()
+    return (got - want).abs()
+
+
 @pytest.mark.parametrize(
     "m,k,n,amax,bias",
     [
         (1, 16, 1, 4.0, True),
-        (300, 208, 200, 4.0, True),  # ragged M, N; K = 3¼ chunks of 64
+        (300, 208, 200, 4.0, True),  # ragged M, N; K = 1⅝ blocks of 128
         (256, 512, 256, 4.0, False),
         (1000, 1536, 4608, 4.0, True),
         (130, 96, 72, 1e-9, True),  # s_x clamps at 1e-6·1.05: every nonzero value saturates
+        (1000, 272, 200, 4.0, True),  # K tail of 16 past two blocks: one raw x box wholly past K
+        (1000, 272, 7, 4.0, True),
+        (16960, 1536, 1, 4.0, False),
+        (2056, 1024, 3072, 4.0, True),  # ViT-L
     ],
 )
 def test_ln_quant_dense_kernel(gen, m, k, n, amax, bias):
@@ -257,6 +292,7 @@ def test_ln_quant_dense_kernel(gen, m, k, n, amax, bias):
     assert lnd.QUANT_LAUNCHES == before + 1
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     assert _rel_err(got, lnd.ln_quant_dense_reference(x, g, b, s_x, wq, ws, d)) <= TOL
+    assert _quant_steps(x, g, b, s_x).max().item() <= 1
 
 
 def test_ln_quant_dense_raises_on_what_it_does_not_take(gen):
