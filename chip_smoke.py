@@ -12,10 +12,13 @@ Phases (each prints at least one line; any failure exits non-zero):
 3. kernels: each CUDA kernel against its plain PyTorch version at the UNI2
    shapes in bf16, max |Δ| / max |ref| against a stated tolerance, and the
    median time of each (with a bf16 PyTorch control for reference);
-   ``ln_dense`` also at ViT-L's and Virchow's sites and at ragged K and N
-   (N = 200, 8, 1), with its rate and the share of its bound it reaches;
-   ``fused_qkv_mha``, ``ln_dense`` and their library controls also timed
-   in runs of back-to-back calls (``*_b2b``) beside the per-call timer.
+   ``fused_qkv_mha`` also at ViT-L's and Virchow's (d = 80) shapes, and
+   ragged, at the one-pass kernel's N limit and above it (the three-sweep
+   kernel); ``ln_dense`` also at ViT-L's and Virchow's sites (Virchow's fc2
+   at K = 3,416) and at ragged K and N (N = 200, 8, 1), with its rate and
+   the share of its bound it reaches; ``fused_qkv_mha``, ``ln_dense`` and
+   their library controls also timed in runs of back-to-back calls
+   (``*_b2b``) beside the per-call timer.
 4. main path: ``python -m stamp_tpu_torch -c config.yaml --profile
    preprocess`` in-process, UNI2 at full width with random weights on a
    synthetic 3072×3072 px slide (144 tiles at 256 µm / 224 px, batch 64);
@@ -28,7 +31,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    plain versions at the deploy shapes [8, 4097, 64] and [8, 16385, 64] with
    the last 40% of keys masked, and at ragged small shapes and d = 32, 128;
    the median time of each, with ``F.scaled_dot_product_attention`` as the
-   library control of ``flash_mha``.
+   library control of ``flash_mha``; then a head width of 48 at T = 4,097
+   through the public wrappers (zero-padded to the 64 instance).
 6. deploy: ``python -m stamp_tpu_torch -c config.yaml --profile deploy``
    in-process, an ensemble of two MIL ViT checkpoints at the default width
    (``vit`` and ``vit`` + ALiBi, random weights, UNI2 inputs of width 1536)
@@ -42,8 +46,10 @@ Phases (each prints at least one line; any failure exits non-zero):
    keys masked and at ragged small shapes and d = 32, 128; masked keys get
    exactly zero dK and dV, two runs are bitwise equal; the median time of
    each, with the backward of ``F.scaled_dot_product_attention`` as the
-   library control of ``flash_mha``'s.  As everywhere in this script the
-   plain versions run with TF32 off (phase 1), so they are f32 throughout.
+   library control of ``flash_mha``'s; then the gradients of both wrappers
+   at a head width of 48, T = 4,097, against the plain backward.  As
+   everywhere in this script the plain versions run with TF32 off (phase
+   1), so they are f32 throughout.
 7. train: ``python -m stamp_tpu_torch -c config.yaml --profile train``
    in-process, whole-slide training (``bag_size: null``, 2 epochs) of the
    default MIL ViT (``vit`` and ``vit`` + ALiBi, width 512, UNI2 inputs) on
@@ -61,7 +67,9 @@ Phases (each prints at least one line; any failure exits non-zero):
    against its checkpoint on the kernel path and the plain path.
 
 3d. int8 kernel: ``ln_quant_dense`` against its plain version at phase
-   3's sites (UNI2, ViT-L, Virchow) and ragged shapes, its int8 activations
+   3's sites (UNI2, ViT-L, Virchow's qkv and its fc2 at K = 3,416, whose
+   int8 weight the wrapper pads to 16-byte rows: the pad timed alone) and
+   ragged shapes, its int8 activations
    (read back through an identity weight) against the plain quantization;
    the median time of each site, its rate and share of its bound, beside
    ``torch._int_mm`` on the pre-quantized activation (the library control;
@@ -278,12 +286,13 @@ def phase_build() -> None:
 
 # (M, K, N, site) of the LayerNorm-fed matmuls phases 3 and 3d hold the
 # kernels to: UNI2's three at batch 64 (the main path), then ViT-L (DINO,
-# UNI: K = 1024, 257 tokens, batch 8) and Virchow/Virchow2 (K = 1280)
+# UNI: K = 1024, 257 tokens, batch 8) and Virchow/Virchow2 (K = 1280; the
+# SwiGLU inner norm → fc2 at K = int(1280·5.3375) / 2 = 3,416, 8 mod 16)
 ZOO_M = 8 * 257
 LN_SITES = (
     (BATCH * UNI2_TOKENS, 1536, 4608, "norm1→qkv"), (BATCH * UNI2_TOKENS, 1536, 8192, "norm2→fc1"),
     (BATCH * UNI2_TOKENS, 4096, 1536, "mlp.norm→fc2"), (ZOO_M, 1024, 3072, "ViT-L qkv"),
-    (ZOO_M, 1024, 4096, "ViT-L fc1"), (ZOO_M, 1280, 3840, "Virchow qkv"),
+    (ZOO_M, 1024, 4096, "ViT-L fc1"), (ZOO_M, 1280, 3840, "Virchow qkv"), (ZOO_M, 3416, 1280, "Virchow fc2"),
 )  # fmt: skip
 UNI2_SITES = 3  # the first three of LN_SITES
 
@@ -330,15 +339,19 @@ def phase_kernels(card: str) -> dict:
         results["fused_qkv_mha"].append(row)
         del qkv, got, want
 
-    # ragged shapes: N below one 64-key chunk; M and N off the 64×128 tile
-    qkv = randn(3, 21, 3 * 4 * 64)
-    _, rel_attn = _error(attn.fused_qkv_mha(qkv, 4), attn.fused_qkv_mha_reference(qkv, 4))
+    # ragged shapes: N below one 16-row tile's keys, at the one-pass
+    # kernel's limit, and above it (the three-sweep kernel); M and N off
+    # the GEMM tile
+    rel_attn = {}
+    for b, n, h in ((3, 21, 4), (2, attn.ONE_PASS_MAX_N, 2), (2, attn.ONE_PASS_MAX_N + 1, 2), (2, 1030, 2)):
+        qkv = randn(b, n, 3 * h * 64)
+        rel_attn[f"N={n}"] = _error(attn.fused_qkv_mha(qkv, h), attn.fused_qkv_mha_reference(qkv, h))[1]
     rel_ln = {}
     for n in (200, 8, 1):  # K = 264: a tail of 8 past four 64-wide boxes
         x, g, beta, w, bias = randn(1000, 264), randn(264), randn(264), randn(n, 264, scale=0.06), randn(n)
         rel_ln[f"N={n}"] = _error(lnd.ln_dense(x, g, beta, w, bias), lnd.ln_dense_reference(x, g, beta, w, bias))[1]
-    print(f"[3 kernels] ragged: fused_qkv_mha [3, 21, 768] rel {rel_attn:.3g}; ln_dense M=1000 K=264 rel {json.dumps(rel_ln)}")
-    if not (rel_attn <= KERNEL_TOL and max(rel_ln.values()) <= KERNEL_TOL):
+    print(f"[3 kernels] ragged: fused_qkv_mha d=64 rel {json.dumps(rel_attn)}; ln_dense M=1000 K=264 rel {json.dumps(rel_ln)}")
+    if not (max(rel_attn.values()) <= KERNEL_TOL and max(rel_ln.values()) <= KERNEL_TOL):
         _fail("ragged shapes disagree with the plain versions")
 
     # UNI2's M = 16,960 rows: the TPU kernel's 256-row gate refused this M
@@ -432,6 +445,8 @@ def phase_quant_kernels(card: str) -> dict:
             t = _compare_timed(kernel, lambda: lnd.ln_quant_dense_reference(*args), control)
             b2b = _compare_timed(kernel, None, control, reps=B2B_REPS)
             t_bf16 = statistics.median(_time_ms(lambda: lnd.ln_dense(x, g, beta, w, bias), 5))
+            if k % 16:  # the wrapper's pad of W_q to 16-byte rows, inside ms
+                row["pad_ms"] = statistics.median(_time_ms(lambda: torch.nn.functional.pad(wq, (0, -k % 16)), 5))
             m = rows_m
             nbytes = 2 * m * k + k * n + 4 * n + 2 * n + 4 * k + 2 * m * n  # x, W_q, w_scale, bias, γβ in; out
             bound, by = _bound(nbytes, {"int8": 2 * m * k * n})
@@ -867,6 +882,24 @@ def phase_flash_kernels(card: str) -> dict:
         rows["flash_alibi_mha"].append(row)
         del q, k, v, out, out_sm, dacc, lse
         torch.cuda.empty_cache()
+
+    # a head width with no instance of its own: the public wrappers pad it
+    # to 64 and pass 48^-1/2; the plain versions run at the true width
+    q, k, v, mask, coords, ds = _flash_inputs(gen, 8, 4097, 48)
+    for name, got, want in (
+        ("flash_mha", attn.flash_mha(q, k, v, mask), attn.flash_mha_reference(q, k, v, mask)),
+        ("flash_alibi_mha", attn.flash_alibi_mha(q, k, v, coords, coords, ds, mask),
+         attn.flash_alibi_mha_reference(q, k, v, coords, coords, ds, mask)),
+    ):  # fmt: skip
+        torch.cuda.synchronize()
+        abs_err, rel_err = _error(got, want)
+        row = dict(shape=[8, 4097, 48], padded_to=attn.flash_width(name, 48), max_abs_err=abs_err, rel_err=rel_err)
+        print(f"[3b flash] {name} {json.dumps(row)} on {card}")
+        if not (got.shape == want.shape and rel_err <= FLASH_TOL):
+            _fail(f"{name} at head width 48 {row}: beyond {FLASH_TOL}")
+        rows[name].append(row)
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1167,6 +1200,32 @@ def phase_flash_backward(card: str) -> dict:
         rows["dist_weighted_sum"].append(row)
         del q, k, v, do, out, out_sm, dacc, lse, val
         torch.cuda.empty_cache()
+
+    # head width 48 through the autograd Functions (padded to 64, sliced
+    # back) against the plain backward at the true width
+    q, k, v, mask, coords, ds = _flash_inputs(gen, 8, 4097, 48)
+    do = torch.randn(8, 4097, 48, device="cuda:0", generator=gen)
+    for name in ("flash_mha_bwd", "flash_alibi_mha_bwd"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, ds)]
+        if name == "flash_mha_bwd":
+            got = torch.autograd.grad(attn.flash_mha(*leaves[:3], mask), leaves[:3], do)
+            out, lse = attn._flash_forward_reference(q, k, v, mask)
+            want = attn._flash_backward_reference(q, k, v, mask, out, lse, do)
+            errs = _rel_errs(got, want)
+        else:
+            got = torch.autograd.grad(attn.flash_alibi_mha(*leaves[:3], coords, coords, leaves[3], mask), leaves, do)
+            out_sm, dacc, lse = attn._flash_alibi_forward_reference(q, k, v, coords, coords, mask)
+            want = attn._flash_alibi_backward_reference(q, k, v, coords, coords, ds, mask, out_sm, dacc, lse, do)
+            errs = _rel_errs(got[:3], want[:3]) + [_error(got[3], want[3])[1]]
+        torch.cuda.synchronize()
+        row = dict(shape=[8, 4097, 48], max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)),
+                   rel_errs=errs)  # fmt: skip
+        print(f"[3c backward] {name} head width 48 {json.dumps(row)} on {card}")
+        if not max(errs) <= BWD_TOL:
+            _fail(f"{name} at head width 48 {row}: beyond {BWD_TOL}")
+        rows[name].append(row)
+    del q, k, v, do, got, want
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1211,8 +1270,8 @@ def _plain_flash():
     """The flash autograd Functions with their plain forward and backward."""
     from stamp_tpu_torch.ops import flash_attention as attn
 
-    def alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask):
-        out_sm, dacc, lse = attn._flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
+    def alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask, scale=None):
+        out_sm, dacc, lse = attn._flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask, scale)
         return out_sm - dist_scale[:, None, None] * dacc, out_sm, dacc, lse
 
     names = ("_flash_forward", "_flash_alibi_forward", "_flash_backward", "_flash_alibi_backward")

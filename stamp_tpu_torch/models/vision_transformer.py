@@ -20,6 +20,10 @@ on the CPU their plain versions); below it, through the einsum path of
 the port takes them on any device, so the CPU runs the same branch as the
 card.
 
+The flash kernels take head widths up to 128 (``flash_attention.
+flash_width``); a bag that reaches the flash path with a wider head raises
+at the start of the forward, naming ``python -m stamp_tpu``.
+
 ``train=True`` is the JAX module's training forward
 (``stamp_tpu/models/vision_transformer.py:43-46, 90-121, 166-207, 279-281,
 355``): dropout after ``project`` and inside the feed-forward, drawn from
@@ -236,6 +240,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.n_layers = n_layers
         self.dropout = dropout
+        self.head_dim = dim_model // n_heads
         self.project = nn.Linear(dim_input, dim_model)
         self.class_token = nn.Parameter(torch.randn(dim_model))
         for i in range(n_layers):
@@ -262,6 +267,8 @@ class VisionTransformer(nn.Module):
             )
         if train and self.dropout > 0.0 and generator is None:
             raise ValueError("training with dropout draws its masks from a generator; pass one")
+        if _use_flash(bags.shape[1] + 1):  # a head the flash kernels cannot take raises before any work
+            flash_attention.flash_width("VisionTransformer", self.head_dim)
         generator = generator if train else None  # no dropout outside training
         b = bags.shape[0]
         x = dropout(F.gelu(self.project(bags)), self.dropout, generator)

@@ -100,7 +100,7 @@ int stamp_ln_dense(const void* x, const void* gamma, const void* beta, const voi
                    int device, void* stream) {
   if (k % 8 != 0) return cudaErrorInvalidValue;
   return ln_gemm::launch<LnDenseOp>(
-      x, gamma, beta, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<float*>(scratch),
+      x, gamma, beta, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, static_cast<float*>(scratch),
       {static_cast<const __nv_bfloat16*>(dense_bias), static_cast<__nv_bfloat16*>(out)}, m, n, k, eps, device,
       static_cast<cudaStream_t>(stream));
 }

@@ -38,6 +38,9 @@
 // c ^ (r % 8) of a 128-byte row, in 1024-byte-aligned boxes); swz() below
 // reads raw x with the same XOR; smem_desc_sw128() tells wgmma the same
 // layout (layout type 1, 8-row groups 1024 bytes apart).
+//
+// fused_qkv_attn.cu includes this header for its fragment helpers only
+// (smem_addr, ldmatrix_x4, pack_bf16, quad_transpose).
 
 #pragma once
 
@@ -588,15 +591,16 @@ inline cudaError_t tensor_map_encoder(PFN_cuTensorMapEncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// map of a row-major [rows, cols] matrix read in [box_rows, box_cols] boxes
-// with 128-byte swizzle (box_cols · elem_bytes == 128); zero fill past the edges
+// map of the first `cols` columns of a row-major [rows, ld] matrix (ld ·
+// elem_bytes a multiple of 16) read in [box_rows, box_cols] boxes with
+// 128-byte swizzle (box_cols · elem_bytes == 128); zero fill past the edges
 inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
-                             int rows, int cols, int box_rows, int box_cols) {
+                             int rows, int cols, int ld, int box_rows, int box_cols) {
   PFN_cuTensorMapEncodeTiled encode;
   cudaError_t err = tensor_map_encoder(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
@@ -621,10 +625,11 @@ inline cudaError_t encode_1d(CUtensorMap* map, const void* ptr, int len, int box
 }
 
 // Row statistics, then the GEMM, on `stream`.  x: [m, k] bf16 (k % 8 == 0),
-// w: [n, k] with w_type, gamma/beta: [k] bf16, scratch: [2k + 2m] f32.
+// w: [n, w_ld] with w_type (w_ld >= k, a 16-byte row; columns past k are
+// not read), gamma/beta: [k] bf16, scratch: [2k + 2m] f32.
 template <class Op>
 cudaError_t launch(const void* x, const void* gamma, const void* beta, const void* w,
-                   CUtensorMapDataType w_type, float* scratch, const typename Op::Params& params, int m,
+                   CUtensorMapDataType w_type, int w_ld, float* scratch, const typename Op::Params& params, int m,
                    int n, int k, float eps, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -632,8 +637,8 @@ cudaError_t launch(const void* x, const void* gamma, const void* beta, const voi
   if (m <= 0 || n <= 0 || k <= 0 || tiles > 0x7fffffff) return cudaErrorInvalidValue;
   const int w_elem = w_type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
   CUtensorMap x_map, w_map, g_map, b_map;
-  if ((err = encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, kBM, 64)) != cudaSuccess ||
-      (err = encode_2d(&w_map, w_type, w_elem, w, n, k, kBN, kRowBytes / w_elem)) != cudaSuccess ||
+  if ((err = encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, k, kBM, 64)) != cudaSuccess ||
+      (err = encode_2d(&w_map, w_type, w_elem, w, n, k, w_ld, kBN, kRowBytes / w_elem)) != cudaSuccess ||
       (err = encode_1d(&g_map, scratch, k, Op::kBK)) != cudaSuccess ||
       (err = encode_1d(&b_map, scratch + k, k, Op::kBK)) != cudaSuccess)
     return err;

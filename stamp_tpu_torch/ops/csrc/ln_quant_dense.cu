@@ -136,17 +136,19 @@ struct LnQuantDenseOp {
 
 extern "C" {
 
-// x: [m, k] bf16; gamma, beta: [k] bf16; s_x: [1] f32 (device); w: [n, k]
-// int8 (nn.Linear layout); w_scale: [n] f32; dense_bias: [n] bf16 or NULL;
-// scratch: [2k + 2m] f32; out: [m, n] bf16.  All contiguous, 16-byte
-// aligned, k a multiple of 16.  Launches the row statistics and the GEMM
-// on `stream`.  Returns a cudaError_t.
+// x: [m, k] bf16; gamma, beta: [k] bf16; s_x: [1] f32 (device); w:
+// [n, k16] int8 (nn.Linear layout, its rows padded to k16 = k rounded up to
+// 16, the 16-byte row TMA needs; the columns past k are not read);
+// w_scale: [n] f32; dense_bias: [n] bf16 or NULL; scratch: [2k + 2m] f32;
+// out: [m, n] bf16.  All contiguous, 16-byte aligned, k a multiple of 8.
+// Launches the row statistics and the GEMM on `stream`.  Returns a
+// cudaError_t.
 int stamp_ln_quant_dense(const void* x, const void* gamma, const void* beta, const void* s_x,
                          const void* w, const void* w_scale, const void* dense_bias, void* scratch, void* out,
                          int m, int n, int k, float eps, int device, void* stream) {
-  if (k % 16 != 0) return cudaErrorInvalidValue;
+  if (k % 8 != 0) return cudaErrorInvalidValue;
   return ln_gemm::launch<LnQuantDenseOp>(
-      x, gamma, beta, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, static_cast<float*>(scratch),
+      x, gamma, beta, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, (k + 15) / 16 * 16, static_cast<float*>(scratch),
       {static_cast<const float*>(s_x), static_cast<const float*>(w_scale),
        static_cast<const __nv_bfloat16*>(dense_bias), static_cast<__nv_bfloat16*>(out)},
       m, n, k, eps, device, static_cast<cudaStream_t>(stream));

@@ -17,7 +17,10 @@ q·kᵀ in f32, scaled by d^-1/2 in f32 after the dot, an exact softmax in f32
 before P·V, P·V accumulated in f32 and cast once.
 
 ``flash_mha`` and ``flash_alibi_mha`` take f32 ``[BH, T, d]`` q/k/v and a
-``[BH, T]`` bool key mask (True = valid).  Scores are scaled after the dot,
+``[BH, T]`` bool key mask (True = valid).  The kernels are built for d =
+32, 64 and 128; any d up to 128 runs on the next of them, q, k and v
+zero-padded along d and the output and gradients sliced back (the true
+d^-1/2 is passed on).  Scores are scaled after the dot,
 masked keys get −1e30, and the output is Σ exp(s − m)·v / Σ exp(s − m) with
 its log-sum-exp.  The ALiBi variant also accumulates D·V, D the per-axis
 Euclidean distance between query and key coordinates (0 for masked keys),
@@ -56,7 +59,10 @@ FLASH_ALIBI_MHA_BWD_LAUNCHES = 0
 DIST_WEIGHTED_SUM_LAUNCHES = 0
 
 _HEAD_DIMS = (64, 80)  # fused_qkv_attn.cu's template instances
-_FLASH_HEAD_DIMS = (32, 64, 128)  # flash_attn.cu's template instances
+#: the longest sequence ``fused_qkv_mha``'s one-pass kernel takes (its
+#: ``kMaxKeys``); a longer one runs the three-sweep kernel
+ONE_PASS_MAX_N = 272
+_FLASH_HEAD_DIMS = (32, 64, 128)  # flash_attn.cu's and flash_attn_bwd.cu's template instances
 _NEG_INF = -1e30
 
 
@@ -85,6 +91,9 @@ def fused_qkv_mha(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         num_heads: number of heads; dim % num_heads == 0.
 
     Returns: [B, N, dim] attention output (before the output projection).
+    On CUDA, N <= ``ONE_PASS_MAX_N`` runs the one-pass kernel (scores in
+    registers), a longer N the three-sweep kernel; both count in
+    ``LAUNCHES``.
     """
     if qkv.device.type == "cpu":
         return fused_qkv_mha_reference(qkv, num_heads)
@@ -138,12 +147,13 @@ def _pairwise_distances(coords_q: torch.Tensor, coords_k: torch.Tensor) -> torch
 
 
 def _flash_forward_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, scale: float | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash forward: (out [BH, Q, d], lse
-    [BH, Q]), all in f32.  Materialises the [BH, Q, K] scores, updated in
-    place to keep one such tensor alive."""
-    scale = q.shape[-1] ** -0.5
+    [BH, Q]), all in f32, scores scaled by ``scale`` (d^-1/2 when None).
+    Materialises the [BH, Q, K] scores, updated in place to keep one such
+    tensor alive."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = torch.matmul(q, k.transpose(-1, -2)).mul_(scale)
     s.masked_fill_(~key_mask[:, None, :], _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -160,10 +170,11 @@ def _flash_alibi_forward_reference(
     coords_q: torch.Tensor,
     coords_k: torch.Tensor,
     key_mask: torch.Tensor,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused ALiBi pass: (softmax out, dacc =
     D·V, lse), all in f32."""
-    out_sm, lse = _flash_forward_reference(q, k, v, key_mask)
+    out_sm, lse = _flash_forward_reference(q, k, v, key_mask, scale)
     dist = _pairwise_distances(coords_q.float(), coords_k.float())
     dist.masked_fill_(~key_mask[:, None, :], 0.0)
     return out_sm, torch.matmul(dist, v), lse
@@ -188,6 +199,26 @@ def flash_alibi_mha_reference(
     """Plain PyTorch version of ``flash_alibi_mha``."""
     out_sm, dacc, _ = _flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
     return out_sm - dist_scale[:, None, None] * dacc
+
+
+def flash_width(what: str, head_dim: int) -> int:
+    """The flash kernel instance a head width runs on: the narrowest of
+    ``_FLASH_HEAD_DIMS`` that holds it.  ``flash_mha`` and
+    ``flash_alibi_mha`` zero-pad q, k and v to it (zero columns change
+    neither q·kᵀ nor the distances) and pass the true d^-1/2.  A wider head
+    raises, naming the JAX package, which takes every width."""
+    for width in _FLASH_HEAD_DIMS:
+        if head_dim <= width:
+            return width
+    raise ValueError(
+        f"{what}: head_dim {head_dim} is wider than the flash kernels take (up to {_FLASH_HEAD_DIMS[-1]}; "
+        f"narrower widths are zero-padded to one of {_FLASH_HEAD_DIMS}); run this model with `python -m stamp_tpu`"
+    )
+
+
+def _pad_heads(width: int, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Each [BH, T, d] tensor zero-padded to [BH, T, width] (differentiable)."""
+    return [torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in tensors]
 
 
 def _check_flash_args(what: str, q, k, v, key_mask, coords_q=None, coords_k=None, dist_scale=None):
@@ -224,9 +255,11 @@ def _check_flash_args(what: str, q, k, v, key_mask, coords_q=None, coords_k=None
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
 
 
-def _launch_flash(q, k, v, key_mask, coords_q=None, coords_k=None, dist_scale=None):
-    """One launch of ``stamp_flash_attn_fwd``; returns its outputs."""
+def _launch_flash(q, k, v, key_mask, scale=None, coords_q=None, coords_k=None, dist_scale=None):
+    """One launch of ``stamp_flash_attn_fwd`` (scores scaled by ``scale``,
+    d^-1/2 when None); returns its outputs."""
     bh, tq, d = q.shape
+    scale = d**-0.5 if scale is None else scale
     alibi = coords_q is not None
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
@@ -240,7 +273,7 @@ def _launch_flash(q, k, v, key_mask, coords_q=None, coords_k=None, dist_scale=No
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
         ptr(coords_q), ptr(coords_k), ptr(dist_scale),
         o.data_ptr(), ptr(dacc), ptr(out), lse.data_ptr(),
-        bh, tq, k.shape[1], d, d**-0.5, int(alibi),
+        bh, tq, k.shape[1], d, scale, int(alibi),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )  # fmt: skip
     _build.check(err, "flash_alibi_mha" if alibi else "flash_mha")
@@ -248,15 +281,16 @@ def _launch_flash(q, k, v, key_mask, coords_q=None, coords_k=None, dist_scale=No
 
 
 def _flash_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, scale: float | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out [BH, Q, d], lse [BH, Q]) of masked flash attention."""
+    """(out [BH, Q, d], lse [BH, Q]) of masked flash attention, scores
+    scaled by ``scale`` (d^-1/2 when None)."""
     if q.device.type == "cpu":
-        return _flash_forward_reference(q, k, v, key_mask)
+        return _flash_forward_reference(q, k, v, key_mask, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     _check_flash_args("flash_mha", q, k, v, key_mask)
-    o, lse, _, _ = _launch_flash(q, k, v, key_mask)
+    o, lse, _, _ = _launch_flash(q, k, v, key_mask, scale)
     global FLASH_MHA_LAUNCHES
     FLASH_MHA_LAUNCHES += 1
     return o, lse
@@ -268,13 +302,18 @@ def flash_mha(
     """Masked flash attention over flattened (batch×head) sequences.
 
     Args:
-        q: [BH, Q, d]; k, v: [BH, K, d]; on CUDA f32, contiguous, d in
-            (32, 64, 128).
+        q: [BH, Q, d]; k, v: [BH, K, d]; on CUDA f32 and contiguous; d up
+            to 128, zero-padded to the next of (32, 64, 128) when it is none
+            of them (``flash_width``).
         key_mask: [BH, K] bool, True = valid key.
 
     Returns: [BH, Q, d].  Differentiable in q, k and v.
     """
-    return _FlashMHA.apply(q, k, v, key_mask)
+    d = q.shape[-1]
+    width = flash_width("flash_mha", d)
+    if width == d:
+        return _FlashMHA.apply(q, k, v, key_mask, d**-0.5)
+    return _FlashMHA.apply(*_pad_heads(width, q, k, v), key_mask, d**-0.5)[..., :d]
 
 
 def _flash_alibi_forward(
@@ -285,15 +324,16 @@ def _flash_alibi_forward(
     coords_k: torch.Tensor,
     dist_scale: torch.Tensor,
     key_mask: torch.Tensor,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(out, softmax out, dacc = D·V, lse) of the fused ALiBi pass."""
     if q.device.type == "cpu":
-        out_sm, dacc, lse = _flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
+        out_sm, dacc, lse = _flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask, scale)
         return out_sm - dist_scale[:, None, None] * dacc, out_sm, dacc, lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_alibi_mha: unsupported device {q.device}")
     _check_flash_args("flash_alibi_mha", q, k, v, key_mask, coords_q, coords_k, dist_scale)
-    o, lse, dacc, out = _launch_flash(q, k, v, key_mask, coords_q, coords_k, dist_scale)
+    o, lse, dacc, out = _launch_flash(q, k, v, key_mask, scale, coords_q, coords_k, dist_scale)
     global FLASH_ALIBI_MHA_LAUNCHES
     FLASH_ALIBI_MHA_LAUNCHES += 1
     return out, o, dacc, lse
@@ -313,14 +353,19 @@ def flash_alibi_mha(
     Args:
         q: [BH, Q, d]; k, v: [BH, K, d]; coords_q: [BH, Q, 2] and coords_k:
             [BH, K, 2] in µm; dist_scale: [BH] (bias_scale / running_mean
-            per (batch, head)); on CUDA all f32 and contiguous, d in
-            (32, 64, 128).
+            per (batch, head)); on CUDA all f32 and contiguous; d up to
+            128, zero-padded as in ``flash_mha``.
         key_mask: [BH, K] bool, True = valid key.
 
     Returns: [BH, Q, d] = softmax(q·kᵀ/√d)·v − dist_scale·(D·v).
     Differentiable in q, k, v and dist_scale.
     """
-    return _FlashALiBiMHA.apply(q, k, v, coords_q, coords_k, dist_scale, key_mask)
+    d = q.shape[-1]
+    width = flash_width("flash_alibi_mha", d)
+    if width == d:
+        return _FlashALiBiMHA.apply(q, k, v, coords_q, coords_k, dist_scale, key_mask, d**-0.5)
+    qp, kp, vp = _pad_heads(width, q, k, v)
+    return _FlashALiBiMHA.apply(qp, kp, vp, coords_q, coords_k, dist_scale, key_mask, d**-0.5)[..., :d]
 
 
 # --- backward (whole-slide training) -------------------------------------------
@@ -334,12 +379,13 @@ def _flash_backward_reference(
     out: torch.Tensor,
     lse: torch.Tensor,
     do: torch.Tensor,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash backward (``_flash_core_bwd``):
     (dq, dk, dv), all in f32, from the forward's output and lse.
     Materialises the [BH, Q, K] probabilities, updated in place to keep two
     such tensors alive."""
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     dvec = (do * out).sum(dim=-1, keepdim=True)
     p = torch.matmul(q, k.transpose(-1, -2)).mul_(scale)
     p.masked_fill_(~key_mask[:, None, :], _NEG_INF)
@@ -365,15 +411,16 @@ def _dist_weighted_sum_reference(
     return torch.matmul(dist, values)
 
 
-def _launch_flash_bwd(q, k, v, key_mask, out, lse, do):
+def _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale=None):
     """The dQ and dK/dV kernels (``stamp_flash_attn_bwd``) on the card."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     dvec = (do * out).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = _build.load_library().stamp_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[2] ** -0.5,
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], scale,
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )  # fmt: skip
     _build.check(err, "flash attention backward")
@@ -402,15 +449,16 @@ def _flash_backward(
     out: torch.Tensor,
     lse: torch.Tensor,
     do: torch.Tensor,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_mha`` for the upstream gradient ``do``."""
     if q.device.type == "cpu":
-        return _flash_backward_reference(q, k, v, key_mask, out, lse, do)
+        return _flash_backward_reference(q, k, v, key_mask, out, lse, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha backward: unsupported device {q.device}")
     _check_flash_args("flash_mha backward", q, k, v, key_mask)
     _check_bwd_args("flash_mha backward", q, out, lse, do)
-    grads = _launch_flash_bwd(q, k, v, key_mask, out, lse, do)
+    grads = _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale)
     global FLASH_MHA_BWD_LAUNCHES
     FLASH_MHA_BWD_LAUNCHES += 1
     return grads
@@ -471,9 +519,11 @@ def _alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias):
     return dv, ddist_scale
 
 
-def _flash_alibi_backward_reference(q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse, do):
+def _flash_alibi_backward_reference(
+    q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse, do, scale=None
+):
     """Plain PyTorch version of the ALiBi backward: (dq, dk, dv, d dist_scale)."""
-    dq, dk, dv = _flash_backward_reference(q, k, v, key_mask, out_sm, lse, do)
+    dq, dk, dv = _flash_backward_reference(q, k, v, key_mask, out_sm, lse, do, scale)
     dv_bias = _dist_weighted_sum_reference(coords_k, coords_q, do * dist_scale[:, None, None], None)
     return (dq, dk, *_alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias))
 
@@ -490,16 +540,17 @@ def _flash_alibi_backward(
     dacc: torch.Tensor,
     lse: torch.Tensor,
     do: torch.Tensor,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv, d dist_scale) of ``flash_alibi_mha`` for ``do``."""
-    args = (q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse, do)
+    args = (q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse, do, scale)
     if q.device.type == "cpu":
         return _flash_alibi_backward_reference(*args)
     if q.device.type != "cuda":
         raise ValueError(f"flash_alibi_mha backward: unsupported device {q.device}")
     _check_flash_args("flash_alibi_mha backward", q, k, v, key_mask, coords_q, coords_k, dist_scale)
     _check_bwd_args("flash_alibi_mha backward", q, out_sm, lse, do)
-    dq, dk, dv = _launch_flash_bwd(q, k, v, key_mask, out_sm, lse, do)
+    dq, dk, dv = _launch_flash_bwd(q, k, v, key_mask, out_sm, lse, do, scale)
     global FLASH_ALIBI_MHA_BWD_LAUNCHES
     FLASH_ALIBI_MHA_BWD_LAUNCHES += 1
     dv_bias = _dist_weighted_sum(coords_k, coords_q, do * dist_scale[:, None, None], None)
@@ -507,34 +558,38 @@ def _flash_alibi_backward(
 
 
 class _FlashMHA(torch.autograd.Function):
-    """``flash_mha`` with the flash backward (``_flash_core`` and its VJP)."""
+    """``flash_mha`` with the flash backward (``_flash_core`` and its VJP);
+    ``scale`` is d^-1/2 of the unpadded head width."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask):
-        out, lse = _flash_forward(q, k, v, key_mask)
+    def forward(ctx, q, k, v, key_mask, scale):
+        out, lse = _flash_forward(q, k, v, key_mask, scale)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse, do.contiguous())
-        return dq, dk, dv, None
+        dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None
 
 
 class _FlashALiBiMHA(torch.autograd.Function):
-    """``flash_alibi_mha`` with its backward (``_alibi_core`` and its VJP)."""
+    """``flash_alibi_mha`` with its backward (``_alibi_core`` and its VJP);
+    ``scale`` as in ``_FlashMHA``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, coords_q, coords_k, dist_scale, key_mask):
-        out, out_sm, dacc, lse = _flash_alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask)
+    def forward(ctx, q, k, v, coords_q, coords_k, dist_scale, key_mask, scale):
+        out, out_sm, dacc, lse = _flash_alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask, scale)
         ctx.save_for_backward(q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse)
+        ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        dq, dk, dv, ddist_scale = _flash_alibi_backward(*ctx.saved_tensors, do.contiguous())
-        return dq, dk, dv, None, None, ddist_scale, None
+        dq, dk, dv, ddist_scale = _flash_alibi_backward(*ctx.saved_tensors, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None, ddist_scale, None, None
 
 
 # --- pre-softmax 2-D ALiBi flash attention (the TITAN slide encoder) ---------

@@ -60,10 +60,10 @@ def ln_dense_reference(
     return acc.to(x.dtype)
 
 
-def _check_shape(what: str, m: int, k: int, n: int, k_multiple: int) -> None:
-    """Raise on a shape the kernels do not take: TMA needs 16-byte row
-    strides."""
-    if k % k_multiple or m <= 0 or n <= 0:
+def _check_shape(what: str, m: int, k: int, n: int) -> None:
+    """Raise on a shape the kernels do not take: TMA needs 16-byte rows of
+    the bf16 x [M, K]."""
+    if k % 8 or m <= 0 or n <= 0:
         raise ValueError(f"{what}: unsupported shape M={m}, K={k}, N={n}")
 
 
@@ -110,7 +110,7 @@ def ln_dense(
         )
     if dense_bias is not None and dense_bias.shape != (n,):
         raise ValueError(f"ln_dense: dense_bias must be [{n}], got {tuple(dense_bias.shape)}")
-    _check_shape("ln_dense", m, k, n, 8)
+    _check_shape("ln_dense", m, k, n)
 
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     scratch = torch.empty(2 * k + 2 * m, dtype=torch.float32, device=x.device)  # f32 γ, β; row μ, 1/σ
@@ -193,7 +193,11 @@ def ln_quant_dense(
     scale; ``dense_bias``: [N] or None.  Returns [..., N] in ``x.dtype``.
     On CUDA ``x``, ``scale``, ``bias`` and ``dense_bias`` are bfloat16,
     every tensor is contiguous and 16-byte aligned, and K is a multiple of
-    16.
+    8.  Where K is not a multiple of 16 (Virchow's fc2, K = 3,416) the
+    kernel gets a copy of ``weight_q`` padded with zero columns to the next
+    multiple of 16, made here at every call: TMA needs the int8 rows to be
+    a multiple of 16 bytes.  The padded columns are never read (TMA
+    zero-fills A and W past K), so the sums are those of the [N, K] weight.
     """
     k = x.shape[-1]
     n = weight_q.shape[0]
@@ -226,7 +230,9 @@ def ln_quant_dense(
         )
     if dense_bias is not None and dense_bias.shape != (n,):
         raise ValueError(f"ln_quant_dense: dense_bias must be [{n}], got {tuple(dense_bias.shape)}")
-    _check_shape("ln_quant_dense", m, k, n, 16)
+    _check_shape("ln_quant_dense", m, k, n)
+    if k % 16:
+        weight_q = torch.nn.functional.pad(weight_q, (0, -k % 16))
 
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     scratch = torch.empty(2 * k + 2 * m, dtype=torch.float32, device=x.device)  # f32 γ, β; row μ, 1/σ

@@ -45,10 +45,14 @@ def _rel_err(got, want):
     return diff / max(want.float().abs().max().item(), 1e-30)
 
 
+# N = 272 is the one-pass kernel's limit (attn.ONE_PASS_MAX_N); 273 and
+# 1,030 run the three-sweep kernel; 257 and 261 with d = 80 are Virchow's
+# and Virchow2's
 @pytest.mark.parametrize(
     "b,n,h,d",
-    [(1, 1, 1, 64), (3, 21, 4, 64), (2, 64, 2, 64), (2, 129, 3, 80), (4, 265, 24, 64), (2, 1030, 2, 64)],
-)
+    [(1, 1, 1, 64), (3, 21, 4, 64), (2, 64, 2, 64), (2, 129, 3, 80), (4, 265, 24, 64), (2, 1030, 2, 64),
+     (2, 272, 2, 64), (2, 273, 2, 64), (2, 257, 16, 80), (2, 261, 16, 80)],
+)  # fmt: skip
 def test_fused_qkv_mha_kernel(gen, b, n, h, d):
     qkv = _randn(gen, b, n, 3 * h * d)
     before = attn.LAUNCHES
@@ -56,6 +60,13 @@ def test_fused_qkv_mha_kernel(gen, b, n, h, d):
     assert attn.LAUNCHES == before + 1
     assert got.shape == (b, n, h * d) and got.dtype == torch.bfloat16
     assert _rel_err(got, attn.fused_qkv_mha_reference(qkv, h)) <= TOL
+
+
+@pytest.mark.parametrize("n", [265, 1030], ids=["one-pass", "three-sweep"])
+def test_fused_qkv_mha_kernel_is_deterministic(gen, n):
+    """No atomics and a fixed order of keys: two calls are bitwise equal."""
+    qkv = _randn(gen, 4, n, 3 * 8 * 64)
+    assert torch.equal(attn.fused_qkv_mha(qkv, 8), attn.fused_qkv_mha(qkv, 8))
 
 
 # the edges of the kernels' tiles: M off 64 and 128 (1,000; 16,960 = 64·265),
@@ -159,8 +170,9 @@ def test_flash_kernels_raise_on_what_they_do_not_take(gen):
     q, k, v, key_mask, coords, dist_scale = _flash_inputs(gen, 2, 10, 64)
     with pytest.raises(TypeError):
         attn.flash_mha(q.double(), k.double(), v.double(), key_mask)
+    wide = torch.randn(2, 10, 160, device="cuda", generator=gen)  # no instance holds it; 48 is padded to 64
     with pytest.raises(ValueError, match="head_dim"):
-        attn.flash_mha(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous(), key_mask)
+        attn.flash_mha(wide, wide, wide, key_mask)
     with pytest.raises(ValueError, match="key_mask"):
         attn.flash_mha(q, k, v, key_mask.float())
     with pytest.raises(ValueError, match="contiguous"):
@@ -232,6 +244,35 @@ def test_dist_weighted_sum_kernel(gen, bh, ta, tb, d):
     assert attn.DIST_WEIGHTED_SUM_LAUNCHES == before + 2
 
 
+@pytest.mark.parametrize("use_alibi", [False, True], ids=["vit", "alibi"])
+def test_flash_head_width_48(gen, use_alibi):
+    """A head width without an instance: q, k, v zero-padded to 64 through
+    the autograd Functions, forward and gradients against the plain
+    versions at the true width."""
+    q, k, v, key_mask, coords, dist_scale = _flash_inputs(gen, 8, 4097, 48)
+    do = torch.randn(8, 4097, 48, device="cuda", generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, dist_scale)]
+    before = (attn.FLASH_ALIBI_MHA_LAUNCHES, attn.FLASH_ALIBI_MHA_BWD_LAUNCHES) if use_alibi else (
+        attn.FLASH_MHA_LAUNCHES, attn.FLASH_MHA_BWD_LAUNCHES)  # fmt: skip
+    if use_alibi:
+        out = attn.flash_alibi_mha(*leaves[:3], coords, coords, leaves[3], key_mask)
+        got = torch.autograd.grad(out, leaves, do)
+        out_sm, dacc, lse = attn._flash_alibi_forward_reference(q, k, v, coords, coords, key_mask)
+        want_out = out_sm - dist_scale[:, None, None] * dacc
+        want = attn._flash_alibi_backward_reference(q, k, v, coords, coords, dist_scale, key_mask, out_sm, dacc, lse, do)
+        after = (attn.FLASH_ALIBI_MHA_LAUNCHES, attn.FLASH_ALIBI_MHA_BWD_LAUNCHES)
+    else:
+        out = attn.flash_mha(*leaves[:3], key_mask)
+        got = torch.autograd.grad(out, leaves[:3], do)
+        want_out, lse = attn._flash_forward_reference(q, k, v, key_mask)
+        want = attn._flash_backward_reference(q, k, v, key_mask, want_out, lse, do)
+        after = (attn.FLASH_MHA_LAUNCHES, attn.FLASH_MHA_BWD_LAUNCHES)
+    assert after == (before[0] + 1, before[1] + 1)
+    assert out.shape == (8, 4097, 48)
+    assert _rel_err(out, want_out) <= FLASH_TOL
+    assert max(_bwd_rel_errs(got, want)) <= BWD_TOL
+
+
 def test_flash_autograd_functions_launch_the_backward_kernels(gen):
     q, k, v, key_mask, coords, dist_scale = _flash_inputs(gen, 2, 300, 64)
     leaves = [t.clone().requires_grad_() for t in (q, k, v, dist_scale)]
@@ -283,6 +324,8 @@ def _quant_steps(x, g, b, s_x):
         (1000, 272, 7, 4.0, True),
         (16960, 1536, 1, 4.0, False),
         (2056, 1024, 3072, 4.0, True),  # ViT-L
+        (2056, 3416, 1280, 4.0, True),  # Virchow's fc2: K = 8 mod 16, W_q padded to 16-byte rows
+        (2056, 3416, 1280, 4.0, False),
     ],
 )
 def test_ln_quant_dense_kernel(gen, m, k, n, amax, bias):
@@ -301,11 +344,54 @@ def test_ln_quant_dense_raises_on_what_it_does_not_take(gen):
         lnd.ln_quant_dense(x.float(), g, b, s_x, wq, ws, d)
     with pytest.raises(TypeError):
         lnd.ln_quant_dense(x, g, b, s_x, wq.float(), ws, d)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        lnd.ln_quant_dense(x[:, :24].contiguous(), g[:24].contiguous(), b[:24].contiguous(), s_x,
-                           wq[:, :24].contiguous(), ws, d)  # fmt: skip
+    with pytest.raises(ValueError, match="unsupported shape"):  # K = 12: x rows of 24 bytes
+        lnd.ln_quant_dense(x[:, :12].contiguous(), g[:12].contiguous(), b[:12].contiguous(), s_x,
+                           wq[:, :12].contiguous(), ws, d)  # fmt: skip
     with pytest.raises(ValueError, match="contiguous"):
         lnd.ln_quant_dense(x, g, b, s_x, wq.t().contiguous().t(), ws, d)
+
+
+def test_int8_virchow_forward(gen):
+    """An int8 Virchow (full width, depth 2; LayerScale γ = 1 so that the
+    blocks move the residual stream) calibrated on the card: its forward on
+    the kernel path (fc2 at K = 3,416 included) against its plain path."""
+    import dataclasses
+
+    from stamp_tpu_torch.models import vit_image
+
+    cfg = dataclasses.replace(vit_image.VIT_CONFIGS["virchow"], depth=2)
+    with torch.device("meta"):
+        model = vit_image.ImageViT(dataclasses.replace(cfg, quant="observe"))
+    model.to_empty(device="cpu")
+    vit_image.init_random_weights_(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for block in model.blocks:
+            block.ls1.gamma.fill_(1.0)
+            block.ls2.gamma.fill_(1.0)
+    model = model.to(device="cuda", dtype=torch.bfloat16).eval()
+    images = torch.randn(4, 224, 224, 3, device="cuda", generator=gen).bfloat16()
+    act_stats = vit_image.calibrate_act_stats(model, images)
+    with torch.no_grad():
+        qstate = vit_image.quantize_vit_params(model.state_dict(), cfg)
+    with torch.device("meta"):
+        qmodel = vit_image.ImageViT(dataclasses.replace(cfg, quant="int8"))
+    qmodel.load_state_dict({**qstate, **act_stats}, assign=True)
+    qmodel.eval()
+    assert qmodel.blocks[0].mlp.fc2.weight_q.shape == (1280, 3416)
+
+    before = lnd.QUANT_LAUNCHES
+    with torch.inference_mode():
+        got = qmodel(images).float()
+    assert lnd.QUANT_LAUNCHES == before + 3 * cfg.depth  # qkv, fc1, fc2 of each block
+    kernels = (vit_image.ln_quant_dense, vit_image.fused_qkv_mha)
+    vit_image.ln_quant_dense, vit_image.fused_qkv_mha = lnd.ln_quant_dense_reference, attn.fused_qkv_mha_reference
+    try:
+        with torch.inference_mode():
+            want = qmodel(images).float()
+    finally:
+        vit_image.ln_quant_dense, vit_image.fused_qkv_mha = kernels
+    assert torch.isfinite(got).all()
+    assert torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1).min().item() >= 0.99
 
 
 # --- row 9: flash_alibi2d_mha (TITAN) --------------------------------------------

@@ -25,7 +25,8 @@ def interpret_pallas(monkeypatch):
     )
 
 
-@pytest.mark.parametrize("n,head_dim", [(21, 16), (21, 64), (265, 64)])
+# UNI2 (265, 64) and Virchow / Virchow2 (257 and 261 tokens, heads of 80)
+@pytest.mark.parametrize("n,head_dim", [(21, 16), (21, 64), (265, 64), (257, 80), (261, 80)])
 def test_fused_qkv_mha_matches_pallas(interpret_pallas, n, head_dim):
     from stamp_tpu.ops.flash_attention import fused_qkv_mha
 
@@ -120,3 +121,84 @@ def test_kernel_wrappers_refuse_other_devices():
             torch.empty(8, device="meta"),
             torch.empty(4, 8, device="meta"),
         )
+
+
+# --- MIL flash head widths: zero-padded to the kernels' instances ----------------
+
+_MIL_48 = dict(dim_output=3, dim_input=24, dim_model=96, n_layers=2, n_heads=2, dim_feedforward=48)  # heads of 48
+
+
+def _mil_bag(dims: dict, tiles: int = 40, valid: int = 29):
+    rng = np.random.default_rng(5)
+    bags = rng.normal(size=(1, tiles, dims["dim_input"])).astype(np.float32)
+    coords = (rng.integers(0, 12, size=(1, tiles, 2)) * 256.0).astype(np.float32)
+    return bags, coords, np.arange(tiles)[None, :] < valid
+
+
+@pytest.mark.parametrize("use_alibi", [False, True], ids=["vit", "alibi"])
+def test_mil_vit_head_width_48_matches_jax(use_alibi, monkeypatch):
+    """Heads of 48 run on the flash path, zero-padded to the kernels' 64
+    (scaled by 48^-1/2), and give the JAX module's logits and parameter
+    gradients (its einsum path on the CPU) on the same weights."""
+    import jax
+
+    from stamp_tpu.models.vision_transformer import VisionTransformer as JaxViT
+    from stamp_tpu_torch.models import vision_transformer as torch_vit
+
+    bags, coords, key_mask = _mil_bag(_MIL_48)
+    module = JaxViT(**_MIL_48, use_alibi=use_alibi)
+    inputs = (jnp.asarray(bags),)
+    kwargs = dict(coords=jnp.asarray(coords), key_mask=jnp.asarray(key_mask))
+    variables = jax.tree_util.tree_map(np.asarray, dict(module.init(jax.random.PRNGKey(0), *inputs, **kwargs)))
+    if use_alibi:  # the post-softmax bias as large as the softmax weights
+        for i in range(_MIL_48["n_layers"]):
+            variables["alibi_stats"][f"block_{i}"]["mhsa"]["running_mean"] = np.full(2, 1500.0 * 40, np.float32)
+    weights = np.random.default_rng(6).normal(size=(1, _MIL_48["dim_output"])).astype(np.float32)
+
+    def loss(params):
+        return (module.apply({**variables, "params": params}, *inputs, **kwargs) * weights).sum()
+
+    want_logits = np.asarray(module.apply(variables, *inputs, **kwargs))
+    want_grads = jax.tree_util.tree_map(np.asarray, jax.grad(loss)(variables["params"]))
+
+    widths = []
+    name = "_flash_alibi_forward" if use_alibi else "_flash_forward"
+    forward = getattr(torch_attn, name)
+    monkeypatch.setattr(torch_attn, name, lambda q, *a: widths.append(q.shape[-1]) or forward(q, *a))
+    monkeypatch.setattr(torch_vit, "FLASH_ATTENTION_MIN_SEQ", 16)
+    model = torch_vit.VisionTransformer(**_MIL_48, use_alibi=use_alibi)
+    model.load_state_dict(torch_vit.variables_from_jax(variables))
+    logits = model(torch.from_numpy(bags), coords=torch.from_numpy(coords), key_mask=torch.from_numpy(key_mask))
+    (logits * torch.from_numpy(weights)).sum().backward()
+    got_grads = torch_vit.variables_to_jax({n: p.grad for n, p in model.named_parameters()})["params"]
+
+    assert widths == [64, 64]  # both layers on the flash path, padded from 48
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits, atol=1e-5, rtol=0)
+    flat_want = jax.tree_util.tree_leaves_with_path(want_grads)
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(got_grads))
+    assert set(flat_got) == {path for path, _ in flat_want}
+    largest = max(np.abs(want).max() for _, want in flat_want)
+    for path, want in flat_want:
+        # ALiBi's key bias has an exact gradient of 0 (softmax ignores a
+        # shift shared by all keys): both sides are rounding there, held
+        # against the largest gradient
+        key_bias = "k_proj" in str(path) and "bias" in str(path)
+        scale = largest if key_bias else max(np.abs(want).max(), 1e-30)
+        np.testing.assert_allclose(flat_got[path], want, atol=1e-5 * scale, rtol=1e-5, err_msg=str(path))
+
+
+def test_mil_vit_refuses_heads_wider_than_the_flash_kernels(monkeypatch):
+    """Heads of 160 have no kernel instance: a bag on the flash path raises
+    before the first block, naming the JAX package; the einsum path runs."""
+    from stamp_tpu_torch.models import vision_transformer as torch_vit
+
+    dims = dict(_MIL_48, dim_model=320)  # 2 heads of 160
+    bags, coords, key_mask = (torch.from_numpy(a) for a in _mil_bag(dims))
+    model = torch_vit.VisionTransformer(**dims)
+    assert torch.isfinite(model(bags, coords=coords, key_mask=key_mask)).all()
+    monkeypatch.setattr(torch_vit, "FLASH_ATTENTION_MIN_SEQ", 16)
+    with pytest.raises(ValueError, match="python -m stamp_tpu"):
+        model(bags, coords=coords, key_mask=key_mask)
+    q = torch.zeros(2, 5, 160)
+    with pytest.raises(ValueError, match="python -m stamp_tpu"):
+        torch_attn.flash_mha(q, q, q, torch.ones(2, 5, dtype=torch.bool))
