@@ -40,16 +40,23 @@ Phases (each prints at least one line; any failure exits non-zero):
    bucket padding and CLS); checks the three CSVs and that each flash
    kernel ran 2 layers × 4 patients times, then holds the kernel path
    against the plain path on the card for the patients with T ≤ 16,385.
-3c. backward kernels: the flash backward (dQ and dK/dV kernels) of
-   ``flash_mha`` and ``flash_alibi_mha`` and the distance-weighted sum
-   (f32) against their plain versions at [8, 4097 | 16385, 64] with 40% of
-   keys masked and at ragged small shapes and d = 32, 128; masked keys get
-   exactly zero dK and dV, two runs are bitwise equal; the median time of
-   each, with the backward of ``F.scaled_dot_product_attention`` as the
-   library control of ``flash_mha``'s; then the gradients of both wrappers
-   at a head width of 48, T = 4,097, against the plain backward.  As
-   everywhere in this script the plain versions run with TF32 off (phase
-   1), so they are f32 throughout.
+3c. backward kernels: the flash backward (pre-pass, tile lists, dQ and
+   dK/dV kernels) of ``flash_mha`` and ``flash_alibi_mha`` and the
+   distance-weighted sum (f32) against their plain versions at
+   [8, 4097 | 16385, 64] with 40% of keys masked and a dense dO, and at
+   ragged small shapes and d = 32, 128; masked keys get exactly zero dK and
+   dV, two runs are bitwise equal; the median time of each, with the
+   backward of ``F.scaled_dot_product_attention`` as the library control of
+   ``flash_mha``'s, and (``torch.profiler``) the device time of each of the
+   four kernels, the TFLOP/s they execute and the share of the bound; then
+   the cases the tile skipping creates: a key mask with whole masked tiles
+   between valid ones, a sequence with no valid key, the first MIL layer's
+   dO (zero on the padded rows) and the last layer's (zero but on row 0,
+   timed at [8, 16385, 64] as its own row, its bound counting only the
+   nonzero rows), each with a zero dQ where dO is zero; then the gradients
+   of both wrappers at a head width of 48, T = 4,097, against the plain
+   backward.  As everywhere in this script the plain versions run with
+   TF32 off (phase 1), so they are f32 throughout.
 7. train: ``python -m stamp_tpu_torch -c config.yaml --profile train``
    in-process, whole-slide training (``bag_size: null``, 2 epochs) of the
    default MIL ViT (``vit`` and ``vit`` + ALiBi, width 512, UNI2 inputs) on
@@ -1086,6 +1093,123 @@ def _rel_errs(got, want) -> list[float]:
     return [(a - b).abs().max().item() / max(b.abs().max().item(), floor) for a, b in zip(got, want)]
 
 
+# the flash backward's kernels as torch.profiler names them
+_BWD_KERNELS = {"prepass": "flash_bwd_prepass", "lists": "flash_bwd_lists", "dq": "flash_bwd_dq",
+                "dkv": "flash_bwd_dkv"}  # fmt: skip
+
+
+def _bwd_executed_flops(mask, do, d: int) -> float:
+    """Operations the d = 64 backward kernels execute: each warpgroup of 64
+    queries with a nonzero dO row, over the 64-key tiles that hold a valid
+    key (3 products: s, dP, dS·k); each warpgroup of 64 keys that holds a
+    valid key, over the 64-query tiles with a nonzero dO row (4 products:
+    s, dP, Pᵀ·dO, dSᵀ·q).  A sequence with no valid key keeps every tile."""
+    import torch
+
+    def tiles(flags):  # [bh, n] → live tiles of 64 rows, [bh]
+        bh, n = flags.shape
+        pad = torch.zeros(bh, -n % 64, dtype=torch.bool, device=flags.device)
+        return torch.cat([flags, pad], dim=1).view(bh, -1, 64).any(dim=-1).sum(dim=-1)
+
+    live_rows = (do != 0).any(dim=-1)
+    keys = mask | ~mask.any(dim=-1, keepdim=True)
+    pairs = tiles(live_rows) * tiles(keys) * 64 * 64
+    return float((pairs * (3 + 4)).sum().item()) * 2 * d
+
+
+def _bwd_split(fn, mask, do, d: int) -> dict:
+    """Device ms of each of the backward's kernels in one call of ``fn``
+    (``torch.profiler``), and the TFLOP/s the dQ and dK/dV kernels execute
+    over their time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    device = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and e.device_time_total > 0}  # fmt: skip
+    split = {f"{part}_ms": sum(ms for key, ms in device.items() if tag in key) for part, tag in _BWD_KERNELS.items()}
+    kernels_ms = split["dq_ms"] + split["dkv_ms"]
+    executed = _bwd_executed_flops(mask, do, d)
+    return split | dict(executed_tflop=executed / 1e12, executed_tflops=executed / kernels_ms / 1e9 if kernels_ms else None)
+
+
+# (bh, tq, tk, d, key mask, dO, timed) of the cases phase 3c adds for the
+# backward's tile skipping; their inputs come from tests/flash_bwd_util.py,
+# which the card tests share ("holes" masks whole 64- and 128-key tiles and
+# 30% of the other keys, "one-empty" every key of sequence 1)
+BWD_SKIP_CASES = (
+    (8, 4097, 4097, 64, "holes", "dense", False),
+    (8, 4097, 4097, 64, "suffix", "padded-rows-zero", False),
+    (4, 700, 517, 64, "one-empty", "dense", False),
+    (3, 700, 700, 128, "holes", "row0", False),
+    (8, 16385, 16385, 64, "suffix", "row0", True),
+)
+
+
+def _bwd_skip_case(card: str, gen, bh, tq, tk, d, mask_kind, do_kind, timed) -> dict:
+    """Both backward wrappers on one skip case against their plain
+    versions: BWD_TOL per sequence, zero dk and dv on masked keys of
+    sequences with a valid key, zero dq where dO is zero, bitwise-equal
+    reruns; with ``timed`` also the times, the bound over the nonzero dO
+    rows, and the kernels' split."""
+    import torch
+    from flash_bwd_util import skip_case_inputs
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    q, k, v, mask, do, coords_q, coords_k, ds = skip_case_inputs(gen, bh, tq, tk, d, mask_kind, do_kind)
+    zero_do = (do == 0).all(dim=-1)
+    masked = ~mask & mask.any(dim=1)[:, None]
+    out, lse = attn._flash_forward(q, k, v, mask)
+    _, out_sm, dacc, lse_a = attn._flash_alibi_forward(q, k, v, coords_q, coords_k, ds, mask)
+    calls = {
+        "flash_mha_bwd": (attn._flash_backward, attn._flash_backward_reference, (q, k, v, mask, out, lse, do)),
+        "flash_alibi_mha_bwd": (attn._flash_alibi_backward, attn._flash_alibi_backward_reference,
+                                (q, k, v, coords_q, coords_k, ds, mask, out_sm, dacc, lse_a, do)),
+    }  # fmt: skip
+    rows = {}
+    for name, (kernel, plain, args) in calls.items():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        errs = [max(_rel_errs([g[i : i + 1] for g in got[:3]], [w[i : i + 1] for w in want[:3]])) for i in range(bh)]
+        if name == "flash_alibi_mha_bwd":
+            errs.append(_error(got[3], want[3])[1])
+        row = dict(case=f"{mask_kind} mask, {do_kind} dO", shape=[bh, tq, tk, d],
+                   max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)), max_rel_err=max(errs))  # fmt: skip
+        if not max(errs) <= BWD_TOL:
+            _fail(f"{name} {row}: beyond {BWD_TOL}")
+        if got[1][masked].any() or got[2][masked].any():
+            _fail(f"{name} {row}: masked keys got a nonzero dk or dv")
+        if got[0][zero_do].any():
+            _fail(f"{name} {row}: a query with a zero dO got a nonzero dq")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            _fail(f"{name} {row}: two runs differ")
+        del got, again, want
+        if timed:
+            # the function needs the nonzero dO rows against the valid keys:
+            # five products per such (query, key) pair.  It reads k, v and dO
+            # in full, but q, O and lse only on those rows (elsewhere
+            # D = rowsum(dO∘O) = 0 and dS = 0, so dK = dSᵀ·q takes nothing
+            # from them), and writes dq, dk and dv in full
+            live = (~zero_do).sum().item()
+            pairs = ((~zero_do).sum(dim=1) * mask.sum(dim=1)).sum().item()
+            io_bytes = 4 * (4 * k.numel() + 2 * do.numel() + live * (2 * d + 1)) + mask.numel()
+            flops = {"tf32": 5 * 2 * d * pairs}
+            if name == "flash_alibi_mha_bwd":
+                # + the key coordinates; the query coordinates and D·V
+                # (dacc) on the same rows
+                io_bytes += 4 * (coords_k.numel() + live * (2 + d))
+                flops["fp32"] = 2 * d * pairs  # the bias branch's distance-weighted sum
+            bound, by = _bound(io_bytes, flops)
+            tm = _compare_timed(lambda: kernel(*args), lambda: plain(*args), iters=3)
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], bound_ms=bound, bound_by=by, bound_share=bound / tm["kernel"])
+            if name == "flash_mha_bwd":
+                row |= _bwd_split(lambda: kernel(*args), mask, do, d)
+        print(f"[3c backward] {name} {json.dumps(row)} on {card}")
+        rows[name] = row
+    return rows
+
+
 def phase_flash_backward(card: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -1137,6 +1261,7 @@ def phase_flash_backward(card: str) -> dict:
             )
             row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=tm["control"], bound_ms=bound,
                         bound_by=by, bound_all_keys_ms=bound_all)  # fmt: skip
+            row |= _bwd_split(lambda: attn._flash_backward(*args), mask, do, d) | dict(bound_share=bound / row["ms"])
             del qg, kg, vg, sdpa_out
         print(f"[3c backward] flash_mha_bwd {json.dumps(row)} on {card}")
         rows["flash_mha_bwd"].append(row)
@@ -1199,6 +1324,11 @@ def phase_flash_backward(card: str) -> dict:
         print(f"[3c backward] dist_weighted_sum {json.dumps(row)} on {card}")
         rows["dist_weighted_sum"].append(row)
         del q, k, v, do, out, out_sm, dacc, lse, val
+        torch.cuda.empty_cache()
+
+    for case in BWD_SKIP_CASES:
+        for name, row in _bwd_skip_case(card, gen, *case).items():
+            rows[name].append(row)
         torch.cuda.empty_cache()
 
     # head width 48 through the autograd Functions (padded to 64, sliced
@@ -1704,6 +1834,7 @@ def main() -> None:
     if not (REPO / "stamp_tpu_torch").is_dir():
         _fail(f"run from a checkout of the repository ({REPO} has no stamp_tpu_torch/)")
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))  # flash_bwd_util: phase 3c's skip cases, shared with the card tests
     shutil.rmtree(WORK, ignore_errors=True)
 
     kind, card = _timed_phase("1 device", phase_device)
@@ -1791,7 +1922,8 @@ def main() -> None:
                 "source": "stamp_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                 "replaces": replaces,
                 "launches": train_launches[name],
-                "max_abs_err": max(r["max_abs_err"] for r in backward[name]),
+                # the dense-dO shapes; the skip cases print their own errors
+                "max_abs_err": max(r["max_abs_err"] for r in backward[name] if "case" not in r),
                 "ms": bwd_rows[name]["ms"],  # [8, 16385, 64], 40% of keys masked
                 "plain_ms": bwd_rows[name]["plain_ms"],
                 "bound_ms": bwd_rows[name]["bound_ms"],

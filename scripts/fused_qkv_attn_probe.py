@@ -66,7 +66,7 @@ def build(variant: str) -> Path:
         text = text.replace(old, new)
     (d / SOURCE).write_text(text)
     lib = d / "fused_qkv_attn.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(d / SOURCE)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC_DIR), "-o", str(lib), str(d / SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"{variant}: nvcc failed:\n{proc.stderr}")

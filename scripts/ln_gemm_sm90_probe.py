@@ -69,7 +69,7 @@ def build(variant: str, source: str) -> Path:
                 text = text.replace(old, new)
         (d / name).write_text(text)
     lib = d / f"{Path(source).stem}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(d / source)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC_DIR), "-o", str(lib), str(d / source)]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
     return lib
 

@@ -57,12 +57,14 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
         _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _PTR,
     ],
-    # q, k, v, mask, dout, lse, dvec, dq, dk, dv, bh, tq, tk, head_dim,
-    # scale, device, stream
+    # q, k, v, mask, dout, out, lse, workspace, dq, dk, dv, bh, tq, tk,
+    # head_dim, scale, device, stream
     "stamp_flash_attn_bwd": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
         _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _PTR,
     ],
+    # bh, tq, tk, head_dim, bytes (an int64 out)
+    "stamp_flash_attn_bwd_workspace": [_INT, _INT, _INT, _INT, _PTR],
     # ca, cb, val, mask|NULL, out, bh, ta, tb, head_dim, device, stream
     "stamp_dist_weighted_sum": [
         _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR,

@@ -51,8 +51,12 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 namespace ln_gemm {
+
+using namespace sm90;  // smem_addr, mbarriers, TMA loads, wgmma fences, descriptors
 
 constexpr int kBM = 128;        // rows per output tile
 constexpr int kBN = 256;        // columns per output tile (128 was slower at every UNI2 site)
@@ -63,7 +67,6 @@ constexpr int kRowBytes = 128;  // one swizzled box row
 constexpr int kXBoxBytes = kBM * kRowBytes;  // a raw x box: [128, 64] bf16
 constexpr int kConsumerRegs = 232, kProducerRegs = 40;  // 2·128·232 + 128·40 ≤ 65,536
 constexpr int kPending = 2;     // wgmma groups a consumer leaves in flight (1 or 2)
-constexpr unsigned long long kWatchdogNs = 10000000000ull;
 
 // ---- row statistics ---------------------------------------------------------
 
@@ -143,80 +146,12 @@ ln_row_stats_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   }
 }
 
-// ---- shared memory, mbarriers, TMA ------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// ---- swizzled boxes ---------------------------------------------------------------
 
 // byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a
 // 1024-byte-aligned box that TMA wrote with 128-byte swizzle
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_timer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed.  A fault
-// in the ring's phases would spin forever; after 10 s the kernel traps, so
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint64_t start = 0;
-  for (uint32_t polls = 1;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((polls & 1023) == 0) {
-      const uint64_t now = global_timer();
-      if (start == 0) {
-        start = now;
-      } else if (now - start > kWatchdogNs) {
-        __trap();
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                            int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
-      : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -226,46 +161,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 }
 
 // ---- wgmma --------------------------------------------------------------------
-
-template <int kRegs>
-__device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-template <int kRegs>
-__device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across a wgmma
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_operands(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// Descriptor of a K-major wgmma B operand as TMA's 128-byte swizzle lays it
-// out: 128-byte rows, 8-row groups 1024 bytes apart (stride offset 64 × 16
-// bytes), leading offset unused for a swizzled K-major operand (1), layout
-// type 1 (128-byte swizzle).  The box must be 1024-byte aligned.  The k-step
-// j of a stage starts 32·j bytes into each row: add 2·j (16-byte units).
-__device__ __forceinline__ uint64_t smem_desc_sw128(const void* box) {
-  const uint64_t addr = smem_addr(box);
-  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
 
 // Accumulator layout of both wgmmas below (m64n256, per warp w of the
 // warpgroup, g = lane / 4, t = lane % 4): d[4j + 2h + e] is row 16w + g + 8h,
@@ -569,27 +464,6 @@ ln_gemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant_
 }
 
 // ---- host side ------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no -lcuda
-inline cudaError_t tensor_map_encoder(PFN_cuTensorMapEncodeTiled* fn) {
-  static PFN_cuTensorMapEncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
 
 // map of the first `cols` columns of a row-major [rows, ld] matrix (ld ·
 // elem_bytes a multiple of 16) read in [box_rows, box_cols] boxes with

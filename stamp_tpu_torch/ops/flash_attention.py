@@ -30,15 +30,19 @@ after the softmax.  The CUDA kernel runs q·kᵀ and P·V in TF32 and D·V in a
 
 Both are ``torch.autograd.Function``s whose backward is the JAX package's
 (``_flash_core_bwd``, ``_alibi_core_bwd``): the probabilities are recomputed
-from the saved lse, D = rowsum(dO∘O) is plain torch, and dQ, dK, dV come
-from two kernels (TF32 products).  The ALiBi backward runs them on its
-softmax output and adds the bias branch: dV −= Dᵀ·(dist_scale·dO) on valid
-keys, through the distance-weighted-sum kernel (f32-accurate), and
-d dist_scale = −Σ dO∘(D·V) in plain torch.  Coordinates and the mask get
-no gradient.
+from the saved lse, and a pre-pass kernel (TF32 and transposed copies,
+D = rowsum(dO∘O), lists of the tiles that contribute) feeds a dQ and a
+dK/dV kernel (TF32 wgmma; key tiles with no valid key and query tiles whose
+dO is zero are skipped, their contribution being exactly zero).  The ALiBi
+backward runs them on its softmax output and adds the bias branch:
+dV −= Dᵀ·(dist_scale·dO) on valid keys, through the distance-weighted-sum
+kernel (f32-accurate), and d dist_scale = −Σ dO∘(D·V) in plain torch.
+Coordinates and the mask get no gradient.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -412,16 +416,23 @@ def _dist_weighted_sum_reference(
 
 
 def _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale=None):
-    """The dQ and dK/dV kernels (``stamp_flash_attn_bwd``) on the card."""
+    """The flash backward on the card (``stamp_flash_attn_bwd``: the
+    pre-pass, the tile lists, the dQ and the dK/dV kernels), with the
+    workspace the pre-pass fills (TF32 and transposed copies, D, tile
+    lists)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    dvec = (do * out).sum(dim=-1)
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    lib = _build.load_library()
+    nbytes = ctypes.c_int64()
+    _build.check(lib.stamp_flash_attn_bwd_workspace(bh, tq, tk, d, ctypes.addressof(nbytes)), "flash attention backward")
+    workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _build.load_library().stamp_flash_attn_bwd(
+    err = lib.stamp_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+        do.data_ptr(), out.data_ptr(), lse.data_ptr(), workspace.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        q.shape[0], q.shape[1], k.shape[1], q.shape[2], scale,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        bh, tq, tk, d, scale, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )  # fmt: skip
     _build.check(err, "flash attention backward")
     return dq, dk, dv

@@ -9,6 +9,7 @@ imports no JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
+from flash_bwd_util import skip_case_inputs
 from stamp_tpu_torch.ops import flash_attention as attn
 from stamp_tpu_torch.ops import ln_dense as lnd
 
@@ -281,6 +282,55 @@ def test_flash_autograd_functions_launch_the_backward_kernels(gen):
     attn.flash_alibi_mha(*leaves[:3], coords, coords, leaves[3], key_mask).sum().backward()
     assert (attn.FLASH_MHA_BWD_LAUNCHES, attn.FLASH_ALIBI_MHA_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(leaf.grad).all() for leaf in leaves)
+
+
+# The backward's tile-skipping cases (their inputs: tests/flash_bwd_util.py):
+# whole masked 64- and 128-key tiles between valid keys, a sequence with no
+# valid key, the last and first MIL layers' dO, ragged and unequal Tq, Tk,
+# d = 32, 128.
+SKIP_CASES = {
+    "holes": (3, 700, 700, 64, "holes", "dense"),
+    "no-valid-key": (3, 300, 300, 64, "one-empty", "dense"),
+    "last-layer": (4, 700, 700, 64, "suffix", "row0"),
+    "first-layer": (4, 700, 700, 64, "suffix", "padded-rows-zero"),
+    "ragged-holes": (3, 333, 700, 64, "holes", "dense"),
+    "ragged-last-layer": (3, 700, 517, 64, "holes", "row0"),
+    "d32-holes-first-layer": (2, 700, 700, 32, "holes", "padded-rows-zero"),
+    "d32-no-valid-key": (3, 200, 300, 32, "one-empty", "row0"),
+    "d128-holes": (2, 517, 700, 128, "holes", "dense"),
+    "d128-no-valid-key-first-layer": (3, 700, 700, 128, "one-empty", "padded-rows-zero"),
+}
+
+
+@pytest.mark.parametrize("use_alibi", [False, True], ids=["vit", "alibi"])
+@pytest.mark.parametrize("case", list(SKIP_CASES))
+def test_flash_backward_skips_only_zero_tiles(gen, case, use_alibi):
+    bh, tq, tk, d, mask_kind, do_kind = SKIP_CASES[case]
+    q, k, v, key_mask, do, coords_q, coords_k, dist_scale = skip_case_inputs(gen, bh, tq, tk, d, mask_kind, do_kind)
+    if use_alibi:
+        out_sm, dacc, lse = attn._flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
+        args = (q, k, v, coords_q, coords_k, dist_scale, key_mask, out_sm, dacc, lse, do)
+        got, again = attn._flash_alibi_backward(*args), attn._flash_alibi_backward(*args)
+        want = attn._flash_alibi_backward_reference(*args)
+    else:
+        out, lse = attn._flash_forward_reference(q, k, v, key_mask)
+        args = (q, k, v, key_mask, out, lse, do)
+        got, again = attn._flash_backward(*args), attn._flash_backward(*args)
+        want = attn._flash_backward_reference(*args)
+    # per sequence, so that a sequence with no valid key (P = 1 on every
+    # key, large gradients) does not set the scale of the others
+    for i in range(bh):
+        errs = _bwd_rel_errs([g[i : i + 1] for g in got[:3]], [w[i : i + 1] for w in want[:3]])
+        assert max(errs) <= BWD_TOL, (i, errs)
+    if use_alibi:
+        assert _rel_err(got[3], want[3]) <= BWD_TOL
+    has_valid = key_mask.any(dim=1)
+    masked = ~key_mask & has_valid[:, None]  # exactly zero dk and dv where P = 0
+    assert not got[1][masked].any() and not got[2][masked].any()
+    zero_do = (do == 0).all(dim=-1)  # exactly zero dq where dO is zero
+    assert zero_do.any() == (do_kind != "dense")
+    assert not got[0][zero_do].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise equal
 
 
 # --- row 3: ln_quant_dense (W8A8) -----------------------------------------------

@@ -161,3 +161,88 @@ def test_backward_wrappers_refuse_other_devices():
     coords = torch.empty(2, 5, 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         torch_attn._dist_weighted_sum(coords, coords, meta, None)
+
+
+# --- the facts the CUDA backward's tile skipping rests on --------------------
+#
+# The kernels skip a key tile with no valid key and a query tile whose dO
+# rows are all zero, whose contributions are exactly zero.  These tests pin
+# those facts on the port's plain backward and on the Pallas VJP, and show
+# that the MIL model's two layers produce such dO rows.
+
+
+def _backward(impl: str, q, k, v, key_mask, do) -> list[np.ndarray]:
+    """(dq, dk, dv) of ``flash_mha`` for ``do``: the port's autograd Function
+    on the CPU (its plain backward), or ``jax.vjp`` of the Pallas kernels."""
+    if impl == "pallas":
+        from stamp_tpu.ops.flash_attention import flash_mha
+
+        mask = jnp.asarray(key_mask)
+        _, vjp = jax.vjp(
+            lambda q, k, v: flash_mha(q, k, v, mask, block_q=BLOCK, block_k=BLOCK), *map(jnp.asarray, (q, k, v))
+        )
+        return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    torch_attn.flash_mha(*leaves, torch.from_numpy(key_mask)).backward(torch.from_numpy(do))
+    return [leaf.grad.numpy() for leaf in leaves]
+
+
+@pytest.mark.parametrize("impl", ["plain", "pallas"])
+def test_zero_do_rows_contribute_exactly_nothing(impl, interpret_pallas):
+    x = _inputs(4)
+    zero = np.ones(300, dtype=bool)  # dO is zero on every row but these
+    zero[[0, 1, 7, 150]] = False
+    zero[200:230] = False
+    do = np.where(zero[None, :, None], 0.0, x["do"]).astype(np.float32)
+    dq, dk, dv = _backward(impl, x["q"], x["k"], x["v"], x["key_mask"], do)
+    assert not dq[:, zero].any() and dq[:, ~zero].any()
+    # the rows with a nonzero dO alone give the same dk and dv
+    _, dk_live, dv_live = _backward(impl, x["q"][:, ~zero], x["k"], x["v"], x["key_mask"], do[:, ~zero])
+    _close(torch.from_numpy(dk_live), dk)
+    _close(torch.from_numpy(dv_live), dv)
+
+
+@pytest.mark.parametrize("impl", ["plain", "pallas"])
+def test_whole_masked_tiles_get_exactly_zero_dk_dv(impl, interpret_pallas):
+    x = _inputs(5, t=700)
+    idx = np.arange(700)  # whole masked 64- and 128-key tiles between valid ones
+    holes = ((idx >= 64) & (idx < 192)) | ((idx >= 320) & (idx < 384)) | ((idx >= 512) & (idx < 640))
+    key_mask = x["key_mask"] & ~holes
+    _, dk, dv = _backward(impl, x["q"], x["k"], x["v"], key_mask, x["do"])
+    assert not dk[:, holes].any() and not dv[:, holes].any()
+    assert not dk[~key_mask].any() and not dv[~key_mask].any()
+    assert dk[key_mask].any() and dv[key_mask].any()
+
+
+@pytest.mark.parametrize("use_alibi", [False, True], ids=["vit", "alibi"])
+def test_mil_vit_flash_dO_is_zero_where_the_kernels_skip(monkeypatch, use_alibi):
+    """A 2-layer MIL ViT through the flash autograd Functions: the last
+    layer's dO is zero on every row but the CLS row (the head reads only
+    it), the first layer's on the padded rows (masked keys of the last
+    layer, which get exactly zero dK and dV there)."""
+    from stamp_tpu_torch.models import vision_transformer as vit
+
+    monkeypatch.setattr(vit, "FLASH_ATTENTION_MIN_SEQ", 8)
+    name = "_flash_alibi_backward" if use_alibi else "_flash_backward"
+    inner, recorded = getattr(torch_attn, name), []
+
+    def recording(*args):
+        recorded.append(args[-2].clone())  # (…, do, scale)
+        return inner(*args)
+
+    monkeypatch.setattr(torch_attn, name, recording)
+    model = vit.VisionTransformer(dim_output=2, dim_input=16, dim_model=32, n_layers=2, n_heads=2,
+                                  dim_feedforward=32, use_alibi=use_alibi)  # fmt: skip
+    vit.init_random_weights_(model, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    bags = torch.from_numpy(rng.normal(size=(2, 20, 16)).astype(np.float32))
+    coords = torch.from_numpy((rng.integers(0, 10, size=(2, 20, 2)) * 256.0).astype(np.float32))
+    key_mask = torch.arange(20)[None, :] < torch.tensor([[13], [17]])  # 7 and 3 padded tiles
+    model(bags, coords=coords, key_mask=key_mask, train=True).logsumexp(dim=-1).sum().backward()
+
+    assert len(recorded) == 2  # the last layer's backward runs first
+    last, first = recorded
+    assert last.shape == (2 * 2, 21, 32)  # heads of 16, padded to the 32 instance
+    assert not last[:, 1:].any() and last[:, 0].abs().amax(dim=-1).gt(0).all()
+    valid = torch.cat([torch.ones(2, 1, dtype=torch.bool), key_mask], dim=1).repeat_interleave(2, dim=0)
+    assert not first[~valid].any() and first[valid].abs().amax(dim=-1).gt(0).all()
