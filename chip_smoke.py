@@ -48,7 +48,10 @@ Phases (each prints at least one line; any failure exits non-zero):
    dV, two runs are bitwise equal; the median time of each, with the
    backward of ``F.scaled_dot_product_attention`` as the library control of
    ``flash_mha``'s, and (``torch.profiler``) the device time of each of the
-   four kernels, the TFLOP/s they execute and the share of the bound; then
+   four kernels, the TFLOP/s they execute and the share of the bound; the
+   distance-weighted sum as the ALiBi backward calls it (the key mask as its
+   a-mask: masked rows exactly zero) with a dense dO and, timed as its own
+   row, the last MIL layer's dO, and without an a-mask; then
    the cases the tile skipping creates: a key mask with whole masked tiles
    between valid ones, a sequence with no valid key, the first MIL layer's
    dO (zero on the padded rows) and the last layer's (zero but on row 0,
@@ -56,7 +59,10 @@ Phases (each prints at least one line; any failure exits non-zero):
    nonzero rows), each with a zero dQ where dO is zero; then the gradients
    of both wrappers at a head width of 48, T = 4,097, against the plain
    backward.  As everywhere in this script the plain versions run with
-   TF32 off (phase 1), so they are f32 throughout.
+   TF32 off (phase 1), so they are f32 throughout.  A product that must
+   stay f32-accurate (ALiBi's D·V and the distance-weighted sum) is bounded
+   at the better of the f32 rate and three TF32 products (``bound_ms``);
+   ``bound_f32_ms`` is the same bound at the f32 rate alone.
 7. train: ``python -m stamp_tpu_torch -c config.yaml --profile train``
    in-process, whole-slide training (``bag_size: null``, 2 epochs) of the
    default MIL ViT (``vit`` and ``vit`` + ALiBi, width 512, UNI2 inputs) on
@@ -82,10 +88,12 @@ Phases (each prints at least one line; any failure exits non-zero):
    ``torch._int_mm`` on the pre-quantized activation (the library control;
    both also back to back, as in phase 3) and the bf16 ``ln_dense`` kernel.
 3e. TITAN kernel: ``flash_alibi2d_mha`` (f32) against its plain version at
-   [12, 4097 | 16385, 64] on the grid of a slide-shaped tissue region with
-   the CLS token at (0, 0), and at ragged small shapes, N < 64 and N = 1;
-   the median time beside ``F.scaled_dot_product_attention`` f32 with the
-   [12, N, N] bias materialised outside the timed region.
+   [12, 4097 | 16385 | 20001, 64] (20,001: a patient of two 10,000-tile
+   slides) on the grid of a slide-shaped tissue region with the CLS token
+   at (0, 0), and at ragged small shapes, N < 64 and N = 1 (with and
+   without the CLS exemption); the median time, its TFLOP/s and share of
+   the bound, beside ``F.scaled_dot_product_attention`` f32 with the
+   [12, N, N] bias materialised outside the timed region (up to 16,385).
 4b. int8 main path: phase 4's ``preprocess`` with ``extractor_precision:
    int8``: the ``uni2-int8`` directory, ``precision = "int8"``, 72
    ``ln_quant_dense`` launches per int8 forward (none in the calibration
@@ -110,7 +118,9 @@ largest error against its plain
 version, its time, the plain version's and the library control's, and the
 least time the card could take for the same work (``bound_ms``: the larger
 of the bytes over 3.35 TB/s and the operations over the H100 SXM's peak
-rate for their type).  The last line is ``{"ok": true, "device": {...}}``.
+rate for their type, an f32-accurate product at the better of the f32 rate
+and three TF32 products; rows 6–8 also print ``bound_f32_ms``, that product
+at the f32 rate alone).  The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout of the repository, the script
 exits non-zero and prints no result.
 """
@@ -499,9 +509,11 @@ def _tissue_grid(n: int):
 
 def phase_alibi2d_kernels(card: str) -> dict:
     """3e: ``flash_alibi2d_mha`` against its plain version at TITAN's
-    shapes ([12, 4097 | 16385, 64]) and at ragged small ones, N < 64 and
-    N = 1; times beside SDPA f32 with the [12, N, N] bias materialised
-    (built outside the timed region)."""
+    shapes ([12, 4097 | 16385 | 20001, 64], the last a patient of two
+    10,000-tile slides) and at ragged small ones, N < 64 and N = 1 (there
+    also without the CLS exemption); times with the TFLOP/s and the share
+    of the bound, beside SDPA f32 with the [12, N, N] bias materialised
+    (built outside the timed region; up to N = 16,385)."""
     import torch
     import torch.nn.functional as F
 
@@ -509,32 +521,41 @@ def phase_alibi2d_kernels(card: str) -> dict:
 
     gen = torch.Generator(device="cuda:0").manual_seed(5)
     rows = []
-    for bh, n, d in ((3, 1, 64), (12, 37, 64), (12, 300, 64), (2, 130, 32), (2, 200, 128), (12, 4097, 64), (12, 16385, 64)):
+    shapes = ((3, 1, 64), (12, 37, 64), (12, 300, 64), (2, 130, 32), (2, 200, 128), (12, 4097, 64), (12, 16385, 64),
+              (12, 20001, 64))  # fmt: skip
+    for bh, n, d in shapes:
         q, k, v, coords, slopes = _alibi2d_inputs(gen, bh, n, d)
-        got = attn.flash_alibi2d_mha(q, k, v, coords, slopes)
-        want = attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes)
-        torch.cuda.synchronize()
-        abs_err, rel_err = _error(got, want)
+        errs = []
+        for exempt in (True, False) if n < 4097 else (True,):
+            got = attn.flash_alibi2d_mha(q, k, v, coords, slopes, exempt_first=exempt)
+            want = attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes, exempt_first=exempt)
+            torch.cuda.synchronize()
+            errs.append(_error(got, want))
+            del want
+        abs_err, rel_err = max(errs, key=lambda e: e[1])
         row = dict(shape=[bh, n, d], max_abs_err=abs_err, rel_err=rel_err)
-        del want
         if not rel_err <= FLASH_TOL:
             _fail(f"flash_alibi2d_mha {row}: beyond {FLASH_TOL}")
         if n >= 4097:
             io_bytes = 4 * q.numel() * 4 + coords.numel() * 4 + slopes.numel() * 4  # q k v in, out; coords; slopes
-            bound, by = _bound(io_bytes, {"tf32": 4 * d * bh * n * n})
-            bias = attn._pairwise_distances(coords, coords).mul_(-slopes[:, None, None])
-            bias[:, 0, :] = 0.0
-            bias[:, :, 0] = 0.0
+            flops = 4 * d * bh * n * n
+            bound, by = _bound(io_bytes, {"tf32": flops})
+            sdpa = None
+            if n <= 16385:
+                bias = attn._pairwise_distances(coords, coords).mul_(-slopes[:, None, None])
+                bias[:, 0, :] = 0.0
+                bias[:, :, 0] = 0.0
 
-            def sdpa(q=q, k=k, v=v, bias=bias):
-                return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=bias[None])[0]
+                def sdpa(q=q, k=k, v=v, bias=bias):
+                    return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=bias[None])[0]
 
             t = _compare_timed(lambda: attn.flash_alibi2d_mha(q, k, v, coords, slopes),
                                lambda: attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes), sdpa, iters=3)  # fmt: skip
-            row |= dict(ms=t["kernel"], plain_ms=t["plain"], sdpa_f32_dense_bias_ms=t["control"],
-                        sdpa_rel_diff=_error(sdpa(), got)[1], bound_ms=bound, bound_by=by,
-                        kernel_tflops=4 * d * bh * n * n / t["kernel"] / 1e9)  # fmt: skip
-            del bias
+            row |= dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound, bound_by=by, bound_share=bound / t["kernel"],
+                        kernel_tflops=flops / t["kernel"] / 1e9)  # fmt: skip
+            if sdpa is not None:
+                row |= dict(sdpa_f32_dense_bias_ms=t["control"], sdpa_rel_diff=_error(sdpa(), got)[1])
+                del bias
         print(f"[3e alibi2d] flash_alibi2d_mha {json.dumps(row)} on {card}")
         rows.append(row)
         del q, k, v, got
@@ -776,13 +797,32 @@ def phase_whole_model(card: str) -> None:
         check("UNI2, LayerScale γ = 1", model(x).float(), plain_path(model, x).float())
 
 
+def _op_seconds(kind: str, n: float) -> float:
+    """Least seconds for n operations of one kind.  "fp32_dot" is a product
+    that must stay f32-accurate: at the f32 rate, or as three TF32 products
+    (hi·hi, hi·lo, lo·hi of a TF32 split, per-tile f32 sums: what the port's
+    kernels run), whichever is faster."""
+    if kind == "fp32_dot":
+        return min(n / PEAK_FLOPS["fp32"], 3 * n / PEAK_FLOPS["tf32"])
+    return n / PEAK_FLOPS[kind]
+
+
 def _bound(nbytes: float, flops: dict[str, float]) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the bytes over the
     memory rate against the operations over the peak rate of their type
     (summed over types)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = sum(n / PEAK_FLOPS[kind] for kind, n in flops.items()) * 1e3
+    t_ops = sum(_op_seconds(kind, n) for kind, n in flops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bounds(nbytes: float, flops: dict[str, float]) -> dict:
+    """bound_ms and bound_by (the f32-accurate product at the better of its
+    two rates, ``_op_seconds``), and bound_f32_ms: the same with that
+    product at the f32 rate alone."""
+    bound, by = _bound(nbytes, flops)
+    f32 = {("fp32" if kind == "fp32_dot" else kind): n for kind, n in flops.items()}
+    return dict(bound_ms=bound, bound_by=by, bound_f32_ms=_bound(nbytes, f32)[0])
 
 
 def _mean_pairwise_distance(coords) -> float:
@@ -879,12 +919,12 @@ def phase_flash_kernels(card: str) -> dict:
         del want, want_sm, want_dacc, want_lse
         if t >= 4097:
             alibi_bytes = io_bytes + 2 * coords.numel() * 4 + ds.numel() * 4
-            bound, by = _bound(alibi_bytes, {"tf32": 4 * d * pairs, "fp32": 2 * d * pairs})
+            bounds = _bounds(alibi_bytes, {"tf32": 4 * d * pairs, "fp32_dot": 2 * d * pairs})
             args = (q, k, v, coords, coords, ds, mask)
             tm = _compare_timed(
                 lambda: attn.flash_alibi_mha(*args), lambda: attn.flash_alibi_mha_reference(*args), iters=3
             )
-            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, bound_ms=bound, bound_by=by)
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, **bounds)
         print(f"[3b flash] flash_alibi_mha {json.dumps(row)} on {card}")
         rows["flash_alibi_mha"].append(row)
         del q, k, v, out, out_sm, dacc, lse
@@ -1199,10 +1239,10 @@ def _bwd_skip_case(card: str, gen, bh, tq, tk, d, mask_kind, do_kind, timed) -> 
                 # + the key coordinates; the query coordinates and D·V
                 # (dacc) on the same rows
                 io_bytes += 4 * (coords_k.numel() + live * (2 + d))
-                flops["fp32"] = 2 * d * pairs  # the bias branch's distance-weighted sum
-            bound, by = _bound(io_bytes, flops)
+                flops["fp32_dot"] = 2 * d * pairs  # the bias branch's distance-weighted sum
+            bounds = _bounds(io_bytes, flops)
             tm = _compare_timed(lambda: kernel(*args), lambda: plain(*args), iters=3)
-            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], bound_ms=bound, bound_by=by, bound_share=bound / tm["kernel"])
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], **bounds, bound_share=bounds["bound_ms"] / tm["kernel"])
             if name == "flash_mha_bwd":
                 row |= _bwd_split(lambda: kernel(*args), mask, do, d)
         print(f"[3c backward] {name} {json.dumps(row)} on {card}")
@@ -1286,43 +1326,57 @@ def phase_flash_backward(card: str) -> dict:
         del got, again, want
         if t >= 4097:
             alibi_bytes = io_bytes + 2 * coords.numel() * 4 + 2 * q.numel() * 4  # + coords, dacc in, dO·s
-            flops = {"tf32": 5 * 2 * d * pairs, "fp32": 2 * d * pairs}
-            bound, by = _bound(alibi_bytes, flops)
-            bound_all, _ = _bound(alibi_bytes, {"tf32": 5 * 2 * d * bh * t * t, "fp32": 2 * d * bh * t * t})
+            bounds = _bounds(alibi_bytes, {"tf32": 5 * 2 * d * pairs, "fp32_dot": 2 * d * pairs})
+            bound_all, _ = _bound(alibi_bytes, {"tf32": 5 * 2 * d * bh * t * t, "fp32_dot": 2 * d * bh * t * t})
             tm = _compare_timed(
                 lambda: attn._flash_alibi_backward(*args), lambda: attn._flash_alibi_backward_reference(*args), iters=3
             )
-            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, bound_ms=bound, bound_by=by,
-                        bound_all_keys_ms=bound_all)  # fmt: skip
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, **bounds, bound_all_keys_ms=bound_all,
+                        bound_share=bounds["bound_ms"] / tm["kernel"])  # fmt: skip
         print(f"[3c backward] flash_alibi_mha_bwd {json.dumps(row)} on {card}")
         rows["flash_alibi_mha_bwd"].append(row)
 
         # the distance-weighted sum alone, as the ALiBi backward calls it
-        # (a = keys, b = queries, every b counts)
+        # (a = keys with the key mask as the a-mask, b = queries, every b
+        # counts), then without an a-mask (a correctness check: the ALiBi
+        # backward always passes one) and, at the timed shapes, with the
+        # last MIL layer's dO (zero but on the CLS row: one live b tile)
         val = do * ds[:, None, None]
-        got = attn._dist_weighted_sum(coords, coords, val, None)
-        want = attn._dist_weighted_sum_reference(coords, coords, val, None)
-        torch.cuda.synchronize()
-        abs_err, rel_err = _error(got, want)
-        row = dict(shape=[bh, t, d], max_abs_err=abs_err, rel_err=rel_err)
-        if not rel_err <= DWS_TOL:
-            _fail(f"_dist_weighted_sum {row}: beyond {DWS_TOL}")
-        del got, want
+        variants = [("key mask as a-mask, dense dO", mask, val), ("no a-mask, dense dO", None, val)]
         if t >= 4097:
-            dws_bytes = 2 * coords.numel() * 4 + 2 * val.numel() * 4  # coords in twice, values in, out out
-            # the backward keeps only the valid keys' rows (the kernel
-            # computes every row: the masked ones are work it need not do)
-            bound, by = _bound(dws_bytes, {"fp32": 2 * d * pairs})
-            bound_all, _ = _bound(dws_bytes, {"fp32": 2 * d * bh * t * t})
-            tm = _compare_timed(
-                lambda: attn._dist_weighted_sum(coords, coords, val, None),
-                lambda: attn._dist_weighted_sum_reference(coords, coords, val, None),
-                iters=3,
-            )
-            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, bound_ms=bound, bound_by=by,
-                        bound_all_keys_ms=bound_all)  # fmt: skip
-        print(f"[3c backward] dist_weighted_sum {json.dumps(row)} on {card}")
-        rows["dist_weighted_sum"].append(row)
+            last = torch.zeros_like(val)
+            last[:, 0] = val[:, 0]
+            variants.append(("key mask as a-mask, last layer's dO", mask, last))
+        for variant, a_mask, values in variants:
+            dws_args = (coords, coords, values, None, a_mask)
+            got, again = attn._dist_weighted_sum(*dws_args), attn._dist_weighted_sum(*dws_args)
+            want = attn._dist_weighted_sum_reference(*dws_args)
+            torch.cuda.synchronize()
+            abs_err, rel_err = _error(got, want)
+            row = dict(shape=[bh, t, d], variant=variant, max_abs_err=abs_err, rel_err=rel_err)
+            if not rel_err <= DWS_TOL:
+                _fail(f"_dist_weighted_sum {row}: beyond {DWS_TOL}")
+            if a_mask is not None and got[~a_mask].any():
+                _fail(f"_dist_weighted_sum {row}: a row the a-mask drops is not zero")
+            if not torch.equal(got, again):
+                _fail(f"_dist_weighted_sum {row}: two runs differ")
+            del got, again, want
+            if t >= 4097 and a_mask is not None:
+                # the pairs it needs: the kept rows a against the b with a
+                # nonzero value; it reads both coordinate sets, the values
+                # and the a-mask once and writes every row
+                live_b = (values != 0).any(dim=-1)
+                dws_pairs = (a_mask.sum(dim=1) * live_b.sum(dim=1)).sum().item()
+                dws_bytes = 4 * (2 * coords.numel() + 2 * values.numel()) + a_mask.numel()
+                bounds = _bounds(dws_bytes, {"fp32_dot": 2 * d * dws_pairs})
+                bound_all, _ = _bound(dws_bytes, {"fp32_dot": 2 * d * bh * t * t})
+                tm = _compare_timed(lambda: attn._dist_weighted_sum(*dws_args),
+                                    lambda: attn._dist_weighted_sum_reference(*dws_args), iters=3)  # fmt: skip
+                row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, **bounds,
+                            bound_all_keys_ms=bound_all, bound_share=bounds["bound_ms"] / tm["kernel"],
+                            tf32_tflops=3 * 2 * d * dws_pairs / tm["kernel"] / 1e9)  # fmt: skip
+            print(f"[3c backward] dist_weighted_sum {json.dumps(row)} on {card}")
+            rows["dist_weighted_sum"].append(row)
         del q, k, v, do, out, out_sm, dacc, lse, val
         torch.cuda.empty_cache()
 
@@ -1909,7 +1963,7 @@ def main() -> None:
                 "bound_ms": flash_rows[name]["bound_ms"],
                 "bound_by": flash_rows[name]["bound_by"],
                 "library_ms": flash_rows[name]["library_ms"],
-            }
+            } | ({"bound_f32_ms": flash_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in flash_rows[name] else {})
             for name, replaces in (
                 ("flash_mha", "stamp_tpu/ops/flash_attention.py:307"),
                 ("flash_alibi_mha", "stamp_tpu/ops/flash_attention.py:950"),
@@ -1929,7 +1983,7 @@ def main() -> None:
                 "bound_ms": bwd_rows[name]["bound_ms"],
                 "bound_by": bwd_rows[name]["bound_by"],
                 "library_ms": bwd_rows[name]["library_ms"],
-            }
+            } | ({"bound_f32_ms": bwd_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in bwd_rows[name] else {})
             for name, replaces in (
                 ("flash_mha_bwd", "stamp_tpu/ops/flash_attention.py:236"),
                 ("flash_alibi_mha_bwd", "stamp_tpu/ops/flash_attention.py:867"),

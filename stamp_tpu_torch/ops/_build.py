@@ -45,12 +45,14 @@ _SIGNATURES = {
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
         _INT, ctypes.c_float, _INT, _PTR,
     ],
-    # q, k, v, coords, slopes, out, bh, n, head_dim, scale, exempt_first,
-    # device, stream
+    # q, k, v, coords, slopes, workspace, out, bh, n, head_dim, scale,
+    # exempt_first, device, stream
     "stamp_flash_alibi2d_fwd": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, ctypes.c_float,
-        _INT, _INT, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+        ctypes.c_float, _INT, _INT, _PTR,
     ],
+    # bh, n, head_dim, bytes (an int64 out)
+    "stamp_flash_alibi2d_workspace": [_INT, _INT, _INT, _PTR],
     # q, k, v, mask, cq|NULL, ck|NULL, dist_scale|NULL, o, dacc|NULL,
     # out|NULL, lse, bh, tq, tk, head_dim, scale, alibi, device, stream
     "stamp_flash_attn_fwd": [
@@ -65,10 +67,14 @@ _SIGNATURES = {
     ],
     # bh, tq, tk, head_dim, bytes (an int64 out)
     "stamp_flash_attn_bwd_workspace": [_INT, _INT, _INT, _INT, _PTR],
-    # ca, cb, val, mask|NULL, out, bh, ta, tb, head_dim, device, stream
+    # ca, cb, val, b_mask|NULL, a_mask|NULL, workspace, out, bh, ta, tb,
+    # head_dim, device, stream
     "stamp_dist_weighted_sum": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+        _INT, _PTR,
     ],
+    # bh, ta, tb, head_dim, bytes (an int64 out)
+    "stamp_dist_weighted_sum_workspace": [_INT, _INT, _INT, _INT, _PTR],
 }  # fmt: skip
 # entry points that return something else than a cudaError_t: name → (argtypes, restype)
 _OTHER_SIGNATURES = {"stamp_cuda_error_string": ([_INT], ctypes.c_char_p)}

@@ -19,15 +19,16 @@
 //   dP = dO·Vᵀ,  dS = P∘(dP − D)·scale,
 //   dQ = dS·K,   dV = Pᵀ·dO,  dK = dSᵀ·Q.
 // The distance-weighted sum: out_a = Σ_b ‖c_a − c_b‖·val_b over the b that
-// the b-mask keeps.
+// the b-mask keeps, for the rows a that the a-mask keeps (zero elsewhere).
 //
 // What bounds them on the H100: operations.  At the whole-slide training
 // shapes ([8, T, 64], T = 4,097 … 16,385) one product of 2·BH·T²·d is
 // 275 GFLOP at T = 16,385; the flash backward needs five per (query, valid
 // key) pair and runs seven (s and dP in both of its kernels), at the
 // 495 TFLOP/s TF32 rate; the distance-weighted sum one that must stay
-// f32-accurate (67 TFLOP/s), against a few hundred MB of inputs, outputs
-// and copies (about 0.1 ms at 3.35 TB/s).
+// f32-accurate, run as three TF32 products (0.41 of the time the 67 TFLOP/s
+// f32 rate would take), against a few hundred MB of inputs, outputs and
+// copies (about 0.1 ms at 3.35 TB/s).
 //
 // The flash backward is four launches on the caller's stream:
 //   1. flash_bwd_prepass_kernel, one pass over q, k, v, dO and O, 128 rows
@@ -47,16 +48,16 @@
 // element is summed by one thread in a fixed order, so the result is
 // bitwise repeatable.
 //
-// Kernels 3 and 4 are warp-specialized (hopper.cuh): one producer thread
-// keeps a ring of shared-memory stages filled by TMA, each stage paced by a
-// "full" and an "empty" mbarrier; consumer warpgroups of 64 rows run TF32
-// wgmma.mma_async (m64nNk8, f32 accumulate).  A warpgroup reads the other
-// side's tile from shared memory once per 64 rows.  The block's own rows
-// (q and dO for dQ, k and v for dK/dV), the score products' A operands, are
-// loaded once into shared memory by TMA: as register fragments they would
-// push a consumer past 168 registers, and ptxas then serializes the
-// wgmmas.  In kernel 3 the dQ product of one tile runs on while the next
-// tile's scores are issued.
+// Kernels 3 and 4 are warp-specialized (hopper.cuh, tf32_wgmma.cuh): one
+// producer thread keeps a ring of shared-memory stages filled by TMA, each
+// stage paced by a "full" and an "empty" mbarrier; consumer warpgroups of 64
+// rows run TF32 wgmma.mma_async (m64nNk8, f32 accumulate).  A warpgroup reads
+// the other side's tile from shared memory once per 64 rows.  The block's own
+// rows (q and dO for dQ, k and v for dK/dV), the score products' A operands,
+// are loaded once into shared memory by TMA: as register fragments they would
+// push a consumer past 168 registers, and ptxas then serializes the wgmmas.  In
+// kernel 3 the dQ product of one tile runs on while the next tile's scores are
+// issued.
 //
 // K-major.  TF32 wgmma takes both operands K-major (PTX allows the transpose
 // bits for 16-bit types only).  The score products contract over d and are
@@ -92,10 +93,28 @@
 // are zero (TMA's fill and the pre-pass's padding), queries past Tq have
 // lse = +inf.  Head widths d ∈ {32, 64, 128}.
 //
-// The distance-weighted sum (kernel 5, launched alone): 64 rows a per
-// block, looping over 64-column tiles of b, four warps of 16 rows; the
-// Pallas kernel runs it at Precision.HIGHEST, so it reuses the forward's
-// 3×TF32 D·V (per-tile sums added in rounded f32).
+// The distance-weighted sum is three launches, on the same machinery:
+//   5. dws_prepass_kernel, 128 b a block: the b coordinates padded, one
+//      liveness flag per 32 b (a b the b-mask keeps with a nonzero value
+//      row) and, for 128 b with a live one, the kept values split into TF32
+//      high and low parts (hi = rna(v), lo = rna(v − hi)), both transposed
+//      to [d, tb_pad] in the depth order above;
+//   6. dws_lists_kernel: per sequence, the increasing list of live 64-b
+//      tiles;
+//   7. dist_weighted_sum_kernel: 64·kGroups rows a a block, looping over the
+//      live b tiles; the distances ‖c_a − c_b‖ are computed in registers as
+//      TF32 high and low A fragments, and each k-step runs three wgmmas
+//      (hi·hi, hi·lo, lo·hi: 22 of f32's 24 mantissa bits of each operand),
+//      as the Pallas kernel runs it at Precision.HIGHEST.  Each 64-b tile
+//      goes into a fresh accumulator that is added to the running sum in
+//      rounded f32: the tensor cores' f32 accumulation does not round to
+//      nearest, so over a whole loop of 16,385 b its error would pass 1e-4.
+// Skipped, their contribution being exactly zero: b tiles whose kept values
+// are all zero (in the MIL model's last layer dO is zero on every row but
+// the CLS row, so every b tile but the first), and rows a the a-mask drops,
+// which are stored as zeros (the ALiBi backward keeps only the valid keys'
+// rows); a block with no kept row or no live b tile stores zeros and exits.
+// Fixed summation order, no atomics: bitwise repeatable.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -106,6 +125,7 @@
 
 #include "hopper.cuh"
 #include "tf32_tiles.cuh"
+#include "tf32_wgmma.cuh"
 
 namespace {
 
@@ -113,93 +133,6 @@ using namespace sm90;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x·log2 e)
-
-// ---- TF32 wgmma: m64nNk8, D (f32) += A·B --------------------------------------
-// Accumulator (per warp w of the warpgroup, g = lane / 4, t = lane % 4):
-// d[4j + 2h + e] is row 16w + g + 8h, column 8j + 2t + e.  A in registers
-// (rs): warp w holds rows 16w..16w+15 as mma.sync m16n8k8's TF32 A
-// fragment, a = (A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]).  A in shared
-// memory (ss) and B: descriptors of K-major 128-byte-swizzled boxes.  With
-// scale_d = 0 the accumulator's old value is ignored.
-
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// ---- tiling -----------------------------------------------------------------
-
-constexpr int kUnit = 32;       // rows per liveness flag
-constexpr int kPad = 128;       // padding of the transposed copies and the vectors
-constexpr int kPreRows = 128;   // rows per pre-pass block
-constexpr int kHalf = 64;       // rows per pass through its tile
-constexpr int kPreThreads = 256;
-constexpr int kBoxRowBytes = 128;  // a swizzled box row: 32 f32
 
 // Per head width: kGroups consumer warpgroups (64 rows each) per dQ or
 // dK/dV block, kTile rows of the other side per loop step, and the ring's
@@ -222,24 +155,6 @@ template <>
 struct Cfg<128> {
   static constexpr int kGroups = 1, kTile = 32, kDqStages = 3, kDkvStages = 2;
 };
-
-// A [kRows, kCols] f32 block in shared memory as TMA writes it: kCols / 32
-// boxes of [kRows, 32] (128-byte rows, 128-byte swizzle), box b holding
-// columns 32b … 32b + 31.
-template <int kRows, int kCols>
-struct Boxes {
-  static constexpr int kBoxBytes = kRows * kBoxRowBytes;
-  static constexpr int kBytes = kBoxBytes * (kCols / 32);
-  static_assert(kBoxBytes % 1024 == 0, "swizzled boxes need 1024-byte alignment");
-};
-
-__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
-
-// Descriptor of k-step j (columns 8j … 8j + 7) of a block of kRows-row boxes.
-template <int kRows>
-__device__ __forceinline__ uint64_t kstep_desc(const uint8_t* block, int j) {
-  return smem_desc_sw128(block + (j / 4) * kRows * kBoxRowBytes) + 2 * (j % 4);
-}
 
 struct BwdParams {
   const float* q;       // [bh, tq, d]
@@ -274,50 +189,7 @@ struct BwdParams {
   float scale;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // ---- 1. the pre-pass --------------------------------------------------------------
-
-// Rows [r0, r0 + 64) of src [n, D], TF32-rounded, into dst (rows < n) and,
-// with kToTile, into `tile` (zero past n).
-template <int D, bool kToTile>
-__device__ __forceinline__ void round_rows(float (*tile)[D + 1], const float* __restrict__ src,
-                                           float* __restrict__ dst, int r0, int n) {
-  constexpr int kVecs = D / 4;
-  for (int i = threadIdx.x; i < kHalf * kVecs; i += kPreThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 4;
-    const long row = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n) x = *reinterpret_cast<const float4*>(src + row * D + c);
-    x.x = __uint_as_float(to_tf32(x.x));
-    x.y = __uint_as_float(to_tf32(x.y));
-    x.z = __uint_as_float(to_tf32(x.z));
-    x.w = __uint_as_float(to_tf32(x.w));
-    if (row < n) *reinterpret_cast<float4*>(dst + row * D + c) = x;
-    if constexpr (kToTile) {
-      tile[r][c] = x.x;
-      tile[r][c + 1] = x.y;
-      tile[r][c + 2] = x.z;
-      tile[r][c + 3] = x.w;
-    }
-  }
-}
-
-// The tile's columns as rows of dst [D, n_pad], positions r0 … r0 + 63:
-// position 8m + i holds row 8m + (0, 2, 4, 6, 1, 3, 5, 7)[i], the depth
-// order in which a score accumulator is an A fragment.
-template <int D>
-__device__ __forceinline__ void write_transposed(const float (*tile)[D + 1], float* __restrict__ dst, int r0,
-                                                 int n_pad) {
-  for (int i = threadIdx.x; i < D * kHalf; i += kPreThreads) {
-    const int c = i / kHalf, pos = i % kHalf, j = pos & 7;
-    const int r = (pos & ~7) | (j < 4 ? 2 * j : 2 * j - 7);
-    dst[(long)c * n_pad + r0 + pos] = tile[r][c];
-  }
-}
 
 // One block per 128 rows of a sequence (two halves of 64 through `tile`).
 // Query side: D, the padded lse and the liveness flags first; the TF32 and
@@ -436,43 +308,6 @@ __global__ void __launch_bounds__(64) flash_bwd_lists_kernel(const BwdParams p) 
 
 // ---- 3 and 4. dQ and dK/dV --------------------------------------------------------
 
-// Keep A fragments in their registers until the wgmmas that read them
-// completed: the compiler sees them read and written here, after the wait.
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
-  }
-}
-
-// Rows row0 + g and row0 + g + 8 of an [n, D] output from a warp's m64nD
-// accumulator.
-template <int D>
-__device__ __forceinline__ void store_acc(float* __restrict__ dst, const float (&acc)[D / 2], int row0, int n,
-                                          int g, int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(dst + (long)row * D + 8 * j + 2 * t) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
-}
-
-// Zeros into rows [row0, row0 + rows) ∩ [0, n) of an [n, D] output, by the
-// whole block.
-template <int D>
-__device__ __forceinline__ void store_zero_rows(float* __restrict__ dst, int row0, int rows, int n) {
-  const int end = min(row0 + rows, n);
-  for (long i = (long)row0 * D / 4 + threadIdx.x; i < (long)end * D / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(dst)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
 // Shared memory of kernel 3, in 1024-byte-aligned blocks: the block's own
 // rows (q and dO: A of the score products), then the ring's stages (k and
 // v: B of the score products, N = kTile; kᵀ: B of dQ += dS·k, N = d; the key
@@ -487,7 +322,7 @@ struct DqLayout {
   static constexpr uint32_t kTx = kVal + C::kTile * 4;
   static constexpr int kStage = round_up(kTx, 1024);
   static constexpr int kOwnBytes = 2 * Own::kBytes;
-  static constexpr int kSmem = kOwnBytes + C::kDqStages * kStage + (2 * C::kDqStages + 1) * 8 + 1024;
+  static constexpr int kSmem = ring_smem(kOwnBytes, C::kDqStages, kStage);
 };
 
 // Kernel 4's: k and v (A of the score products), then stages of q and dO
@@ -504,40 +339,8 @@ struct DkvLayout {
   static constexpr uint32_t kTx = kDvec + C::kTile * 4;
   static constexpr int kStage = round_up(kTx, 1024);
   static constexpr int kOwnBytes = 2 * Own::kBytes;
-  static constexpr int kSmem = kOwnBytes + C::kDkvStages * kStage + (2 * C::kDkvStages + 1) * 8 + 1024;
+  static constexpr int kSmem = ring_smem(kOwnBytes, C::kDkvStages, kStage);
 };
-
-// The block's shared memory from a 1024-byte boundary: its own rows, the
-// ring, then the barriers (full[S], empty[S], and one for its own rows).
-struct Ring {
-  uint8_t* own;
-  uint8_t* stages;
-  uint64_t* full;
-  uint64_t* empty;
-  uint64_t* own_bar;
-};
-
-template <int kOwnBytes, int kStages, int kStageBytes, int kGroups>
-__device__ __forceinline__ Ring make_ring(uint8_t* smem_raw) {
-  Ring r;
-  // aligned by an offset from the shared array, so that the compiler still
-  // knows every pointer below is shared memory
-  r.own = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  r.stages = r.own + kOwnBytes;
-  r.full = reinterpret_cast<uint64_t*>(r.stages + kStages * kStageBytes);
-  r.empty = r.full + kStages;
-  r.own_bar = r.empty + kStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&r.full[s], 1);
-      mbar_init(&r.empty[s], kGroups);
-    }
-    mbar_init(r.own_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  return r;
-}
 
 // The block's own rows [row0, row0 + 64·kGroups) of two [bh, n, d] copies
 // into shared memory, on `bar`.
@@ -824,105 +627,249 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_con
   store_acc<D>(dv, acc_dv, row0, p.tk, g, t);
 }
 
-// ---- 5. the distance-weighted sum -------------------------------------------------
+// ---- 5, 6 and 7. the distance-weighted sum ----------------------------------------
 
-constexpr int kTile = 64;  // rows a block owns; columns per loop step
-constexpr int kWarps = 4;  // 16 rows each
-constexpr int kThreads = kWarps * 32;
+constexpr int kDwsTile = 64;  // b per loop step: one fresh accumulator (see the top of this file)
 
-// floats of one [64][D + 4] tile in shared memory
+// Per head width: kGroups consumer warpgroups (64 rows a each) per block and
+// the ring's stages (the high and low parts of 64 values, their
+// coordinates).  A consumer holds the tile's accumulator, the running sum
+// and the distances' high and low fragments: 128 registers at d = 64, 192
+// at d = 128, which takes one consumer warpgroup to stay clear of spills.
 template <int D>
-constexpr int kTileFloats = kTile * (D + 4);
+struct DwsCfg;
+template <>
+struct DwsCfg<32> {
+  static constexpr int kGroups = 2, kStages = 4;
+};
+template <>
+struct DwsCfg<64> {
+  static constexpr int kGroups = 2, kStages = 4;
+};
+template <>
+struct DwsCfg<128> {
+  static constexpr int kGroups = 1, kStages = 3;
+};
 
-// rows row0 + g and row0 + g + 8 of an [n, D] output from C fragments
+struct DwsParams {
+  const float* ca;        // [bh, ta, 2] output side
+  const float* cb;        // [bh, tb, 2] summation side
+  const float* val;       // [bh, tb, d]
+  const uint8_t* b_mask;  // [bh, tb] nonzero = include b, or NULL (every b)
+  const uint8_t* a_mask;  // [bh, ta] nonzero = compute row a (others are zero), or NULL (every a)
+  float* out;             // [bh, ta, d]
+  // the workspace (written by kernels 5 and 6)
+  float* vhi;             // [bh, d, tb_pad] kept values, TF32 high part, transposed, depth order within 8s
+  float* vlo;             // [bh, d, tb_pad] TF32 low part: value − high part
+  float* cbp;             // [bh, 2·tb_pad] b coordinates, zero past tb
+  int* blive;             // [bh, tb_pad / 32] one of the 32 b is kept and has a nonzero value
+  int* blist;             // [bh, tb_pad / 64] live b tiles, increasing
+  int* bcount;            // [bh]
+  int ta, tb, ta_pad, tb_pad;
+};
+
+// Kernel 7's stage: the high and low parts of 64 values as the B operands
+// of the products over b (N = d), then the 64 b coordinates.
 template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int row0,
-                                           int n, int g, int t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + g + 8 * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      *reinterpret_cast<float2*>(dst + (long)row * D + c * 8 + 2 * t) =
-          make_float2(acc[c][2 * i], acc[c][2 * i + 1]);
+struct DwsLayout {
+  using Cols = Boxes<D, kDwsTile>;
+  static constexpr int kLo = Cols::kBytes, kCb = 2 * Cols::kBytes;
+  static constexpr uint32_t kTx = kCb + 2 * kDwsTile * 4;
+  static constexpr int kStage = round_up(kTx, 1024);
+  static constexpr int kSmem = ring_smem(0, DwsCfg<D>::kStages, kStage);
+};
+
+// Kernel 5, one block per 128 b of a sequence: the padded coordinates, the
+// liveness flags and, where one of the 128 is live, the high and low parts
+// of the kept values (zero where the b-mask drops a row and past tb).
+template <int D>
+__global__ void __launch_bounds__(kPreThreads) dws_prepass_kernel(const DwsParams p) {
+  __shared__ float tile[kHalf][D + 1];
+  const int bh = blockIdx.y, r0 = blockIdx.x * kPreRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long base = (long)bh * p.tb;
+  auto kept = [&](int row) { return row < p.tb && (p.b_mask == nullptr || p.b_mask[base + row] != 0); };
+  if (threadIdx.x < kPreRows) {
+    const int row = r0 + threadIdx.x;
+    const float2 c = row < p.tb ? reinterpret_cast<const float2*>(p.cb)[base + row] : make_float2(0.f, 0.f);
+    reinterpret_cast<float2*>(p.cbp)[(long)bh * p.tb_pad + row] = c;
+  }
+  int units = 0;  // lane 0: bit u set where this warp met a live row in rows r0 + 32u …
+  for (int r = warp; r < kPreRows; r += kPreThreads / 32) {
+    bool nonzero = false;
+    if (kept(r0 + r)) {
+      for (int c = lane; c < D; c += 32) nonzero |= p.val[(base + r0 + r) * D + c] != 0.f;
     }
+    nonzero = __any_sync(0xffffffffu, nonzero);
+    if (lane == 0) units |= nonzero << (r / kUnit);
+  }
+  int live_rows = 0;
+  for (int u = 0; u < kPreRows / kUnit; ++u) {
+    const int live = __syncthreads_or((units >> u) & 1);
+    if (threadIdx.x == 0) p.blive[(long)bh * (p.tb_pad / kUnit) + r0 / kUnit + u] = live != 0;
+    live_rows |= live;
+  }
+  if (!live_rows) return;  // uniform in the block: kernel 7 reads no row of it
+  for (int h0 = r0; h0 < r0 + kPreRows; h0 += kHalf) {
+    for (int i = threadIdx.x; i < kHalf * D; i += kPreThreads) {
+      const int r = i / D, c = i % D;
+      tile[r][c] = kept(h0 + r) ? p.val[(base + h0 + r) * D + c] : 0.f;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < D * kHalf; i += kPreThreads) {
+      const int c = i / kHalf, pos = i % kHalf;
+      const float x = tile[depth_row(pos)][c];
+      const uint32_t hi = to_tf32(x);
+      const long at = ((long)bh * D + c) * p.tb_pad + h0 + pos;
+      p.vhi[at] = __uint_as_float(hi);
+      p.vlo[at] = __uint_as_float(to_tf32(x - __uint_as_float(hi)));
+    }
+    __syncthreads();
   }
 }
 
-struct DwsParams {
-  const float* ca;      // [bh, ta, 2] µm, output side
-  const float* cb;      // [bh, tb, 2] µm, summation side
-  const float* val;     // [bh, tb, d]
-  const uint8_t* mask;  // [bh, tb] nonzero = include b, or NULL (all)
-  float* out;           // [bh, ta, d]
-  int ta;
-  int tb;
-};
+// Kernel 6, one warp per sequence: the increasing list of live b tiles.
+__global__ void __launch_bounds__(32) dws_lists_kernel(const DwsParams p) {
+  constexpr int kPer = kDwsTile / kUnit;
+  const int bh = blockIdx.x, lane = threadIdx.x;
+  const int* live = p.blive + (long)bh * (p.tb_pad / kUnit);
+  int* list = p.blist + (long)bh * (p.tb_pad / kDwsTile);
+  const int tiles = (p.tb + kDwsTile - 1) / kDwsTile;
+  int count = 0;
+  for (int base = 0; base < tiles; base += 32) {
+    const int i = base + lane;
+    bool on = false;
+    if (i < tiles) {
+      for (int u = 0; u < kPer; ++u) on |= live[i * kPer + u] != 0;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (on) list[count + __popc(ballot & ((1u << lane) - 1))] = i;
+    count += __popc(ballot);
+  }
+  if (lane == 0) p.bcount[bh] = count;
+}
 
-// out_a = Σ_b ‖c_a − c_b‖·val_b for 64 rows a of one
-// (batch·head), looping over 64-column tiles of b.
+// Kernel 7: out_a = Σ_b ‖c_a − c_b‖·val_b for 64·kGroups rows a of one
+// (batch·head), looping over the live b tiles.  The distances are the A
+// operand, computed in registers (thread (g, t) of a warp: rows g and g + 8,
+// b 8j + 2t and 8j + 2t + 1, the depth positions t and t + 4 of k-step j),
+// split into TF32 high and low parts; the values' parts are the B operands
+// (maps of the transposed copies, boxes [d, 32]; the coordinates, boxes of
+// 128 floats).  Three products a k-step (hi·hi, hi·lo, lo·hi) into a fresh
+// accumulator a tile, added to the running sum in rounded f32.
 template <int D>
-__global__ void __launch_bounds__(kThreads) dist_weighted_sum_kernel(const DwsParams p) {
-  constexpr int kLd = D + 4;
-  constexpr int kN = D / 8;
-  constexpr int kChunk = kN < 8 ? kN : 8;  // column tiles per pass (registers)
-  extern __shared__ __align__(16) float smem[];
-  float* vs = smem;                     // [64][D+4] val, f32
-  float* valid = vs + kTileFloats<D>;  // [64]
-  float* cbs = valid + kTile;            // [64][2]
+__global__ void __launch_bounds__(128 * (DwsCfg<D>::kGroups + 1), 1)
+dist_weighted_sum_kernel(const __grid_constant__ CUtensorMap hi_map, const __grid_constant__ CUtensorMap lo_map,
+                         const __grid_constant__ CUtensorMap cb_map, const DwsParams p) {
+  using C = DwsCfg<D>;
+  using L = DwsLayout<D>;
+  constexpr int S = C::kStages, kRows = 64 * C::kGroups, kT = kDwsTile;
+  const int bh = blockIdx.y, a0 = blockIdx.x * kRows;
+  float* out = p.out + (long)bh * p.ta * D;
+  const uint8_t* a_mask = p.a_mask == nullptr ? nullptr : p.a_mask + (long)bh * p.ta;
 
-  const int bh = blockIdx.y;
-  const int a0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long aoff = (long)bh * p.ta;
-  const long boff = (long)bh * p.tb;
-
-  float cx[2] = {0.f, 0.f}, cy[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = a0 + warp * 16 + g + 8 * i;
-    if (row < p.ta) {
-      cx[i] = p.ca[(aoff + row) * 2];
-      cy[i] = p.ca[(aoff + row) * 2 + 1];
-    }
+  // bit w: warpgroup w has a row the a-mask keeps; a block with none, or
+  // with no live b tile, stores zeros
+  bool row_kept = false;
+  if (threadIdx.x < kRows) {
+    const int row = a0 + threadIdx.x;
+    row_kept = row < p.ta && (a_mask == nullptr || a_mask[row] != 0);
   }
-  float acc[kN][4];
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  int groups = 0;
+  for (int w = 0; w < C::kGroups; ++w) groups |= (__syncthreads_or(row_kept && threadIdx.x / 64 == w) != 0) << w;
+  const int count = p.bcount[bh];
+  if (groups == 0 || count == 0) {
+    store_zero_rows<D>(out, a0, kRows, p.ta);
+    return;
   }
 
-  for (int b0 = 0; b0 < p.tb; b0 += kTile) {
-    __syncthreads();
-    load_rows<D, kTile, kThreads>(vs, p.val + boff * D, b0, p.tb, false);
-    if (threadIdx.x < kTile) {
-      const int b = b0 + threadIdx.x;
-      const bool in_range = b < p.tb;
-      valid[threadIdx.x] = in_range && (p.mask == nullptr || p.mask[boff + b] != 0) ? 1.f : 0.f;
-      cbs[2 * threadIdx.x] = in_range ? p.cb[(boff + b) * 2] : 0.f;
-      cbs[2 * threadIdx.x + 1] = in_range ? p.cb[(boff + b) * 2 + 1] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int n0 = 0; n0 < kN; n0 += kChunk) {
-      float tile[kChunk][4];
-#pragma unroll
-      for (int n = 0; n < kChunk; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
-      }
-      dist_dv_tile<kLd, kChunk>(tile, cx, cy, cbs, valid, vs, n0, g, t);
-#pragma unroll
-      for (int n = 0; n < kChunk; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n0 + n][e] = __fadd_rn(acc[n0 + n][e], tile[n][e]);
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = make_ring<0, S, L::kStage, C::kGroups>(smem_raw);
+  const int* list = p.blist + (long)bh * (p.tb_pad / kT);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == C::kGroups) {
+    if (threadIdx.x == C::kGroups * 128) {
+      for (int n = 0; n < count; ++n) {
+        const int s = n % S;
+        mbar_wait(&ring.empty[s], ((n / S) & 1) ^ 1);  // round 0 passes: the ring starts empty
+        mbar_expect_tx(&ring.full[s], L::kTx);
+        const int b0 = list[n] * kT;
+        uint8_t* st = ring.stages + s * L::kStage;
+        for (int b = 0; b < kT / 32; ++b) {
+          tma_load_3d(st + b * L::Cols::kBoxBytes, &hi_map, &ring.full[s], b0 + 32 * b, 0, bh);
+          tma_load_3d(st + L::kLo + b * L::Cols::kBoxBytes, &lo_map, &ring.full[s], b0 + 32 * b, 0, bh);
+        }
+        tma_load_2d(st + L::kCb, &cb_map, &ring.full[s], 2 * b0, bh);
       }
     }
+    return;
   }
-  store_rows<D>(p.out + aoff * D, acc, a0 + warp * 16, p.ta, g, t);
+
+  // consumers: 64 rows a a warpgroup; one whose rows the a-mask all drops
+  // only passes the stages on
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = a0 + 64 * wg + 16 * ((threadIdx.x / 32) % 4);  // this warp's first row
+  const bool wg_live = (groups >> wg) & 1;
+  const bool signals = threadIdx.x % 128 == 0;
+  float ax[2], ay[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    const float2 c = row < p.ta ? reinterpret_cast<const float2*>(p.ca)[(long)bh * p.ta + row] : make_float2(0.f, 0.f);
+    ax[h] = c.x;
+    ay[h] = c.y;
+  }
+  float sum[D / 2], tile[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) sum[i] = 0.f;
+  for (int n = 0; n < count; ++n) {
+    const int s = n % S;
+    mbar_wait(&ring.full[s], (n / S) & 1);
+    if (!wg_live) {
+      if (signals) mbar_arrive(&ring.empty[s]);
+      continue;
+    }
+    const uint8_t* st = ring.stages + s * L::kStage;
+    const float4* cb = reinterpret_cast<const float4*>(st + L::kCb);
+    uint32_t hi[kT / 8][4], lo[kT / 8][4];
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      const float4 c = cb[4 * j + t];  // b 8j + 2t and 8j + 2t + 1
+      const float dist[4] = {distance(ax[0], ay[0], c.x, c.y), distance(ax[1], ay[1], c.x, c.y),
+                             distance(ax[0], ay[0], c.z, c.w), distance(ax[1], ay[1], c.z, c.w)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[j][i] = tf32_round(dist[i]);
+        lo[j][i] = tf32_round(dist[i] - __uint_as_float(hi[j][i]));
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      wgmma_tf32_rs(tile, hi[j], kstep_desc<D>(st, j), j);
+      wgmma_tf32_rs(tile, hi[j], kstep_desc<D>(st + L::kLo, j), 1);
+      wgmma_tf32_rs(tile, lo[j], kstep_desc<D>(st, j), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(tile);
+    fence_frags(hi);
+    fence_frags(lo);
+    if (signals) mbar_arrive(&ring.empty[s]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) sum[i] = __fadd_rn(sum[i], tile[i]);
+  }
+  // rows the a-mask drops are zero
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row < p.ta && a_mask != nullptr && a_mask[row] == 0) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) sum[4 * j + 2 * h] = sum[4 * j + 2 * h + 1] = 0.f;
+    }
+  }
+  store_acc<D>(out, sum, row0, p.ta, g, t);
 }
 
 // ---- host side --------------------------------------------------------------------
@@ -956,45 +903,6 @@ inline size_t carve_workspace(BwdParams* p, uint8_t* base, int bh, int tq, int t
   p->kcount = reinterpret_cast<int*>(take(i * bh));
   p->any_valid = reinterpret_cast<int*>(take(i * bh));
   return at;
-}
-
-// A map of rank 2 or 3 over f32 (dims and byte strides innermost first),
-// boxes of `box` (128-byte rows with `swizzled`), zero fill past the edges.
-inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                          const cuuint64_t* strides, const cuuint32_t* box, bool swizzled) {
-  PFN_cuTensorMapEncodeTiled fn;
-  cudaError_t err = tensor_map_encoder(&fn);
-  if (err != cudaSuccess) return err;
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(ptr), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// rows of [bh, n, d] in boxes of [rows, 32]
-inline cudaError_t encode_rows(CUtensorMap* map, const float* ptr, int bh, int n, int d, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)n * d * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
-  return encode(map, ptr, 3, dims, strides, box, true);
-}
-
-// a transposed copy [bh, d, n_pad] in boxes of [d, 32]
-inline cudaError_t encode_cols(CUtensorMap* map, const float* ptr, int bh, int n_pad, int d) {
-  const cuuint64_t dims[3] = {(cuuint64_t)n_pad, (cuuint64_t)d, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)n_pad * 4, (cuuint64_t)n_pad * d * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)d, 1};
-  return encode(map, ptr, 3, dims, strides, box, true);
-}
-
-// a padded vector [bh, n_pad] in boxes of `len`
-inline cudaError_t encode_vec(CUtensorMap* map, const float* ptr, int bh, int n_pad, int len) {
-  const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)bh};
-  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)len, 1};
-  return encode(map, ptr, 2, dims, strides, box, false);
 }
 
 // The pre-pass and the lists go first; the host encodes the tensor maps of
@@ -1044,13 +952,44 @@ cudaError_t launch_bwd(const BwdParams& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The distance-weighted sum's workspace, carved as carve_workspace does.
+inline size_t carve_dws_workspace(DwsParams* p, uint8_t* base, int bh, int tb, int d) {
+  const size_t tb_pad = round_up(tb, kPad);
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    uint8_t* ptr = base == nullptr ? nullptr : base + at;
+    at = (at + bytes + 255) / 256 * 256;
+    return ptr;
+  };
+  const size_t f = sizeof(float), i = sizeof(int);
+  p->vhi = reinterpret_cast<float*>(take(f * bh * d * tb_pad));
+  p->vlo = reinterpret_cast<float*>(take(f * bh * d * tb_pad));
+  p->cbp = reinterpret_cast<float*>(take(f * bh * 2 * tb_pad));
+  p->blive = reinterpret_cast<int*>(take(i * bh * (tb_pad / kUnit)));
+  p->blist = reinterpret_cast<int*>(take(i * bh * (tb_pad / kDwsTile)));
+  p->bcount = reinterpret_cast<int*>(take(i * bh));
+  return at;
+}
+
+// Kernels 5 and 6 go first; the host encodes kernel 7's maps meanwhile.
 template <int D>
 cudaError_t launch_dws(const DwsParams& p, int bh, cudaStream_t stream) {
-  constexpr int smem = (kTileFloats<D> + 3 * kTile) * 4;
-  cudaError_t err = cudaFuncSetAttribute(dist_weighted_sum_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dist_weighted_sum_kernel<D><<<dim3((p.ta + kTile - 1) / kTile, bh), kThreads, smem, stream>>>(p);
+  using C = DwsCfg<D>;
+  constexpr int kSmem = DwsLayout<D>::kSmem;
+  cudaError_t err;
+  dws_prepass_kernel<D><<<dim3(p.tb_pad / kPreRows, bh), kPreThreads, 0, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dws_lists_kernel<<<bh, 32, 0, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  CUtensorMap hi_map, lo_map, cb_map;
+  if ((err = encode_cols(&hi_map, p.vhi, bh, p.tb_pad, D)) != cudaSuccess ||
+      (err = encode_cols(&lo_map, p.vlo, bh, p.tb_pad, D)) != cudaSuccess ||
+      (err = encode_vec(&cb_map, p.cbp, bh, 2 * p.tb_pad, 2 * kDwsTile)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dist_weighted_sum_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kSmem)) != cudaSuccess)
+    return err;
+  dist_weighted_sum_kernel<D><<<dim3(p.ta_pad / (64 * C::kGroups), bh), 128 * (C::kGroups + 1), kSmem, stream>>>(
+      hi_map, lo_map, cb_map, p);
   return cudaGetLastError();
 }
 
@@ -1112,32 +1051,46 @@ int stamp_flash_attn_bwd(const void* q, const void* k, const void* v, const void
   }
 }
 
-// ca [bh, ta, 2], cb [bh, tb, 2], val [bh, tb, d] f32; mask [bh, tb] bytes
-// or NULL (every b); out [bh, ta, d] f32.  Every array contiguous and
-// 16-byte aligned.  Returns a cudaError_t.
-int stamp_dist_weighted_sum(const void* ca, const void* cb, const void* val, const void* mask,
-                            void* out, int bh, int ta, int tb, int head_dim, int device,
-                            void* stream) {
+// Bytes of the workspace stamp_dist_weighted_sum needs for these shapes,
+// written as an int64 to *bytes.  Returns a cudaError_t.
+int stamp_dist_weighted_sum_workspace(int bh, int ta, int tb, int head_dim, void* bytes) {
+  if (!bwd_shape_ok(bh, ta, tb, head_dim)) return cudaErrorInvalidValue;
+  DwsParams p;
+  *static_cast<long long*>(bytes) = (long long)carve_dws_workspace(&p, nullptr, bh, tb, head_dim);
+  return cudaSuccess;
+}
+
+// ca [bh, ta, 2], cb [bh, tb, 2], val [bh, tb, d] f32; b_mask [bh, tb]
+// bytes or NULL (every b); a_mask [bh, ta] bytes or NULL (every row a; a
+// row it drops is zero); workspace of stamp_dist_weighted_sum_workspace
+// bytes; out [bh, ta, d] f32.  Every array contiguous and 16-byte aligned.
+// Launches kernels 5, 6 and 7 on `stream`.  Returns a cudaError_t.
+int stamp_dist_weighted_sum(const void* ca, const void* cb, const void* val, const void* b_mask,
+                            const void* a_mask, void* workspace, void* out, int bh, int ta, int tb, int head_dim,
+                            int device, void* stream) {
+  if (!bwd_shape_ok(bh, ta, tb, head_dim)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   DwsParams p;
+  carve_dws_workspace(&p, static_cast<uint8_t*>(workspace), bh, tb, head_dim);
   p.ca = static_cast<const float*>(ca);
   p.cb = static_cast<const float*>(cb);
   p.val = static_cast<const float*>(val);
-  p.mask = static_cast<const uint8_t*>(mask);
+  p.b_mask = static_cast<const uint8_t*>(b_mask);
+  p.a_mask = static_cast<const uint8_t*>(a_mask);
   p.out = static_cast<float*>(out);
   p.ta = ta;
   p.tb = tb;
+  p.ta_pad = round_up(ta, kPad);
+  p.tb_pad = round_up(tb, kPad);
   auto s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
       return launch_dws<32>(p, bh, s);
     case 64:
       return launch_dws<64>(p, bh, s);
-    case 128:
-      return launch_dws<128>(p, bh, s);
     default:
-      return cudaErrorInvalidValue;
+      return launch_dws<128>(p, bh, s);
   }
 }
 

@@ -1,5 +1,6 @@
 // Hopper's asynchronous machinery, shared by the TMA + wgmma kernels
-// (ln_gemm_sm90.cuh for ln_dense and ln_quant_dense, flash_attn_bwd.cu):
+// (ln_gemm_sm90.cuh for ln_dense and ln_quant_dense; through
+// tf32_wgmma.cuh, flash_attn_bwd.cu and flash_alibi2d.cu):
 // shared-memory addresses, mbarriers whose waits trap after 10 s instead of
 // hanging the card, TMA loads, register reallocation between warpgroups,
 // the wgmma fences and the descriptor of a 128-byte-swizzled K-major

@@ -35,9 +35,14 @@ D = rowsum(dO∘O), lists of the tiles that contribute) feeds a dQ and a
 dK/dV kernel (TF32 wgmma; key tiles with no valid key and query tiles whose
 dO is zero are skipped, their contribution being exactly zero).  The ALiBi
 backward runs them on its softmax output and adds the bias branch:
-dV −= Dᵀ·(dist_scale·dO) on valid keys, through the distance-weighted-sum
-kernel (f32-accurate), and d dist_scale = −Σ dO∘(D·V) in plain torch.
-Coordinates and the mask get no gradient.
+dV −= Dᵀ·(dist_scale·dO) on valid keys, through the distance-weighted sum
+(three TF32 wgmma products, f32-accurate; query tiles whose dO is zero and
+key rows that are masked are skipped), and d dist_scale = −Σ dO∘(D·V) in
+plain torch.  Coordinates and the mask get no gradient.
+
+``flash_alibi2d_mha`` runs a pre-pass (TF32 copies of q and k, Vᵀ, padded
+coordinates) and a TMA-fed TF32 wgmma kernel with the bias and the online
+softmax in registers.
 """
 
 from __future__ import annotations
@@ -405,14 +410,26 @@ def _dist_weighted_sum_reference(
     coords_b: torch.Tensor,
     values: torch.Tensor,
     b_mask: torch.Tensor | None,
+    a_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of ``_dist_weighted_sum``: [BH, A, d] ←
     Σ_b ‖c_a − c_b‖·values_b over the b that ``b_mask`` keeps (every b
-    with ``None``), in f32."""
+    with ``None``), in f32; rows a that ``a_mask`` drops are zero."""
     dist = _pairwise_distances(coords_a.float(), coords_b.float())
     if b_mask is not None:
         dist.masked_fill_(~b_mask[:, None, :], 0.0)
-    return torch.matmul(dist, values)
+    out = torch.matmul(dist, values)
+    if a_mask is not None:
+        out.masked_fill_(~a_mask[:, :, None], 0.0)
+    return out
+
+
+def _workspace(entry: str, what: str, device: torch.device, *shape: int) -> torch.Tensor:
+    """The scratch memory a kernel's pre-pass fills, sized by its C entry
+    point ``entry`` (bytes for ``shape``, written as an int64)."""
+    nbytes = ctypes.c_int64()
+    _build.check(getattr(_build.load_library(), entry)(*shape, ctypes.addressof(nbytes)), what)
+    return torch.empty(nbytes.value, dtype=torch.uint8, device=device)
 
 
 def _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale=None):
@@ -423,12 +440,9 @@ def _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale=None):
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     bh, tq, d = q.shape
     tk = k.shape[1]
-    lib = _build.load_library()
-    nbytes = ctypes.c_int64()
-    _build.check(lib.stamp_flash_attn_bwd_workspace(bh, tq, tk, d, ctypes.addressof(nbytes)), "flash attention backward")
-    workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
+    workspace = _workspace("stamp_flash_attn_bwd_workspace", "flash attention backward", q.device, bh, tq, tk, d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = lib.stamp_flash_attn_bwd(
+    err = _build.load_library().stamp_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
         do.data_ptr(), out.data_ptr(), lse.data_ptr(), workspace.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -480,14 +494,17 @@ def _dist_weighted_sum(
     coords_b: torch.Tensor,
     values: torch.Tensor,
     b_mask: torch.Tensor | None,
+    a_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """[BH, A, d] ← Σ_b ‖c_a − c_b‖·values_b over the b that ``b_mask``
-    ([BH, B] bool, or ``None`` for every b) keeps; f32-accurate.
+    ([BH, B] bool, or ``None`` for every b) keeps; f32-accurate.  Rows a
+    that ``a_mask`` ([BH, A] bool, or ``None`` for every a) drops are zero:
+    the kernel skips them, and b tiles whose kept values are all zero.
 
     Its own transpose: the VJP of ``dacc = D·V`` wrt V is ``Dᵀ·dO``, this
     function with the coordinate sides swapped."""
     if values.device.type == "cpu":
-        return _dist_weighted_sum_reference(coords_a, coords_b, values, b_mask)
+        return _dist_weighted_sum_reference(coords_a, coords_b, values, b_mask, a_mask)
     if values.device.type != "cuda":
         raise ValueError(f"_dist_weighted_sum: unsupported device {values.device}")
     bh, tb, d = values.shape
@@ -499,21 +516,26 @@ def _dist_weighted_sum(
         )
     if not (0 < bh <= 65535 and ta > 0 and tb > 0):
         raise ValueError(f"_dist_weighted_sum: unsupported shape {tuple(values.shape)}, A = {ta}")
-    if b_mask is not None and (b_mask.shape != (bh, tb) or b_mask.dtype != torch.bool):
-        raise ValueError(f"_dist_weighted_sum: b_mask must be bool [{bh}, {tb}], got {b_mask.dtype} {tuple(b_mask.shape)}")
-    for name, t in {"coords_a": coords_a, "coords_b": coords_b, "values": values, "b_mask": b_mask}.items():
+    masks = {"b_mask": (b_mask, tb), "a_mask": (a_mask, ta)}
+    for name, (mask, n) in masks.items():
+        if mask is not None and (mask.shape != (bh, n) or mask.dtype != torch.bool):
+            raise ValueError(f"_dist_weighted_sum: {name} must be bool [{bh}, {n}], got {mask.dtype} {tuple(mask.shape)}")
+    tensors = {"coords_a": coords_a, "coords_b": coords_b, "values": values, "b_mask": b_mask, "a_mask": a_mask}
+    for name, t in tensors.items():
         if t is None:
             continue
         if t.device != values.device:
             raise ValueError(f"_dist_weighted_sum: {name} is on {t.device}, values on {values.device}")
-        if name != "b_mask" and t.dtype != torch.float32:
+        if name not in masks and t.dtype != torch.float32:
             raise TypeError(f"_dist_weighted_sum: the CUDA kernel takes float32, {name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"_dist_weighted_sum: {name} must be contiguous and 16-byte aligned")
+    workspace = _workspace("stamp_dist_weighted_sum_workspace", "_dist_weighted_sum", values.device, bh, ta, tb, d)
     out = torch.empty((bh, ta, d), dtype=torch.float32, device=values.device)
     err = _build.load_library().stamp_dist_weighted_sum(
         coords_a.data_ptr(), coords_b.data_ptr(), values.data_ptr(),
-        None if b_mask is None else b_mask.data_ptr(), out.data_ptr(),
+        None if b_mask is None else b_mask.data_ptr(), None if a_mask is None else a_mask.data_ptr(),
+        workspace.data_ptr(), out.data_ptr(),
         bh, ta, tb, d, values.device.index, torch.cuda.current_stream(values.device).cuda_stream,
     )  # fmt: skip
     _build.check(err, "_dist_weighted_sum")
@@ -522,12 +544,12 @@ def _dist_weighted_sum(
     return out
 
 
-def _alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias):
+def _alibi_bias_branch(dv, do, dacc, dv_bias):
     """The post-softmax bias branch of ``_alibi_core_bwd``: (dv with the
-    bias term on valid keys, d dist_scale = −Σ dO∘dacc per (batch·head))."""
-    ddist_scale = -(do * dacc).sum(dim=(1, 2))
-    dv = dv - torch.where(key_mask[:, :, None], dv_bias, 0.0)
-    return dv, ddist_scale
+    bias term, d dist_scale = −Σ dO∘dacc per (batch·head)).  ``dv_bias`` is
+    the distance-weighted sum with the key mask as its a-mask: zero on the
+    masked keys, as ``where(key_mask, dv_bias, 0)`` makes it there."""
+    return dv - dv_bias, -(do * dacc).sum(dim=(1, 2))
 
 
 def _flash_alibi_backward_reference(
@@ -535,8 +557,8 @@ def _flash_alibi_backward_reference(
 ):
     """Plain PyTorch version of the ALiBi backward: (dq, dk, dv, d dist_scale)."""
     dq, dk, dv = _flash_backward_reference(q, k, v, key_mask, out_sm, lse, do, scale)
-    dv_bias = _dist_weighted_sum_reference(coords_k, coords_q, do * dist_scale[:, None, None], None)
-    return (dq, dk, *_alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias))
+    dv_bias = _dist_weighted_sum_reference(coords_k, coords_q, do * dist_scale[:, None, None], None, key_mask)
+    return (dq, dk, *_alibi_bias_branch(dv, do, dacc, dv_bias))
 
 
 def _flash_alibi_backward(
@@ -564,8 +586,8 @@ def _flash_alibi_backward(
     dq, dk, dv = _launch_flash_bwd(q, k, v, key_mask, out_sm, lse, do, scale)
     global FLASH_ALIBI_MHA_BWD_LAUNCHES
     FLASH_ALIBI_MHA_BWD_LAUNCHES += 1
-    dv_bias = _dist_weighted_sum(coords_k, coords_q, do * dist_scale[:, None, None], None)
-    return (dq, dk, *_alibi_bias_branch(dv, do, dacc, dist_scale, key_mask, dv_bias))
+    dv_bias = _dist_weighted_sum(coords_k, coords_q, do * dist_scale[:, None, None], None, key_mask)
+    return (dq, dk, *_alibi_bias_branch(dv, do, dacc, dv_bias))
 
 
 class _FlashMHA(torch.autograd.Function):
@@ -679,10 +701,12 @@ def flash_alibi2d_mha(
             raise TypeError(f"flash_alibi2d_mha: the CUDA kernel takes float32, {name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_alibi2d_mha: {name} must be contiguous and 16-byte aligned")
+    workspace = _workspace("stamp_flash_alibi2d_workspace", "flash_alibi2d_mha", q.device, bh, n, d)
     out = torch.empty_like(q)
     err = _build.load_library().stamp_flash_alibi2d_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), coords.data_ptr(), slopes.data_ptr(), out.data_ptr(),
-        bh, n, d, d**-0.5, int(exempt_first), q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), coords.data_ptr(), slopes.data_ptr(), workspace.data_ptr(),
+        out.data_ptr(), bh, n, d, d**-0.5, int(exempt_first), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )  # fmt: skip
     _build.check(err, "flash_alibi2d_mha")
     global FLASH_ALIBI2D_LAUNCHES

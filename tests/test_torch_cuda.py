@@ -9,7 +9,7 @@ imports no JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from flash_bwd_util import skip_case_inputs
+from flash_bwd_util import holes, skip_case_inputs
 from stamp_tpu_torch.ops import flash_attention as attn
 from stamp_tpu_torch.ops import ln_dense as lnd
 
@@ -333,6 +333,86 @@ def test_flash_backward_skips_only_zero_tiles(gen, case, use_alibi):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bitwise equal
 
 
+# --- row 8 alone: the distance-weighted sum with its a-mask ------------------------
+
+
+def _dws_case(gen, bh, ta, tb, d, a_kind, b_kind):
+    """Coordinates (µm), values and the a-mask of one distance-weighted-sum
+    case.  ``a_kind``: "holes" (whole masked 64- and 128-row tiles, 30% of
+    the other rows, row 0 kept), "one-empty" (the last 40% masked, and
+    every row of sequence 1) or "none".  ``b_kind``: "dense", "zero-tiles"
+    (values zero on the same whole tiles of b) or "row0" (zero but on row
+    0, the last MIL layer's dO)."""
+    side = 40
+    ca = (torch.randint(0, side, (bh, ta, 2), device="cuda", generator=gen) * 256.0).float()
+    cb = (torch.randint(0, side, (bh, tb, 2), device="cuda", generator=gen) * 256.0).float()
+    val = torch.randn(bh, tb, d, device="cuda", generator=gen) / (side * 256.0)
+    if b_kind == "zero-tiles":
+        val[:, holes(tb, "cuda")] = 0.0
+    elif b_kind == "row0":
+        val[:, 1:] = 0.0
+    a_mask = None
+    if a_kind == "holes":
+        scattered = torch.rand(bh, ta, device="cuda", generator=gen) < 0.3
+        a_mask = ~holes(ta, "cuda") & (~scattered | (torch.arange(ta, device="cuda") == 0))
+    elif a_kind == "one-empty":
+        a_mask = (torch.arange(ta, device="cuda") < ta - (2 * ta) // 5).expand(bh, ta).clone()
+        a_mask[1] = False
+    return ca, cb, val, a_mask
+
+
+# (bh, ta, tb, d, a-mask, values): the skipped a tiles (whole masked 64- and
+# 128-row tiles, a sequence whose rows are all masked) and b tiles (values
+# zero on whole tiles, the last layer's dO), ragged and unequal A and B
+DWS_CASES = {
+    "holes": (3, 700, 700, 64, "holes", "dense"),
+    "zero-b-tiles": (3, 700, 700, 64, "none", "zero-tiles"),
+    "holes-zero-b-tiles": (2, 700, 517, 64, "holes", "zero-tiles"),
+    "last-layer": (4, 700, 700, 64, "one-empty", "row0"),
+    "every-row-masked": (3, 300, 300, 64, "one-empty", "dense"),
+    "ragged": (3, 333, 700, 64, "holes", "dense"),
+    "d32-holes-last-layer": (2, 700, 300, 32, "holes", "row0"),
+    "d128-holes": (2, 517, 700, 128, "holes", "zero-tiles"),
+    "d128-every-row-masked": (3, 700, 333, 128, "one-empty", "dense"),
+}
+
+
+@pytest.mark.parametrize("case", list(DWS_CASES))
+def test_dist_weighted_sum_skips_only_zero_tiles(gen, case):
+    """Row 8 with an a-mask and zero values: within DACC_TOL of the plain
+    version, rows the a-mask drops exactly zero, bitwise repeatable."""
+    bh, ta, tb, d, a_kind, b_kind = DWS_CASES[case]
+    ca, cb, val, a_mask = _dws_case(gen, bh, ta, tb, d, a_kind, b_kind)
+    before = attn.DIST_WEIGHTED_SUM_LAUNCHES
+    got, again = attn._dist_weighted_sum(ca, cb, val, None, a_mask), attn._dist_weighted_sum(ca, cb, val, None, a_mask)
+    assert attn.DIST_WEIGHTED_SUM_LAUNCHES == before + 2
+    want = attn._dist_weighted_sum_reference(ca, cb, val, None, a_mask)
+    for i in range(bh):  # per sequence: one whose rows are all masked is all zero
+        if want[i].any():
+            assert _rel_err(got[i], want[i]) <= DACC_TOL, i
+    if a_mask is not None:
+        assert not got[~a_mask].any()
+        assert got[a_mask].any()
+    assert torch.equal(got, again)  # no atomics: bitwise equal
+
+
+@pytest.mark.parametrize("case", list(SKIP_CASES))
+def test_dist_weighted_sum_as_the_alibi_backward_calls_it(gen, case):
+    """The backward's skip cases (tests/flash_bwd_util.py) through row 8
+    alone: a = keys with the key mask as the a-mask, b = queries with
+    dist_scale·dO as the values."""
+    bh, tq, tk, d, mask_kind, do_kind = SKIP_CASES[case]
+    _, _, _, key_mask, do, coords_q, coords_k, dist_scale = skip_case_inputs(gen, bh, tq, tk, d, mask_kind, do_kind)
+    val = do * dist_scale[:, None, None]
+    got = attn._dist_weighted_sum(coords_k, coords_q, val, None, key_mask)
+    want = attn._dist_weighted_sum_reference(coords_k, coords_q, val, None, key_mask)
+    for i in range(bh):
+        if want[i].any():
+            assert _rel_err(got[i], want[i]) <= DACC_TOL, i
+    assert not got[~key_mask].any()
+    assert torch.equal(got, attn._dist_weighted_sum(coords_k, coords_q, val, None, key_mask))
+
+
 # --- row 3: ln_quant_dense (W8A8) -----------------------------------------------
 
 
@@ -472,6 +552,23 @@ def test_flash_alibi2d_mha_kernel(gen, bh, n, d):
         want = attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes, exempt_first=exempt)
         assert got.shape == (bh, n, d) and got.dtype == torch.float32
         assert _rel_err(got, want) <= FLASH_TOL
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [1, 37, 300, 4097])
+def test_flash_alibi2d_mha_kernel_per_sequence_coords(gen, n, d):
+    """Coordinates that differ between the (batch·head) sequences (each its
+    own grid cells, CLS at (0, 0)), both ways of the CLS exemption."""
+    bh = 2 if n == 4097 else 3
+    q, k, v = (torch.randn(bh, n, d, device="cuda", generator=gen) for _ in range(3))
+    coords = torch.randint(0, 150, (bh, n, 2), device="cuda", generator=gen).float()
+    coords[:, 0] = 0.0
+    slopes = torch.tensor([0.5, 0.0625, 0.0078125][:bh], device="cuda")
+    for exempt in (True, False):
+        got = attn.flash_alibi2d_mha(q, k, v, coords, slopes, exempt_first=exempt)
+        want = attn.flash_alibi2d_mha_reference(q, k, v, coords, slopes, exempt_first=exempt)
+        assert _rel_err(got, want) <= FLASH_TOL, exempt
+    assert torch.equal(got, attn.flash_alibi2d_mha(q, k, v, coords, slopes, exempt_first=False))
 
 
 def test_flash_alibi2d_mha_raises_on_what_it_does_not_take(gen):

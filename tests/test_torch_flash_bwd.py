@@ -132,6 +132,70 @@ def test_dist_weighted_sum_matches_pallas(interpret_pallas):
     torch.testing.assert_close(all_b, want, rtol=0, atol=0)
 
 
+def test_dist_weighted_sum_a_mask_matches_pallas(interpret_pallas):
+    """The a-mask the ALiBi backward passes (its key mask): the rows it
+    drops are zero, the others equal the Pallas kernel's, which computes
+    every row (whole masked 64- and 128-row tiles, ragged A ≠ B)."""
+    from stamp_tpu.ops.flash_attention import _dist_weighted_sum
+
+    rng = np.random.default_rng(7)
+    ca = (rng.integers(0, 40, size=(2, 300, 2)) * 256.0).astype(np.float32)
+    cb = (rng.integers(0, 40, size=(2, 200, 2)) * 256.0 + 13.0).astype(np.float32)
+    val = rng.normal(size=(2, 200, 64)).astype(np.float32)
+    val[:, 64:192] = 0.0  # whole zero b tiles
+    idx = np.arange(300)
+    a_mask = ~(((idx >= 64) & (idx < 192)) | (idx >= 256))[None, :] & (rng.random((2, 300)) < 0.7)
+
+    def lanes(c, to):  # coordinates into 128 lanes, rows padded to the block
+        return np.pad(c, ((0, 0), (0, to - c.shape[1]), (0, 126)))
+
+    ref = _dist_weighted_sum(
+        jnp.asarray(lanes(ca, 384)),
+        jnp.asarray(lanes(cb, 256)),
+        jnp.asarray(np.pad(val, ((0, 0), (0, 56), (0, 0)))),
+        jnp.ones((2, 8, 256), jnp.float32),
+        block_a=BLOCK,
+        block_b=BLOCK,
+    )
+    ref = np.where(a_mask[:, :, None], np.asarray(ref)[:, :300], 0.0)
+    got = torch_attn._dist_weighted_sum(
+        torch.from_numpy(ca), torch.from_numpy(cb), torch.from_numpy(val), None, torch.from_numpy(a_mask)
+    )
+    _close(got, ref)
+    assert not got.numpy()[~a_mask].any()
+
+
+@pytest.mark.parametrize("do_kind", ["dense", "last-layer"])
+def test_flash_alibi_mha_backward_with_holes_matches_pallas_vjp(interpret_pallas, do_kind):
+    """The ALiBi backward with the key mask as the distance-weighted sum's
+    a-mask, against the Pallas VJP: a key mask with whole masked 64- and
+    128-key tiles, and the last MIL layer's dO (zero but on row 0)."""
+    from stamp_tpu.ops.flash_attention import flash_alibi_mha
+
+    x = _inputs(8, t=700)
+    idx = np.arange(700)
+    holes = ((idx >= 64) & (idx < 192)) | ((idx >= 320) & (idx < 384)) | ((idx >= 512) & (idx < 640))
+    x["key_mask"] = x["key_mask"] & ~holes
+    if do_kind == "last-layer":
+        x["do"][:, 1:] = 0.0
+    coords, mask = jnp.asarray(x["coords"]), jnp.asarray(x["key_mask"])
+    _, vjp = jax.vjp(
+        lambda q, k, v, ds: flash_alibi_mha(q, k, v, coords, coords, ds, mask, block_q=BLOCK, block_k=BLOCK),
+        *(jnp.asarray(x[n]) for n in ("q", "k", "v", "dist_scale")),
+    )
+    ref = dict(zip(("q", "k", "v", "dist_scale"), vjp(jnp.asarray(x["do"]))))
+
+    coords_t = torch.from_numpy(x["coords"])
+
+    def port(q, k, v, ds):
+        return torch_attn.flash_alibi_mha(q, k, v, coords_t, coords_t, ds, torch.from_numpy(x["key_mask"]))
+
+    _, grads = _torch_grads(port, x, ("q", "k", "v", "dist_scale"))
+    for name in ("q", "k", "v", "dist_scale"):
+        _close(grads[name], ref[name])
+    assert not grads["k"].numpy()[:, holes].any() and not grads["v"].numpy()[:, holes].any()
+
+
 @pytest.mark.parametrize("use_alibi", [False, True])
 def test_backward_on_the_cpu_launches_no_kernel(use_alibi):
     x = _inputs(3, bh=2, t=17)
