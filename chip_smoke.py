@@ -30,9 +30,15 @@ Phases (each prints at least one line; any failure exits non-zero):
 3b. flash kernels: ``flash_mha`` and ``flash_alibi_mha`` (f32) against their
    plain versions at the deploy shapes [8, 4097, 64] and [8, 16385, 64] with
    the last 40% of keys masked, and at ragged small shapes and d = 32, 128;
-   the median time of each, with ``F.scaled_dot_product_attention`` as the
-   library control of ``flash_mha``; then a head width of 48 at T = 4,097
-   through the public wrappers (zero-padded to the 64 instance).
+   the median time of each, its TFLOP/s over the valid keys and share of
+   the bound, with ``F.scaled_dot_product_attention`` as the library
+   control of ``flash_mha``, and (``torch.profiler``) the device time of
+   the pre-pass, the tile list and the attention kernel (and, for the
+   ALiBi forward, of the distance-weighted sum's three kernels); then the
+   cases the tile skipping creates (whole masked key tiles between valid
+   ones, a sequence with no valid key, every key masked at a ragged T,
+   Tq ≠ Tk, d = 32, 128; bitwise-equal reruns); then a head width of 48 at
+   T = 4,097 through the public wrappers (zero-padded to the 64 instance).
 6. deploy: ``python -m stamp_tpu_torch -c config.yaml --profile deploy``
    in-process, an ensemble of two MIL ViT checkpoints at the default width
    (``vit`` and ``vit`` + ALiBi, random weights, UNI2 inputs of width 1536)
@@ -113,7 +119,8 @@ Phases (each prints at least one line; any failure exits non-zero):
 
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9 and
 print their wall time.  The line before the last is ``{"kernels": [...]}``:
-each kernel's launches on its main path (phase 4, 4b, 6, 7 or 9), its
+each kernel's launches on its main path (phase 4, 4b, 6, 7 or 9; the MIL
+forward's, phases 6 and 7), its
 largest error against its plain
 version, its time, the plain version's and the library control's, and the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -855,6 +862,79 @@ def _flash_inputs(gen, bh: int, t: int, d: int):
     return q, k, v, key_mask, coords, dist_scale
 
 
+# the forward's kernels as torch.profiler names them (the ALiBi forward runs
+# the distance-weighted sum's three first)
+_FWD_KERNELS = {"prepass": "flash_fwd_prepass", "lists": "flash_fwd_lists", "attention": "flash_fwd_kernel"}
+_DWS_KERNELS = {"dws_prepass": "dws_prepass", "dws_lists": "dws_lists", "dws": "dist_weighted_sum_kernel"}
+
+
+def _fwd_executed_flops(mask, tq: int, d: int) -> float:
+    """Operations the attention kernel executes for q·kᵀ and P·V: each block
+    of 128 queries (the grid covers Tq rounded up to 128) over the listed
+    key tiles (64 keys, 32 at d = 128) that hold a valid key; a sequence
+    with no valid key keeps every tile."""
+    import torch
+
+    tile = 32 if d == 128 else 64
+    bh, tk = mask.shape
+    pad = torch.zeros(bh, -tk % tile, dtype=torch.bool, device=mask.device)
+    keys = mask | ~mask.any(dim=-1, keepdim=True)
+    listed = torch.cat([keys, pad], dim=1).view(bh, -1, tile).any(dim=-1).sum().item()
+    return float(listed * tile * -(-tq // 128) * 128 * 4 * d)
+
+
+# (bh, tq, tk, d, key mask) of the cases phase 3b adds for the forward's tile
+# skipping; inputs from tests/flash_bwd_util.py ("holes": whole masked 64-
+# and 128-key tiles and 30% of the other keys; "one-empty": no valid key in
+# sequence 1), and "none": no valid key in any sequence, at a ragged T
+FWD_SKIP_CASES = (
+    (8, 4097, 4097, 64, "holes"),
+    (4, 700, 517, 64, "one-empty"),
+    (3, 333, 700, 128, "holes"),
+    (3, 517, 300, 32, "one-empty"),
+    (2, 333, 333, 64, "none"),
+)
+
+
+def _fwd_skip_case(card: str, gen, bh, tq, tk, d, mask_kind) -> dict:
+    """Both forward wrappers on one skip case against their plain versions:
+    FLASH_TOL (dacc DACC_TOL) over the sequences with a valid key and over
+    those without (whose lse is near −1e30), bitwise-equal reruns."""
+    import torch
+    from flash_bwd_util import skip_case_inputs
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    kind = "suffix" if mask_kind == "none" else mask_kind
+    q, k, v, mask, _, coords_q, coords_k, ds = skip_case_inputs(gen, bh, tq, tk, d, kind, "dense")
+    if mask_kind == "none":
+        mask = torch.zeros_like(mask)
+    has_valid = mask.any(dim=1)
+    plain_sm, plain_dacc, plain_lse = attn._flash_alibi_forward_reference(q, k, v, coords_q, coords_k, mask)
+    calls = {
+        "flash_mha": (lambda: attn._flash_forward(q, k, v, mask), (plain_sm, plain_lse), (FLASH_TOL, FLASH_TOL)),
+        "flash_alibi_mha": (lambda: attn._flash_alibi_forward(q, k, v, coords_q, coords_k, ds, mask),
+                            (plain_sm - ds[:, None, None] * plain_dacc, plain_sm, plain_dacc, plain_lse),
+                            (FLASH_TOL, FLASH_TOL, DACC_TOL, FLASH_TOL)),
+    }  # fmt: skip
+    rows = {}
+    for name, (kernel, want, tols) in calls.items():
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        errs = [_error(a[rows_], b[rows_])[1] for a, b in zip(got, want) for rows_ in (has_valid, ~has_valid)
+                if rows_.any()]  # fmt: skip
+        limits = [tol for tol in tols for rows_ in (has_valid, ~has_valid) if rows_.any()]
+        row = dict(case=f"{mask_kind} mask", shape=[bh, tq, tk, d], sequences_with_no_valid_key=int((~has_valid).sum()),
+                   max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)), max_rel_err=max(errs))  # fmt: skip
+        if not all(e <= tol for e, tol in zip(errs, limits)):
+            _fail(f"{name} {row}: beyond {FLASH_TOL} (dacc {DACC_TOL}): {errs}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            _fail(f"{name} {row}: two runs differ")
+        print(f"[3b flash] {name} {json.dumps(row)} on {card}")
+        rows[name] = row
+    return rows
+
+
 def phase_flash_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -891,7 +971,11 @@ def phase_flash_kernels(card: str) -> dict:
             )
             _, rel_sdpa = _error(sdpa(), out)
             row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=tm["control"],
-                        sdpa_rel_diff=rel_sdpa, bound_ms=bound, bound_by=by)  # fmt: skip
+                        sdpa_rel_diff=rel_sdpa, bound_ms=bound, bound_by=by, bound_share=bound / tm["kernel"],
+                        tflops=4 * d * pairs / tm["kernel"] / 1e9)  # fmt: skip
+            split = _device_split(lambda: attn.flash_mha(q, k, v, mask), _FWD_KERNELS)
+            executed = _fwd_executed_flops(mask, t, d)
+            row |= split | dict(executed_tflops=executed / split["attention_ms"] / 1e9)
         print(f"[3b flash] flash_mha {json.dumps(row)} on {card}")
         rows["flash_mha"].append(row)
 
@@ -924,10 +1008,18 @@ def phase_flash_kernels(card: str) -> dict:
             tm = _compare_timed(
                 lambda: attn.flash_alibi_mha(*args), lambda: attn.flash_alibi_mha_reference(*args), iters=3
             )
-            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, **bounds)
+            row |= dict(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=None, **bounds,
+                        bound_share=bounds["bound_ms"] / tm["kernel"],
+                        tflops=(4 + 3 * 2) * d * pairs / tm["kernel"] / 1e9)  # fmt: skip
+            row |= _device_split(lambda: attn.flash_alibi_mha(*args), _FWD_KERNELS | _DWS_KERNELS)
         print(f"[3b flash] flash_alibi_mha {json.dumps(row)} on {card}")
         rows["flash_alibi_mha"].append(row)
         del q, k, v, out, out_sm, dacc, lse
+        torch.cuda.empty_cache()
+
+    for case in FWD_SKIP_CASES:
+        for name, row in _fwd_skip_case(card, gen, *case).items():
+            rows[name].append(row)
         torch.cuda.empty_cache()
 
     # a head width with no instance of its own: the public wrappers pad it
@@ -1157,17 +1249,22 @@ def _bwd_executed_flops(mask, do, d: int) -> float:
     return float((pairs * (3 + 4)).sum().item()) * 2 * d
 
 
-def _bwd_split(fn, mask, do, d: int) -> dict:
-    """Device ms of each of the backward's kernels in one call of ``fn``
-    (``torch.profiler``), and the TFLOP/s the dQ and dK/dV kernels execute
-    over their time."""
+def _device_split(fn, kernels: dict) -> dict:
+    """Device ms of each kernel of ``kernels`` (part → a tag of its name) in
+    one call of ``fn`` (``torch.profiler``), as ``<part>_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
     device = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and e.device_time_total > 0}  # fmt: skip
-    split = {f"{part}_ms": sum(ms for key, ms in device.items() if tag in key) for part, tag in _BWD_KERNELS.items()}
+    return {f"{part}_ms": sum(ms for key, ms in device.items() if tag in key) for part, tag in kernels.items()}
+
+
+def _bwd_split(fn, mask, do, d: int) -> dict:
+    """Device ms of each of the backward's kernels in one call of ``fn``,
+    and the TFLOP/s the dQ and dK/dV kernels execute over their time."""
+    split = _device_split(fn, _BWD_KERNELS)
     kernels_ms = split["dq_ms"] + split["dkv_ms"]
     executed = _bwd_executed_flops(mask, do, d)
     return split | dict(executed_tflop=executed / 1e12, executed_tflops=executed / kernels_ms / 1e9 if kernels_ms else None)
@@ -1956,17 +2053,21 @@ def main() -> None:
                 "route": "cuda",
                 "source": "stamp_tpu_torch/ops/csrc/flash_attn.cu",
                 "replaces": replaces,
-                "launches": deploy["launches"][name],
-                "max_abs_err": max(r["max_abs_err"] for r in flash[name]),
+                "launches": deploy["launches"][name] + sum(
+                    run["launches"][counter] for run in trained["runs"].values()
+                ),  # phase 6's deploy and phase 7's training (both variants)
+                # the outputs at the shapes above; the skip cases print their
+                # own (over dacc too, whose scale is the distances')
+                "max_abs_err": max(r["max_abs_err"] for r in flash[name] if "case" not in r),
                 "ms": flash_rows[name]["ms"],  # [8, 16385, 64], 40% of keys masked
                 "plain_ms": flash_rows[name]["plain_ms"],
                 "bound_ms": flash_rows[name]["bound_ms"],
                 "bound_by": flash_rows[name]["bound_by"],
                 "library_ms": flash_rows[name]["library_ms"],
             } | ({"bound_f32_ms": flash_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in flash_rows[name] else {})
-            for name, replaces in (
-                ("flash_mha", "stamp_tpu/ops/flash_attention.py:307"),
-                ("flash_alibi_mha", "stamp_tpu/ops/flash_attention.py:950"),
+            for name, replaces, counter in (
+                ("flash_mha", "stamp_tpu/ops/flash_attention.py:307", "FLASH_MHA_LAUNCHES"),
+                ("flash_alibi_mha", "stamp_tpu/ops/flash_attention.py:950", "FLASH_ALIBI_MHA_LAUNCHES"),
             )
         ),
         *(

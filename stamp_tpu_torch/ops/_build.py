@@ -53,12 +53,22 @@ _SIGNATURES = {
     ],
     # bh, n, head_dim, bytes (an int64 out)
     "stamp_flash_alibi2d_workspace": [_INT, _INT, _INT, _PTR],
-    # q, k, v, mask, cq|NULL, ck|NULL, dist_scale|NULL, o, dacc|NULL,
-    # out|NULL, lse, bh, tq, tk, head_dim, scale, alibi, device, stream
+    # q, k, v, mask, workspace, o, lse, bh, tq, tk, head_dim, scale, device,
+    # stream
     "stamp_flash_attn_fwd": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-        _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+        ctypes.c_float, _INT, _PTR,
     ],
+    # bh, tq, tk, head_dim, bytes (an int64 out)
+    "stamp_flash_attn_fwd_workspace": [_INT, _INT, _INT, _INT, _PTR],
+    # q, k, v, mask, cq, ck, dist_scale, workspace, o, dacc, out, lse, bh, tq,
+    # tk, head_dim, scale, device, stream
+    "stamp_flash_alibi_fwd": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _PTR,
+    ],
+    # bh, tq, tk, head_dim, bytes (an int64 out)
+    "stamp_flash_alibi_fwd_workspace": [_INT, _INT, _INT, _INT, _PTR],
     # q, k, v, mask, dout, out, lse, workspace, dq, dk, dv, bh, tq, tk,
     # head_dim, scale, device, stream
     "stamp_flash_attn_bwd": [

@@ -59,21 +59,12 @@
 #include <cstdint>
 
 #include "hopper.cuh"
-#include "tf32_tiles.cuh"
 #include "tf32_wgmma.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x·log2 e)
-constexpr int kConsumerRegs = 232, kProducerRegs = 40;  // 2·128·232 + 128·40 ≤ 65,536 (setmaxnreg)
-
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // Per head width: kGroups consumer warpgroups (64 queries each) per block,
 // kTile keys per loop step, and the ring's stages.  A consumer holds the

@@ -65,7 +65,7 @@
 // the sequence, so their B operands are the transposed copies kᵀ, dOᵀ, qᵀ
 // with the sequence contiguous.  Their A operand is dS or Pᵀ straight from
 // the score accumulators: a warp's accumulator rows are mma.sync's C layout
-// and the TF32 A registers its A layout (tf32_tiles.cuh), so a = (c0, c2,
+// and the TF32 A registers its A layout (tf32_wgmma.cuh), so a = (c0, c2,
 // c1, c3) chains them when the depth runs in the order (0, 2, 4, 6, 1, 3,
 // 5, 7) within each 8; the pre-pass bakes that order into every 8
 // consecutive positions of the transposed copies.
@@ -124,7 +124,6 @@
 #include <cstdint>
 
 #include "hopper.cuh"
-#include "tf32_tiles.cuh"
 #include "tf32_wgmma.cuh"
 
 namespace {

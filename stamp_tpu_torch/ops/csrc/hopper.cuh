@@ -1,10 +1,11 @@
 // Hopper's asynchronous machinery, shared by the TMA + wgmma kernels
 // (ln_gemm_sm90.cuh for ln_dense and ln_quant_dense; through
-// tf32_wgmma.cuh, flash_attn_bwd.cu and flash_alibi2d.cu):
+// tf32_wgmma.cuh, flash_attn.cu, flash_attn_bwd.cu and flash_alibi2d.cu):
 // shared-memory addresses, mbarriers whose waits trap after 10 s instead of
-// hanging the card, TMA loads, register reallocation between warpgroups,
-// the wgmma fences and the descriptor of a 128-byte-swizzled K-major
-// operand, and the driver's tensor-map encoder reached through the runtime.
+// hanging the card, TMA loads, register reallocation and named barriers
+// between warpgroups, the wgmma fences and the descriptor of a
+// 128-byte-swizzled K-major operand, and cuTensorMapEncodeTiled reached
+// through the runtime.
 
 #pragma once
 
@@ -118,6 +119,14 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int kPending>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// named barriers 1 … 15 among `threads` threads (warpgroups taking turns)
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // keep the compiler from moving accumulator reads or writes across a wgmma

@@ -1,6 +1,7 @@
 // The TF32 wgmma machinery shared by the f32 attention kernels fed by TMA
-// (flash_attn_bwd.cu: the flash backward and the distance-weighted sum;
-// flash_alibi2d.cu: TITAN's pre-softmax ALiBi attention): the m64nNk8
+// (flash_attn.cu: the MIL forward; flash_attn_bwd.cu: its backward and the
+// distance-weighted sum; flash_alibi2d.cu: TITAN's pre-softmax ALiBi
+// attention): the m64nNk8
 // products with A in registers or shared memory, the 128-byte-swizzled box
 // layout TMA writes and its k-step descriptors, the producer/consumer ring
 // of shared-memory stages, the pre-passes' TF32 and transposed copies, the
@@ -10,11 +11,14 @@
 // bits for 16-bit types only).  A product that contracts over the sequence
 // (P·V, dS·k, D·V) therefore reads a transposed copy [d, n_pad] with the
 // sequence contiguous.  Its A operand comes from registers: a warp's score
-// accumulator rows are mma.sync's C layout and the TF32 A registers its A
-// layout (tf32_tiles.cuh), so a = (c0, c2, c1, c3) chains them when the
-// depth runs in the order (0, 2, 4, 6, 1, 3, 5, 7) within each 8; the
-// pre-passes bake that order into every 8 consecutive positions of the
-// transposed copies.
+// accumulator rows are mma.sync m16n8k8's C layout and the TF32 A registers
+// its A layout (g = lane / 4, t = lane % 4):
+//   a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+//   c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+// A C fragment over 8 columns becomes the A fragment of a product whose
+// depth runs over those columns when the depth is taken in the order
+// (0, 2, 4, 6, 1, 3, 5, 7): a = (c0, c2, c1, c3).  The pre-passes bake that
+// order into every 8 consecutive positions of the transposed copies.
 
 #pragma once
 
@@ -25,11 +29,17 @@
 #include <cstdint>
 
 #include "hopper.cuh"
-#include "tf32_tiles.cuh"
 
 namespace {
 
 using namespace sm90;
+
+// x rounded to TF32 (to nearest, ties away from zero)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
 
 // ---- TF32 wgmma: m64nNk8, D (f32) += A·B --------------------------------------
 // Accumulator (per warp w of the warpgroup, g = lane / 4, t = lane % 4):
@@ -235,6 +245,11 @@ __device__ __forceinline__ Ring make_ring(uint8_t* smem_raw) {
   __syncthreads();
   return r;
 }
+
+// Registers of a consumer thread and of a producer thread after setmaxnreg,
+// in a block of two consumer warpgroups and one producer warpgroup:
+// 2·128·232 + 128·40 ≤ 65,536.
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
 
 // Shared memory a kernel asks for: its own rows, kStages stages and the
 // barriers, plus 1024 bytes to align the start.

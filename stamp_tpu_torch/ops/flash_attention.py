@@ -25,8 +25,13 @@ masked keys get −1e30, and the output is Σ exp(s − m)·v / Σ exp(s − m) 
 its log-sum-exp.  The ALiBi variant also accumulates D·V, D the per-axis
 Euclidean distance between query and key coordinates (0 for masked keys),
 and returns ``O − dist_scale·(D·V)``: the reference's bias is subtracted
-after the softmax.  The CUDA kernel runs q·kᵀ and P·V in TF32 and D·V in a
-3×TF32 split accurate to f32; the plain versions run everything in f32.
+after the softmax.  On the card the forward is a pre-pass (TF32 copies of q
+and k, Vᵀ, the mask as scores), a list of the key tiles that hold a valid
+key, and a TMA-fed TF32 wgmma kernel over those tiles with the online
+softmax in registers (``csrc/flash_attn.cu``); the ALiBi forward runs the
+distance-weighted sum below for D·V first (a 3×TF32 split accurate to
+f32), then that kernel with an epilogue that writes ``O − dist_scale·dacc``.
+The plain versions run everything in f32.
 
 Both are ``torch.autograd.Function``s whose backward is the JAX package's
 (``_flash_core_bwd``, ``_alibi_core_bwd``): the probabilities are recomputed
@@ -264,29 +269,51 @@ def _check_flash_args(what: str, q, k, v, key_mask, coords_q=None, coords_k=None
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
 
 
-def _launch_flash(q, k, v, key_mask, scale=None, coords_q=None, coords_k=None, dist_scale=None):
-    """One launch of ``stamp_flash_attn_fwd`` (scores scaled by ``scale``,
-    d^-1/2 when None); returns its outputs."""
+def _workspace(entry: str, what: str, device: torch.device, *shape: int) -> torch.Tensor:
+    """The scratch memory a kernel's pre-pass fills, sized by its C entry
+    point ``entry`` (bytes for ``shape``, written as an int64)."""
+    nbytes = ctypes.c_int64()
+    _build.check(getattr(_build.load_library(), entry)(*shape, ctypes.addressof(nbytes)), what)
+    return torch.empty(nbytes.value, dtype=torch.uint8, device=device)
+
+
+def _launch_flash(q, k, v, key_mask, scale=None):
+    """``stamp_flash_attn_fwd`` (the pre-pass, the tile list and the
+    attention kernel) with the workspace its pre-pass fills; scores scaled
+    by ``scale`` (d^-1/2 when None).  Returns (o, lse)."""
     bh, tq, d = q.shape
+    tk = k.shape[1]
     scale = d**-0.5 if scale is None else scale
-    alibi = coords_q is not None
+    workspace = _workspace("stamp_flash_attn_fwd_workspace", "flash_mha", q.device, bh, tq, tk, d)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    dacc = torch.empty_like(q) if alibi else None
-    out = torch.empty_like(q) if alibi else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = _build.load_library().stamp_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
-        ptr(coords_q), ptr(coords_k), ptr(dist_scale),
-        o.data_ptr(), ptr(dacc), ptr(out), lse.data_ptr(),
-        bh, tq, k.shape[1], d, scale, int(alibi),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), workspace.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, tq, tk, d, scale,
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )  # fmt: skip
-    _build.check(err, "flash_alibi_mha" if alibi else "flash_mha")
-    return o, lse, dacc, out
+    _build.check(err, "flash_mha")
+    return o, lse
+
+
+def _launch_flash_alibi(q, k, v, key_mask, coords_q, coords_k, dist_scale, scale=None):
+    """``stamp_flash_alibi_fwd`` (the distance-weighted sum for dacc, then
+    the flash forward's three kernels with the ALiBi epilogue) with its
+    workspace.  Returns (out, o, dacc, lse)."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    scale = d**-0.5 if scale is None else scale
+    workspace = _workspace("stamp_flash_alibi_fwd_workspace", "flash_alibi_mha", q.device, bh, tq, tk, d)
+    o, dacc, out = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    err = _build.load_library().stamp_flash_alibi_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+        coords_q.data_ptr(), coords_k.data_ptr(), dist_scale.data_ptr(), workspace.data_ptr(),
+        o.data_ptr(), dacc.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, scale,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "flash_alibi_mha")
+    return out, o, dacc, lse
 
 
 def _flash_forward(
@@ -299,7 +326,7 @@ def _flash_forward(
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     _check_flash_args("flash_mha", q, k, v, key_mask)
-    o, lse, _, _ = _launch_flash(q, k, v, key_mask, scale)
+    o, lse = _launch_flash(q, k, v, key_mask, scale)
     global FLASH_MHA_LAUNCHES
     FLASH_MHA_LAUNCHES += 1
     return o, lse
@@ -342,10 +369,10 @@ def _flash_alibi_forward(
     if q.device.type != "cuda":
         raise ValueError(f"flash_alibi_mha: unsupported device {q.device}")
     _check_flash_args("flash_alibi_mha", q, k, v, key_mask, coords_q, coords_k, dist_scale)
-    o, lse, dacc, out = _launch_flash(q, k, v, key_mask, scale, coords_q, coords_k, dist_scale)
+    parts = _launch_flash_alibi(q, k, v, key_mask, coords_q, coords_k, dist_scale, scale)
     global FLASH_ALIBI_MHA_LAUNCHES
     FLASH_ALIBI_MHA_LAUNCHES += 1
-    return out, o, dacc, lse
+    return parts
 
 
 def flash_alibi_mha(
@@ -422,14 +449,6 @@ def _dist_weighted_sum_reference(
     if a_mask is not None:
         out.masked_fill_(~a_mask[:, :, None], 0.0)
     return out
-
-
-def _workspace(entry: str, what: str, device: torch.device, *shape: int) -> torch.Tensor:
-    """The scratch memory a kernel's pre-pass fills, sized by its C entry
-    point ``entry`` (bytes for ``shape``, written as an int64)."""
-    nbytes = ctypes.c_int64()
-    _build.check(getattr(_build.load_library(), entry)(*shape, ctypes.addressof(nbytes)), what)
-    return torch.empty(nbytes.value, dtype=torch.uint8, device=device)
 
 
 def _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale=None):

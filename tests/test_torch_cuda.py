@@ -180,6 +180,91 @@ def test_flash_kernels_raise_on_what_they_do_not_take(gen):
         attn.flash_alibi_mha(q, k, v, coords.transpose(0, 1).contiguous().transpose(0, 1), coords, dist_scale, key_mask)
 
 
+# The forward's tile skipping (inputs: tests/flash_bwd_util.py): whole masked
+# 64- and 128-key tiles between valid keys and scattered masked keys in the
+# tiles it keeps, a sequence with no valid key (it keeps every tile),
+# ragged and unequal Tq, Tk, one query and one key, d = 32, 128.
+FWD_CASES = {
+    "holes": (3, 700, 700, 64, "holes"),
+    "no-valid-key": (3, 300, 300, 64, "one-empty"),
+    "ragged-holes": (3, 333, 700, 64, "holes"),
+    "ragged-keys": (3, 700, 517, 64, "holes"),
+    "one-key": (3, 1, 1, 64, "suffix"),
+    "one-query": (2, 1, 300, 64, "holes"),
+    "d32-holes": (2, 700, 700, 32, "holes"),
+    "d32-no-valid-key": (3, 200, 300, 32, "one-empty"),
+    "d128-holes": (2, 517, 700, 128, "holes"),
+    "d128-no-valid-key": (3, 700, 700, 128, "one-empty"),
+}
+
+
+def _grouped_errs(got, want, has_valid):
+    """max |Δ| / max |ref| over the sequences with a valid key and over
+    those without: a sequence with no valid key has lse ≈ −1e30 and would
+    set the scale of the others."""
+    return [_rel_err(got[rows], want[rows]) for rows in (has_valid, ~has_valid) if rows.any()]
+
+
+@pytest.mark.parametrize("use_alibi", [False, True], ids=["vit", "alibi"])
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_flash_forward_skips_only_empty_tiles(gen, case, use_alibi):
+    bh, tq, tk, d, mask_kind = FWD_CASES[case]
+    q, k, v, key_mask, _, coords_q, coords_k, dist_scale = skip_case_inputs(gen, bh, tq, tk, d, mask_kind, "dense")
+    before = (attn.FLASH_MHA_LAUNCHES, attn.FLASH_ALIBI_MHA_LAUNCHES, attn.DIST_WEIGHTED_SUM_LAUNCHES)
+    if use_alibi:
+        args = (q, k, v, coords_q, coords_k, dist_scale, key_mask)
+        got, again = attn._flash_alibi_forward(*args), attn._flash_alibi_forward(*args)
+        want_sm, want_dacc, want_lse = attn._flash_alibi_forward_reference(q, k, v, coords_q, coords_k, key_mask)
+        want = (want_sm - dist_scale[:, None, None] * want_dacc, want_sm, want_dacc, want_lse)
+        tols = (FLASH_TOL, FLASH_TOL, DACC_TOL, FLASH_TOL)
+        counts = (before[0], before[1] + 2, before[2])  # the distance-weighted sum inside counts no launch of its own
+    else:
+        got, again = attn._flash_forward(q, k, v, key_mask), attn._flash_forward(q, k, v, key_mask)
+        want = attn._flash_forward_reference(q, k, v, key_mask)
+        tols = (FLASH_TOL, FLASH_TOL)
+        counts = (before[0] + 2, before[1], before[2])
+    assert (attn.FLASH_MHA_LAUNCHES, attn.FLASH_ALIBI_MHA_LAUNCHES, attn.DIST_WEIGHTED_SUM_LAUNCHES) == counts
+    has_valid = key_mask.any(dim=1)
+    for a, b, tol in zip(got, want, tols):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert max(_grouped_errs(a, b, has_valid)) <= tol, _grouped_errs(a, b, has_valid)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # O, lse (and dacc, out) bitwise repeatable
+
+
+@pytest.mark.parametrize("use_alibi", [False, True], ids=["vit", "alibi"])
+@pytest.mark.parametrize("t,d", [(333, 64), (517, 32), (70, 128)])
+def test_flash_forward_with_every_key_masked(gen, t, d, use_alibi):
+    """No valid key at a ragged T: every key in range weighs 1 (score
+    −1e30 against a max of −1e30), the keys past T weigh 0, so O is the
+    mean of V over the T keys and lse = −1e30 + log T, as in the plain
+    version."""
+    q, k, v = (torch.randn(2, t, d, device="cuda", generator=gen) for _ in range(3))
+    key_mask = torch.zeros(2, t, dtype=torch.bool, device="cuda")
+    coords = (torch.randint(0, 40, (2, t, 2), device="cuda", generator=gen) * 256.0).float()
+    if use_alibi:
+        out, out_sm, dacc, lse = attn._flash_alibi_forward(q, k, v, coords, coords, torch.ones(2, device="cuda"), key_mask)
+        assert not dacc.any() and torch.equal(out, out_sm)  # D is 0 on masked keys
+    else:
+        out_sm, lse = attn._flash_forward(q, k, v, key_mask)
+    want, want_lse = attn._flash_forward_reference(q, k, v, key_mask)
+    assert _rel_err(want, v.mean(dim=1, keepdim=True).expand_as(want)) <= 1e-5
+    assert _rel_err(out_sm, want) <= FLASH_TOL
+    assert _rel_err(lse, want_lse) <= FLASH_TOL
+
+
+@pytest.mark.parametrize("d", [32, 48, 64, 128])
+def test_flash_forward_head_widths(gen, d):
+    """The public wrappers at every instance's width and at 48 (zero-padded
+    to 64), with whole masked tiles, against the plain versions at the true
+    width."""
+    q, k, v, key_mask, _, coords_q, coords_k, dist_scale = skip_case_inputs(gen, 3, 1000, 1000, d, "holes", "dense")
+    got = attn.flash_mha(q, k, v, key_mask)
+    assert got.shape == (3, 1000, d)
+    assert _rel_err(got, attn.flash_mha_reference(q, k, v, key_mask)) <= FLASH_TOL
+    args = (q, k, v, coords_q, coords_k, dist_scale, key_mask)
+    assert _rel_err(attn.flash_alibi_mha(*args), attn.flash_alibi_mha_reference(*args)) <= FLASH_TOL
+
+
 # backward: the TF32 products (five of them) against the plain f32 backward
 BWD_TOL = 5e-3
 

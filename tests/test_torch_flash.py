@@ -120,6 +120,40 @@ def test_flash_alibi_forward_parts_match_pallas(interpret_pallas):
     _close(out, want)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_alibi_dacc_is_the_distance_weighted_sum(interpret_pallas, d):
+    """The identity the card's ALiBi forward rests on: the Pallas pass's
+    dacc = D·V under the key mask is the distance-weighted sum with the
+    queries as rows a, the keys as b and the key mask as the b-mask (no
+    a-mask), and out = O − dist_scale·dacc built from those parts is
+    ``flash_alibi_mha``'s output.  The key mask drops whole 64-key tiles."""
+    from stamp_tpu.ops.flash_attention import _flash_alibi_forward, flash_alibi_mha
+
+    x = _inputs(6, d=d)
+    tiles = (np.arange(300) // 64)[None, :]
+    x["key_mask"] &= (tiles != 1) & (tiles != 3)  # keys 64–127 and 192–255 masked
+    t_pad = 384
+    mask_f = np.broadcast_to(_pad(x["key_mask"], t_pad).astype(np.float32)[:, None, :], (3, 8, t_pad))
+    cq, ck = (np.pad(_pad(x[n], t_pad), ((0, 0), (0, 0), (0, 126))) for n in ("coords_q", "coords_k"))
+    out_sm, dacc, _ = _flash_alibi_forward(
+        *(jnp.asarray(_pad(x[n], t_pad)) for n in ("q", "k", "v")),
+        jnp.asarray(cq),
+        jnp.asarray(ck),
+        jnp.asarray(mask_f),
+        scale=d**-0.5,
+        block_q=BLOCK,
+        block_k=BLOCK,
+    )
+    t = _torch(x)
+    got = torch_attn._dist_weighted_sum_reference(t["coords_q"], t["coords_k"], t["v"], t["key_mask"], None)
+    _close(got, np.asarray(dacc)[:, :300])
+
+    out = torch.from_numpy(np.array(out_sm)[:, :300]) - t["dist_scale"][:, None, None] * got
+    names = ("q", "k", "v", "coords_q", "coords_k", "dist_scale", "key_mask")
+    _close(out, torch_attn.flash_alibi_mha(*(t[n] for n in names)).numpy())
+    _close(out, flash_alibi_mha(*(jnp.asarray(x[n]) for n in names), block_q=BLOCK, block_k=BLOCK))
+
+
 @pytest.mark.parametrize("d", [32, 128])
 def test_flash_head_widths_match_the_einsum_path(d):
     """Other head widths of the kernel's instances, against the MIL ViT's
