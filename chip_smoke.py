@@ -117,10 +117,35 @@ Phases (each prints at least one line; any failure exits non-zero):
    seconds per slide, and a ``torch.profiler`` split of the 16,384-tile
    slide.
 
-Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9 and
-print their wall time.  The line before the last is ``{"kernels": [...]}``:
-each kernel's launches on its main path (phase 4, 4b, 6, 7 or 9; the MIL
-forward's, phases 6 and 7), its
+10. statistics: ``python -m stamp_tpu_torch -c config.yaml statistics``
+   in-process on phase 6's deploy CSVs (the ensemble of ``vit`` and
+   ALiBi), phase 8's crossval folds, and seeded regression and survival
+   predictions: every table exists and is finite, each AUROC in the tables
+   is the numpy metric computed from its CSV, and each figure is written
+   or (no matplotlib on the machine) named in the command's warning.
+11. heatmaps: ``python -m stamp_tpu_torch -c config.yaml --profile
+   heatmaps`` in-process, one slide a run, with phase 7's trained
+   checkpoints (``vit`` and ``vit`` + ALiBi, width 512, 8 heads of 64, 2
+   layers) on synthetic TIFF slides (32 µm/px, 256 µm tiles) with UNI2
+   features of 2,500, 6,000 and 20,000 tiles (T = 2,501 on the einsum
+   path, 6,001 and 20,001 on the kernels, no key mask): the ``plots/``,
+   ``raw/`` and ``tiles/`` tree; 2 flash forward launches and 2 × C
+   backward launches (and, for ALiBi, 2 × C distance-weighted sums) per
+   slide of T ≥ 4,096 and none below; the pre-softmax Grad-CAM [category,
+   tile] on the kernel path against the plain path on the card at
+   T = 6,001 and 20,001 (``CAM_TOL`` of max |plain|, and the top-k tile
+   sets wherever the plain cam's gap at rank k exceeds it); the last
+   category's cam computed alone bitwise equal to the one computed after
+   the other categories' backward passes over the retained graph; seconds
+   per slide (and the command's stages), and a ``torch.profiler`` split of
+   the 20,000-tile ALiBi slide's Grad-CAM (the forward's kernels, the
+   distance-weighted sum's, each backward kernel, the rest, and the host).
+
+Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
+11 and print their wall time.  The line before the last is ``{"kernels":
+[...]}``: each kernel's launches on its main path (phase 4, 4b, 6, 7 or 9;
+the MIL forward's, phases 6 and 7; rows 4–8 also ``heatmaps_launches``,
+phase 11's), its
 largest error against its plain
 version, its time, the plain version's and the library control's, and the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -215,6 +240,19 @@ TITAN_TILES = {"slide-1500": 1500, "slide-4096": 4096, "slide-10000": 10000, "sl
                "slide-16384": 16384}  # fmt: skip
 TITAN_PATIENT = ("slide-10000", "slide-10000b")
 TITAN_LAYERS = 12
+# heatmaps: synthetic slides of these tile counts (T = 2,501 on the einsum
+# path, 6,001 and 20,001 on the kernels: ragged, no key mask) at a coarse
+# 32 µm/px, tiles of 256 µm (8 px): the 20,000-tile TIFF is 1,136 px square
+HEATMAP_TILES = (2500, 6000, 20000)
+HEATMAP_MPP = 32.0
+HEATMAP_TOPK = 8
+# the pre-softmax Grad-CAM [category, tile], kernel path against plain
+# path: max |Δ| / max |plain|.  The cam is |mean(f·J)| with J through two
+# layers of TF32 flash forward and backward (FLASH_TOL, BWD_TOL each) and
+# the f32 GEMMs around them; 1e-2 holds their sum with a margin and fails a
+# masking or indexing fault (order one).  The ALiBi cam is mostly the
+# distance term's, so at T = 20,001 the softmax branch is also held alone
+CAM_TOL = 1e-2
 
 
 def _fail(msg: str) -> None:
@@ -1251,14 +1289,20 @@ def _bwd_executed_flops(mask, do, d: int) -> float:
 
 def _device_split(fn, kernels: dict) -> dict:
     """Device ms of each kernel of ``kernels`` (part → a tag of its name) in
-    one call of ``fn`` (``torch.profiler``), as ``<part>_ms``."""
+    one call of ``fn`` (``torch.profiler``), as ``<part>_ms``.  The call is
+    synchronised inside the trace; a trace without one of the kernels fails."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
+        torch.cuda.synchronize()
     device = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and e.device_time_total > 0}  # fmt: skip
-    return {f"{part}_ms": sum(ms for key, ms in device.items() if tag in key) for part, tag in kernels.items()}
+    split = {f"{part}_ms": sum(ms for key, ms in device.items() if tag in key) for part, tag in kernels.items()}
+    if not all(split.values()):
+        _fail(f"torch.profiler traced no device time for a kernel of {sorted(kernels.values())}: {split}")
+    return split
 
 
 def _bwd_split(fn, mask, do, d: int) -> dict:
@@ -1957,6 +2001,375 @@ def phase_titan(card: str) -> dict:
     return summary
 
 
+@contextlib.contextmanager
+def _kept_warnings():
+    """The messages of the warnings the ``stamp`` logger emits meanwhile."""
+    import logging
+
+    records: list[str] = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: records.append(record.getMessage())
+    logger = logging.getLogger("stamp")
+    logger.addHandler(handler)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+
+
+def _figures_accounted(figures: list[Path], warnings: list[str]) -> None:
+    """Each figure is written, or (without matplotlib) named in a warning;
+    without matplotlib none is written."""
+    from stamp_tpu_torch.utils.figures import pyplot
+
+    has_matplotlib = pyplot() is not None
+    for figure in figures:
+        named = any(str(figure) in w and "matplotlib is not installed" in w for w in warnings)
+        if figure.is_file() == named or (not has_matplotlib and not named):
+            _fail(f"{figure}: written {figure.is_file()}, named in the warning {named}, matplotlib {has_matplotlib}")
+
+
+def _write_outcome_csvs(root: Path) -> tuple[Path, Path]:
+    """Seeded synthetic predictions of 60 patients: a regression CSV
+    (``t``, ``pred``) and a survival one (``day``, ``status``,
+    ``pred_score`` and deploy's ``cut_off=…`` marker column)."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(8)
+    n = 60
+    patients = [f"p{i:02d}" for i in range(n)]
+    truth = rng.uniform(0.0, 50.0, n)
+    regression = root / "regression" / "patient-preds.csv"
+    regression.parent.mkdir(parents=True, exist_ok=True)
+    pd.DataFrame({"PATIENT": patients, "t": truth, "pred": truth + rng.normal(0.0, 5.0, n)}).to_csv(
+        regression, index=False
+    )
+    risk = rng.normal(0.0, 1.0, n)
+    survival = root / "survival" / "patient-preds.csv"
+    survival.parent.mkdir(parents=True, exist_ok=True)
+    df = pd.DataFrame({"PATIENT": patients, "day": np.round(np.maximum(1, 900 - 250 * risk + rng.normal(0, 90, n))),
+                       "status": rng.choice([0, 1], n, p=[0.3, 0.7]), "pred_score": risk})  # fmt: skip
+    df["cut_off=0.05"] = None
+    df.to_csv(survival, index=False)
+    return regression, survival
+
+
+def _rank_auroc(is_positive, scores) -> float:
+    """AUROC by the Mann–Whitney rank formula (ties take their average
+    rank), independent of the port's ``roc_auc_score``."""
+    import numpy as np
+    from scipy.stats import rankdata
+
+    is_positive = np.asarray(is_positive, bool)
+    n_pos, n_neg = int(is_positive.sum()), int((~is_positive).sum())
+    ranks = rankdata(np.asarray(scores, float))
+    return float((ranks[is_positive].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def phase_statistics(card: str) -> dict:
+    """10: ``python -m stamp_tpu_torch -c config.yaml statistics`` in-process
+    on phase 6's deploy CSVs (the ``vit`` + ALiBi ensemble), phase 8's
+    crossval folds, and seeded regression and survival predictions: every
+    table exists and is finite, each AUROC is the Mann–Whitney rank AUROC
+    of its CSV, and each figure is written or named in the no-matplotlib warning."""
+    import numpy as np
+    import pandas as pd
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+
+    root = WORK / "statistics"
+    regression, survival = _write_outcome_csvs(root)
+    deploy = WORK / "deploy" / "out"
+    crossval = WORK / "train" / "crossval"
+    runs = {
+        "deploy": dict(task="classification", ground_truth_label="isup", true_class="high",
+                       pred_csvs=[deploy / f"patient-preds-{i}.csv" for i in range(2)]),
+        "crossval": dict(task="classification", ground_truth_label="label", true_class="pos",
+                         pred_csvs=[crossval / f"split-{i}" / "patient-preds.csv" for i in range(2)]),
+        "regression": dict(task="regression", ground_truth_label="t", pred_csvs=[regression]),
+        "survival": dict(task="survival", time_label="day", status_label="status", pred_csvs=[survival]),
+    }  # fmt: skip
+    rows = {}
+    for name, fields in runs.items():
+        out = root / "out" / name
+        config = root / f"{name}.yaml"
+        config.write_text(yaml.safe_dump({"statistics": {
+            **fields, "output_dir": str(out), "pred_csvs": [str(p) for p in fields["pred_csvs"]]}}))  # fmt: skip
+        t0 = time.perf_counter()
+        with _kept_warnings() as warnings:
+            main(["-c", str(config), "statistics"])  # exits non-zero on failure
+        row = dict(run=name, wall_s=time.perf_counter() - t0)
+        keys = [f"{p.parent.name}_{p.stem}" for p in fields["pred_csvs"]]
+        if fields["task"] == "classification":
+            gt, true_class = fields["ground_truth_label"], fields["true_class"]
+            individual = pd.read_csv(out / f"{gt}_categorical-stats_individual.csv", index_col=[0, 1])
+            aggregated = pd.read_csv(out / f"{gt}_categorical-stats_aggregated.csv", header=[0, 1], index_col=0)
+            tables = [individual, aggregated]
+            aurocs = {}
+            for key, csv in zip(keys, fields["pred_csvs"]):
+                preds = pd.read_csv(csv)
+                for cls in sorted(preds[gt].unique()):
+                    want = _rank_auroc((preds[gt] == cls).to_numpy(), preds[f"{gt}_{cls}"].to_numpy(float))
+                    got = float(individual.loc[(key, cls), "roc_auc_score"])
+                    if not abs(got - want) <= 1e-12:
+                        _fail(f"statistics {name}: AUROC of {key}, {cls} is {got} in the table, {want} from the CSV")
+                    aurocs[f"{key}/{cls}"] = got
+            row["auroc"] = aurocs
+            figures = [out / f"{stem}_{gt}={true_class}.svg" for stem in ("roc-curve", "pr-curve")]
+        elif fields["task"] == "regression":
+            tables = [pd.read_csv(out / f"t_regression-stats_{kind}.csv", index_col=0)
+                      for kind in ("individual", "aggregated")]  # fmt: skip
+            row["r2_score"] = float(tables[0]["r2_score"].iloc[0])
+            figures = [out / "plots" / f"fold_{k}_scatter.svg" for k in keys]
+        else:
+            tables = [pd.read_csv(out / "survival-stats_individual.csv", index_col=0)]
+            row["c_index"] = float(tables[0]["c_index"].iloc[0])
+            figures = [out / "plots" / f"fold_{k}_km_curve.svg" for k in keys]
+        for table in tables:
+            values = table.select_dtypes("number").to_numpy(float)
+            if not values.size or not np.isfinite(values).all():
+                _fail(f"statistics {name}: a table is empty or not finite:\n{table}")
+        _figures_accounted(figures, warnings)
+        row["figures_not_written"] = sum(not f.is_file() for f in figures)
+        print(f"[10 statistics] {json.dumps(row)} on {card}")
+        rows[name] = row
+    return rows
+
+
+def _write_heatmap_slides(root: Path) -> None:
+    """Synthetic TIFF slides (``HEATMAP_MPP`` µm/px) of ``HEATMAP_TILES``
+    tiles on a square grid of 256 µm, and their UNI2 feature files (1,536
+    wide, fp16, the port's writer)."""
+    import numpy as np
+    from PIL import Image
+
+    from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+
+    rng = np.random.default_rng(9)
+    px = int(256.0 / HEATMAP_MPP)
+    for n in HEATMAP_TILES:
+        side = math.isqrt(n - 1) + 1
+        cells = np.stack([np.arange(n) % side, np.arange(n) // side], axis=1)
+        image = np.full((side * px, side * px, 3), 255, np.uint8)
+        image[: (n // side) * px] = rng.integers(60, 200, ((n // side) * px, side * px, 3), dtype=np.uint8)
+        (root / "wsi").mkdir(parents=True, exist_ok=True)
+        Image.fromarray(image).save(root / "wsi" / f"slide-{n}.tif")
+        write_tile_feats_atomic(
+            output_path=root / "features" / f"slide-{n}.h5",
+            feats=rng.standard_normal((n, UNI2_DIM), dtype=np.float32).astype(np.float16),
+            coords_um=(cells * 256.0).astype(np.float32), extractor_id="uni2", tile_size_um=256.0,
+            tile_size_px=224, code_hash="chip-smoke",
+        )  # fmt: skip
+
+
+def _top_sets_agree(cam, plain, k: int, tol: float) -> tuple[bool, int]:
+    """(agree, tested): the k highest tiles of each category are the same set
+    on both paths wherever the plain cam's gap at rank k exceeds ``tol`` ·
+    max |plain|; ``tested`` counts the categories where it does."""
+    import numpy as np
+
+    tested = 0
+    for got, want in zip(cam, plain):
+        order = np.argsort(-want)
+        if want[order[k - 1]] - want[order[k]] > tol * np.abs(plain).max():
+            tested += 1
+            if set(order[:k]) != set(np.argsort(-got)[:k]):
+                return False, tested
+    return True, tested
+
+
+def _profile_gradcam(card: str, what: str, fn) -> dict:
+    """Device time of one Grad-CAM (``torch.profiler``): the flash forward's
+    kernels, the distance-weighted sum's, each backward kernel, the rest
+    (GEMMs, elementwise), and the host time (wall − device busy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    device = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and e.device_time_total > 0}  # fmt: skip
+    parts = ({f"fwd_{k}": v for k, v in _FWD_KERNELS.items()} | _DWS_KERNELS
+             | {f"bwd_{k}": v for k, v in _BWD_KERNELS.items()})  # fmt: skip
+    split = {}
+    for part, tag in parts.items():
+        hits = [(ms, n) for key, (ms, n) in device.items() if tag in key]
+        split[f"{part}_ms"] = sum(ms for ms, _ in hits)
+        split[f"{part}_calls"] = sum(n for _, n in hits)
+    busy = sum(ms for ms, _ in device.values())
+    split |= dict(other_device_ms=busy - sum(split[f"{p}_ms"] for p in parts), device_busy_ms=busy,
+                  wall_ms=wall_ms, host_ms=wall_ms - busy)  # fmt: skip
+    print(f"[11 heatmaps] profile {what} (profiled wall): {json.dumps(split)} on {card}")
+    return split
+
+
+def _alibi_softmax_branch_cam(module, feats, coords, n_categories: int) -> dict:
+    """The ALiBi cam with every block's ``bias_scale`` zeroed, kernel path
+    against plain path: the distance term then adds nothing, so the cam
+    comes through the softmax branch of rows 6 and 7 alone (in the whole
+    model's cam the distance term, about T times larger, hides it).  Rows
+    6, 7 and 8 still launch, which the counters show."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.heatmaps import generate as gen
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    scales = [m.bias_scale for m in module.modules() if hasattr(m, "bias_scale")]
+    kept = [p.detach().clone() for p in scales]
+    try:
+        with torch.no_grad():
+            for p in scales:
+                p.zero_()
+        for name in _COUNTERS:
+            setattr(attn, name, 0)
+        _, cam = gen._cams(module, feats, coords)
+        counts = {name: getattr(attn, name) for name in _COUNTERS if getattr(attn, name)}
+        with _plain_flash():
+            _, plain = gen._cams(module, feats, coords)
+    finally:
+        with torch.no_grad():
+            for p, value in zip(scales, kept):
+                p.copy_(value)
+    err = float(np.abs(cam - plain).max() / np.abs(plain).max())
+    top, tested = _top_sets_agree(cam, plain, HEATMAP_TOPK, CAM_TOL)
+    expected = {"FLASH_ALIBI_MHA_LAUNCHES": MIL_LAYERS, "FLASH_ALIBI_MHA_BWD_LAUNCHES": MIL_LAYERS * n_categories,
+                "DIST_WEIGHTED_SUM_LAUNCHES": MIL_LAYERS * n_categories}  # fmt: skip
+    ok = err <= CAM_TOL and top and counts == expected and bool(np.isfinite(cam).all())
+    return dict(cam_rel_err=err, cam_tol=CAM_TOL, top_sets_agree=top, top_categories_tested=tested,
+                launches=counts, ok=ok)  # fmt: skip
+
+
+def phase_heatmaps(card: str) -> dict:
+    """11: ``python -m stamp_tpu_torch -c config.yaml --profile heatmaps``
+    in-process, per slide, with phase 7's trained checkpoints (``vit`` and
+    ``vit`` + ALiBi at the default width) on synthetic UNI2 slides of
+    ``HEATMAP_TILES`` tiles: the ``plots/``, ``raw/`` and ``tiles/`` tree;
+    2 forward launches and 2 × C backward launches per slide of T ≥ 4,096
+    and none below; the pre-softmax cam on the kernel path against the
+    plain path at T = 6,001 and 20,001 (``CAM_TOL``, and the top-k tile
+    sets), at T = 20,001 for ALiBi also with ``bias_scale`` zeroed (the
+    softmax branch alone); each category's cam bitwise the same alone and
+    after another's backward (the retained graph); seconds per slide and a
+    ``torch.profiler`` split of the 20,000-tile ALiBi slide's Grad-CAM."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.heatmaps import generate as gen
+    from stamp_tpu_torch.io.h5 import read_feats
+    from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
+    from stamp_tpu_torch.models import vision_transformer as vit
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.utils import profiling
+
+    root = WORK / "heatmaps"
+    _write_heatmap_slides(root)
+    dev = torch.device("cuda:0")
+    launches = {name: 0 for name in _COUNTERS}
+    slides, checks = [], []
+    for variant in ("vit", "alibi"):
+        ckpt = WORK / "train" / variant / "model.ckpt"  # phase 7's
+        model, variables = load_model_from_ckpt(ckpt)
+        categories = list(model.categories)
+        for n in HEATMAP_TILES:
+            stem = f"slide-{n}"
+            out = root / "out" / variant
+            config = root / f"{variant}-{n}.yaml"
+            config.write_text(yaml.safe_dump({"heatmaps": {
+                "output_dir": str(out), "feature_dir": str(root / "features"), "wsi_dir": str(root / "wsi"),
+                "checkpoint_path": str(ckpt), "slide_paths": [f"{stem}.tif"], "device": "cuda",
+                "default_slide_mpp": HEATMAP_MPP, "topk": HEATMAP_TOPK, "bottomk": HEATMAP_TOPK,
+            }}))  # fmt: skip
+            for name in _COUNTERS:
+                setattr(attn, name, 0)
+            t0 = time.perf_counter()
+            with _kept_warnings() as warnings:
+                main(["-c", str(config), "--profile", "heatmaps"])  # exits non-zero on failure
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {name: getattr(attn, name) for name in _COUNTERS}
+            flash = n + 1 >= vit.FLASH_ATTENTION_MIN_SEQ
+            fwd, bwd = ("FLASH_ALIBI_MHA_LAUNCHES", "FLASH_ALIBI_MHA_BWD_LAUNCHES") if variant == "alibi" else (
+                "FLASH_MHA_LAUNCHES", "FLASH_MHA_BWD_LAUNCHES")  # fmt: skip
+            expected = {name: 0 for name in _COUNTERS}
+            if flash:
+                expected[fwd] = MIL_LAYERS
+                expected[bwd] = MIL_LAYERS * len(categories)
+                if variant == "alibi":
+                    expected["DIST_WEIGHTED_SUM_LAUNCHES"] = MIL_LAYERS * len(categories)
+            if counts != expected:
+                _fail(f"heatmaps {variant} {stem}: launches {counts}, expected {expected} "
+                      f"({MIL_LAYERS} layers, {len(categories)} categories, T = {n + 1})")  # fmt: skip
+            for name in _COUNTERS:
+                launches[name] += counts[name]
+
+            # the tree: raw/ and tiles/ complete, plots/ as matplotlib allows
+            slide_dir = out / stem
+            raw = {p.name for p in (slide_dir / "raw").iterdir()}
+            panels = {f"{stem}-{c}" for c in categories}
+            want_raw = {f"thumbnail-{stem}.png", f"{stem}-classmap.png",
+                        *(f"raw-overlay-{stem}-{c}.png" for c in categories)}  # fmt: skip
+            probability_panels = {r.split("=")[0] for r in raw if "=" in r}  # {stem}-{category}={p}.png
+            if not want_raw <= raw or probability_panels != panels or len(raw) != len(want_raw) + len(panels):
+                _fail(f"heatmaps {variant} {stem}: raw/ holds {sorted(raw)}")
+            tiles = list((slide_dir / "tiles").iterdir())
+            if len(tiles) != 2 * HEATMAP_TOPK:
+                _fail(f"heatmaps {variant} {stem}: {len(tiles)} tile crops, expected {2 * HEATMAP_TOPK}")
+            figures = [slide_dir / "plots" / f"overview-{stem}.png",
+                       *(slide_dir / "plots" / f"overlay-{stem}-{c}.png" for c in categories)]  # fmt: skip
+            _figures_accounted(figures, warnings)
+            stages = {k.split("/")[1]: v for k, v in profiling.timer.seconds.items() if k.startswith("heatmaps/")}
+            row = dict(variant=variant, tiles=n, seq_len=n + 1, seconds=wall,
+                       launches={k: v for k, v in counts.items() if v}, stages_s=stages)  # fmt: skip
+            print(f"[11 heatmaps] {json.dumps(row)} on {card}")
+            slides.append(row)
+
+        # Grad-CAM on the kernel path against the plain path, and the
+        # retained graph, on the whole-slide bags
+        module = model.module
+        module.load_state_dict(vit.variables_from_jax(variables))
+        module.to(dev).eval()
+        for n in HEATMAP_TILES:
+            if n + 1 < vit.FLASH_ATTENTION_MIN_SEQ:
+                continue
+            feats, info = read_feats(root / "features" / f"slide-{n}.h5")
+            coords = info.coords_um
+            t1 = time.perf_counter()
+            logits, cam = gen._cams(module, feats, coords)
+            cam_ms = (time.perf_counter() - t1) * 1e3
+            with _plain_flash():
+                t1 = time.perf_counter()
+                plain_logits, plain = gen._cams(module, feats, coords)
+                plain_ms = (time.perf_counter() - t1) * 1e3
+            err = float(np.abs(cam - plain).max() / np.abs(plain).max())
+            top, top_tested = _top_sets_agree(cam, plain, HEATMAP_TOPK, CAM_TOL)
+            _, last_alone = gen._cams(module, feats, coords, [len(categories) - 1])
+            bitwise = bool(np.array_equal(last_alone[0], cam[-1]))
+            row = dict(variant=variant, seq_len=n + 1, cam_rel_err=err, cam_tol=CAM_TOL, top_k=HEATMAP_TOPK,
+                       top_sets_agree=top, top_categories_tested=top_tested, retained_graph_bitwise=bitwise,
+                       gradcam_ms=cam_ms, plain_gradcam_ms=plain_ms,
+                       logits_max_abs_diff=float(np.abs(logits - plain_logits).max()))  # fmt: skip
+            ok = err <= CAM_TOL and top and bitwise and np.isfinite(cam).all()
+            if variant == "alibi" and n == max(HEATMAP_TILES):
+                row["softmax_branch"] = _alibi_softmax_branch_cam(module, feats, coords, len(categories))
+                ok = ok and row["softmax_branch"]["ok"]
+            print(f"[11 heatmaps] {json.dumps(row)} on {card}")
+            if not ok:
+                _fail(f"heatmaps {variant} T = {n + 1}: Grad-CAM kernel path against plain path {row}")
+            checks.append(row)
+            if variant == "alibi" and n == max(HEATMAP_TILES):
+                row["profile"] = _profile_gradcam(card, f"ALiBi Grad-CAM at T = {n + 1}",
+                                                  lambda: gen._cams(module, feats, coords))  # fmt: skip
+        module.to("cpu")
+        torch.cuda.empty_cache()
+    return dict(launches=launches, slides=slides, checks=checks)
+
+
 def _timed(fn) -> float:
     """Seconds of one synchronised call of ``fn``."""
     import torch
@@ -2002,6 +2415,8 @@ def main() -> None:
     trained = _timed_phase("7 train", phase_train, card)
     _timed_phase("8 crossval", phase_crossval, card)
     titan = _timed_phase("9 titan", phase_titan, card)
+    _timed_phase("10 statistics", phase_statistics, card)
+    heatmaps = _timed_phase("11 heatmaps", phase_heatmaps, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
@@ -2064,6 +2479,7 @@ def main() -> None:
                 "bound_ms": flash_rows[name]["bound_ms"],
                 "bound_by": flash_rows[name]["bound_by"],
                 "library_ms": flash_rows[name]["library_ms"],
+                "heatmaps_launches": heatmaps["launches"][counter],  # phase 11's Grad-CAM
             } | ({"bound_f32_ms": flash_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in flash_rows[name] else {})
             for name, replaces, counter in (
                 ("flash_mha", "stamp_tpu/ops/flash_attention.py:307", "FLASH_MHA_LAUNCHES"),
@@ -2084,11 +2500,12 @@ def main() -> None:
                 "bound_ms": bwd_rows[name]["bound_ms"],
                 "bound_by": bwd_rows[name]["bound_by"],
                 "library_ms": bwd_rows[name]["library_ms"],
+                "heatmaps_launches": heatmaps["launches"][counter],  # phase 11's Grad-CAM
             } | ({"bound_f32_ms": bwd_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in bwd_rows[name] else {})
-            for name, replaces in (
-                ("flash_mha_bwd", "stamp_tpu/ops/flash_attention.py:236"),
-                ("flash_alibi_mha_bwd", "stamp_tpu/ops/flash_attention.py:867"),
-                ("dist_weighted_sum", "stamp_tpu/ops/flash_attention.py:702"),
+            for name, replaces, counter in (
+                ("flash_mha_bwd", "stamp_tpu/ops/flash_attention.py:236", "FLASH_MHA_BWD_LAUNCHES"),
+                ("flash_alibi_mha_bwd", "stamp_tpu/ops/flash_attention.py:867", "FLASH_ALIBI_MHA_BWD_LAUNCHES"),
+                ("dist_weighted_sum", "stamp_tpu/ops/flash_attention.py:702", "DIST_WEIGHTED_SUM_LAUNCHES"),
             )
         ),
         {

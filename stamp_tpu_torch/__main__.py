@@ -4,9 +4,10 @@ The argument surface and the YAML schema (``StampConfig``, the port's copy
 of ``stamp_tpu/utils/config.py``) are those of ``python -m stamp_tpu``.
 Ported so far: ``init``, ``config``, ``preprocess`` (the ImageViT
 extractors, bf16 and int8), ``encode_slides`` and ``encode_patients`` (the
-TITAN encoder), ``train`` and ``crossval`` (the tile-level ``vit`` backbone)
-and ``deploy`` (tile-level ViT checkpoints); every other subcommand exits
-non-zero and names the JAX package's command.  As in the JAX CLI,
+TITAN encoder), ``train`` and ``crossval`` (the tile-level ``vit`` backbone),
+``deploy`` and ``heatmaps`` (tile-level ViT checkpoints) and
+``statistics``; ``export_ckpt`` exits non-zero and names the JAX package's
+command.  As in the JAX CLI,
 ``advanced_config.seed`` seeds the run (``utils.seed.Seed``) before any
 command runs.
 """
@@ -162,6 +163,37 @@ def _run_crossval(config, section) -> None:
     categorical_crossval_(config=section, advanced=advanced, device=resolve_device(advanced.accelerator))
 
 
+def _run_statistics(section) -> None:
+    from stamp_tpu_torch.statistics import compute_stats_
+
+    compute_stats_(
+        task=section.task,
+        output_dir=section.output_dir,
+        pred_csvs=section.pred_csvs,
+        ground_truth_label=section.ground_truth_label,
+        true_class=section.true_class,
+        time_label=section.time_label,
+        status_label=section.status_label,
+    )
+
+
+def _run_heatmaps(section) -> None:
+    from stamp_tpu_torch.heatmaps.generate import heatmaps_
+
+    heatmaps_(
+        feature_dir=section.feature_dir,
+        wsi_dir=section.wsi_dir,
+        checkpoint_path=section.checkpoint_path,
+        output_dir=section.output_dir,
+        slide_paths=section.slide_paths,
+        device=section.device,
+        topk=section.topk,
+        bottomk=section.bottomk,
+        default_slide_mpp=section.default_slide_mpp,
+        opacity=section.opacity,
+    )
+
+
 # command → (config section, runner(config, section))
 _RUNNERS = {
     "preprocess": ("preprocessing", lambda config, section: _run_preprocess(section)),
@@ -170,6 +202,8 @@ _RUNNERS = {
     "train": ("training", _run_train),
     "crossval": ("crossval", _run_crossval),
     "deploy": ("deployment", lambda config, section: _run_deploy(section)),
+    "statistics": ("statistics", lambda config, section: _run_statistics(section)),
+    "heatmaps": ("heatmaps", lambda config, section: _run_heatmaps(section)),
 }
 # commands that take advanced_config (a default one when the YAML has none)
 _NEEDS_ADVANCED = {"train", "crossval"}

@@ -12,10 +12,11 @@ stratified shuffle split's ``_approximate_mode`` allocation and
 ``StratifiedKFold``'s round-robin per-class allocation.
 ``tests/test_torch_splits.py`` holds them to scikit-learn.
 
-The algorithms follow scikit-learn's ``sklearn/model_selection/_split.py``,
-``sklearn/utils/extmath.py`` (``_approximate_mode``) and
-``sklearn/metrics/_ranking.py``.  scikit-learn is distributed under the
-BSD 3-Clause License, Copyright (c) 2007-2024 The scikit-learn developers.
+The algorithms follow scikit-learn's ``sklearn/model_selection/_split.py``
+and ``sklearn/utils/extmath.py`` (``_approximate_mode``); ``roc_auc_score``
+is imported from ``statistics/metrics.py``, with the other metrics.
+scikit-learn is distributed under the BSD 3-Clause License, Copyright (c)
+2007-2024 The scikit-learn developers.
 """
 
 from __future__ import annotations
@@ -26,9 +27,9 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["KFold", "StratifiedKFold", "roc_auc_score", "train_test_split"]
+from stamp_tpu_torch.statistics.metrics import roc_auc_score
 
-_trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2 names it trapz
+__all__ = ["KFold", "StratifiedKFold", "roc_auc_score", "train_test_split"]
 
 
 def _approximate_mode(class_counts: np.ndarray, n_draws: int, rng: np.random.RandomState) -> np.ndarray:
@@ -187,49 +188,3 @@ class StratifiedKFold(KFold):
             test_folds[y_encoded == k] = folds_for_class
         for i in range(self.n_splits):
             yield test_folds == i
-
-
-def _binary_roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
-    """Area under the ROC curve of 0/1 labels (scikit-learn's
-    ``_binary_roc_auc_score``: the curve through each distinct threshold,
-    collinear points dropped, trapezoids in f64)."""
-    if len(np.unique(y_true)) != 2:
-        return float("nan")
-    order = np.argsort(y_score, kind="mergesort")[::-1]
-    y_score = y_score[order]
-    y_true = y_true[order]
-    distinct = np.where(np.diff(y_score))[0]
-    threshold_idxs = np.r_[distinct, y_true.size - 1]
-    tps = np.cumsum(y_true.astype(np.float64))[threshold_idxs]
-    fps = 1 + threshold_idxs.astype(np.float64) - tps
-    if fps.shape[0] > 2:
-        keep = np.where(np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True])[0]
-        fps, tps = fps[keep], tps[keep]
-    fpr = np.r_[0.0, fps] / fps[-1]
-    tpr = np.r_[0.0, tps] / tps[-1]
-    return float(_trapezoid(tpr, fpr))
-
-
-def roc_auc_score(
-    y_true: Sequence[Any], y_score: np.ndarray, *, multi_class: str = "raise", average: str = "macro"
-) -> float:
-    """scikit-learn's ``roc_auc_score`` for a binary ``y_true`` with the
-    positive class's scores [N], or a multiclass one with class
-    probabilities [N, C] and ``multi_class="ovr", average="macro"`` (the
-    mean of the one-vs-rest AUCs).  Raises where scikit-learn raises for
-    these inputs."""
-    y_true = np.asarray(y_true)
-    y_score = np.asarray(y_score)
-    classes = np.unique(y_true)
-    if len(classes) > 2 or (y_score.ndim == 2 and y_score.shape[1] > 2):
-        if multi_class != "ovr" or average != "macro":
-            raise ValueError("multiclass ROC AUC is implemented for multi_class='ovr', average='macro'")
-        if y_score.ndim != 2:
-            raise ValueError(f"`y_score` needs to be of shape (n_samples, n_classes), got {y_score.shape}")
-        if not np.allclose(1, y_score.sum(axis=1)):
-            raise ValueError("Target scores need to be probabilities for multiclass roc_auc")
-        if len(classes) != y_score.shape[1]:
-            raise ValueError("Number of classes in y_true not equal to the number of columns in 'y_score'")
-        scores = [_binary_roc_auc((y_true == c).astype(int), y_score[:, i]) for i, c in enumerate(classes)]
-        return float(np.mean(scores))
-    return _binary_roc_auc((y_true == classes[1]).astype(int), y_score.reshape(-1))

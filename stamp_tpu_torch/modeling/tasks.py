@@ -221,7 +221,7 @@ class LitTileClassifier(TaskModel):
         return weighted_cross_entropy(outputs, targets, torch.from_numpy(self.class_weights).to(outputs.device))
 
     def validation_metrics(self, outputs, targets) -> dict[str, float]:
-        from stamp_tpu_torch.modeling.splits import roc_auc_score
+        from stamp_tpu_torch.statistics.metrics import roc_auc_score
 
         logits = np.concatenate(outputs)
         t = np.concatenate(targets)

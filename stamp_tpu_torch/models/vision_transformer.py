@@ -33,9 +33,17 @@ dropout), ALiBi always does; each ALiBi block updates its Welford running
 mean once per training forward, under ``no_grad``, from the mean pairwise
 distance of the bag (streamed on the flash path, dense on the einsum path;
 the CLS token at (0, 0) counts as a tile, as in the JAX module) and uses the
-updated mean in the same forward.  ``sow_weights=True`` (attention maps for
-heatmaps) raises, and the JAX module's ``alibi_mask`` (which its
-``VisionTransformer`` never sets) is not ported.
+updated mean in the same forward.  The JAX module's ``alibi_mask`` (which
+its ``VisionTransformer`` never sets) is not ported.
+
+What the JAX module sows into ``intermediates`` for heatmaps
+(``stamp_tpu/models/vision_transformer.py:78-88, 250-259``) the port puts
+into a dict the caller passes as ``intermediates``: per block
+``intermediates["block_{i}"]`` holds ``attn_q`` and ``attn_k`` ([B, H, T,
+d], always) and, with ``sow_weights=True``, ``attn_weights`` ([B, H, T,
+T], the masked softmax; for ALiBi the softmax before the distance term).
+The output takes the same path with or without them.  Without a dict the
+forward is the plain one.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from torch import nn
 from stamp_tpu_torch.ops import flash_attention
 from stamp_tpu_torch.ops.attention import (
     alibi_attention,
+    attention_weights,
     dropout,
     mean_pairwise_distance,
     multi_head_attention,
@@ -105,9 +114,15 @@ class MultiHeadSelfAttention(nn.Module):
         key_mask: torch.Tensor | None,
         train: bool = False,
         generator: torch.Generator | None = None,
+        store: dict | None = None,
+        sow_weights: bool = False,
     ) -> torch.Tensor:
         q, k, v = (_to_heads(t, self.num_heads) for t in self.in_proj(x).chunk(3, dim=-1))
         b, h, s, d = q.shape
+        if store is not None:
+            store["attn_q"], store["attn_k"] = q, k
+            if sow_weights:
+                store["attn_weights"] = attention_weights(q, k, key_mask)
         # the flash kernels have no attention dropout: in training they are
         # taken only when dropout is off (the MIL default)
         if _use_flash(s) and not (train and self.dropout > 0.0):
@@ -141,9 +156,15 @@ class MultiHeadALiBi(nn.Module):
         coords: torch.Tensor,  # [B, T, 2] µm
         key_mask: torch.Tensor | None,
         train: bool = False,
+        store: dict | None = None,
+        sow_weights: bool = False,
     ) -> torch.Tensor:
         q, k, v = (_to_heads(proj(x), self.num_heads) for proj in (self.q_proj, self.k_proj, self.v_proj))
         b, h, s, d = q.shape
+        if store is not None:
+            store["attn_q"], store["attn_k"] = q, k
+            if sow_weights:  # not a distribution with the distance term: the softmax part only
+                store["attn_weights"] = attention_weights(q, k, key_mask)
         use_flash = _use_flash(s)
         if not use_flash:
             distances = pairwise_distances(coords, coords)  # [B, T, T]
@@ -210,12 +231,15 @@ class TransformerBlock(nn.Module):
         key_mask: torch.Tensor | None,
         train: bool = False,
         generator: torch.Generator | None = None,
+        store: dict | None = None,
+        sow_weights: bool = False,
     ) -> torch.Tensor:
         h = self.attn_norm(x)
+        collect = dict(store=store, sow_weights=sow_weights)
         if self.use_alibi:
-            attn_out = self.mhsa(h, coords=coords, key_mask=key_mask, train=train)
+            attn_out = self.mhsa(h, coords=coords, key_mask=key_mask, train=train, **collect)
         else:
-            attn_out = self.mhsa(h, key_mask=key_mask, train=train, generator=generator)
+            attn_out = self.mhsa(h, key_mask=key_mask, train=train, generator=generator, **collect)
         x = attn_out + x
         return self.ff(x, generator=generator) + x
 
@@ -258,13 +282,12 @@ class VisionTransformer(nn.Module):
         coords: torch.Tensor,  # [B, T, 2] µm
         key_mask: torch.Tensor | None = None,  # [B, T] True = valid tile
         train: bool = False,
-        sow_weights: bool = False,
+        sow_weights: bool = False,  # attention maps into ``intermediates``
         generator: torch.Generator | None = None,  # training: the dropout draws
+        intermediates: dict | None = None,  # per block: q, k (and the maps)
     ) -> torch.Tensor:
-        if sow_weights:
-            raise NotImplementedError(
-                "attention maps (heatmaps) are not ported yet; run `python -m stamp_tpu heatmaps`"
-            )
+        if sow_weights and intermediates is None:
+            raise ValueError("sow_weights collects attention maps into `intermediates`; pass a dict")
         if train and self.dropout > 0.0 and generator is None:
             raise ValueError("training with dropout draws its masks from a generator; pass one")
         if _use_flash(bags.shape[1] + 1):  # a head the flash kernels cannot take raises before any work
@@ -277,7 +300,11 @@ class VisionTransformer(nn.Module):
         if key_mask is not None:
             key_mask = torch.cat([key_mask.new_ones(b, 1), key_mask], dim=1)
         for i in range(self.n_layers):
-            x = getattr(self, f"block_{i}")(x, coords=coords, key_mask=key_mask, train=train, generator=generator)
+            store = None if intermediates is None else intermediates.setdefault(f"block_{i}", {})
+            x = getattr(self, f"block_{i}")(
+                x, coords=coords, key_mask=key_mask, train=train, generator=generator, store=store,
+                sow_weights=sow_weights,
+            )  # fmt: skip
         return self.head(self.norm(x)[:, 0])
 
     @staticmethod

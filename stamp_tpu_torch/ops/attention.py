@@ -48,6 +48,12 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+def attention_weights(q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor | None) -> torch.Tensor:
+    """The masked softmax of q·kᵀ/√d, [B, H, Q, K] (``key_mask`` [B, K])."""
+    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    return masked_softmax(logits, key_mask[:, None, None, :] if key_mask is not None else None)
+
+
 def multi_head_attention(
     q: torch.Tensor,  # [B, H, Q, D]
     k: torch.Tensor,  # [B, H, K, D]
@@ -58,9 +64,7 @@ def multi_head_attention(
     generator: torch.Generator | None = None,  # training: dropout on the weights
 ) -> torch.Tensor:
     """Scaled-dot-product attention. Returns [B, H, Q, D]."""
-    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    mask = key_mask[:, None, None, :] if key_mask is not None else None
-    weights = dropout(masked_softmax(logits, mask), dropout_rate, generator)
+    weights = dropout(attention_weights(q, k, key_mask), dropout_rate, generator)
     return torch.matmul(weights, v)
 
 
@@ -102,9 +106,7 @@ def alibi_attention(
     """Spatial-ALiBi attention with the reference's post-softmax bias:
     weights = softmax(QKᵀ/√d) − scaled_distances.  (The JAX function's
     ``alibi_mask``, which no caller of the port passes, is not ported.)"""
-    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    mask = key_mask[:, None, None, :] if key_mask is not None else None
-    weights = masked_softmax(logits, mask) - scaled_distances
-    if mask is not None:
-        weights = weights.masked_fill(~mask, 0.0)
+    weights = attention_weights(q, k, key_mask) - scaled_distances
+    if key_mask is not None:
+        weights = weights.masked_fill(~key_mask[:, None, None, :], 0.0)
     return torch.matmul(weights, v)

@@ -210,7 +210,43 @@ def test_auto_device_raises_without_cuda(synthetic_slide, tmp_path, stamp_logger
     assert not list((tmp_path / "out").rglob("*.h5"))
 
 
-@pytest.mark.parametrize("command", ["statistics", "heatmaps", "export_ckpt"])
+@pytest.mark.parametrize("command", ["statistics", "heatmaps"])
+def test_ported_subcommands_run(command, tmp_path, stamp_logger_handlers):
+    """``python -m stamp_tpu_torch -c config.yaml statistics | heatmaps`` on
+    the CPU (with matplotlib, which this machine has: the figures too)."""
+    import heatmaps_util
+    import pandas as pd
+
+    from stamp_tpu_torch.__main__ import main
+
+    out = tmp_path / "out"
+    if command == "statistics":
+        rng = np.random.default_rng(0)
+        probs = rng.random(30)
+        csv = tmp_path / "patient-preds.csv"
+        pd.DataFrame({"PATIENT": [f"p{i}" for i in range(30)], "gt": np.where(rng.random(30) < probs, "b", "a"),
+                      "gt_a": 1 - probs, "gt_b": probs}).to_csv(csv, index=False)  # fmt: skip
+        section = {"output_dir": str(out), "pred_csvs": [str(csv)], "ground_truth_label": "gt", "true_class": "b"}
+    else:
+        wsi_dir, feat_dir = heatmaps_util.write_slide(tmp_path)
+        ckpt = heatmaps_util.write_checkpoint(tmp_path / "model.ckpt", "classification")
+        section = {"output_dir": str(out), "feature_dir": str(feat_dir), "wsi_dir": str(wsi_dir),
+                   "checkpoint_path": str(ckpt), "device": "cpu", "topk": 1,
+                   "default_slide_mpp": heatmaps_util.SLIDE_MPP}  # fmt: skip
+    config = tmp_path / "config.yaml"
+    config.write_text(yaml.safe_dump({command: section}))
+    main(["-c", str(config), command])
+    written = {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()}
+    if command == "statistics":
+        assert {"gt_categorical-stats_individual.csv", "gt_categorical-stats_aggregated.csv",
+                "roc-curve_gt=b.svg", "pr-curve_gt=b.svg"} <= written  # fmt: skip
+    else:
+        assert {"slide1/raw/slide1-classmap.png", "slide1/raw/thumbnail-slide1.png",
+                "slide1/plots/overview-slide1.png", "slide1/plots/overlay-slide1-a.png"} <= written  # fmt: skip
+        assert len([w for w in written if "/tiles/" in w]) == 1
+
+
+@pytest.mark.parametrize("command", ["export_ckpt"])
 def test_unported_subcommands_exit_nonzero(command, tmp_path, stamp_logger_handlers, caplog):
     from stamp_tpu_torch.__main__ import main
 

@@ -100,13 +100,44 @@ def test_variables_round_trip_exactly(use_alibi):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("use_alibi", [False, True], ids=["vit", "alibi"])
+def test_collected_attention_matches_jax(use_alibi):
+    """What the JAX module sows for heatmaps (per layer q, k and, with
+    ``sow_weights``, the masked softmax maps) equals what the port collects
+    into ``intermediates``, and the logits stay the JAX module's."""
+    bags, coords, key_mask = _bag()
+    variables = _jax_variables(use_alibi, bags, coords, key_mask)
+    out, state = JaxViT(**_DIMS, use_alibi=use_alibi).apply(
+        variables, jnp.asarray(bags), coords=jnp.asarray(coords), key_mask=jnp.asarray(key_mask),
+        sow_weights=True, mutable=["intermediates"],
+    )  # fmt: skip
+    model = _torch_model(use_alibi, variables)
+    inter: dict = {}
+    with torch.inference_mode():
+        got = model(torch.from_numpy(bags), coords=torch.from_numpy(coords), key_mask=torch.from_numpy(key_mask),
+                    sow_weights=True, intermediates=inter)  # fmt: skip
+    np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=ATOL, rtol=0)
+    assert sorted(inter) == [f"block_{i}" for i in range(_DIMS["n_layers"])]
+    for block, collected in inter.items():
+        sown = state["intermediates"][block]["mhsa"]
+        assert sorted(collected) == ["attn_k", "attn_q", "attn_weights"]
+        for name, value in collected.items():
+            np.testing.assert_allclose(value.numpy(), np.asarray(sown[name][0]), atol=ATOL, rtol=0)
+    # q and k alone without sow_weights
+    inter = {}
+    with torch.inference_mode():
+        model(torch.from_numpy(bags), coords=torch.from_numpy(coords), key_mask=torch.from_numpy(key_mask),
+              intermediates=inter)  # fmt: skip
+    assert all(sorted(c) == ["attn_k", "attn_q"] for c in inter.values())
+
+
 def test_inference_only():
-    """Attention maps (heatmaps) are not ported and raise; the training
-    forward runs (tests/test_torch_train.py holds it against the JAX module)
-    and updates the ALiBi statistics once."""
+    """Attention maps need a dict to go into (``sow_weights`` without one
+    raises); the training forward runs (tests/test_torch_train.py holds it
+    against the JAX module) and updates the ALiBi statistics once."""
     model = torch_vit.VisionTransformer(**_DIMS, use_alibi=True)
     bags, coords, key_mask = (torch.from_numpy(a) for a in _bag())
-    with pytest.raises(NotImplementedError, match="heatmaps"):
+    with pytest.raises(ValueError, match="intermediates"):
         model(bags, coords=coords, key_mask=key_mask, sow_weights=True)
     out = model(bags, coords=coords, key_mask=key_mask, train=True, generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(out).all() and out.requires_grad
