@@ -141,8 +141,33 @@ Phases (each prints at least one line; any failure exits non-zero):
    the 20,000-tile ALiBi slide's Grad-CAM (the forward's kernels, the
    distance-weighted sum's, each backward kernel, the rest, and the host).
 
+12. model zoo: the other backbones through the CLI in-process at the widths
+   of ``modeling/config.py`` (``mlp`` 512 wide, 2 layers; ``trans_mil`` 512;
+   ``barspoon`` 512, 8 + 8 heads, 2 + 2 layers, feed-forward 2,048; random
+   weights, synthetic features from fixed seeds), with the TF32 flags as
+   PyTorch leaves them for the CLI.  12a: ``encode_slides`` (TITAN) on 24
+   CONCH1.5 slides of 1,500 to 6,000 tiles (12 ``flash_alibi2d_mha``
+   launches a slide of 2,048 tiles or more, none below) and
+   ``encode_patients`` (two slides a patient); ``train`` and ``deploy`` of
+   ``mlp`` and ``linear`` on the slide features and of ``mlp`` on the
+   patient features, and the slide-level ``mlp`` deployed on the patient
+   features.  12b: on phase 7's cohort, ``crossval`` (2 folds, 2 epochs,
+   ``bag_size`` 512) and ``deploy`` (fold 0, full bags) of ``trans_mil`` and
+   of multi-target ``barspoon`` (targets of 2 and 3 classes), and
+   ``statistics`` of the multi-target CSV; a training step at bag 512 and a
+   forward at 12,000 tiles timed.  12c: ``heatmaps`` of phase 11's
+   6,000-tile slide with both fold-0 checkpoints, one file tree per
+   target.  12d: ``export_ckpt`` to the Lightning format, ``deploy`` from
+   it (the CSV the npz deploy's to 1e-6) and ``export_ckpt`` back (bitwise).
+   No launch of rows 4–8 anywhere in phase 12.  For one patient per
+   backbone and for the 6,000-tile cams, the card against the port's own
+   CPU forward on the same checkpoint and features (``ZOO_PROB_TOL``,
+   ``ZOO_CAM_TOL``; barspoon's cams in f64, with the f32 distances and the
+   f32 cam's one-ulp sensitivity printed); a ``torch.profiler`` split of
+   each backbone's training step and 12,000-tile forward.
+
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
-11 and print their wall time.  The line before the last is ``{"kernels":
+11, 12 and print their wall time.  The line before the last is ``{"kernels":
 [...]}``: each kernel's launches on its main path (phase 4, 4b, 6, 7 or 9;
 the MIL forward's, phases 6 and 7; rows 4–8 also ``heatmaps_launches``,
 phase 11's), its
@@ -253,6 +278,22 @@ HEATMAP_TOPK = 8
 # masking or indexing fault (order one).  The ALiBi cam is mostly the
 # distance term's, so at T = 20,001 the softmax branch is also held alone
 CAM_TOL = 1e-2
+
+# model zoo (phase 12): 24 CONCH1.5 slides of 1,500 to 6,000 tiles for
+# TITAN, then the other backbones at the widths of modeling/config.py
+ZOO_SLIDE_TILES = tuple(1500 + 4500 * i // 23 for i in range(24))
+ZOO_EPOCHS = 2
+ZOO_TARGETS = {"subtype": ["a", "b"], "grade": ["g1", "g2", "g3"]}
+# the card against the port's own CPU forward on the same checkpoint and
+# features: class probabilities (absolute, f32 on both) and the pre-softmax
+# cams (of max |CPU|; TransMIL's in f32, barspoon's in f64 on both devices:
+# its f32 cam moves by ~1e-3 when the features move by one ulp, so two
+# correct f32 devices differ by that much, and the f32 distances are
+# printed beside).  A masking, indexing or TF32 fault shows at 1e-3 and more.
+ZOO_PROB_TOL = 1e-4
+ZOO_CAM_TOL = 1e-3
+ZOO_DEVICE = "cuda:0"
+ZOO_WIDTH = 512  # barspoon's d_model and the other backbones' width (modeling/config.py)
 
 
 def _fail(msg: str) -> None:
@@ -1659,7 +1700,7 @@ def _whole_bag(path: Path, dev) -> tuple:
     import torch
 
     from stamp_tpu_torch.io.h5 import read_feats
-    from stamp_tpu_torch.modeling.deploy import _bucket_size
+    from stamp_tpu_torch.modeling.train import _bucket_size
 
     feats, info = read_feats(path)
     n = len(feats)
@@ -2370,6 +2411,453 @@ def phase_heatmaps(card: str) -> dict:
     return dict(launches=launches, slides=slides, checks=checks)
 
 
+def _zoo_run(config: Path, command: str, *, allowed: tuple[str, ...] = ()) -> dict:
+    """``python -m stamp_tpu_torch -c config command`` in-process with every
+    launch count set to 0 before it: (wall s, the counts).  Fails if a
+    counter outside ``allowed`` grew."""
+    import torch
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    counters = (*_COUNTERS, "FLASH_ALIBI2D_LAUNCHES")
+    for name in counters:
+        setattr(attn, name, 0)
+    t0 = time.perf_counter()
+    main(["-c", str(config), command])  # exits non-zero on failure
+    torch.cuda.synchronize()
+    launches = {name: getattr(attn, name) for name in counters}
+    if stray := {k: v for k, v in launches.items() if v and k not in allowed}:
+        _fail(f"{config.name} {command}: kernels of rows 4–9 launched where none should: {stray}")
+    return dict(wall_s=time.perf_counter() - t0, launches=launches)
+
+
+def _yaml(path: Path, body: dict) -> Path:
+    import yaml
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(body))
+    return path
+
+
+def _probs_ok(csv: Path, columns: list[str], rows: int):
+    """The CSV as a DataFrame; fails unless its probability ``columns`` have
+    ``rows`` rows, finite, each head's summing to 1."""
+    import numpy as np
+    import pandas as pd
+
+    df = pd.read_csv(csv)
+    probs = df[columns].to_numpy(float)
+    heads = {c.rsplit("_", 1)[0] for c in columns}
+    sums = [df[[c for c in columns if c.rsplit("_", 1)[0] == h]].to_numpy(float).sum(axis=1) for h in heads]
+    if len(df) != rows or not np.isfinite(probs).all() or not np.allclose(sums, 1.0, atol=1e-5):
+        _fail(f"{csv}: {len(df)} rows (expected {rows}), probabilities {probs}")
+    return df
+
+
+def _device_pair(ckpt: Path):
+    """(task model with its module on the card, a CPU copy of the module)
+    of one checkpoint."""
+    import copy
+
+    import torch
+
+    from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
+    from stamp_tpu_torch.models import weights
+
+    model, variables = load_model_from_ckpt(ckpt)
+    weights.load_variables_(model.module, variables).eval()
+    cpu = copy.deepcopy(model.module)
+    model.module.to(torch.device(ZOO_DEVICE))
+    return model, cpu
+
+
+def _zoo_probs(model, module, batch, device):
+    """The class probabilities (every head, concatenated) of one host batch
+    through ``module`` on ``device``, padded and masked as deploy does."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.modeling.train import _bucket_size, _pad_tile_batch, forward_batch, host_outputs
+
+    key_mask = None
+    if model.pads_bags:
+        batch, key_mask = _pad_tile_batch(batch, _bucket_size(batch[0].shape[1]))
+    saved, model.module = model.module, module
+    try:
+        with torch.inference_mode():
+            out = host_outputs(forward_batch(model, batch, key_mask, device))
+    finally:
+        model.module = saved
+    exps = [np.exp(v - v.max(-1, keepdims=True)) for v in (out.values() if isinstance(out, dict) else [out])]
+    return np.concatenate([e / e.sum(-1, keepdims=True) for e in exps], axis=-1)
+
+
+def _card_vs_cpu(model, cpu_module, batch) -> float:
+    """max |Δ| of the class probabilities of one host batch, on the card and
+    on the CPU."""
+    import numpy as np
+    import torch
+
+    card = _zoo_probs(model, model.module, batch, torch.device(ZOO_DEVICE))
+    return float(np.abs(card - _zoo_probs(model, cpu_module, batch, torch.device("cpu"))).max())
+
+
+def _write_zoo_slides(root: Path) -> None:
+    """CONCH1.5 tile features of ``ZOO_SLIDE_TILES`` (768 wide, fp16, the
+    port's writer), a slide table per level (each slide its own patient;
+    two slides a patient) and their clini tables (alternating labels)."""
+    import numpy as np
+    import pandas as pd
+
+    from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+
+    rng = np.random.default_rng(12)
+    slides = [f"zoo-{i:02d}" for i in range(len(ZOO_SLIDE_TILES))]
+    for name, n in zip(slides, ZOO_SLIDE_TILES):
+        write_tile_feats_atomic(
+            output_path=root / "features" / f"{name}.h5",
+            feats=rng.standard_normal((n, 768), dtype=np.float32).astype(np.float16),
+            coords_um=(_tissue_grid(n) * 256.0).astype(np.float32), extractor_id="conch1_5",
+            tile_size_um=256.0, tile_size_px=224, code_hash="chip-smoke",
+        )  # fmt: skip
+    patients = [f"zoo-patient-{i // 2:02d}" for i in range(len(slides))]
+    labels = ["neg", "pos"]
+    pd.DataFrame({"PATIENT": slides, "FILENAME": [f"{s}.h5" for s in slides]}).to_csv(root / "slide.csv", index=False)
+    pd.DataFrame({"PATIENT": slides, "label": [labels[i % 2] for i in range(len(slides))]}).to_csv(
+        root / "clini-slide.csv", index=False
+    )
+    pd.DataFrame({"PATIENT": patients, "FILENAME": [f"{s}.h5" for s in slides]}).to_csv(
+        root / "patients.csv", index=False
+    )
+    unique = sorted(set(patients))
+    pd.DataFrame({"PATIENT": unique, "label": [labels[i % 2] for i in range(len(unique))]}).to_csv(
+        root / "clini-patient.csv", index=False
+    )
+
+
+def _zoo_slide_and_patient_level(card: str, root: Path) -> dict:
+    """12a: TITAN ``encode_slides`` and ``encode_patients``, then ``train``
+    and ``deploy`` of ``mlp`` and ``linear`` on the slide features, of
+    ``mlp`` on the patient features, and the slide-level ``mlp`` deployed on
+    the patient features."""
+    import numpy as np
+
+    _write_zoo_slides(root)
+    os.environ["STAMP_RANDOM_WEIGHTS"] = "1"
+    result: dict = {}
+    for command, section in (("encode_slides", "slide_encoding"), ("encode_patients", "patient_encoding")):
+        fields = {"encoder": "titan", "output_dir": str(root / "encoded"), "feat_dir": str(root / "features"),
+                  "device": ZOO_DEVICE, "generate_hash": False}  # fmt: skip
+        if command == "encode_patients":
+            fields["slide_table"] = str(root / "patients.csv")
+        run = _zoo_run(_yaml(root / f"{command}.yaml", {section: fields}), command,
+                       allowed=("FLASH_ALIBI2D_LAUNCHES",))  # fmt: skip
+        big = sum(n >= 2048 for n in ZOO_SLIDE_TILES) if command == "encode_slides" else len(ZOO_SLIDE_TILES) // 2
+        if run["launches"]["FLASH_ALIBI2D_LAUNCHES"] != TITAN_LAYERS * big:
+            _fail(f"{command}: flash_alibi2d_mha launches {run['launches']}, expected {TITAN_LAYERS} × {big}")
+        result[command] = dict(wall_s=run["wall_s"], flash_alibi2d_launches=TITAN_LAYERS * big)
+    slide_feats, patient_feats = root / "encoded" / "titan-slide", root / "encoded" / "titan-pat"
+    n_slides, n_patients = len(ZOO_SLIDE_TILES), len(ZOO_SLIDE_TILES) // 2
+
+    def train_and_deploy(name: str, model_name: str, feats: Path, clini: Path, slide_table: Path, rows: int) -> Path:
+        advanced = {"model_name": model_name, "batch_size": 4, "max_epochs": ZOO_EPOCHS, "seed": 0,
+                    "accelerator": ZOO_DEVICE, "num_workers": 4, "model_params": {}}  # fmt: skip
+        train = _zoo_run(_yaml(root / f"{name}-train.yaml", {"training": {
+            "output_dir": str(root / name), "clini_table": str(clini), "slide_table": str(slide_table),
+            "feature_dir": str(feats), "ground_truth_label": "label", "task": "classification",
+        }, "advanced_config": advanced}), "train")  # fmt: skip
+        deploy = _deploy_zoo(root, f"{name}-deploy", root / name / "model.ckpt", feats, clini, slide_table, "label")
+        _probs_ok(deploy["csv"], ["label_neg", "label_pos"], rows)
+        result[name] = dict(train_s=train["wall_s"], deploy_s=deploy["wall_s"])
+        return root / name / "model.ckpt"
+
+    mlp = train_and_deploy("slide-mlp", "mlp", slide_feats, root / "clini-slide.csv", root / "slide.csv", n_slides)
+    linear = train_and_deploy("slide-linear", "linear", slide_feats, root / "clini-slide.csv", root / "slide.csv",
+                              n_slides)  # fmt: skip
+    patient_mlp = train_and_deploy("patient-mlp", "mlp", patient_feats, root / "clini-patient.csv",
+                                   root / "patients.csv", n_patients)  # fmt: skip
+    across = _deploy_zoo(root, "slide-mlp-on-patients", mlp, patient_feats, root / "clini-patient.csv",
+                         root / "patients.csv", "label")  # fmt: skip
+    _probs_ok(across["csv"], ["label_neg", "label_pos"], n_patients)
+    result["slide-mlp-on-patients"] = dict(deploy_s=across["wall_s"])
+
+    from stamp_tpu_torch.io.h5 import read_h5
+
+    for name, ckpt, path in (("slide-mlp", mlp, slide_feats / "zoo-23.h5"), ("slide-linear", linear, slide_feats / "zoo-23.h5"),
+                             ("patient-mlp", patient_mlp, patient_feats / "zoo-patient-11.h5")):  # fmt: skip
+        model, cpu = _device_pair(ckpt)
+        feats = read_h5(path)[0]["feats"].astype(np.float32)[None]
+        diff = _card_vs_cpu(model, cpu, (feats, None))
+        result[name] |= dict(card_vs_cpu_prob_max_abs_diff=diff)
+        if not diff <= ZOO_PROB_TOL:
+            _fail(f"{name}: card against CPU probabilities {diff} > {ZOO_PROB_TOL}")
+    print(f"[12a zoo slide/patient] {json.dumps(result)} on {card}")
+    return result
+
+
+def _deploy_zoo(root: Path, name: str, ckpt: Path, feats: Path, clini: Path, slide_table: Path, label) -> dict:
+    run = _zoo_run(_yaml(root / f"{name}.yaml", {"deployment": {
+        "output_dir": str(root / name), "checkpoint_paths": [str(ckpt)], "clini_table": str(clini),
+        "slide_table": str(slide_table), "feature_dir": str(feats), "ground_truth_label": label,
+        "accelerator": ZOO_DEVICE,
+    }}), "deploy")  # fmt: skip
+    return dict(wall_s=run["wall_s"], csv=root / name / "patient-preds.csv")
+
+
+def _write_multi_target_clini(root: Path) -> Path:
+    """Phase 7's twelve patients with ``ZOO_TARGETS``, assigned in each of
+    the two folds the port draws (``KFold``, shuffled, seed 0) so that every
+    class is in both training halves (a fold's head has the classes of its
+    training patients, in both packages)."""
+    import numpy as np
+    import pandas as pd
+
+    from stamp_tpu_torch.modeling.splits import KFold
+
+    patients = np.array([f"pat{i:02d}" for i in range(len(TRAIN_TILES))])
+    values = {target: np.empty(len(patients), object) for target in ZOO_TARGETS}
+    for _, test in KFold(n_splits=2, shuffle=True, random_state=0).split(patients):
+        for target, classes in ZOO_TARGETS.items():
+            values[target][test] = [classes[j % len(classes)] for j in range(len(test))]
+    path = root / "clini-multi.csv"
+    pd.DataFrame({"PATIENT": patients, **values}).to_csv(path, index=False)
+    return path
+
+
+def _zoo_tile_level(card: str, root: Path) -> dict:
+    """12b: ``crossval`` (2 folds, 2 epochs, ``bag_size`` 512) and ``deploy``
+    (fold 0's checkpoint, full bags) of ``trans_mil`` and of multi-target
+    ``barspoon`` on phase 7's cohort, ``statistics`` of the barspoon CSV;
+    no launch of rows 4–8.  The card against the CPU on the 2,100-tile
+    patient, a training step at bag 512 and a forward at 12,000 tiles."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from stamp_tpu_torch.modeling.data import BagDataset
+    from stamp_tpu_torch.modeling.train import forward_batch
+
+    cohort = WORK / "train"  # phase 7's
+    multi_clini = _write_multi_target_clini(root)
+    runs = {
+        "trans_mil": dict(clini=cohort / "clini.csv", label="label", columns=["label_neg", "label_pos"]),
+        "barspoon": dict(clini=multi_clini, label=list(ZOO_TARGETS),
+                         columns=[f"{t}_{c}" for t, classes in ZOO_TARGETS.items() for c in classes]),
+    }  # fmt: skip
+    result: dict = {}
+    for model_name, run in runs.items():
+        out = root / f"{model_name}-crossval"
+        cv = _zoo_run(_yaml(root / f"{model_name}-crossval.yaml", {"crossval": {
+            "output_dir": str(out), "clini_table": str(run["clini"]), "slide_table": str(cohort / "slide.csv"),
+            "feature_dir": str(cohort / "features"), "ground_truth_label": run["label"], "task": "classification",
+            "n_splits": 2,
+        }, "advanced_config": {
+            "model_name": model_name, "max_epochs": ZOO_EPOCHS, "batch_size": 2, "seed": 0, "accelerator": ZOO_DEVICE,
+            "num_workers": 4, "model_params": {},
+        }}), "crossval")  # fmt: skip
+        held_out = sum(len(_probs_ok(out / f"split-{f}" / "patient-preds.csv", run["columns"], 6)) for f in range(2))
+        if held_out != len(TRAIN_TILES):
+            _fail(f"{model_name} crossval: folds export {held_out} patients, expected {len(TRAIN_TILES)}")
+        ckpt = out / "split-0" / "model.ckpt"
+        deploy = _deploy_zoo(root, f"{model_name}-deploy", ckpt, cohort / "features", run["clini"],
+                             cohort / "slide.csv", run["label"])  # fmt: skip
+        df = _probs_ok(deploy["csv"], run["columns"], len(TRAIN_TILES))
+        row = dict(crossval_s=cv["wall_s"], deploy_s=deploy["wall_s"], csv_columns=list(df.columns))
+
+        model, cpu = _device_pair(ckpt)
+        dev = torch.device(ZOO_DEVICE)
+
+        def whole_bag(patient: str):
+            ds = BagDataset(bags=[[cohort / "features" / f"{patient}.h5"]], ground_truths=np.zeros((1, 1)))
+            feats, coords, size, _ = ds[0]
+            return feats[None], coords[None], np.array([size]), None
+
+        row["card_vs_cpu_prob_max_abs_diff"] = _card_vs_cpu(model, cpu, whole_bag("pat00"))
+        if not row["card_vs_cpu_prob_max_abs_diff"] <= ZOO_PROB_TOL:
+            _fail(f"{model_name}: card against CPU probabilities {row} > {ZOO_PROB_TOL}")
+        largest = whole_bag(f"pat{len(TRAIN_TILES) - 1:02d}")  # 12,000 tiles
+        row["deploy_forward_ms_12000_tiles"] = statistics.median(
+            _time_ms(lambda: _zoo_probs(model, model.module, largest, dev), 3)
+        )
+        _profile_forward(card, f"{model_name} deploy forward at 12,000 tiles",
+                         lambda: (None, 1e3 * _timed(lambda: _zoo_probs(model, model.module, largest, dev))),
+                         tag="12b zoo tile")  # fmt: skip
+
+        # one training step at bag 512, batch 2 (forward, loss, backward, update)
+        rng = np.random.default_rng(13)
+        bags = rng.standard_normal((2, 512, UNI2_DIM), dtype=np.float32)
+        coords = (rng.integers(0, 100, (2, 512, 2)) * 256.0).astype(np.float32)
+        if model_name == "barspoon":
+            targets = {t: torch.eye(len(c), device=dev)[:2] for t, c in ZOO_TARGETS.items()}
+        else:
+            targets = torch.eye(2, device=dev)
+        optimizer = model.make_optimizer(model.module.parameters())
+        generator = torch.Generator(dev).manual_seed(0)
+
+        def step():
+            loss = model.loss(forward_batch(model, (bags, coords, None, None), None, dev, train=True,
+                                            generator=generator), targets)  # fmt: skip
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+
+        row["train_step_ms_bag_512"] = statistics.median(_time_ms(step, 5))
+        _profile_forward(card, f"{model_name} training step at bag 512", lambda: (None, 1e3 * _timed(step)),
+                         tag="12b zoo tile")  # fmt: skip
+        model.module.to("cpu")
+        del cpu, optimizer
+        torch.cuda.empty_cache()
+        result[model_name] = row
+        print(f"[12b zoo tile] {model_name} {json.dumps(row)} on {card}")
+
+    stats = _zoo_run(_yaml(root / "statistics.yaml", {"statistics": {
+        "task": "classification", "ground_truth_label": list(ZOO_TARGETS), "output_dir": str(root / "statistics"),
+        "pred_csvs": [str(root / "barspoon-deploy" / "patient-preds.csv")],
+    }}), "statistics")  # fmt: skip
+    for target in ZOO_TARGETS:
+        table = pd.read_csv(root / "statistics" / f"{target}_categorical-stats_individual.csv", index_col=[0, 1])
+        if len(table) != len(ZOO_TARGETS[target]) or not np.isfinite(table["roc_auc_score"].to_numpy(float)).all():
+            _fail(f"statistics of the multi-target CSV, {target}:\n{table}")
+    result["statistics_s"] = stats["wall_s"]
+    return result
+
+
+def _zoo_heatmaps(card: str, root: Path) -> dict:
+    """12c: ``heatmaps`` of phase 11's 6,000-tile slide with 12b's fold-0
+    ``trans_mil`` and multi-target ``barspoon`` checkpoints: one file tree
+    per target, no launch of rows 4–8, the cams on the card against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.heatmaps import generate as gen
+    from stamp_tpu_torch.io.h5 import read_feats
+    from stamp_tpu_torch.models.barspoon import sanitize
+
+    slides = WORK / "heatmaps"  # phase 11's
+    stem = f"slide-{HEATMAP_TILES[1]}"  # 6,000 tiles
+    feats, info = read_feats(slides / "features" / f"{stem}.h5")
+    result: dict = {}
+    for model_name in ("trans_mil", "barspoon"):
+        ckpt = root / f"{model_name}-crossval" / "split-0" / "model.ckpt"
+        out = root / "heatmaps" / model_name
+        run = _zoo_run(_yaml(root / f"{model_name}-heatmaps.yaml", {"heatmaps": {
+            "output_dir": str(out), "feature_dir": str(slides / "features"), "wsi_dir": str(slides / "wsi"),
+            "checkpoint_path": str(ckpt), "slide_paths": [f"{stem}.tif"], "device": ZOO_DEVICE,
+            "default_slide_mpp": HEATMAP_MPP, "topk": HEATMAP_TOPK, "bottomk": HEATMAP_TOPK,
+        }}), "heatmaps")  # fmt: skip
+        targets = ZOO_TARGETS if model_name == "barspoon" else {None: ["neg", "pos"]}
+        raw = {p.name for p in (out / stem / "raw").iterdir()}
+        for target, classes in targets.items():
+            tstem = stem if target is None else f"{stem}-{sanitize(target)}"
+            want = {f"thumbnail-{tstem}.png", f"{tstem}-classmap.png", *(f"raw-overlay-{tstem}-{c}.png" for c in classes)}
+            panels = {r.split("=")[0] for r in raw if r.startswith(f"{tstem}-") and "=" in r}
+            if not want <= raw or panels != {f"{tstem}-{c}" for c in classes}:
+                _fail(f"heatmaps {model_name}: raw/ lacks the set of {tstem}: {sorted(raw)}")
+        tiles = len(list((out / stem / "tiles").iterdir()))
+        if tiles != 2 * HEATMAP_TOPK * len(targets):
+            _fail(f"heatmaps {model_name}: {tiles} tile crops, expected {2 * HEATMAP_TOPK * len(targets)}")
+
+        model, cpu = _device_pair(ckpt)
+        outputs = [(t, i) for t, c in ZOO_TARGETS.items() for i in range(len(c))] if model_name == "barspoon" else None
+        coords = info.coords_um
+
+        def rel(a, b) -> float:
+            return float(np.abs(a - b).max() / np.abs(b).max())
+
+        _, cam = gen._cams(model.module, feats, coords, outputs)
+        _, cpu_cam = gen._cams(cpu, feats, coords, outputs)
+        row = dict(seconds_per_slide=run["wall_s"], tiles=len(feats), cam_rows=len(cam),
+                   finite=bool(np.isfinite(cam).all()), cam_card_vs_cpu_rel_err=rel(cam, cpu_cam))  # fmt: skip
+        err = row["cam_card_vs_cpu_rel_err"]
+        if model_name == "barspoon":
+            # barspoon's f32 cam is ill-conditioned: the CPU's own cam moves
+            # by this much when every feature moves by one ulp, so the card
+            # is held to the CPU in f64 (the same code on both devices), and
+            # the f32 distances are printed
+            # (the first category of each target: the CPU's f64 backward
+            # passes are the slow part of the phase)
+            held = [outputs.index((t, 0)) for t in ZOO_TARGETS]
+            _, nudged = gen._cams(cpu, feats * np.float32(1 + 2**-23), coords, [outputs[i] for i in held])
+            _, cam64 = gen._cams(model.module.double(), feats, coords, [outputs[i] for i in held])
+            _, cpu_cam64 = gen._cams(cpu.double(), feats, coords, [outputs[i] for i in held])
+            row |= dict(cam_f32_cpu_one_ulp_sensitivity=rel(nudged, cpu_cam[held]),
+                        cam_f64_card_vs_cpu_rel_err=rel(cam64, cpu_cam64), cam_f64_rows=len(held))  # fmt: skip
+            # why the encoding's powers are taken on the CPU: the card's f32
+            # pow of the same exponents, against the CPU's
+            exponents = torch.arange(ZOO_WIDTH // 4, dtype=torch.float32) / ZOO_WIDTH
+            card_pow = (100_000 ** exponents.to(ZOO_DEVICE)).cpu()
+            row["encoding_powers_differing_on_the_card"] = int((card_pow != 100_000**exponents).sum())
+            err = row["cam_f64_card_vs_cpu_rel_err"]
+        model.module.to("cpu")
+        if not (err <= ZOO_CAM_TOL and row["finite"]):
+            _fail(f"heatmaps {model_name}: cams card against CPU {row}")
+        print(f"[12c zoo heatmaps] {model_name} {json.dumps(row)} on {card}")
+        result[model_name] = row
+    return result
+
+
+def _zoo_interop(card: str, root: Path) -> dict:
+    """12d: ``export_ckpt`` of 12b's fold-0 checkpoints to Lightning
+    ``.ckpt``, ``deploy`` from each (its CSV equal to the npz deploy's to
+    1e-6), and ``export_ckpt`` back (variables bitwise the original's)."""
+    import numpy as np
+    import pandas as pd
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.modeling.checkpoint import load_checkpoint
+    from stamp_tpu_torch.models import weights
+
+    cohort = WORK / "train"
+    result: dict = {}
+    for model_name, clini, label in (("trans_mil", cohort / "clini.csv", "label"),
+                                     ("barspoon", root / "clini-multi.csv", list(ZOO_TARGETS))):  # fmt: skip
+        npz = root / f"{model_name}-crossval" / "split-0" / "model.ckpt"
+        lightning = root / f"{model_name}.lightning.ckpt"
+        main(["export_ckpt", str(npz), str(lightning)])
+        deploy = _deploy_zoo(root, f"{model_name}-lightning-deploy", lightning, cohort / "features", clini,
+                             cohort / "slide.csv", label)  # fmt: skip
+        got = pd.read_csv(deploy["csv"]).set_index("PATIENT").sort_index()
+        want = pd.read_csv(root / f"{model_name}-deploy" / "patient-preds.csv").set_index("PATIENT").sort_index()
+        numeric = want.select_dtypes("number").columns
+        diff = float(np.abs(got[numeric].to_numpy(float) - want[numeric].to_numpy(float)).max())
+        if list(got.columns) != list(want.columns) or not diff <= 1e-6:
+            _fail(f"{model_name}: the .ckpt deploy differs from the npz one by {diff}: {list(got.columns)}")
+        main(["export_ckpt", str(lightning), str(root / f"{model_name}.back.ckpt")])
+        before = weights.flatten(load_checkpoint(npz)["variables"])
+        after = weights.flatten(load_checkpoint(root / f"{model_name}.back.ckpt")["variables"])
+        bitwise = before.keys() == after.keys() and all(np.array_equal(before[k], after[k]) for k in before)
+        if not bitwise:
+            _fail(f"{model_name}: export_ckpt there and back changed the variables")
+        result[model_name] = dict(lightning_vs_npz_csv_max_abs_diff=diff, round_trip_bitwise=bitwise)
+    print(f"[12d zoo interop] {json.dumps(result)} on {card}")
+    return result
+
+
+def phase_zoo(card: str) -> dict:
+    """12: the other backbones, slide and patient features, multi-target and
+    the Lightning format, through the CLI at full width (random weights,
+    synthetic features from fixed seeds), with the TF32 flags as PyTorch
+    leaves them for the CLI (matmul off, cuDNN on: TransMIL's convolutions
+    are no cuDNN calls)."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    root = WORK / "zoo"
+    try:
+        result = dict(
+            slide_and_patient=_timed_phase("12a zoo slide/patient", _zoo_slide_and_patient_level, card, root),
+            tile=_timed_phase("12b zoo tile", _zoo_tile_level, card, root),
+            heatmaps=_timed_phase("12c zoo heatmaps", _zoo_heatmaps, card, root),
+            interop=_timed_phase("12d zoo interop", _zoo_interop, card, root),
+        )
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return result
+
+
 def _timed(fn) -> float:
     """Seconds of one synchronised call of ``fn``."""
     import torch
@@ -2417,6 +2905,7 @@ def main() -> None:
     titan = _timed_phase("9 titan", phase_titan, card)
     _timed_phase("10 statistics", phase_statistics, card)
     heatmaps = _timed_phase("11 heatmaps", phase_heatmaps, card)
+    _timed_phase("12 zoo", phase_zoo, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64

@@ -1,13 +1,13 @@
 """``python -m stamp_tpu_torch`` — the ``stamp`` CLI of the PyTorch port.
 
 The argument surface and the YAML schema (``StampConfig``, the port's copy
-of ``stamp_tpu/utils/config.py``) are those of ``python -m stamp_tpu``.
-Ported so far: ``init``, ``config``, ``preprocess`` (the ImageViT
+of ``stamp_tpu/utils/config.py``) are those of ``python -m stamp_tpu``, and
+so are the subcommands: ``init``, ``config``, ``preprocess`` (the ImageViT
 extractors, bf16 and int8), ``encode_slides`` and ``encode_patients`` (the
-TITAN encoder), ``train`` and ``crossval`` (the tile-level ``vit`` backbone),
-``deploy`` and ``heatmaps`` (tile-level ViT checkpoints) and
-``statistics``; ``export_ckpt`` exits non-zero and names the JAX package's
-command.  As in the JAX CLI,
+TITAN encoder), ``train``, ``crossval``, ``deploy``, ``statistics`` and
+``heatmaps`` (every backbone and feature level), and ``export_ckpt SRC DST``,
+which converts between the npz ``model.ckpt`` and the reference's Lightning
+``.ckpt`` in the direction the source file calls for.  As in the JAX CLI,
 ``advanced_config.seed`` seeds the run (``utils.seed.Seed``) before any
 command runs.
 """
@@ -39,7 +39,7 @@ _COMMANDS = {
     "Transformer model",
     "config": "Print the loaded configuration",
     "export_ckpt": "Convert a model checkpoint between this framework's npz format "
-    "and the reference's Lightning .ckpt",
+    "and the reference's Lightning .ckpt (direction inferred from the source file)",
     "heatmaps": "Generate heatmaps for a trained model",
 }
 
@@ -194,6 +194,25 @@ def _run_heatmaps(section) -> None:
     )
 
 
+def _run_export_ckpt(src: Path, dst: Path) -> None:
+    """Convert between the npz checkpoint and the reference's Lightning
+    format, whichever direction the source file calls for."""
+    from stamp_tpu_torch.modeling.checkpoint import save_checkpoint
+    from stamp_tpu_torch.modeling.interop import (
+        export_reference_checkpoint,
+        is_reference_checkpoint,
+        load_reference_checkpoint,
+    )
+
+    if is_reference_checkpoint(src):
+        model, variables = load_reference_checkpoint(src)
+        save_checkpoint(dst, hyper_parameters=model.checkpoint_hparams(), variables=variables)
+        _logger.info(f"converted reference Lightning checkpoint {src} -> npz {dst}")
+    else:
+        export_reference_checkpoint(src, dst)
+        _logger.info(f"converted npz checkpoint {src} -> reference Lightning {dst}")
+
+
 # command → (config section, runner(config, section))
 _RUNNERS = {
     "preprocess": ("preprocessing", lambda config, section: _run_preprocess(section)),
@@ -207,14 +226,12 @@ _RUNNERS = {
 }
 # commands that take advanced_config (a default one when the YAML has none)
 _NEEDS_ADVANCED = {"train", "crossval"}
-_PORTED = {"init", "config", *_RUNNERS}
 
 
 def _run_cli(args: argparse.Namespace) -> None:
-    if args.command not in _PORTED:
-        raise NotImplementedError(
-            f"`{args.command}` is not yet ported — run `python -m stamp_tpu {args.command}`"
-        )
+    if args.command == "export_ckpt":
+        _run_export_ckpt(args.src, args.dst)
+        return
     if args.command == "init":
         if args.config_file_path.exists():
             _logger.info(

@@ -1,20 +1,29 @@
 """Grad-CAM heatmaps and top-tile export.
 
-Counterpart of ``stamp_tpu/heatmaps/generate.py`` for tile-level ViT
-checkpoints: per-slide Grad-CAM per category, per-tile softmax scores from
-bags of one tile, attention rollout (dense, or streamed from (q, k) at
-``STREAMING_ROLLOUT_MIN_SEQ`` tiles), the category-support diverging maps,
-the classification / regression / survival branches and the top- and
-bottom-k tile crops read back from the WSI, with the same file names.
+Counterpart of ``stamp_tpu/heatmaps/generate.py`` for tile-level
+checkpoints of every backbone: per-slide Grad-CAM per category, per-tile
+softmax scores from bags of one tile, attention rollout (dense, or
+streamed from (q, k) at ``STREAMING_ROLLOUT_MIN_SEQ`` tiles; ``vit``), the
+category-support diverging maps, the classification / regression /
+survival branches and the top- and bottom-k tile crops read back from the
+WSI, with the same file names.  A multi-target model (barspoon) gets one
+full set per target, each stem suffixed with ``sanitize(target)``, in the
+same tree.  Coordinates go to a backbone only where it takes them
+(``supports_coords``; TransMIL does not).
 
 The JAX package takes the jacobian with ``jax.jacrev`` (one forward and a
-vmapped VJP).  The flash kernels' autograd Functions have no vmap rule, so
-the port runs one forward of the whole bag with the features requiring
-grad and then one ``torch.autograd.grad`` per output, keeping the graph
-between them: C backward passes over one forward, whose logits are the
-slide's prediction too.  On the card a bag of at least
-``FLASH_ATTENTION_MIN_SEQ`` tokens (tiles + CLS) runs the flash forward once
-per layer and its backward once per layer and output.
+vmapped VJP), per target for a multi-target model.  The flash kernels'
+autograd Functions have no vmap rule, so the port runs one forward of the
+whole bag with the features requiring grad and then one
+``torch.autograd.grad`` per output, keeping the graph between them: one
+backward pass per category (of every target) over a single forward, whose
+logits are the slide's prediction too.  On the card a ``vit`` bag of at
+least ``FLASH_ATTENTION_MIN_SEQ`` tokens (tiles + CLS) runs the flash
+forward once per layer and its backward once per layer and output.  The
+per-tile scores are ``torch.func.vmap`` of a one-tile forward, as the JAX
+package's ``jax.vmap``: each tile's bag is its own batch (TransMIL's
+pseudo-inverse scales by a max over its batch), in chunks of
+``TILE_SCORE_CHUNK`` tiles.
 
 Differences from the JAX package, none in a written file:
 
@@ -24,15 +33,13 @@ Differences from the JAX package, none in a written file:
   matplotlib maps as lookup tables; matplotlib is imported inside the
   functions that draw ``plots/`` only, and without it those figures are
   skipped and named in one warning;
-* a multi-target model (a dict output) raises, naming
-  ``python -m stamp_tpu heatmaps`` (the registry refuses such checkpoints
-  before that);
 * rollout takes the layers in their order (the JAX package sorts the block
   names, which differs from 11 layers on).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from collections.abc import Iterable, Sequence
 from dataclasses import dataclass
@@ -45,7 +52,8 @@ from PIL import Image
 from stamp_tpu_torch.heatmaps import _colormaps
 from stamp_tpu_torch.io.h5 import _read_feature_file, get_coords, get_stride
 from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
-from stamp_tpu_torch.models.vision_transformer import variables_from_jax
+from stamp_tpu_torch.models import weights
+from stamp_tpu_torch.models.barspoon import sanitize
 from stamp_tpu_torch.preprocessing.wsi import get_slide_mpp_, open_slide
 from stamp_tpu_torch.types import Microns, SlideMPP, TilePixels
 from stamp_tpu_torch.utils import profiling
@@ -63,36 +71,42 @@ supported_extensions = {
 
 
 def _as_tensors(module: torch.nn.Module, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
-    """f32 ``arrays`` on the device of ``module``."""
-    device = next(module.parameters()).device
-    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(device) for a in arrays)
+    """``arrays`` on the device and in the dtype of ``module`` (f32 as the
+    CLI runs it)."""
+    param = next(module.parameters())
+    return tuple(torch.from_numpy(np.asarray(a)).to(param.device, param.dtype) for a in arrays)
 
 
-def _single_target(out):
-    """``out`` unless it is a multi-target model's dict, which raises."""
-    if isinstance(out, dict):
-        raise NotImplementedError(
-            "heatmaps of a multi-target model are not ported yet; run `python -m stamp_tpu heatmaps`"
-        )
-    return out
+def _forward(module: torch.nn.Module, feats: torch.Tensor, coords: torch.Tensor):
+    """One forward of bags [B, T, F] without a key mask; ``coords`` [B, T, 2]
+    go in only where the module takes them."""
+    if module.supports_coords:
+        return module(feats, coords=coords, key_mask=None)
+    return module(feats)
 
 
 def _cams(
-    module: torch.nn.Module, feats: np.ndarray, coords: np.ndarray, outputs: Sequence[int] | None = None
-) -> tuple[np.ndarray, np.ndarray]:
-    """(logits [C], cam [len(outputs), tile]) of one whole-bag forward: row i
-    of cam is |mean over features of f · ∂logit_{outputs[i]}/∂f| (the
-    jacobian's row, one backward each; every output when ``outputs`` is
-    None), before any normalisation.  f32 numpy."""
+    module: torch.nn.Module, feats: np.ndarray, coords: np.ndarray, outputs: Sequence | None = None
+) -> tuple[np.ndarray | dict[str, np.ndarray], np.ndarray]:
+    """(logits, cam) of one whole-bag forward: logits [C] ({target: [C_t]}
+    for a multi-target model), and row i of cam [len(outputs), tile] is
+    |mean over features of f · ∂out_i/∂f| (the jacobian's row, one backward
+    each), before any normalisation.  An output is a category index, or a
+    (target, index) pair of a multi-target model; by default every one, in
+    order.  numpy, in the module's dtype."""
     f, c = _as_tensors(module, feats, coords)
     f.requires_grad_(True)
-    logits = _single_target(module(f[None], coords=c[None], key_mask=None))[0]
-    outputs = range(logits.shape[0]) if outputs is None else outputs
+    out = _forward(module, f[None], c[None])
+    heads = {k: v[0] for k, v in out.items()} if isinstance(out, dict) else {None: out[0]}
+    if outputs is None:
+        outputs = [i if t is None else (t, i) for t, logits in heads.items() for i in range(logits.shape[0])]
     cams = []
-    for i, out in enumerate(outputs):
-        (grad,) = torch.autograd.grad(logits[out], f, retain_graph=i < len(outputs) - 1)
+    for i, o in enumerate(outputs):
+        target = heads[None][o] if isinstance(o, int) else heads[o[0]][o[1]]
+        (grad,) = torch.autograd.grad(target, f, retain_graph=i < len(outputs) - 1)
         cams.append((f.detach() * grad).mean(-1).abs())
-    return logits.detach().cpu().numpy(), torch.stack(cams).cpu().numpy()
+    logits = {k: v.detach().cpu().numpy() for k, v in heads.items()}
+    return logits.pop(None) if None in logits else logits, torch.stack(cams).cpu().numpy()
 
 
 def _softmax(x: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -164,12 +178,25 @@ def _attention_rollout_single(module: torch.nn.Module, feats: np.ndarray, coords
     return cls_attn / max(cls_attn.max(), 1e-8)
 
 
-def _per_tile_scores(module: torch.nn.Module, feats: np.ndarray, coords: np.ndarray) -> np.ndarray:
-    """Per-tile class scores: one batch of T bags of one tile each (the
-    JAX package's vmap; reference heatmaps/__init__.py:417-430)."""
+TILE_SCORE_CHUNK = 512
+
+
+def _per_tile_scores(
+    module: torch.nn.Module, feats: np.ndarray, coords: np.ndarray
+) -> np.ndarray | dict[str, np.ndarray]:
+    """Per-tile class scores [tile, C] ({target: [tile, C_t]} for a
+    multi-target model): the softmax of each tile's bag of one tile, vmapped
+    (reference heatmaps/__init__.py:417-430)."""
     f, c = _as_tensors(module, feats, coords)
-    with torch.inference_mode():
-        logits = _single_target(module(f[:, None], coords=c[:, None], key_mask=None))
+
+    def single(fi: torch.Tensor, ci: torch.Tensor):
+        out = _forward(module, fi[None, None], ci[None, None])
+        return {k: v[0] for k, v in out.items()} if isinstance(out, dict) else out[0]
+
+    with torch.no_grad():
+        logits = torch.func.vmap(single, chunk_size=TILE_SCORE_CHUNK)(f, c)
+        if isinstance(logits, dict):
+            return {k: torch.softmax(v, dim=1).cpu().numpy() for k, v in logits.items()}
         return torch.softmax(logits, dim=1).cpu().numpy()
 
 
@@ -538,8 +565,7 @@ def heatmaps_(
     task = model.hparams["task"]
     if task not in ("classification", "regression", "survival"):
         raise ValueError(f"unsupported task for heatmaps: {task}")
-    module = model.module
-    module.load_state_dict(variables_from_jax(variables))
+    module = weights.load_variables_(model.module, variables)
     module.to(dev).eval()
 
     if slide_paths is not None:
@@ -557,6 +583,21 @@ def heatmaps_(
 
             _logger.info(f"creating heatmaps for {wsi_path.name}")
             job = _load_slide_job(wsi_path, h5_path, output_dir, default_slide_mpp)
+            if task == "classification" and isinstance(model.categories, dict):
+                # multi-target: one set per target, from one forward
+                outputs = [(t, i) for t, cats in model.categories.items() for i in range(len(cats))]
+                with profiling.stage("heatmaps/gradcam"):
+                    logits, cam = _cams(module, job.feats, job.coords_um, outputs)
+                with profiling.stage("heatmaps/tile_scores"):
+                    scores = _per_tile_scores(module, job.feats, job.coords_um)
+                with profiling.stage("heatmaps/render"):
+                    for t, cats in model.categories.items():
+                        rows = [k for k, (target, _) in enumerate(outputs) if target == t]
+                        not_written += _emit_classification(
+                            dataclasses.replace(job, stem=f"{job.stem}-{sanitize(t)}"), cats, logits[t], cam[rows],
+                            scores[t], opacity=opacity, topk=topk, bottomk=bottomk,
+                        )  # fmt: skip
+                continue
             with profiling.stage("heatmaps/gradcam"):
                 logits, cam = _cams(module, job.feats, job.coords_um)
             if task == "classification":

@@ -9,8 +9,8 @@ against this package's ``__version__``: older than 2.5.0 or newer than the
 installed version is refused.
 
 The variable tree is nested dicts of numpy arrays on both sides of the
-file; ``models.vision_transformer.variables_from_jax`` / ``variables_to_jax``
-map it to and from a torch ``state_dict``.
+file; each backbone's ``variables_from_jax`` / ``variables_to_jax``
+(``models.weights``) map it to and from a torch ``state_dict``.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """K-fold cross-validation with ``splits.json`` resumability.
 
-Counterpart of ``stamp_tpu/modeling/crossval.py:48-449`` for tile-level
-features: the same ``splits.json`` schema (files interchange with the JAX
-package and the reference), the same folds (``modeling.splits.KFold`` for
-regression, ``StratifiedKFold`` on the class or the survival status
-otherwise, ``shuffle=True, random_state=0``: scikit-learn's indices
+Counterpart of ``stamp_tpu/modeling/crossval.py:48-449`` for every
+backbone and feature level, single- and multi-target: the same
+``splits.json`` schema (files interchange with the JAX package and the
+reference), the same folds (``modeling.splits.KFold`` for regression and
+multi-target cohorts, ``StratifiedKFold`` on the class or the survival
+status otherwise, ``shuffle=True, random_state=0``: scikit-learn's indices
 without scikit-learn), an atomic write of the splits file, one category
-inventory for every fold, folds skipped when their ``patient-preds.csv``
+inventory for every fold (per target for multi-target, which also labels
+the exported columns), folds skipped when their ``patient-preds.csv``
 exists and re-exported from ``model.ckpt`` when only that exists, and each
 fold trained on the other folds with the held-out fold as its early-stop
 validation set.  The held-out predictions go through the port's deploy
@@ -17,6 +19,7 @@ fleet partition of folds is parallel training, not ported).
 from __future__ import annotations
 
 import logging
+from collections import Counter
 from collections.abc import Mapping, Sequence
 from pathlib import Path
 from typing import Any
@@ -58,15 +61,20 @@ class _Splits(BaseModel):
     splits: Sequence[_Split]
 
 
+def _first_target(gt):
+    return next(iter(gt.values())) if isinstance(gt, dict) else gt
+
+
 def _stratification_labels(task: str | None, patients: Sequence[PatientData]) -> np.ndarray | None:
     """What StratifiedKFold stratifies on: the class for classification, the
-    event status for survival, nothing for regression."""
+    event status for survival, nothing for regression (or multi-target,
+    which takes KFold)."""
     if task == "classification":
-        return np.array([p.ground_truth for p in patients])
+        return np.array([_first_target(p.ground_truth) for p in patients])
     if task == "survival":
         statuses = []
         for p in patients:
-            gt = p.ground_truth
+            gt = _first_target(p.ground_truth)
             status = gt[1] if isinstance(gt, (tuple, list)) and len(gt) == 2 else gt
             statuses.append(int(status) if status is not None else 0)
         return np.array(statuses)
@@ -76,7 +84,8 @@ def _stratification_labels(task: str | None, patients: Sequence[PatientData]) ->
 def _generate_splits(patient_to_data: Mapping[PatientId, PatientData], *, n_splits: int, task: str | None) -> _Splits:
     """The reference's folds (crossval.py:373-426): the same splitter,
     shuffle=True, random_state=0."""
-    splitter_cls = KFold if task == "regression" else StratifiedKFold
+    multitarget = any(isinstance(p.ground_truth, dict) for p in patient_to_data.values())
+    splitter_cls = KFold if (task == "regression" or multitarget) else StratifiedKFold
     _logger.info(f"Using {splitter_cls.__name__} for cross-validation splits")
     ids = np.array(list(patient_to_data.keys()))
     strat = _stratification_labels(task, list(patient_to_data.values()))
@@ -112,7 +121,36 @@ def _load_or_create_splits(
 
 
 def _single_target_categories(patient_to_data: Mapping[PatientId, PatientData]) -> list[GroundTruth]:
-    return sorted({p.ground_truth for p in patient_to_data.values() if p.ground_truth is not None})
+    return sorted(
+        {
+            p.ground_truth
+            for p in patient_to_data.values()
+            if p.ground_truth is not None and not isinstance(p.ground_truth, dict)
+        }
+    )
+
+
+def _multitarget_categories(patient_to_data: Mapping[PatientId, PatientData]) -> dict[str, list]:
+    """Per-target sorted class lists, with a class-balance log line each."""
+    by_target: dict[str, set] = {}
+    for p in patient_to_data.values():
+        if isinstance(p.ground_truth, dict):
+            for target, value in p.ground_truth.items():
+                if value is not None:
+                    by_target.setdefault(target, set()).add(value)
+    inventory = {target: sorted(values) for target, values in by_target.items()}
+    for target, classes in inventory.items():
+        values = [
+            p.ground_truth.get(target)
+            for p in patient_to_data.values()
+            if isinstance(p.ground_truth, dict) and p.ground_truth.get(target) is not None
+        ]
+        tally = Counter(values)
+        _logger.info(
+            f"{target} | Total patients: {len(values)} | "
+            + " | ".join(f"Class {c}: {tally.get(c, 0)}" for c in classes)
+        )
+    return inventory
 
 
 def _fit_fold(
@@ -187,6 +225,7 @@ def _export_fold_predictions(
     patient_to_data: Mapping[PatientId, PatientData],
     feature_type: str,
     categories: Sequence[GroundTruth] | None,
+    categories_for_export: Any,
     config: CrossvalConfig,
     device: torch.device,
 ) -> None:
@@ -207,6 +246,10 @@ def _export_fold_predictions(
         patient_ids=test_ids,
         device=device,
     )
+    ground_truths = {pid: p.ground_truth for pid, p in patient_to_data.items()}
+    if config.task in ("survival", "regression") and any(isinstance(gt, dict) for gt in ground_truths.values()):
+        _logger.warning(f"Multi-target {config.task} prediction export not yet supported; skipping CSV save")
+        return
     if config.task in ("regression", "classification") and config.ground_truth_label is None:
         raise RuntimeError(f"Ground truth label is required for {config.task}")
     builder = {
@@ -215,8 +258,8 @@ def _export_fold_predictions(
         "survival": _to_survival_prediction_df,
     }[config.task]
     builder(
-        categories=list(categories or []),
-        patient_to_ground_truth={pid: p.ground_truth for pid, p in patient_to_data.items()},
+        categories=categories_for_export,
+        patient_to_ground_truth=ground_truths,
         predictions=predictions,
         patient_label=config.patient_label,
         ground_truth_label=config.ground_truth_label,
@@ -241,9 +284,10 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
         patient_label=config.patient_label,
         filename_label=config.filename_label,
         drop_patients_with_missing_ground_truth=config.drop_patients_with_missing_ground_truth,
-        command="crossval",
     )
     _logger.info(f"Detected feature type: {feature_type}")
+    if feature_type not in ("tile", "slide", "patient"):
+        raise ValueError(f"Unknown feature type: {feature_type}")
 
     config.output_dir.mkdir(parents=True, exist_ok=True)
     splits = _load_or_create_splits(
@@ -251,10 +295,17 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
     )
 
     # one category inventory for every fold, so heads and CSVs line up
-    categories: Sequence[GroundTruth] = []
-    if config.task == "classification":
+    categories: Sequence[GroundTruth] | None
+    categories_for_export: Any
+    if config.task != "classification":
+        categories, categories_for_export = [], []
+    elif isinstance(config.ground_truth_label, str):
         categories = config.categories or _single_target_categories(patient_to_data)
         log_patient_class_summary(patient_to_data=patient_to_data)
+        categories_for_export = list(categories)
+    else:  # multi-target
+        categories_for_export = _multitarget_categories(patient_to_data)
+        categories = config.categories or None
 
     for split_i, split in enumerate(splits.splits):
         split_dir = config.output_dir / f"split-{split_i}"
@@ -264,12 +315,15 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
         if (split_dir / "model.ckpt").exists():
             model, variables = load_model_from_ckpt(split_dir / "model.ckpt")
         else:
+            fold_categories = categories
+            if fold_categories is None and isinstance(config.ground_truth_label, str):
+                fold_categories = _single_target_categories(patient_to_data)
             model, variables = _fit_fold(
                 split=split,
                 split_dir=split_dir,
                 patient_to_data=patient_to_data,
                 feature_type=feature_type,
-                categories=categories,
+                categories=fold_categories,
                 config=config,
                 advanced=advanced,
                 device=device,
@@ -282,6 +336,7 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
             patient_to_data=patient_to_data,
             feature_type=feature_type,
             categories=categories,
+            categories_for_export=categories_for_export,
             config=config,
             device=device,
         )

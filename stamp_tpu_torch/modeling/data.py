@@ -1,14 +1,22 @@
-"""Data layer of the train, crossval and deploy paths on tile-level features.
+"""Data layer of the train, crossval and deploy paths.
 
 Counterpart of ``stamp_tpu.modeling.data`` (``stamp_tpu/modeling/data.py:
-77-1025``) for tile-level features: clini/slide-table parsing with the same
-column, missing-value and survival-status rules, the patient ↔ feature-file
-assembly (``load_patient_data_``), the tile-level ``BagDataset`` (every
-tile of every slide of a patient, or a bag of ``bag_size`` tiles sampled
-with ``rng.permutation``, equidistant when deterministic, zero-padded when
-short), ``create_dataset`` and ``BatchIterator`` (epoch shuffling, per-item
-bag seeds drawn up front, a thread pool for ``num_workers > 1``).  Batches
-are numpy: ``(bags [B, T, F], coords [B, T, 2], bag_sizes [B], targets)``.
+77-1025``): clini/slide-table parsing with the same column, missing-value
+and survival-status rules, single- and multi-target ground truths (a list
+of labels: {target: value or None} per patient, one-hot per target with the
+vocabulary of the observed values), the patient ↔ feature-file assembly
+for tile-, slide- and patient-level features (``load_patient_data_``; a
+patient-level cohort maps each clini-table patient to
+``<feature_dir>/<patient>.h5`` without a slide table), the tile-level
+``BagDataset`` (every tile of every slide of a patient, or a bag of
+``bag_size`` tiles sampled with ``rng.permutation``, equidistant when
+deterministic, zero-padded when short), the one-vector
+``PatientFeatureDataset`` of slide and patient features, ``create_dataset``
+and ``BatchIterator`` (epoch shuffling, per-item bag seeds drawn up front
+for bags, a thread pool for ``num_workers > 1``).  Batches are numpy: tile
+level ``(bags [B, T, F], coords [B, T, 2], bag_sizes [B], targets)``,
+slide and patient level ``(feats [B, F], targets)``; multi-target targets
+are {target: [B, C_t]}.
 
 The random draws are the JAX package's, in its order, from the same
 ``Seed.numpy_rng()``: an iterator draws the epoch permutation (when it
@@ -16,10 +24,8 @@ shuffles), then one seed per item, and each item samples its bag from
 ``np.random.default_rng(seed)``; a dataset item fetched directly draws from
 the shared generator.  So both packages sample the same bags from one seed.
 
-Feature files are read by ``stamp_tpu_torch.io.h5.read_feats`` (the port's
-own layout without h5py, any other through h5py).  Not ported yet:
-file-like tables, slide/patient-level features and multi-target ground
-truths; the last two raise ``NotImplementedError``.
+Feature files are read by ``stamp_tpu_torch.io.h5`` (the port's own layout
+without h5py, any other through h5py).  Not ported: file-like tables.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import Any, Generic, cast
 import numpy as np
 import pandas as pd
 
-from stamp_tpu_torch.io.h5 import detect_feature_type, read_feats
+from stamp_tpu_torch.io.h5 import _read_feature_file, detect_feature_type, read_feats
 from stamp_tpu_torch.types import (
     Category,
     FeaturePath,
@@ -49,6 +55,7 @@ from stamp_tpu_torch.utils.seed import Seed
 __all__ = [
     "PatientData",
     "BagDataset",
+    "PatientFeatureDataset",
     "BatchIterator",
     "create_dataset",
     "load_patient_data_",
@@ -60,7 +67,7 @@ __all__ = [
 _logger = logging.getLogger("stamp")
 
 
-def _not_ported(what: str, command: str = "deploy") -> NotImplementedError:
+def _not_ported(what: str, command: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; run `python -m stamp_tpu {command}`")
 
 
@@ -137,19 +144,29 @@ def patient_to_ground_truth_from_clini_table_(
     *,
     clini_table_path: Path,
     patient_label: PandasLabel,
-    ground_truth_label: PandasLabel,
+    ground_truth_label: PandasLabel | Sequence[PandasLabel],
 ) -> dict[PatientId, Any]:
-    """Load patient → ground truth from one clini-table column."""
-    if not isinstance(ground_truth_label, str):
-        raise _not_ported("multi-target deployment")
-    table = _read_table_columns(clini_table_path, [patient_label, ground_truth_label]).dropna(
-        subset=[ground_truth_label]
-    )
-    series = table.set_index(patient_label)[ground_truth_label]
-    if not series.index.is_unique:
-        dupes = sorted(set(series.index[series.index.duplicated()]))
-        raise ValueError(f"duplicate patients in clini table: {dupes}")
-    return cast(dict[PatientId, Any], series.to_dict())
+    """Load patient → ground truth from a clini table: one column gives
+    {patient: value}; a list of columns gives {patient: {column: value or
+    None}} (multi-target), keeping patients with at least one target."""
+    if isinstance(ground_truth_label, str):
+        table = _read_table_columns(clini_table_path, [patient_label, ground_truth_label]).dropna(
+            subset=[ground_truth_label]
+        )
+        series = table.set_index(patient_label)[ground_truth_label]
+        if not series.index.is_unique:
+            dupes = sorted(set(series.index[series.index.duplicated()]))
+            raise ValueError(f"duplicate patients in clini table: {dupes}")
+        return cast(dict[PatientId, Any], series.to_dict())
+
+    targets = list(ground_truth_label)
+    table = _read_table_columns(clini_table_path, [patient_label, *targets]).dropna(subset=targets, how="all")
+    # NaN → None per cell; later rows win on a duplicated patient
+    per_patient = table.set_index(patient_label)[targets]
+    return {
+        PatientId(str(pid)): {t: (None if pd.isna(v) else str(v)) for t, v in row.items()}
+        for pid, row in per_patient.iterrows()
+    }
 
 
 def patient_to_survival_from_clini_table_(
@@ -266,7 +283,7 @@ def _clini_ground_truths(
 ) -> Mapping[PatientId, Any]:
     """Validate the task/label combination and parse the clini table:
     survival needs ``time_label`` and ``status_label``, everything else
-    ``ground_truth_label``."""
+    ``ground_truth_label``; a list of labels is classification only."""
     if task == "survival":
         if time_label is None or status_label is None:
             raise ValueError("Both time_label and status_label are required for survival modeling")
@@ -278,11 +295,44 @@ def _clini_ground_truths(
         )
     if ground_truth_label is None:
         raise ValueError("Ground truth label is required for classification or regression modeling")
+    if not isinstance(ground_truth_label, str) and task != "classification":
+        raise ValueError("Multi-target ground_truth_label is only supported for classification tasks")
     return patient_to_ground_truth_from_clini_table_(
         clini_table_path=clini_table,
         patient_label=patient_label,
-        ground_truth_label=cast(PandasLabel, ground_truth_label),
+        ground_truth_label=ground_truth_label,
     )
+
+
+def load_patient_level_data(
+    *,
+    clini_table: Path,
+    feature_dir: Path,
+    task: Task | None,
+    patient_label: PandasLabel,
+    feature_ext: str = ".h5",
+    ground_truth_label: PandasLabel | Sequence[PandasLabel] | None = None,
+    status_label: PandasLabel | None = None,
+    time_label: PandasLabel | None = None,
+) -> dict[PatientId, PatientData]:
+    """Patient-level features have no slide table: each clini-table patient
+    maps to ``<feature_dir>/<patient>.h5`` (reference data.py:460-529)."""
+    ground_truths = _clini_ground_truths(
+        task=task,
+        clini_table=clini_table,
+        patient_label=patient_label,
+        ground_truth_label=ground_truth_label,
+        time_label=time_label,
+        status_label=status_label,
+    )
+    located = {pid: feature_dir / f"{pid}{feature_ext}" for pid in ground_truths}
+    if skipped := [pid for pid, path in located.items() if not path.exists()]:
+        _logger.warning(f"Some patients have no feature file in {feature_dir}: {skipped}")
+    return {
+        pid: PatientData(ground_truth=ground_truths[pid], feature_files=[FeaturePath(path)])
+        for pid, path in located.items()
+        if path.exists()
+    }
 
 
 def load_patient_data_(
@@ -297,17 +347,24 @@ def load_patient_data_(
     time_label: PandasLabel | None,
     status_label: PandasLabel | None,
     drop_patients_with_missing_ground_truth: bool = True,
-    command: str = "train",
 ) -> tuple[Mapping[PatientId, PatientData], str]:
     """The training cohort: {patient: (ground truth, feature files)} and the
     feature level, detected from the h5 attributes (reference
-    data.py:1204-1294).  Tile-level features only; ``command`` names the
-    JAX package's command in the error for the others."""
+    data.py:1204-1294)."""
     feature_type = detect_feature_type(feature_dir)
-    if feature_type != "tile":
-        raise _not_ported(f"training on {feature_type}-level features", command)
-    if not isinstance(ground_truth_label, str) and ground_truth_label is not None:
-        raise _not_ported("multi-target training", command)
+    if feature_type == "patient":
+        patient_to_data = load_patient_level_data(
+            task=task,
+            clini_table=clini_table,
+            feature_dir=feature_dir,
+            patient_label=patient_label,
+            ground_truth_label=ground_truth_label,
+            time_label=time_label,
+            status_label=status_label,
+        )
+        return patient_to_data, feature_type
+    if feature_type not in ("tile", "slide"):
+        raise RuntimeError(f"Unknown feature type: {feature_type}")
     if slide_table is None:
         raise ValueError("A slide table is required for tile/slide-level features")
     patient_to_data = filter_complete_patient_data_(
@@ -338,7 +395,12 @@ def log_patient_class_summary(*, patient_to_data: Mapping[PatientId, PatientData
     if not ground_truths:
         _logger.warning("No ground truths available for summary.")
         return
-    _logger.info(f"Class distribution: {dict(Counter(ground_truths))}")
+    if isinstance(ground_truths[0], dict):
+        for name in sorted({name for gt in ground_truths for name in gt}):
+            tally = Counter(gt.get(name) for gt in ground_truths)
+            _logger.info(f"[Multi-target] Target '{name}' distribution: {dict(tally)}")
+    else:
+        _logger.info(f"Class distribution: {dict(Counter(ground_truths))}")
 
 
 # ---------------------------------------------------------------------------
@@ -351,14 +413,14 @@ def _parse_targets(
     patient_data: Sequence[PatientData],
     task: Task,
     categories: Sequence[Category] | None = None,
-) -> tuple[np.ndarray, Sequence[Category]]:
+) -> tuple[np.ndarray | list[dict[str, np.ndarray]], Sequence[Category] | Mapping[str, Sequence[Category]]]:
     """Raw ground truths → model-ready arrays (one-hot, scalar or
-    (time, event)) and the category list."""
+    (time, event); per target for multi-target) and the categories."""
     gts = [p.ground_truth for p in patient_data]
 
     if task == "classification":
         if any(isinstance(gt, dict) for gt in gts):
-            raise _not_ported("multi-target deployment")
+            return _encode_multi_target(gts)
         unique = {gt for gt in gts if gt is not None}
         if len(unique) < 2 and categories is None:
             raise ValueError(
@@ -390,6 +452,22 @@ def _parse_targets(
         return np.asarray(pairs, np.float32), []
 
     raise ValueError(f"Unsupported task: {task}")
+
+
+def _encode_multi_target(gts: Sequence[dict | None]) -> tuple[list[dict[str, np.ndarray]], dict[str, list[str]]]:
+    """Multi-target classification: per-target vocabularies of the observed
+    values (sorted), a missing target an all-zero one-hot (no loss term)."""
+    target_names = next(list(gt) for gt in gts if isinstance(gt, dict))
+    vocab = {
+        name: sorted({gt[name] for gt in gts if isinstance(gt, dict) and gt.get(name) is not None})
+        for name in target_names
+    }
+
+    def one_hot(gt, name: str) -> np.ndarray:
+        value = gt.get(name) if isinstance(gt, dict) else None
+        return np.asarray([value == c for c in vocab[name]], dtype=np.float32)
+
+    return [{name: one_hot(gt, name) for name in target_names} for gt in gts], vocab
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +510,7 @@ class BagDataset:
 
     _: KW_ONLY
     bags: Sequence[Iterable[FeaturePath]]
-    ground_truths: np.ndarray
+    ground_truths: np.ndarray | list[dict[str, np.ndarray]]
     bag_size: int | None = None
     transform: Callable[[np.ndarray], np.ndarray] | None = None
     deterministic: bool = False
@@ -466,7 +544,44 @@ class BagDataset:
         return bag_feats, bag_coords, size, self.ground_truths[index]
 
 
-def _stack_targets(targets: list[np.ndarray]) -> np.ndarray:
+class PatientFeatureDataset:
+    """One feature vector per sample, from slide- or patient-level feature
+    files (reference data.py:658-723)."""
+
+    def __init__(
+        self,
+        feature_files: Sequence[FeaturePath],
+        ground_truths: np.ndarray,
+        transform: Callable[[np.ndarray], np.ndarray] | None = None,
+    ) -> None:
+        if len(feature_files) != len(ground_truths):
+            raise ValueError("Number of feature files and ground truths must match.")
+        self.feature_files = feature_files
+        self.ground_truths = ground_truths
+        self.transform = transform
+
+    def __len__(self) -> int:
+        return len(self.feature_files)
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        feature_file = self.feature_files[idx]
+        feats = _read_feature_file(Path(feature_file))[0]["feats"]
+        if feats.ndim == 2 and feats.shape[0] == 1:
+            feats = feats[0]
+        elif feats.ndim != 1:
+            raise RuntimeError(
+                f"Expected single feature vector (shape [F] or [1, F]), got {feats.shape} in {feature_file}."
+                "Check that the features are patient-level."
+            )
+        feats = feats.astype(np.float32)
+        if self.transform is not None:
+            feats = self.transform(feats)
+        return feats, self.ground_truths[idx]
+
+
+def _stack_targets(targets: list) -> np.ndarray | dict[str, np.ndarray]:
+    if isinstance(targets[0], dict):
+        return {k: np.stack([t[k] for t in targets]) for k in targets[0]}
     fixed = []
     for et in targets:
         et = np.asarray(et)
@@ -491,19 +606,21 @@ def _sliding_window_map(pool, fn, n: int, depth: int) -> Iterator:
 
 class BatchIterator:
     """Yields ``(bags [B, T, F], coords [B, T, 2], bag_sizes [B], targets)``
-    numpy batches of a :class:`BagDataset`; the last batch may be short
-    unless ``drop_last``.  Bags of one batch must have the same tile count
-    (fixed ``bag_size``, or batches of one).
+    numpy batches of a :class:`BagDataset` or ``(feats [B, F], targets)`` of
+    a :class:`PatientFeatureDataset`; the last batch may be short unless
+    ``drop_last``.  Bags of one batch must have the same tile count (fixed
+    ``bag_size``, or batches of one).
 
     Each pass draws, from ``rng`` (``Seed.numpy_rng()`` by default), the
-    epoch order when ``shuffle`` and then one bag seed per item, before any
-    item is read, so the sampled bags do not depend on ``num_workers``.
+    epoch order when ``shuffle`` and then, for bags, one bag seed per item,
+    before any item is read, so the sampled bags do not depend on
+    ``num_workers``.
     ``num_workers > 1`` reads items on a thread pool (h5 reads and numpy
     release the GIL) with a bounded look-ahead."""
 
     def __init__(
         self,
-        dataset: BagDataset,
+        dataset: BagDataset | PatientFeatureDataset,
         *,
         batch_size: int,
         shuffle: bool = False,
@@ -534,11 +651,16 @@ class BatchIterator:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             order = self.rng.permutation(order)
-        seeds = self.rng.integers(0, 2**63, size=len(order))
         dataset = self.dataset
+        if isinstance(dataset, BagDataset):
+            seeds = self.rng.integers(0, 2**63, size=len(order))
 
-        def fetch(j: int):
-            return dataset.__getitem__(int(order[j]), rng=np.random.default_rng(seeds[j]))
+            def fetch(j: int):
+                return dataset.__getitem__(int(order[j]), rng=np.random.default_rng(seeds[j]))
+        else:
+
+            def fetch(j: int):
+                return dataset[int(order[j])]
 
         if self.num_workers > 1:
             with ThreadPoolExecutor(self.num_workers) as pool:
@@ -552,12 +674,15 @@ class BatchIterator:
             if self.drop_last and count < self.batch_size:
                 return
             batch = [next(items) for _ in range(count)]
-            yield (
-                np.stack([it[0] for it in batch]),
-                np.stack([it[1] for it in batch]),
-                np.array([it[2] for it in batch], dtype=np.int32),
-                _stack_targets([it[3] for it in batch]),
-            )
+            if isinstance(self.dataset, BagDataset):
+                yield (
+                    np.stack([it[0] for it in batch]),
+                    np.stack([it[1] for it in batch]),
+                    np.array([it[2] for it in batch], dtype=np.int32),
+                    _stack_targets([it[3] for it in batch]),
+                )
+            else:
+                yield np.stack([it[0] for it in batch]), _stack_targets([it[1] for it in batch])
 
 
 def create_dataset(
@@ -568,19 +693,61 @@ def create_dataset(
     bag_size: int | None = None,
     shuffle: bool = False,
     transform: Callable[[np.ndarray], np.ndarray] | None = None,
-    categories: Sequence[Category] | None = None,
-) -> tuple[BagDataset, Sequence[Category]]:
-    """The tile-level dataset and its categories (reference data.py:321-421
-    for ``feature_type="tile"``); bags are sampled at random when
-    ``shuffle``, equidistantly otherwise."""
-    if feature_type != "tile":
-        raise _not_ported(f"deployment on {feature_type}-level features")
-    targets, cats = _parse_targets(patient_data=patient_data, task=task, categories=categories)
-    ds = BagDataset(
-        bags=[list(p.feature_files) for p in patient_data],
-        ground_truths=targets,
-        bag_size=bag_size,
-        transform=transform,
-        deterministic=not shuffle,
-    )
-    return ds, cats
+    categories: Sequence[Category] | Mapping[str, Sequence[Category]] | None = None,
+) -> tuple[BagDataset | PatientFeatureDataset, Sequence[Category] | Mapping[str, Sequence[Category]]]:
+    """The dataset of ``feature_type`` and its categories (reference
+    data.py:321-421): tile bags sampled at random when ``shuffle``,
+    equidistantly otherwise; one vector per slide or patient.  A
+    multi-target cohort's vocabularies come from its own ground truths
+    (``categories`` as a mapping is ignored, as in the JAX package)."""
+    if feature_type == "tile":
+        targets, cats = _parse_targets(
+            patient_data=patient_data, task=task, categories=None if isinstance(categories, Mapping) else categories
+        )
+        ds = BagDataset(
+            bags=[list(p.feature_files) for p in patient_data],
+            ground_truths=targets,
+            bag_size=bag_size,
+            transform=transform,
+            deterministic=not shuffle,
+        )
+        return ds, cats
+    if feature_type not in ("slide", "patient"):
+        raise ValueError(f"Unknown feature type: {feature_type}")
+    feature_files = [next(iter(p.feature_files)) for p in patient_data]
+    gts = [p.ground_truth for p in patient_data]
+    if task != "classification" and any(isinstance(gt, dict) for gt in gts):
+        raise ValueError(f"Multi-target {task} is not supported; provide a single target per patient")
+    if task == "classification":
+        raw = np.array(gts)
+        categories = categories or list(np.unique(raw))
+        labels = (raw.reshape(-1, 1) == np.array(list(categories))).astype(np.float32)
+    elif task == "regression":
+        # NaN keeps the rows aligned with the feature files for missing targets
+        labels = np.asarray([np.nan if gt is None else float(gt) for gt in gts], np.float32).reshape(-1, 1)
+    elif task == "survival":
+        labels = np.asarray([_lenient_survival_pair(gt) for gt in gts], np.float32)
+    else:
+        raise ValueError(f"Unsupported task: {task}")
+    return PatientFeatureDataset(feature_files, labels, transform), categories or []
+
+
+def _lenient_survival_pair(gt) -> tuple[float, float]:
+    """A stored ground truth as (time, event) floats, NaN where a part is
+    missing or unparseable: deploy cohorts may carry bare strings or no
+    ground truth, so nothing raises here."""
+    if isinstance(gt, (tuple, list)) and len(gt) == 2:
+        time_raw, event_raw = gt
+    elif gt is None:
+        time_raw, event_raw = None, None
+    else:  # a bare value is a time with unknown status
+        time_raw, event_raw = str(gt), None
+    try:
+        time = float(time_raw) if time_raw is not None else np.nan
+    except (TypeError, ValueError):
+        time = np.nan
+    try:
+        event = float(_parse_survival_status(event_raw)) if event_raw is not None else np.nan
+    except ValueError:
+        event = np.nan
+    return time, event

@@ -1,29 +1,30 @@
 """Deployment: checkpoints → whole-slide predictions → per-task CSVs.
 
 Counterpart of ``stamp_tpu.modeling.deploy`` (``stamp_tpu/modeling/deploy.py:
-51-665``) for tile-level ViT checkpoints: model re-instantiation from the
-checkpoint's hyper-parameters, the ensemble consistency checks, the
-data-leakage CRITICAL log, softmax / risk post-processing and the same
-prediction-CSV columns (``{gt_label}_{category}``, ``pred``, per-patient
-``loss``; survival ``pred_score`` and the ``cut_off=…`` marker column).
+51-665``) for every backbone: model re-instantiation from the checkpoint's
+hyper-parameters (the npz ``model.ckpt`` or the reference's Lightning
+``.ckpt``, ``modeling.interop``), the ensemble consistency checks, which
+feature levels a model may be deployed on (a slide- or patient-level model
+on either), the data-leakage CRITICAL log, softmax / risk post-processing
+and the same prediction-CSV columns (``{gt_label}_{category}``, ``pred``,
+per-patient ``loss``; survival ``pred_score`` and the ``cut_off=…`` marker
+column; multi-target one ground-truth column per target, then per target
+``pred_{t}`` and ``{t}_{category}``, and the summed ``loss``).
 
-Every bag is padded to a power of two of at least 512 tiles and attended
-with a key mask, as the JAX package does, so the same patients reach the
-flash kernels at the same sequence lengths (on the TPU the buckets bound
-recompiles; the port keeps them for parity).  The forward runs on an
-explicit ``torch.device`` under ``torch.inference_mode()``.
-
-Not ported yet (each raises ``NotImplementedError`` naming
-``python -m stamp_tpu deploy``): the reference's Lightning ``.ckpt`` files,
-backbones other than ``vit``, slide- and patient-level features and
-multi-target models.
+A tile bag of a backbone that takes a key mask (``vit``, ``barspoon``) is
+padded to a power of two of at least 512 tiles and attended with the mask,
+as the JAX package does, so the same patients reach the flash kernels at
+the same sequence lengths (on the TPU the buckets bound recompiles; the
+port keeps them for parity); other backbones see the bag at its own
+length.  The forward runs on an explicit ``torch.device`` under
+``torch.inference_mode()``.  A multi-target model's head outputs are
+softmaxed by its predict step and, for classification, once more by
+deploy (the reference re-softmaxes, ``deploy.py:428-430``).
 """
 
 from __future__ import annotations
 
 import logging
-import math
-import zipfile
 from collections.abc import Mapping, Sequence
 from pathlib import Path
 from typing import Any, TypeAlias, cast
@@ -39,10 +40,12 @@ from stamp_tpu_torch.modeling.data import (
     _clini_ground_truths,
     create_dataset,
     filter_complete_patient_data_,
+    load_patient_level_data,
     slide_to_patient_from_slide_table_,
 )
 from stamp_tpu_torch.modeling.tasks import TaskModel, instantiate_from_hparams
-from stamp_tpu_torch.models.vision_transformer import variables_from_jax
+from stamp_tpu_torch.modeling.train import _bucket_size, _pad_tile_batch, forward_batch, host_outputs
+from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.types import GroundTruth, PandasLabel, PatientId, SurvivalGroundTruth
 from stamp_tpu_torch.utils import profiling
 
@@ -50,35 +53,19 @@ __all__ = ["deploy_categorical_model_", "load_model_from_ckpt"]
 
 _logger = logging.getLogger("stamp")
 
-PredictionsType: TypeAlias = Mapping[PatientId, np.ndarray]
-
-
-def _is_lightning_checkpoint(path: Path) -> bool:
-    """A torch-zip Lightning checkpoint (the reference's format)."""
-    if not zipfile.is_zipfile(path):
-        return False
-    with zipfile.ZipFile(path) as zf:
-        return any(name.endswith("data.pkl") for name in zf.namelist())
+PredictionsType: TypeAlias = Mapping[PatientId, np.ndarray | dict[str, np.ndarray]]
 
 
 def load_model_from_ckpt(path: str | Path) -> tuple[TaskModel, Any]:
-    """(task wrapper, variable tree) of an npz checkpoint (reference
-    deploy.py:49-58)."""
+    """(task wrapper, JAX variable tree) of an npz checkpoint or of the
+    reference's Lightning ``.ckpt`` (reference deploy.py:49-58)."""
+    from stamp_tpu_torch.modeling.interop import is_reference_checkpoint, load_reference_checkpoint
+
     path = Path(path)
-    if _is_lightning_checkpoint(path):
-        raise NotImplementedError(
-            f"{path.name} is a Lightning .ckpt, which the port does not read yet; "
-            "run `python -m stamp_tpu deploy` (or convert it with "
-            "`python -m stamp_tpu export_ckpt`)"
-        )
+    if is_reference_checkpoint(path):
+        return load_reference_checkpoint(path)
     payload = load_checkpoint(path)
     return instantiate_from_hparams(payload["hyper_parameters"]), payload["variables"]
-
-
-def _bucket_size(n: int, *, minimum: int = 512) -> int:
-    if n <= minimum:
-        return minimum
-    return 1 << math.ceil(math.log2(n))
 
 
 def _predict_impl(
@@ -89,36 +76,38 @@ def _predict_impl(
     patient_ids: Sequence[PatientId],
     device: torch.device,
 ) -> PredictionsType:
-    """Whole-slide inference over ``test_dl`` on ``device`` (reference
-    deploy.py:390-456)."""
-    module = model.module
-    module.load_state_dict(variables_from_jax(variables))
-    module.to(device).eval()
+    """Inference over ``test_dl`` (whole bags or one vector a patient) on
+    ``device`` (reference deploy.py:390-456)."""
+    weights.load_variables_(model.module, variables)
+    model.module.to(device).eval()
 
-    outs: list[np.ndarray] = []
+    outs: list = []
     with torch.inference_mode():
-        for bags, coords, sizes, _targets in test_dl:
-            b, t, f = bags.shape
-            bucket = _bucket_size(t)
-            if t < bucket:
-                bags = np.concatenate([bags, np.zeros((b, bucket - t, f), bags.dtype)], axis=1)
-                coords = np.concatenate([coords, np.zeros((b, bucket - t, 2), coords.dtype)], axis=1)
-            key_mask = np.arange(bucket)[None, :] < np.asarray(sizes)[:, None]
+        for batch in test_dl:
+            key_mask = None
+            if model.pads_bags:
+                batch, key_mask = _pad_tile_batch(batch, _bucket_size(batch[0].shape[1]))
             with profiling.stage("deploy/forward"):
-                out = module(
-                    torch.from_numpy(bags).to(device),
-                    coords=torch.from_numpy(coords).to(device),
-                    key_mask=torch.from_numpy(key_mask).to(device),
-                )
-                outs.append(out.float().cpu().numpy())
-    module.to("cpu")
+                out = forward_batch(model, batch, key_mask, device)
+                if isinstance(out, dict):  # the multi-target predict step softmaxes each head
+                    out = {k: torch.softmax(v, dim=-1) for k, v in out.items()}
+                outs.append(host_outputs(out))
+    model.module.to("cpu")
 
     if not outs:
         return {}
+    task = model.hparams.get("task")
+    if isinstance(outs[0], dict):
+        per_target = {k: np.concatenate([out[k] for out in outs], axis=0) for k in outs[0]}
+        if task == "classification":
+            # the reference softmaxes the predict step's probabilities again
+            per_target = {k: _np_softmax(v) for k, v in per_target.items()}
+        num_preds = next(iter(per_target.values())).shape[0]
+        return {pid: {k: v[i] for k, v in per_target.items()} for i, pid in enumerate(patient_ids[:num_preds])}
     raw_preds = np.concatenate(outs, axis=0)
-    if model.hparams.get("task") == "classification":
+    if task == "classification":
         raw_preds = _np_softmax(raw_preds)
-    elif model.hparams.get("task") == "survival":
+    elif task == "survival":
         raw_preds = raw_preds.squeeze(-1)
     return {pid: raw_preds[i] for i, pid in enumerate(patient_ids)}
 
@@ -145,8 +134,17 @@ def _resolve_label(requested, trained, description: str):
     return requested or trained
 
 
+# which feature levels a model trained on level X can consume
+_DEPLOYABLE_ON = {
+    "tile": {"tile"},
+    "slide": {"slide", "patient"},
+    "patient": {"slide", "patient"},
+}
+
+
 def _deployment_cohort(
     *,
+    feature_type: str,
     task: str,
     clini_table: Path | None,
     slide_table: Path | None,
@@ -158,9 +156,25 @@ def _deployment_cohort(
     status_label,
     drop_patients_with_missing_ground_truth: bool,
 ) -> tuple[Mapping[PatientId, Any], Mapping[PatientId, Any]]:
-    """(patient → data, patient → ground truth) of a tile-level cohort.
-    Without a clini table every patient deploys with a ground truth of None
-    (pure inference, no loss column)."""
+    """(patient → data, patient → ground truth) of the cohort.  Patient-level
+    features need the clini table (it names the patients); for tile and
+    slide features, without a clini table every patient deploys with a
+    ground truth of None (pure inference, no loss column)."""
+    if feature_type == "patient":
+        if slide_table is not None:
+            _logger.warning("slide_table is ignored for patient-level features during deployment.")
+        if clini_table is None:
+            raise ValueError("clini_table is required for patient-level feature deployment.")
+        patient_to_data = load_patient_level_data(
+            task=cast(Any, task),
+            clini_table=clini_table,
+            feature_dir=feature_dir,
+            patient_label=patient_label,
+            ground_truth_label=ground_truth_label,
+            time_label=time_label,
+            status_label=status_label,
+        )
+        return patient_to_data, {pid: p.ground_truth for pid, p in patient_to_data.items()}
     if slide_table is None:
         raise ValueError(
             "Deploying on tile- or slide-level features requires a slide "
@@ -219,7 +233,7 @@ def deploy_categorical_model_(
 
     task = _agreed(models, "Tasks", lambda m: m.hparams["task"])
     trained_level = _agreed(models, "Feature levels", lambda m: m.hparams["supported_features"])
-    if feature_type != trained_level:
+    if feature_type not in _DEPLOYABLE_ON.get(trained_level, set()):
         raise RuntimeError(
             f"Model trained on {trained_level}-level features cannot be "
             f"deployed on {feature_type}-level features."
@@ -243,13 +257,17 @@ def deploy_categorical_model_(
             "ground truth label",
         )
 
-    trained_cats = None
+    model_categories = None
+    trained_cats: Any = None
     if task == "classification":
-        trained_cats = list(_agreed(models, "Categories", lambda m: m.categories))
+        trained_cats = _agreed(models, "Categories", lambda m: m.categories)
+        if not isinstance(trained_cats, dict):  # multi-target keeps per-target vocabularies
+            model_categories = list(cast(Sequence[GroundTruth], trained_cats))
 
     output_dir.mkdir(exist_ok=True, parents=True)
 
     patient_to_data, patient_to_ground_truth = _deployment_cohort(
+        feature_type=feature_type,
         task=task,
         clini_table=clini_table,
         slide_table=slide_table,
@@ -267,7 +285,7 @@ def deploy_categorical_model_(
         feature_type=feature_type,
         task=task,
         patient_data=list(patient_to_data.values()),
-        categories=trained_cats,
+        categories=model_categories,
     )
     test_dl = BatchIterator(test_ds, batch_size=1)
 
@@ -278,8 +296,19 @@ def deploy_categorical_model_(
     }[task]
 
     def export_csv(predictions: PredictionsType, filename: str, **extra) -> None:
+        if predictions and isinstance(next(iter(predictions.values())), dict):
+            # the vectors are ordered by the training vocabularies: label the
+            # columns with those (from the ground truths only if there are none)
+            targets = list(next(iter(predictions.values())))
+            export_cats: Any = _target_vocabularies(
+                trained_cats if isinstance(trained_cats, dict) else None, targets, patient_to_ground_truth
+            )
+        elif task == "classification":
+            export_cats = trained_cats
+        else:
+            export_cats = []
         df_builder(
-            categories=trained_cats if task == "classification" else [],
+            categories=export_cats,
             patient_to_ground_truth=patient_to_ground_truth,
             predictions=predictions,
             patient_label=patient_label,
@@ -315,9 +344,13 @@ def deploy_categorical_model_(
         )
 
     if task == "classification":
-        ensembled = {
-            pid: np.mean([preds[pid] for preds in all_predictions], axis=0) for pid in patient_ids
-        }
+        # the ensemble mean over models, per patient (and per target)
+        def mean_of(per_model: list) -> Any:
+            if isinstance(per_model[0], dict):
+                return {t: np.mean([p[t] for p in per_model], axis=0) for t in per_model[0]}
+            return np.mean(per_model, axis=0)
+
+        ensembled = {pid: mean_of([preds[pid] for preds in all_predictions]) for pid in patient_ids}
         export_csv(ensembled, "patient-preds_95_confidence_interval.csv")
 
 
@@ -339,6 +372,49 @@ def _np_logsumexp_1d(x: np.ndarray) -> float:
     return m + np.log(np.exp(x - m).sum())
 
 
+def _target_vocabularies(categories, targets: Sequence[str], patient_to_ground_truth) -> dict[str, list]:
+    """Per-target category lists: the models' when they have them, otherwise
+    the observed deployment ground truths'."""
+    if isinstance(categories, dict):
+        vocab = {t: list(v) for t, v in categories.items()}
+    elif isinstance(categories, Sequence) and len(categories) >= len(targets):
+        vocab = {t: list(cats) for t, cats in zip(targets, categories) if isinstance(cats, (list, tuple))}
+    else:
+        vocab = {}
+    if unknown := [t for t in targets if t not in vocab]:
+        dict_gts = [gt for gt in patient_to_ground_truth.values() if isinstance(gt, dict)]
+        vocab.update({t: sorted({gt[t] for gt in dict_gts if gt.get(t) is not None}) for t in unknown})
+    return vocab
+
+
+def _multitarget_prediction_df(*, categories, patient_to_ground_truth, predictions, patient_label) -> pd.DataFrame:
+    """Multi-target CSV: patient, one ground-truth column per target, then
+    per target ``pred_{t}`` and one probability column per category, then
+    the cross entropy summed over the targets with a known ground truth."""
+    targets = list(next(iter(predictions.values())))
+    vocab = _target_vocabularies(categories, targets, patient_to_ground_truth)
+    rows = []
+    for pid, pred in predictions.items():
+        raw_gt = patient_to_ground_truth.get(pid)
+        gt: dict = raw_gt if isinstance(raw_gt, dict) else {}
+        row: dict = {patient_label: pid, **{t: (gt.get(t) if isinstance(raw_gt, dict) else raw_gt) for t in targets}}
+        loss: float | None = None
+        for t in targets:
+            probs = np.asarray(pred[t])
+            cats = vocab.get(t, [])
+            if probs.size == 1:
+                row[f"pred_{t}"] = float(probs.item())
+            else:
+                winner = int(probs.argmax())
+                row[f"pred_{t}"] = cats[winner] if winner < len(cats) else winner
+            row.update({f"{t}_{c}": float(probs[j]) if j < probs.shape[0] else None for j, c in enumerate(cats)})
+            if (value := gt.get(t)) is not None and value in cats:
+                loss = (loss or 0.0) + _cross_entropy_row(probs, cats.index(value))
+        row["loss"] = loss
+        rows.append(row)
+    return pd.DataFrame(rows)
+
+
 def _to_prediction_df(
     *,
     categories,
@@ -350,7 +426,15 @@ def _to_prediction_df(
 ) -> pd.DataFrame:
     """Classification CSV: patient, ground truth, argmax ``pred``, one
     ``{gt_label}_{category}`` probability column per category and the
-    per-patient cross-entropy ``loss`` (rows sorted by it)."""
+    per-patient cross-entropy ``loss`` (rows sorted by it); a multi-target
+    model's in ``_multitarget_prediction_df``'s layout."""
+    if isinstance(next(iter(predictions.values())), dict):
+        return _multitarget_prediction_df(
+            categories=categories,
+            patient_to_ground_truth=patient_to_ground_truth,
+            predictions=predictions,
+            patient_label=patient_label,
+        )
     cats = list(cast(Sequence[GroundTruth], categories))
     pids = list(predictions)
     probs = np.stack([np.asarray(predictions[pid]) for pid in pids])

@@ -1,10 +1,11 @@
 """Model registry: (feature_type, task) × model_name → task wrapper + module.
 
-Counterpart of ``stamp_tpu/modeling/registry.py``: ``ModelName`` is copied
-value for value (the config schema validates against it); ``load_model_class``
-returns the port's classes, which so far cover the tile-level ViT.  Every
-other combination raises ``NotImplementedError`` naming the JAX package's
-command.
+Counterpart of ``stamp_tpu/modeling/registry.py:21-56``: ``ModelName`` is
+copied value for value (the config schema validates against it), and
+``load_model_class`` returns the port's classes for the same table: the
+tile, slide and patient wrappers for classification, regression and
+survival, and ``barspoon`` always with ``LitEncDecTransformer``.  An
+unknown name raises ``ValueError``.
 """
 
 from enum import StrEnum
@@ -22,21 +23,37 @@ class ModelName(StrEnum):
     BARSPOON = "barspoon"
 
 
-def load_model_class(task: Task, feature_type: str, model_name: ModelName, *, command: str = "deploy"):
-    """Returns (TaskModelClass, ModuleClass); imports deferred.  ``command``
-    is the JAX package's command the error names for what is not ported."""
+def load_model_class(task: Task, feature_type: str, model_name: ModelName):
+    """Returns (TaskModelClass, ModuleClass); imports deferred."""
     from stamp_tpu_torch.modeling import tasks
 
-    if feature_type != "tile" or model_name != ModelName.VIT:
-        raise NotImplementedError(
-            f"the {model_name.value!s} backbone on {feature_type}-level features is not "
-            f"ported yet; run `python -m stamp_tpu {command}`"
-        )
-    from stamp_tpu_torch.models.vision_transformer import VisionTransformer
-
     registry = {
-        "classification": tasks.LitTileClassifier,
-        "regression": tasks.LitTileRegressor,
-        "survival": tasks.LitTileSurvival,
+        ("tile", "classification"): tasks.LitTileClassifier,
+        ("tile", "regression"): tasks.LitTileRegressor,
+        ("tile", "survival"): tasks.LitTileSurvival,
+        ("slide", "classification"): tasks.LitSlideClassifier,
+        ("slide", "regression"): tasks.LitSlideRegressor,
+        ("slide", "survival"): tasks.LitSlideSurvival,
+        ("patient", "classification"): tasks.LitPatientClassifier,
+        ("patient", "regression"): tasks.LitPatientRegressor,
+        ("patient", "survival"): tasks.LitPatientSurvival,
     }
-    return registry[task], VisionTransformer
+    lit_class = registry[(feature_type, task)]
+
+    match model_name:
+        case ModelName.VIT:
+            from stamp_tpu_torch.models.vision_transformer import VisionTransformer as module_class
+        case ModelName.TRANS_MIL:
+            from stamp_tpu_torch.models.trans_mil import TransMIL as module_class
+        case ModelName.MLP:
+            from stamp_tpu_torch.models.mlp import MLP as module_class
+        case ModelName.BARSPOON:
+            from stamp_tpu_torch.models.barspoon import EncDecTransformer as module_class
+
+            lit_class = tasks.LitEncDecTransformer
+        case ModelName.LINEAR:
+            from stamp_tpu_torch.models.mlp import Linear as module_class
+        case _:
+            raise ValueError(f"Unknown model name: {model_name}")
+
+    return lit_class, module_class

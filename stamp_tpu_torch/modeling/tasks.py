@@ -1,23 +1,29 @@
 """Task wrappers around the backbones.
 
 Counterpart of ``stamp_tpu.modeling.tasks`` (``stamp_tpu/modeling/tasks.py:
-36-412``, ``:538-554``) for the tile-level classifier, regressor and
-survival model: the hyper-parameter record a checkpoint stores, the version
-gate, the module built from those hyper-parameters, the per-task loss, the
-learning-rate schedule and optimizer, and the validation metrics.
+36-554``): the tile-, slide- and patient-level classifier, regressor and
+survival model and the multi-target ``LitEncDecTransformer`` (barspoon):
+the hyper-parameter record a checkpoint stores, the version gate, the
+module built from those hyper-parameters, whether it takes coordinates
+(``uses_coords``, the module's ``supports_coords``), the per-task loss,
+the learning-rate schedule and optimizer, and the validation metrics.
 
 Loss semantics are the JAX package's, which are not PyTorch's defaults:
   * classification: −mean over the batch of Σ_c w_c·t_c·log p_c
     (``weighted_cross_entropy``), not ``F.cross_entropy(weight=…)``, which
     divides by the summed weights of the targets;
   * regression: L1;
-  * survival: the Efron-tied Cox negative partial log-likelihood
-    (``ops/cox.py``), validated by Harrell's C-index and the Breslow loss.
+  * survival: the Efron-tied Cox negative partial log-likelihood at tile
+    level, the Breslow loss at slide and patient level (``ops/cox.py``),
+    validated by Harrell's C-index and the Breslow loss;
+  * multi-target: the sum over targets of each target's weighted cross
+    entropy (a target missing for a patient is an all-zero row: no term).
 The schedule is ``optax.cosine_onecycle_schedule`` (``cosine_onecycle_schedule``
 here, value for value), whose step boundaries differ from
 ``torch.optim.lr_scheduler.OneCycleLR``; AdamW has optax's defaults and
-decays every parameter.  Slide/patient-level and multi-target wrappers are
-not ported (``registry.load_model_class`` raises).
+decays every parameter.  ``LitEncDecTransformer`` trains with ``optax.adam``
+at a constant ``learning_rate`` (``torch.optim.Adam``: no weight decay, ε
+outside the square root).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import functools
-from collections.abc import Callable, Iterable, Sequence
+from collections.abc import Callable, Iterable, Mapping, Sequence
 from typing import Any, ClassVar
 
 import numpy as np
@@ -149,6 +155,13 @@ class TaskModel:
     def dim_output(self) -> int:
         return 1
 
+    @property
+    def pads_bags(self) -> bool:
+        """Whether whole tile bags are padded to their bucket and attended
+        with a key mask (a tile-level backbone that takes one); others see
+        a bag at its own length."""
+        return self.supported_features[0] == "tile" and self.uses_coords
+
     def _build_module(self) -> nn.Module:
         params = _filter_model_params(self.model_class, self.metadata)
         return self.model_class(dim_input=self.dim_input, dim_output=self.dim_output, **params)
@@ -182,8 +195,7 @@ class TaskModel:
         return dict(self.hparams, model_class=None)
 
 
-class LitTileClassifier(TaskModel):
-    supported_features = ["tile"]
+class LitBaseClassifier(TaskModel):
     task_name = "classification"
 
     def __init__(
@@ -249,8 +261,19 @@ def _np_logsumexp(x: np.ndarray) -> np.ndarray:
     return m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True))
 
 
-class LitTileRegressor(TaskModel):
+class LitTileClassifier(LitBaseClassifier):
     supported_features = ["tile"]
+
+
+class LitSlideClassifier(LitBaseClassifier):
+    supported_features = ["slide"]
+
+
+class LitPatientClassifier(LitSlideClassifier):
+    supported_features = ["patient"]
+
+
+class LitBaseRegressor(TaskModel):
     task_name = "regression"
 
     def __init__(self, *, model_class, dim_input: int, ground_truth_label=None, **kwargs: Any) -> None:
@@ -271,8 +294,19 @@ class LitTileRegressor(TaskModel):
         return {"validation_loss": float(np.mean(np.abs(p - t)))}
 
 
-class LitTileSurvival(TaskModel):
+class LitTileRegressor(LitBaseRegressor):
     supported_features = ["tile"]
+
+
+class LitSlideRegressor(LitBaseRegressor):
+    supported_features = ["slide"]
+
+
+class LitPatientRegressor(LitSlideRegressor):
+    supported_features = ["patient"]
+
+
+class LitSurvivalBase(TaskModel):
     task_name = "survival"
     monitor = ("val_cindex", "max")
 
@@ -298,9 +332,6 @@ class LitTileSurvival(TaskModel):
         if self.train_pred_median is not None:
             self.hparams["train_pred_median"] = self.train_pred_median
 
-    def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        return neg_partial_log_likelihood(outputs.reshape(-1), targets[:, 0], targets[:, 1])
-
     def validation_metrics(self, outputs, targets) -> dict[str, float]:
         from stamp_tpu_torch.statistics.survival_util import concordance_index
 
@@ -324,6 +355,125 @@ class LitTileSurvival(TaskModel):
         if "val_cindex" not in metrics:
             metrics["val_cindex"] = float("nan")
         return metrics
+
+
+class LitTileSurvival(LitSurvivalBase):
+    supported_features = ["tile"]
+
+    def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        return neg_partial_log_likelihood(outputs.reshape(-1), targets[:, 0], targets[:, 1])
+
+
+class LitSlideSurvival(LitSurvivalBase):
+    supported_features = ["slide"]
+
+    def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        return cox_loss_breslow(outputs.reshape(-1), targets[:, 0], targets[:, 1])
+
+
+class LitPatientSurvival(LitSlideSurvival):
+    supported_features = ["patient"]
+
+
+class LitEncDecTransformer(TaskModel):
+    """Multi-target classification with barspoon (reference
+    models/__init__.py:857-937, barspoon.py:208-348; ``stamp_tpu/modeling/
+    tasks.py:419-536``): per-target categories and class weights, plain Adam
+    at a constant ``learning_rate``, the loss summed over targets."""
+
+    supported_features = ["tile"]
+    task_name = "classification"
+
+    def __init__(
+        self,
+        *,
+        dim_input: int,
+        category_weights: Mapping[str, Any],
+        model_class=None,
+        ground_truth_label=None,
+        categories: Mapping[str, Sequence[str]],
+        d_model: int = 512,
+        num_encoder_heads: int = 8,
+        num_decoder_heads: int = 8,
+        num_encoder_layers: int = 2,
+        num_decoder_layers: int = 2,
+        dim_feedforward: int = 2048,
+        positional_encoding: bool = True,
+        learning_rate: float = 1e-4,
+        **kwargs: Any,
+    ) -> None:
+        from stamp_tpu_torch.models.barspoon import EncDecTransformer
+
+        if not isinstance(categories, Mapping):
+            raise ValueError("Multi-target classification requires categories as Mapping[str, Sequence[str]].")
+        self.weights = {k: np.asarray(v, dtype=np.float32) for k, v in category_weights.items()}
+        normalized_categories = {str(k): list(v) for k, v in categories.items()}
+        for t, w in self.weights.items():
+            if t not in normalized_categories:
+                raise ValueError(f"Missing categories for target '{t}'")
+            if len(normalized_categories[t]) != len(w):
+                raise ValueError(
+                    f"Category mismatch for target '{t}': {len(normalized_categories[t])} categories "
+                    f"but head has {len(w)} outputs."
+                )
+        self.categories = normalized_categories
+        self.ground_truth_label = ground_truth_label
+        self.learning_rate = learning_rate
+        self._barspoon_params = dict(
+            d_model=d_model,
+            num_encoder_heads=num_encoder_heads,
+            num_decoder_heads=num_decoder_heads,
+            num_encoder_layers=num_encoder_layers,
+            num_decoder_layers=num_decoder_layers,
+            dim_feedforward=dim_feedforward,
+            positional_encoding=positional_encoding,
+        )
+        super().__init__(
+            model_class=model_class or EncDecTransformer,
+            dim_input=dim_input,
+            ground_truth_label=ground_truth_label,
+            categories=normalized_categories,
+            category_weights=dict(self.weights),
+            learning_rate=learning_rate,
+            **self._barspoon_params,
+            **kwargs,
+        )
+        self.hparams["model_name"] = self.hparams.get("model_name", "barspoon")
+
+    def _build_module(self) -> nn.Module:
+        from stamp_tpu_torch.models.barspoon import EncDecTransformer
+
+        return EncDecTransformer(
+            dim_input=self.dim_input,
+            target_n_outs=[(t, len(w)) for t, w in self.weights.items()],
+            **self._barspoon_params,
+        )
+
+    def lr_schedule(self) -> Callable[[int], float]:
+        return lambda count: self.learning_rate
+
+    def make_optimizer(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Adam:
+        """``optax.adam`` (reference barspoon.py:346-348): b1 0.9, b2 0.999,
+        eps 1e-8, no weight decay."""
+        return torch.optim.Adam(params, lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+    def loss(self, outputs: Mapping[str, torch.Tensor], targets: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        total = 0.0
+        for target, weight in self.weights.items():
+            w = torch.from_numpy(weight).to(outputs[target].device)
+            total = total + weighted_cross_entropy(outputs[target], targets[target], w)
+        return total
+
+    def validation_metrics(self, outputs, targets) -> dict[str, float]:
+        """The per-target weighted cross entropies, summed (outputs and
+        targets: one dict of [1, C] arrays per patient)."""
+        total_loss = 0.0
+        for target, w in self.weights.items():
+            logits = np.concatenate([np.asarray(out[target]) for out in outputs])
+            t = np.concatenate([np.asarray(tgt[target]) for tgt in targets])
+            logp = logits - _np_logsumexp(logits)
+            total_loss += float(np.mean(-np.sum(t * logp * w[None, :], axis=-1)))
+        return {"validation_loss": total_loss}
 
 
 def instantiate_from_hparams(hparams: dict[str, Any]) -> TaskModel:

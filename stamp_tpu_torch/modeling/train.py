@@ -1,27 +1,33 @@
 """Training: the ``stamp train`` workflow and the single-device engine.
 
 Counterpart of ``stamp_tpu/modeling/train.py:61-978`` (its single-device
-path) for the tile-level ``vit`` backbone: the stratified 75/25 split
-(``modeling.splits.train_test_split``, scikit-learn's indices without
-scikit-learn), class weights with the under-population warning, default
-model selection, AdamW with the one-cycle cosine schedule, early stopping
-and save_top_k=1 on the task's monitor (``val_cindex``↑ for survival,
-``validation_loss``↓ otherwise), the ``lightning_logs/version_0/
+path) for every backbone (``vit``, ``trans_mil``, ``mlp``, ``linear``,
+``barspoon``) on tile-, slide- and patient-level features, single- and
+multi-target: the stratified 75/25 split (``modeling.splits.
+train_test_split``, scikit-learn's indices without scikit-learn; a
+multi-target cohort stratifies on its first target), class weights with the
+under-population warning (per target for multi-target), default model
+selection (``vit`` for tiles, ``mlp`` otherwise), the task's optimizer
+(AdamW with the one-cycle cosine schedule; barspoon's constant-rate Adam),
+early stopping and save_top_k=1 on the task's monitor (``val_cindex``↑ for
+survival, ``validation_loss``↓ otherwise), the ``lightning_logs/version_0/
 metrics.csv`` log with the JAX package's columns, ``checkpoint-final.ckpt``
 when no epoch improved, and the best checkpoint copied to ``model.ckpt``.
 
-The engine runs on an explicit ``torch.device``.  ``bag_size: null``
-trains on whole slides: each bag is padded to a power of two of at least
-512 tiles and attended with a key mask, so bags of 4,096 tiles and more
-reach the flash kernels and their backward.  Validation runs whole bags,
-bucket-padded the same way, under ``torch.inference_mode()``.  Host →
-device copies go through pinned memory.  The random draws (split, epoch
+The engine runs on an explicit ``torch.device``.  Coordinates and key
+masks go to a backbone only where it takes them (``uses_coords``: ``vit``
+and ``barspoon``).  ``bag_size: null`` trains on whole slides (such
+backbones only): each bag is padded to a power of two of at least 512 tiles
+and attended with a key mask, so ``vit`` bags of 4,096 tiles and more reach
+the flash kernels and their backward.  Validation runs whole bags under
+``torch.inference_mode()``, bucket-padded the same way for those backbones
+and at their own length otherwise; slide and patient batches are one vector
+a patient.  Host → device copies go through pinned memory.  The random draws (split, epoch
 order, bag seeds, the initial batch the JAX package reads for its
 initialisation) follow the JAX package's order from ``Seed.numpy_rng()``;
 initial weights come from ``Seed.torch_generator()`` and differ from
-flax's.  Not ported (each raises ``NotImplementedError`` naming ``python -m
-stamp_tpu train``): other backbones, multi-target ground truths, slide- and
-patient-level features and ``mesh_shape`` (sharded training).
+flax's.  Not ported (raises ``NotImplementedError`` naming ``python -m
+stamp_tpu train``): ``mesh_shape`` (sharded training).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from stamp_tpu_torch.modeling.checkpoint import save_checkpoint
 from stamp_tpu_torch.modeling.config import AdvancedConfig, TrainConfig
 from stamp_tpu_torch.modeling.data import (
+    BagDataset,
     BatchIterator,
     PatientData,
     _not_ported,
@@ -51,7 +58,7 @@ from stamp_tpu_torch.modeling.registry import ModelName, load_model_class
 from stamp_tpu_torch.modeling.splits import train_test_split
 from stamp_tpu_torch.modeling.tasks import TaskModel
 from stamp_tpu_torch.modeling.transforms import VaryPrecisionTransform
-from stamp_tpu_torch.models.vision_transformer import init_random_weights_, variables_to_jax
+from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.types import Category, PandasLabel, PatientId, Task
 from stamp_tpu_torch.utils import profiling
 from stamp_tpu_torch.utils.seed import Seed
@@ -114,9 +121,12 @@ def train_categorical_model_(*, config: TrainConfig, advanced: AdvancedConfig, d
 
 
 def _stratification(task: Task, ground_truths: list) -> list | None:
-    """What the split stratifies on: the class, the survival status, or
-    nothing (regression)."""
+    """What the split stratifies on: the class (a multi-target cohort's
+    first target), the survival status, or nothing (regression)."""
     if task == "classification":
+        if ground_truths and isinstance(ground_truths[0], dict):
+            first = next(iter(ground_truths[0]))
+            return [gt[first] for gt in ground_truths]
         return ground_truths
     if task != "survival":
         return None
@@ -148,6 +158,8 @@ def setup_dataloaders_for_training(
     _logger.info(f"Task: {feature_type} {task}")
     if len(ground_truths) != len(patient_to_data):
         raise ValueError("patient_to_data must have a ground truth defined for all targets!")
+    if task != "classification" and any(isinstance(gt, dict) for gt in ground_truths):
+        raise ValueError("Multi-target ground truths are only supported for classification tasks")
 
     train_patients, valid_patients = train_test_split(
         list(patient_to_data), stratify=_stratification(task, ground_truths), shuffle=True, random_state=0
@@ -182,11 +194,19 @@ def setup_dataloaders_for_training(
 
 
 def _compute_class_weights_and_check_categories(
-    *, train_dl: BatchIterator, train_categories: Sequence[str]
-) -> np.ndarray:
+    *, train_dl: BatchIterator, train_categories: Sequence[str] | Mapping[str, Sequence[str]]
+) -> np.ndarray | dict[str, np.ndarray]:
     """Inverse-frequency class weights, normalised to sum to 1 (reference
-    train.py:567-621)."""
-    category_counts = np.asarray(train_dl.dataset.ground_truths).sum(axis=0)
+    train.py:567-621); per target for multi-target bags."""
+    ground_truths = train_dl.dataset.ground_truths
+    if isinstance(train_dl.dataset, BagDataset) and isinstance(ground_truths, list):
+        weights_per_target: dict[str, np.ndarray] = {}
+        for key in ground_truths[0]:
+            counts = np.stack([gt[key] for gt in ground_truths]).sum(axis=0)
+            w = counts.sum() / np.maximum(counts, 1e-12)
+            weights_per_target[key] = (w / w.sum()).astype(np.float32)
+        return weights_per_target
+    category_counts = np.asarray(ground_truths).sum(axis=0)
     cat_ratio_reciprocal = category_counts.sum() / category_counts
     category_weights = cat_ratio_reciprocal / cat_ratio_reciprocal.sum()
     if len(train_categories) <= 1:
@@ -205,14 +225,33 @@ def _compute_class_weights_and_check_categories(
     return category_weights.astype(np.float32)
 
 
-def _resolve_model_and_params(*, task: Task, feature_type: str, advanced: AdvancedConfig) -> tuple[type, Any, dict]:
-    """Model defaulting (reference train.py:153-194): ``vit`` for tiles."""
+def _resolve_model_and_params(
+    *, task: Task, feature_type: str, advanced: AdvancedConfig, ground_truth_label
+) -> tuple[type, Any, dict]:
+    """Model defaulting and validation (reference train.py:153-194): ``vit``
+    for tiles, ``mlp`` otherwise; barspoon needs several targets; slide and
+    patient features take ``mlp`` or ``linear``."""
     if advanced.model_name is None:
         advanced.model_name = ModelName.VIT if feature_type == "tile" else ModelName.MLP
         _logger.info(
             f"No model specified, defaulting to '{advanced.model_name.value}' for feature type '{feature_type}'"
         )
-    lit_class, model_class = load_model_class(task, feature_type, advanced.model_name, command="train")
+    if task == "classification" and isinstance(ground_truth_label, str) and advanced.model_name == ModelName.BARSPOON:
+        raise ValueError(
+            "Model 'barspoon' requires multi-target classification. For single-target classification "
+            "set model_name to 'vit', 'trans_mil', or 'mlp'."
+        )
+    lit_class, model_class = load_model_class(task, feature_type, advanced.model_name)
+    if feature_type not in lit_class.supported_features:
+        raise ValueError(
+            f"Model '{advanced.model_name.value}' does not support feature type '{feature_type}'. "
+            f"Supported types are: {lit_class.supported_features}"
+        )
+    if feature_type in ("slide", "patient") and advanced.model_name.value.lower() not in {"mlp", "linear"}:
+        raise ValueError(
+            f"Feature type '{feature_type}' only supports MLP or Linear. "
+            f"Got '{advanced.model_name.value}'. Please set model_name='mlp' or 'linear'."
+        )
     model_specific_params = advanced.model_params.model_dump().get(advanced.model_name.value) or {}
     return lit_class, model_class, model_specific_params
 
@@ -221,7 +260,7 @@ def setup_model_from_dataloaders(
     *,
     train_dl: BatchIterator,
     task: Task,
-    train_categories: Sequence[Category],
+    train_categories: Sequence[Category] | Mapping[str, Sequence[Category]],
     dim_feats: int,
     train_patients: Sequence[PatientId],
     valid_patients: Sequence[PatientId],
@@ -242,7 +281,7 @@ def setup_model_from_dataloaders(
             train_dl=train_dl, train_categories=train_categories
         )
     lit_class, model_class, model_specific_params = _resolve_model_and_params(
-        task=task, feature_type=feature_type, advanced=advanced
+        task=task, feature_type=feature_type, advanced=advanced, ground_truth_label=ground_truth_label
     )
     assert advanced.model_name is not None  # set by _resolve_model_and_params
     common_params = {
@@ -376,10 +415,40 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return tensor.to(device)
 
 
+def _targets_to_device(targets, device: torch.device):
+    """A batch's targets on ``device`` (per target for multi-target)."""
+    if isinstance(targets, dict):
+        return {k: _to_device(v, device) for k, v in targets.items()}
+    return _to_device(targets, device)
+
+
+def forward_batch(model: TaskModel, batch: tuple, key_mask: np.ndarray | None, device: torch.device, **kwargs):
+    """The backbone on one host batch: a tile batch's bags, with its
+    coordinates and ``key_mask`` where the backbone takes them
+    (``uses_coords``), or a slide/patient batch's vectors.  ``kwargs`` go
+    to the module (``train``, ``generator``)."""
+    if len(batch) == 4:
+        bags, coords, _sizes, _targets = batch
+        if model.uses_coords:
+            kwargs.update(
+                coords=_to_device(coords, device),
+                key_mask=None if key_mask is None else _to_device(key_mask, device),
+            )
+        return model.module(_to_device(bags, device), **kwargs)
+    return model.module(_to_device(batch[0], device), **kwargs)
+
+
+def host_outputs(out) -> np.ndarray | dict[str, np.ndarray]:
+    """f32 numpy copies of a forward's output (per target for multi-target)."""
+    if isinstance(out, dict):
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+    return out.float().cpu().numpy()
+
+
 def _init_module(model: TaskModel) -> None:
     """Initial weights from the global seed (flax's initializers'
     distributions; the values differ from the JAX package's)."""
-    init_random_weights_(model.module, Seed.torch_generator())
+    weights.init_weights_(model.module, Seed.torch_generator())
 
 
 def _bucketed(batches) -> Iterator:
@@ -407,7 +476,7 @@ def train_model_(
     key mask."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    if pad_train_buckets and not model.uses_coords:
+    if pad_train_buckets and not model.pads_bags:
         raise ValueError(
             "bag_size: null (whole-slide training) requires a mask-capable tile model (e.g. vit); "
             f"use a fixed bag_size with {type(model.module).__name__}."
@@ -437,18 +506,10 @@ def train_model_(
     for epoch in range(max_epochs):
         train_losses: list[torch.Tensor] = []
         train_outputs: list[np.ndarray] = []
-        for (bags, coords, _sizes, targets), key_mask in (
-            _bucketed(train_dl) if pad_train_buckets else ((b, None) for b in train_dl)
-        ):
+        for batch, key_mask in _bucketed(train_dl) if pad_train_buckets else ((b, None) for b in train_dl):
             with profiling.stage("train/step"):
-                outputs = module(
-                    _to_device(bags, device),
-                    coords=_to_device(coords, device),
-                    key_mask=None if key_mask is None else _to_device(key_mask, device),
-                    train=True,
-                    generator=generator,
-                )
-                loss = model.loss(outputs, _to_device(targets, device))
+                outputs = forward_batch(model, batch, key_mask, device, train=True, generator=generator)
+                loss = model.loss(outputs, _targets_to_device(batch[-1], device))
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 for group in optimizer.param_groups:
@@ -472,18 +533,15 @@ def train_model_(
             model.train_pred_median = float(np.median(np.concatenate(train_outputs)))
             model.hparams["train_pred_median"] = model.train_pred_median
 
-        val_outputs: list[np.ndarray] = []
-        val_targets: list[np.ndarray] = []
+        val_outputs: list = []
+        val_targets: list = []
         with profiling.stage("train/eval"), torch.inference_mode():
             for batch in valid_dl:
-                (bags, coords, _sizes, targets), key_mask = _pad_tile_batch(batch, _bucket_size(batch[0].shape[1]))
-                out = module(
-                    _to_device(bags, device),
-                    coords=_to_device(coords, device),
-                    key_mask=_to_device(key_mask, device),
-                )
-                val_outputs.append(out.float().cpu().numpy())
-                val_targets.append(targets)
+                key_mask = None
+                if model.pads_bags:
+                    batch, key_mask = _pad_tile_batch(batch, _bucket_size(batch[0].shape[1]))
+                val_outputs.append(host_outputs(forward_batch(model, batch, key_mask, device)))
+                val_targets.append(batch[-1])
 
         metrics = model.validation_metrics(val_outputs, val_targets)
         metrics["training_loss"] = train_loss
@@ -502,7 +560,7 @@ def train_model_(
         if not math.isnan(current) and sign * current < best_value:
             best_value = sign * current
             wait = 0
-            best_variables = variables_to_jax(module.state_dict())
+            best_variables = weights.variables_of(module)
             ckpt_dir = output_dir / "checkpoints"
             new_ckpt_path = ckpt_dir / f"checkpoint-epoch={epoch:02d}-{monitor_metric}={current:0.3f}.ckpt"
             ckpt_dir.mkdir(exist_ok=True, parents=True)
@@ -518,7 +576,7 @@ def train_model_(
 
     if best_ckpt_path is None:
         # no epoch improved (e.g. an all-nan monitor): save the final state
-        best_variables = variables_to_jax(module.state_dict())
+        best_variables = weights.variables_of(module)
         best_ckpt_path = output_dir / "checkpoints" / "checkpoint-final.ckpt"
         save_checkpoint(best_ckpt_path, hyper_parameters=model.checkpoint_hparams(), variables=best_variables)
     shutil.copy(best_ckpt_path, output_dir / "model.ckpt")

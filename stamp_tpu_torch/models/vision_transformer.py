@@ -50,11 +50,11 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops import flash_attention
 from stamp_tpu_torch.ops.attention import (
     alibi_attention,
@@ -317,48 +317,19 @@ class VisionTransformer(nn.Module):
 _BUFFERS = ("running_mean", "items_so_far")  # the flax "alibi_stats" collection
 
 
-def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], np.ndarray]:
-    out: dict[tuple[str, ...], np.ndarray] = {}
-    for key, value in tree.items():
-        if isinstance(value, Mapping):
-            out |= _flatten(value, prefix + (str(key),))
-        else:
-            out[prefix + (str(key),)] = np.asarray(value)
-    return out
-
-
 def variables_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     """The JAX module's variables (``{"params": ..., "alibi_stats": ...}``,
     numpy leaves as ``load_checkpoint`` returns them) → a ``state_dict`` of
-    :class:`VisionTransformer`.  Dense kernels [in, out] become Linear
-    weights [out, in]; LayerNorm ``scale`` becomes ``weight``."""
-    state: dict[str, torch.Tensor] = {}
-    for collection in ("params", "alibi_stats"):
-        for path, value in _flatten(variables.get(collection, {})).items():
-            *module, leaf = path
-            if leaf == "kernel":
-                leaf, value = "weight", value.T
-            elif leaf == "scale":
-                leaf = "weight"
-            state[".".join([*module, leaf])] = torch.from_numpy(np.array(value, np.float32))
-    return state
+    :class:`VisionTransformer` (``models.weights``' rule)."""
+    return weights.state_dict_from_tree(variables, ("params", "alibi_stats"))
 
 
 def variables_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The exact inverse of :func:`variables_from_jax`: a state dict → the
     JAX module's variable tree with numpy leaves, for ``save_checkpoint``."""
-    variables: dict = {}
-    for name, tensor in state_dict.items():
-        *module, leaf = name.split(".")
-        value = tensor.detach().cpu().numpy().astype(np.float32)
-        collection = "alibi_stats" if leaf in _BUFFERS else "params"
-        if leaf == "weight":
-            leaf, value = ("kernel", value.T.copy()) if value.ndim == 2 else ("scale", value)
-        node = variables.setdefault(collection, {})
-        for part in module:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-    return variables
+    return weights.tree_from_state_dict(
+        state_dict, lambda leaf: "alibi_stats" if leaf in _BUFFERS else "params"
+    )
 
 
 def init_random_weights_(model: VisionTransformer, generator: torch.Generator) -> VisionTransformer:

@@ -123,7 +123,20 @@ def test_pickle_and_foreign_files_are_refused(tmp_path):
     np.savez(npz, a=np.zeros(3))
     with pytest.raises(ValueError, match="not a stamp-tpu checkpoint"):
         torch_ckpt.load_checkpoint(npz)
+    # a torch zip that is no Lightning checkpoint is refused; the reference's
+    # Lightning .ckpt (here written by the JAX package) loads
+    foreign = tmp_path / "foreign.ckpt"
+    torch.save({"state_dict": {}}, foreign)
+    with pytest.raises(ValueError, match="not a Lightning checkpoint"):
+        load_model_from_ckpt(foreign)
+    from stamp_tpu.modeling.interop import save_reference_checkpoint
+
+    model = JaxClassifier(model_class=JaxViT, ground_truth_label="gt", categories=["a", "b"],
+                          category_weights=np.array([0.5, 0.5], np.float32), dim_input=8, model_name="vit",
+                          dim_model=16, n_heads=2, n_layers=1, dim_feedforward=16)  # fmt: skip
+    variables = model.module.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 8)), coords=jnp.zeros((1, 4, 2)))
     lightning = tmp_path / "lightning.ckpt"
-    torch.save({"state_dict": {}}, lightning)  # a torch zip holding data.pkl
-    with pytest.raises(NotImplementedError, match="python -m stamp_tpu deploy"):
-        load_model_from_ckpt(lightning)
+    save_reference_checkpoint(lightning, hyper_parameters=model.checkpoint_hparams(), variables=variables)
+    task_model, loaded = load_model_from_ckpt(lightning)
+    task_model.module.load_state_dict(torch_vit.variables_from_jax(loaded))
+    assert task_model.categories == ["a", "b"]

@@ -174,12 +174,22 @@ def test_survival_matches_jax_cli(tmp_path, monkeypatch):
 
 
 def test_unported_backbones_raise(tmp_path):
+    """Every backbone of the JAX package is ported: an ``mlp`` checkpoint
+    loads; a model name outside the registry raises ``ValueError``, as in
+    the JAX package."""
     from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
+    from stamp_tpu_torch.models.mlp import MLP
 
-    hparams = {"task": "classification", "supported_features": "tile", "model_name": "mlp", "stamp_version": "2.5.0"}
+    hparams = {
+        "task": "classification", "supported_features": "slide", "model_name": "mlp", "stamp_version": "2.5.0",
+        "dim_input": FEAT_DIM, "ground_truth_label": "gt", "categories": ["a", "b"], "category_weights": [0.5, 0.5],
+    }  # fmt: skip
     save_checkpoint(tmp_path / "mlp.ckpt", hyper_parameters=hparams, variables={})
-    with pytest.raises(NotImplementedError, match="python -m stamp_tpu deploy"):
-        load_model_from_ckpt(tmp_path / "mlp.ckpt")
+    model, _ = load_model_from_ckpt(tmp_path / "mlp.ckpt")
+    assert isinstance(model.module, MLP) and model.categories == ["a", "b"]
+    save_checkpoint(tmp_path / "cobra.ckpt", hyper_parameters={**hparams, "model_name": "cobra"}, variables={})
+    with pytest.raises(ValueError, match="cobra"):
+        load_model_from_ckpt(tmp_path / "cobra.ckpt")
 
 
 def test_port_written_features_deploy_alike(tmp_path, monkeypatch):

@@ -83,7 +83,7 @@ def _run(probe: str, tmp_path, *args: str) -> subprocess.CompletedProcess:
 def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
     proc = _run(_IMPORT_EVERY_MODULE, tmp_path)
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    # every module of the port, the deploy, training and encoding slices' among them
+    # every module of the port, the deploy, training, encoding and model-zoo slices' among them
     assert {
         "stamp_tpu_torch.__main__",
         "stamp_tpu_torch.encoding.encoder._virtual_slide",
@@ -94,9 +94,15 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
         "stamp_tpu_torch.heatmaps.generate",
         "stamp_tpu_torch.modeling.crossval",
         "stamp_tpu_torch.modeling.deploy",
+        "stamp_tpu_torch.modeling.interop",
+        "stamp_tpu_torch.modeling.registry",
         "stamp_tpu_torch.modeling.splits",
         "stamp_tpu_torch.modeling.train",
+        "stamp_tpu_torch.models.barspoon",
+        "stamp_tpu_torch.models.mlp",
+        "stamp_tpu_torch.models.trans_mil",
         "stamp_tpu_torch.models.vision_transformer",
+        "stamp_tpu_torch.models.weights",
         "stamp_tpu_torch.ops.flash_attention",
         "stamp_tpu_torch.preprocessing.extract",
         "stamp_tpu_torch.statistics.core",
