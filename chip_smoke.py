@@ -166,11 +166,37 @@ Phases (each prints at least one line; any failure exits non-zero):
    f32 cam's one-ulp sensitivity printed); a ``torch.profiler`` split of
    each backbone's training step and 12,000-tile forward.
 
+13. extractor zoo: every other tile-extractor family through ``python -m
+   stamp_tpu_torch -c config.yaml --profile preprocess`` in-process on phase
+   4's slide (144 tiles, batch 64, random weights at full width): CONCH and
+   CONCH1.5 (CoCa at 448 px, 785 tokens: row 1's three-sweep kernel), KEEP
+   (ViT-L/16 and its head), TICON (H-Optimus-1 and the contextualizer) in
+   bf16 and in int8, CTransPath, CHIEF-CTransPath, PLIP, MUSK and ``empty``
+   in bf16, and PLIP once more with ``macenko_normalization``; each run's
+   h5 contract and its launches (rows 1–3 at every block of the first
+   four, ``ln_quant_dense`` in int8; none of rows 1–9 elsewhere).  Each
+   family's features on the card against its plain path (rows 1–3's plain
+   versions; 8 tiles, bf16 and int8, LayerScale γ = 1 for KEEP and TICON)
+   or, for the families without a kernel, against the port's CPU forward
+   of the same weights (2 tiles, MUSK 1), per-tile cosine ≥
+   ``ZOO_COSINE_MIN`` (KEEP's and TICON's ImageViT output too; int8 ≥
+   ``ZOO_INT8_COSINE_MIN``, TICON's int8 features ≥
+   ``TICON_INT8_COSINE_MIN``); rows 1–3 at every shape those families give them
+   (``ZOO_LN_SITES``, ``ZOO_ATTENTION``) against their plain versions at
+   ``KERNEL_TOL``; CONCH and CONCH1.5 tiles/s at batch 64 and MFU over the
+   H100's bf16 peak (``TILE_GFLOP``); row 1's three-sweep kernel at
+   [64, 785, 2304 | 3072] (12 and 16 heads) against its plain version and
+   SDPA bf16, with its bound; Macenko on the card against the golden tile
+   and the CPU (H&E-like tiles), on uniform-noise tiles the card and the
+   CPU each against the CPU in f64 (p99 ≤ ``MACENKO_P99``), and its ms per
+   batch; ``encode_slides`` with TITAN on the CONCH1.5 features.
+
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
-11, 12 and print their wall time.  The line before the last is ``{"kernels":
-[...]}``: each kernel's launches on its main path (phase 4, 4b, 6, 7 or 9;
-the MIL forward's, phases 6 and 7; rows 4–8 also ``heatmaps_launches``,
-phase 11's), its
+11, 12, 13 and print their wall time.  The line before the last is
+``{"kernels": [...]}``: each kernel's launches on its main path (phase 4,
+4b, 6, 7 or 9, rows 1–3 also phase 13's; the MIL forward's, phases 6 and 7;
+rows 4–8 also ``heatmaps_launches``, phase 11's; row 1 also its
+three-sweep kernel's times at [64, 785, 3072], ``three_sweep_*``), its
 largest error against its plain
 version, its time, the plain version's and the library control's, and the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -185,6 +211,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -826,8 +853,6 @@ def phase_whole_model(card: str) -> None:
     import torch
 
     from stamp_tpu_torch.models import vit_image
-    from stamp_tpu_torch.ops.flash_attention import fused_qkv_mha_reference
-    from stamp_tpu_torch.ops.ln_dense import ln_dense_reference
     from stamp_tpu_torch.preprocessing.extractor.zoo import resolve_extractor
 
     dev = torch.device("cuda:0")
@@ -835,12 +860,8 @@ def phase_whole_model(card: str) -> None:
     tiles = rng.integers(60, 200, (BATCH, 224, 224, 3), dtype=np.uint8)
 
     def plain_path(fn, *args):
-        kernel_fns = (vit_image.ln_dense, vit_image.fused_qkv_mha)
-        vit_image.ln_dense, vit_image.fused_qkv_mha = ln_dense_reference, fused_qkv_mha_reference
-        try:
+        with vit_image.plain_kernels():
             return fn(*args)
-        finally:
-            vit_image.ln_dense, vit_image.fused_qkv_mha = kernel_fns
 
     def check(what: str, got, want) -> None:
         cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1)
@@ -1328,22 +1349,33 @@ def _bwd_executed_flops(mask, do, d: int) -> float:
     return float((pairs * (3 + 4)).sum().item()) * 2 * d
 
 
+#: traces ``_device_split`` takes before it fails: CUPTI now and then hands
+#: the profiler a trace with no device activity at all, for a call whose
+#: kernels the trace before and after it shows
+SPLIT_TRACES = 3
+
+
 def _device_split(fn, kernels: dict) -> dict:
     """Device ms of each kernel of ``kernels`` (part → a tag of its name) in
     one call of ``fn`` (``torch.profiler``), as ``<part>_ms``.  The call is
-    synchronised inside the trace; a trace without one of the kernels fails."""
+    synchronised inside the trace.  A trace without one of the kernels is
+    taken again, up to ``SPLIT_TRACES`` in all (each empty one printed);
+    the last one without them fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and e.device_time_total > 0}  # fmt: skip
-    split = {f"{part}_ms": sum(ms for key, ms in device.items() if tag in key) for part, tag in kernels.items()}
-    if not all(split.values()):
-        _fail(f"torch.profiler traced no device time for a kernel of {sorted(kernels.values())}: {split}")
-    return split
+    for attempt in range(1, SPLIT_TRACES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and e.device_time_total > 0}  # fmt: skip
+        split = {f"{part}_ms": sum(ms for key, ms in device.items() if tag in key) for part, tag in kernels.items()}
+        if all(split.values()):
+            return split
+        print(f"[profiler] trace {attempt} of {SPLIT_TRACES} lacks a kernel of {sorted(kernels.values())}: "
+              f"{split}; {len(device)} device events in all")  # fmt: skip
+    _fail(f"torch.profiler traced no device time for a kernel of {sorted(kernels.values())} in {SPLIT_TRACES} traces")
 
 
 def _bwd_split(fn, mask, do, d: int) -> dict:
@@ -2858,6 +2890,502 @@ def phase_zoo(card: str) -> dict:
     return result
 
 
+# 13: the other tile-extractor families (extractor/{coca_beit3,clip_like,
+# ticon,swin,empty}.py) and Macenko, through ``preprocess`` on phase 4's slide
+EXTRACTOR_FAMILIES = {  # name → feature width
+    "conch": 512, "conch1_5": 768, "keep": 768, "ticon": 1536, "ctranspath": 768,
+    "chief-ctranspath": 768, "plip": 512, "musk": 2048, "empty": 0,
+}  # fmt: skip
+#: the families whose towers carry rows 1–3: (blocks, LayerNorm-fed sites a
+#: block) — qkv and fc1, and SwiGLU's fc2 in H-Optimus-1 (TICON's tile tower)
+KERNEL_FAMILIES = {"conch": (12, 2), "conch1_5": (24, 2), "keep": (24, 2), "ticon": (40, 3)}
+#: GFLOP a tile at 448 px, N = 785: matmuls 2·N·12·d² a block plus attention
+#: 4·N²·d (CONCH: d = 768, 12 blocks; CONCH1.5: d = 1024, 24 blocks)
+TILE_GFLOP = {"conch": 156.0, "conch1_5": 536.0}
+#: rows 2 and 3 at the LayerNorm-fed sites the kernel families' towers give
+#: them at batch 64 (M, K, N): CoCa's 785 tokens, KEEP's 197 (ViT-L/16 at
+#: 224 px), TICON's 261 (H-Optimus-1: 256 patches, CLS, 4 registers; SwiGLU
+#: hidden 8,192, its inner norm → fc2 at K = 4,096)
+ZOO_LN_SITES = (
+    ("CONCH qkv", BATCH * 785, 768, 2304), ("CONCH fc1", BATCH * 785, 768, 3072),
+    ("CONCH1.5 qkv", BATCH * 785, 1024, 3072), ("CONCH1.5 fc1", BATCH * 785, 1024, 4096),
+    ("KEEP qkv", BATCH * 197, 1024, 3072), ("KEEP fc1", BATCH * 197, 1024, 4096),
+    ("TICON qkv", BATCH * 261, 1536, 4608), ("TICON fc1", BATCH * 261, 1536, 8192),
+    ("TICON fc2", BATCH * 261, 4096, 1536),
+)  # fmt: skip
+#: row 1 at KEEP's and TICON's attention (B, N, heads; d = 64), one-pass;
+#: CONCH's and CONCH1.5's three-sweep shapes are ``_three_sweep``'s
+ZOO_ATTENTION = (("KEEP", BATCH, 197, 16), ("TICON", BATCH, 261, 24))
+#: the ViT arch of each family whose blocks carry LayerScale: the check
+#: against the plain path builds them with γ = 1, as phase 5(b) does, since
+#: at the random init's 1e-5 the blocks barely move the residual stream
+LAYERSCALE_ARCH = {"keep": "uni", "ticon": "h_optimus"}
+#: least per-tile cosine of phase 13's bf16 features (and ImageViT outputs)
+#: on the card against the plain path or the port's CPU forward
+ZOO_COSINE_MIN = 0.999
+#: the same in int8.  W8A8 turns a rounding-sized change of a site's input
+#: into a few activations one quantization step off, a larger change in L2;
+#: in TICON's 40-block tile tower at γ = 1 that makes the plain attention
+#: alone (0.99964 in bf16) part the int8 output by ~0.009 in cosine.  Rows 2
+#: and 3 are held at these very shapes to KERNEL_TOL and one step
+#: (``_zoo_sites``)
+ZOO_INT8_COSINE_MIN = 0.99
+#: TICON's int8 features: its W8A8 encoder re-rolls its quantization error
+#: on any change in the tile embedding, so they part by about what int8
+#: parts from bf16 (INT8_COSINE_MIN, phase 4's bound of that)
+TICON_INT8_COSINE_MIN = INT8_COSINE_MIN
+#: Macenko on tiles of uniform noise (phase 4's slide): the most the 99th
+#: percentile of |Δ| may reach, card against the CPU and f32 against f64,
+#: which rounding alone passes (tests/test_macenko_groundtruth.py's p99).
+#: The max is printed, not bounded: such a tile's OD covariance is nearly
+#: isotropic, so the f32 summation order of the covariance can turn its
+#: stain plane (see ``_macenko_on_card``)
+MACENKO_P99 = 2
+#: CONCH's tokens: (448 / 16)² patches + CLS
+CONCH_TOKENS = 785
+#: tiles the card's features are held to the CPU's for the families without a kernel
+ZOO_CPU_TILES = {"musk": 1}
+
+
+def _zoo_counts() -> dict:
+    """Every launch counter of rows 1–9, by name."""
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.ops import ln_dense as lnd
+
+    counts = {"fused_qkv_mha": attn.LAUNCHES, "ln_dense": lnd.LAUNCHES, "ln_quant_dense": lnd.QUANT_LAUNCHES}
+    return counts | {name: getattr(attn, name) for name in (*_COUNTERS, "FLASH_ALIBI2D_LAUNCHES")}
+
+
+def _zero_counts() -> None:
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.ops import ln_dense as lnd
+
+    attn.LAUNCHES = lnd.LAUNCHES = lnd.QUANT_LAUNCHES = 0
+    for name in (*_COUNTERS, "FLASH_ALIBI2D_LAUNCHES"):
+        setattr(attn, name, 0)
+
+
+def _extract_run(card: str, family: str, root: Path, slides: Path, *, int8: bool = False, macenko: bool = False):
+    """``preprocess`` of ``family`` through the CLI in-process (random weights,
+    batch 64) with every launch count set to 0 before it: the h5 contract,
+    the counts, the forward's seconds."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.io.h5 import read_h5
+    from stamp_tpu_torch.preprocessing import extract
+
+    out = root / f"{family}{'-int8' if int8 else ''}{'-macenko' if macenko else ''}"
+    section = {"output_dir": str(out), "wsi_dir": str(slides), "extractor": family, "device": "cuda",
+               "generate_hash": False, "default_slide_mpp": 1.0, "max_workers": 4,
+               "extractor_precision": "int8" if int8 else "bfloat16", "macenko_normalization": macenko}  # fmt: skip
+    config = _yaml(root / f"{out.name}.yaml", {"preprocessing": section})
+    _zero_counts()
+    t0 = time.perf_counter()
+    main(["-c", str(config), "--profile", "preprocess"])  # exits non-zero on failure
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _zoo_counts()
+    h5s = sorted(out.rglob("*.h5"))
+    dir_name = family + ("-int8" if int8 else "")
+    if len(h5s) != 1 or h5s[0].parent.name != dir_name:
+        _fail(f"{family}: expected one h5 under {out / dir_name}, found {h5s}")
+    datasets, attrs = read_h5(h5s[0])
+    feats, coords = _sorted_by_coords(datasets)
+    n, width = len(coords), EXTRACTOR_FAMILIES[family]
+    if datasets["feats"].dtype != np.float16 or feats.shape != (n, width) or not np.isfinite(feats).all():
+        _fail(f"{family}: feats {datasets['feats'].dtype} {feats.shape}, expected finite float16 [{n}, {width}]")
+    if width and not np.abs(feats).max() > 0:
+        _fail(f"{family}: all-zero features")
+    if attrs["extractor"] != family or attrs.get("precision") != ("int8" if int8 else None):
+        _fail(f"{family}: attrs {attrs}")
+    timer = extract.profiling.timer.seconds
+    row = dict(family=family, precision="int8" if int8 else "bfloat16", macenko=macenko, tiles=n,
+               batches=math.ceil(n / BATCH), launches={k: v for k, v in launches.items() if v}, wall_s=wall,
+               forward_s=timer["preprocess/device_forward"], macenko_s=timer.get("preprocess/macenko"))  # fmt: skip
+    print(f"[13 extractor zoo] preprocess {json.dumps(row)} on {card}")
+    return row, feats, coords
+
+
+def _expected_counts(family: str, batches: int, int8: bool) -> dict:
+    """Rows 1–3's launches of one ``preprocess``: attention at every block
+    of every forward (the int8 calibration forward too), the LayerNorm-fed
+    sites through ``ln_dense`` or, in int8, ``ln_quant_dense``."""
+    blocks, sites = KERNEL_FAMILIES.get(family, (0, 0))
+    forwards = batches + (1 if int8 and blocks else 0)
+    return {"fused_qkv_mha": blocks * forwards, "ln_dense": 0 if int8 else blocks * sites * batches,
+            "ln_quant_dense": blocks * sites * batches if int8 else 0}  # fmt: skip
+
+
+def _family_extractor(family: str, device, int8: bool = False):
+    from stamp_tpu_torch.preprocessing.extractor import set_int8_extraction
+    from stamp_tpu_torch.preprocessing.extractor.zoo import resolve_extractor
+
+    set_int8_extraction(int8)
+    try:
+        return resolve_extractor(family, device)
+    finally:
+        set_int8_extraction(None)
+
+
+def _cosines(got, want) -> tuple[float, float]:
+    import torch
+
+    got, want = torch.as_tensor(got).double().cpu(), torch.as_tensor(want).double().cpu()
+    return torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item(), (got - want).abs().max().item()
+
+
+@contextlib.contextmanager
+def _layerscale_one(family: str):
+    """Extractors of ``family`` built within the block get LayerScale γ = 1
+    in every block (``LAYERSCALE_ARCH``)."""
+    from stamp_tpu_torch.models.vit_image import VIT_CONFIGS
+
+    arch = LAYERSCALE_ARCH.get(family)
+    if arch is None:
+        yield
+        return
+    saved = VIT_CONFIGS[arch]
+    VIT_CONFIGS[arch] = dataclasses.replace(saved, init_values=1.0)
+    try:
+        yield
+    finally:
+        VIT_CONFIGS[arch] = saved
+
+
+def _forward_and_vit(ext, tiles):
+    """``ext.forward(tiles)`` and, where the extractor's blocks are an
+    ``ImageViT`` (KEEP's trunk, TICON's tile tower), what that tower
+    returned for these tiles in the last of its forwards (None else)."""
+    import torch
+
+    from stamp_tpu_torch.models.vit_image import ImageViT
+
+    seen = []
+
+    def hook(module, args, output):
+        if isinstance(module, ImageViT):
+            seen.append(output)
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        feats = ext.forward(tiles)
+    finally:
+        handle.remove()
+    return feats, (seen[-1][: len(tiles)].float() if seen else None)
+
+
+def _zoo_against_plain(card: str, family: str, int8: bool) -> dict:
+    """A kernel family's extractor on the card: 8 tiles on the kernel path
+    against the plain path (the same weights, LayerScale γ = 1, and, in
+    int8, the same calibration, on its first batch padded to 64).  The
+    features, and the ImageViT's output where there is one, per-tile
+    cosine ≥ ``ZOO_COSINE_MIN`` (bf16) or ``ZOO_INT8_COSINE_MIN`` (int8);
+    TICON's int8 features ≥ ``TICON_INT8_COSINE_MIN`` (see there)."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.models import vit_image
+
+    with _layerscale_one(family):
+        ext = _family_extractor(family, torch.device("cuda:0"), int8)
+    px = ext.input_px
+    tiles = np.random.default_rng(2).integers(60, 200, (8, px, px, 3), dtype=np.uint8)
+    got, got_vit = _forward_and_vit(ext, tiles)  # in int8, the first forward calibrates, then runs the int8 tower
+    with vit_image.plain_kernels():
+        want, want_vit = _forward_and_vit(ext, tiles)
+    cos, diff = _cosines(got, want)
+    row = dict(family=family, precision="int8" if int8 else "bfloat16", tiles=8, min_cosine=cos, max_abs_diff=diff,
+               max_abs_ref=want.abs().max().item())  # fmt: skip
+    if got_vit is not None:
+        row["vit_min_cosine"], row["vit_max_abs_diff"] = _cosines(got_vit, want_vit)
+    print(f"[13 extractor zoo] kernel against plain path {json.dumps(row)} on {card}")
+    vit_least = ZOO_INT8_COSINE_MIN if int8 else ZOO_COSINE_MIN
+    least = TICON_INT8_COSINE_MIN if (family, int8) == ("ticon", True) else vit_least
+    if not (cos >= least and row.get("vit_min_cosine", 1.0) >= vit_least):
+        _fail(f"{family} ({row['precision']}): kernel against plain path, min cosine {cos} (limit {least}), "
+              f"its ImageViT's {row.get('vit_min_cosine')} (limit {vit_least})")  # fmt: skip
+    del ext
+    torch.cuda.empty_cache()
+    return row
+
+
+def _zoo_sites(card: str) -> dict:
+    """Rows 1–3 at the shapes phase 13's kernel families give them
+    (``ZOO_LN_SITES``, ``ZOO_ATTENTION``), each against its plain version
+    at ``KERNEL_TOL``; ``ln_quant_dense``'s int8 activations also within
+    one step of the plain quantization."""
+    import torch
+
+    from stamp_tpu_torch.models.vit_image import _quantized_dense_site
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.ops import ln_dense as lnd
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=gen)).to(torch.bfloat16)
+
+    rows = []
+    for what, b, n, h in ZOO_ATTENTION:
+        qkv = randn(b, n, 3 * h * 64)
+        abs_err, rel_err = _error(attn.fused_qkv_mha(qkv, h), attn.fused_qkv_mha_reference(qkv, h))
+        rows.append(dict(kernel="fused_qkv_mha", site=what, shape=[b, n, 3 * h * 64], heads=h, max_abs_err=abs_err,
+                         rel_err=rel_err))  # fmt: skip
+        del qkv
+    for what, m, k, n in ZOO_LN_SITES:
+        x, beta, w, bias = randn(m, k), randn(k, scale=0.1), randn(n, k, scale=k**-0.5), randn(n, scale=0.1)
+        g = (1.0 + 0.1 * torch.randn(k, device=dev, generator=gen)).to(torch.bfloat16)
+        abs_err, rel_err = _error(lnd.ln_dense(x, g, beta, w, bias), lnd.ln_dense_reference(x, g, beta, w, bias))
+        rows.append(dict(kernel="ln_dense", site=what, m=m, k=k, n=n, max_abs_err=abs_err, rel_err=rel_err))
+        quant = _quantized_dense_site(w, None)
+        s_x = lnd.layer_norm_f32(x, g, beta, 1e-6).abs().max().float().clamp_min(1e-6) * 1.05  # calibrated, 5% headroom
+        args = (x, g, beta, s_x, quant["weight_q"], quant["w_scale"], bias)
+        abs_err, rel_err = _error(lnd.ln_quant_dense(*args), lnd.ln_quant_dense_reference(*args))
+        xq = lnd.quantize_activation(lnd.layer_norm_f32(x, g, beta, 1e-6).to(torch.bfloat16), s_x)
+        step = (_identity_readback(lnd, x, g, beta, s_x) - xq.int()).abs().max().item()
+        rows.append(dict(kernel="ln_quant_dense", site=what, m=m, k=k, n=n, max_abs_err=abs_err, rel_err=rel_err,
+                         q_max_step=step))  # fmt: skip
+        del x, w, quant, args, xq
+    torch.cuda.empty_cache()
+    for row in rows:
+        print(f"[13 extractor zoo] site {json.dumps(row)} on {card}")
+    bad = [row for row in rows if not row["rel_err"] <= KERNEL_TOL or row.get("q_max_step", 0) > 1]
+    if bad:
+        _fail(f"rows 1–3 at phase 13's shapes: beyond {KERNEL_TOL}, or a quantized value off by more than one step: {bad}")
+    return {"checked": len(rows), "max_rel_err": max(row["rel_err"] for row in rows)}
+
+
+def _zoo_against_cpu(card: str, family: str) -> dict:
+    """A family without a kernel: the card's features against the port's
+    CPU forward of the same random weights on the same tiles."""
+    import numpy as np
+    import torch
+
+    n = ZOO_CPU_TILES.get(family, 2)
+    saved = os.environ["STAMP_EXTRACT_BATCH"]
+    os.environ["STAMP_EXTRACT_BATCH"] = str(n)  # no padding on the CPU
+    try:
+        card_ext = _family_extractor(family, torch.device("cuda:0"))
+        tiles = np.random.default_rng(3).integers(60, 200, (n, card_ext.input_px, card_ext.input_px, 3), dtype=np.uint8)
+        got = card_ext.forward(tiles).cpu()
+        del card_ext
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        want = _family_extractor(family, torch.device("cpu")).forward(tiles)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        os.environ["STAMP_EXTRACT_BATCH"] = saved
+    row = dict(family=family, tiles=n, cpu_s=cpu_s)
+    if got.shape[1]:
+        cos, diff = _cosines(got, want)
+        row |= dict(min_cosine=cos, max_abs_diff=diff, max_abs_ref=want.abs().max().item())
+        if not cos >= ZOO_COSINE_MIN:
+            _fail(f"{family}: card against CPU, min cosine {cos} < {ZOO_COSINE_MIN}")
+    elif got.shape != want.shape:
+        _fail(f"{family}: card {tuple(got.shape)}, CPU {tuple(want.shape)}")
+    print(f"[13 extractor zoo] card against CPU {json.dumps(row)} on {card}")
+    return row
+
+
+def _conch_rates(card: str) -> dict:
+    """CONCH and CONCH1.5 at batch 64, steady state: tiles/s and MFU over
+    the H100's dense bf16 peak (``TILE_GFLOP`` a tile)."""
+    import numpy as np
+    import torch
+
+    rates = {}
+    for family in ("conch", "conch1_5"):
+        ext = _family_extractor(family, torch.device("cuda:0"))
+        px = ext.input_px
+        tiles = np.random.default_rng(4).integers(60, 200, (BATCH, px, px, 3), dtype=np.uint8)
+        ms = statistics.median(_time_ms(lambda: ext.forward(tiles), iters=5))
+        tiles_per_s = BATCH / ms * 1e3
+        rates[family] = dict(batch=BATCH, ms=ms, tiles_per_s=tiles_per_s, gflop_per_tile=TILE_GFLOP[family],
+                             mfu=tiles_per_s * TILE_GFLOP[family] * 1e9 / PEAK_FLOPS["bf16"])  # fmt: skip
+        del ext
+        torch.cuda.empty_cache()
+    print(f"[13 extractor zoo] steady-state forward {json.dumps(rates)} on {card}")
+    return rates
+
+
+def _three_sweep(card: str) -> list[dict]:
+    """Row 1 at CONCH's shapes (N = 785 > ``ONE_PASS_MAX_N``: the three-sweep
+    kernel), batch 64, against its plain version and SDPA bf16, one sync
+    around each call."""
+    import torch
+    import torch.nn.functional as F
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for h in (12, 16):  # CONCH, CONCH1.5
+        b, n, d = BATCH, CONCH_TOKENS, 64
+        qkv = torch.randn(b, n, 3 * h * d, device=dev, generator=gen).to(torch.bfloat16)
+        abs_err, rel_err = _error(attn.fused_qkv_mha(qkv, h), attn.fused_qkv_mha_reference(qkv, h))
+
+        def sdpa(qkv=qkv, h=h):
+            q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, h * d)
+
+        t = _compare_timed(lambda: attn.fused_qkv_mha(qkv, h), lambda: attn.fused_qkv_mha_reference(qkv, h), sdpa)
+        bound, by = _bound(b * n * 4 * h * d * 2, {"bf16": 4 * b * h * n * n * d})
+        row = dict(shape=[b, n, 3 * h * d], heads=h, head_dim=d, max_abs_err=abs_err, rel_err=rel_err,
+                   ms=t["kernel"], plain_ms=t["plain"], sdpa_bf16_ms=t["control"], bound_ms=bound, bound_by=by,
+                   bound_share=bound / t["kernel"])  # fmt: skip
+        print(f"[13 extractor zoo] fused_qkv_mha three-sweep {json.dumps(row)} on {card}")
+        if not rel_err <= KERNEL_TOL:
+            _fail(f"fused_qkv_mha {row['shape']}: max|Δ|/max|ref| {rel_err} > {KERNEL_TOL}")
+        rows.append(row)
+        del qkv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _he_tiles(n: int, size: int, seed: int):
+    """H&E-like uint8 tiles: two smooth stain-concentration fields through
+    Beer–Lambert with stain vectors off the reference, plus noise (the
+    recipe of ``tests/test_macenko_groundtruth.py``'s tile).  A tile of
+    uniform noise is no stain image: its optical-density covariance is
+    nearly isotropic, so its stain plane, and the tile after Macenko, turn
+    on the last bits of ``eigh``."""
+    import numpy as np
+
+    from stamp_tpu_torch.ops.macenko import HE_REF
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size))
+    tiles = []
+    for _ in range(n):
+        (hx, hy), (ex, ey) = rng.uniform(0.2, 0.8, (2, 2))
+        c_h = 0.9 * np.exp(-((xx - hx) ** 2 + (yy - hy) ** 2) * 6) + 0.15
+        c_e = 0.7 * np.exp(-((xx - ex) ** 2 + (yy - ey) ** 2) * 8) + 0.1
+        stains = np.asarray(HE_REF) + rng.normal(scale=0.05, size=(3, 2))
+        stains /= np.linalg.norm(stains, axis=0, keepdims=True)
+        img = (240.0 * np.exp(-stains @ np.stack([c_h.ravel(), c_e.ravel()]))).T.reshape(size, size, 3)
+        tiles.append(np.clip(img + rng.normal(scale=2.0, size=img.shape), 0, 255).astype(np.uint8))
+    return np.stack(tiles)
+
+
+def _macenko_on_card(card: str) -> dict:
+    """Macenko on the card against the golden tile and the port's CPU path
+    (64 H&E-like tiles of 224 px), and its ms per batch of them."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.ops.macenko import macenko_normalize
+
+    golden = np.load(REPO / "tests" / "data" / "macenko_golden.npz")
+    dev = torch.device("cuda:0")
+    tiles = _he_tiles(BATCH, 224, seed=6)
+    got_golden = macenko_normalize(torch.from_numpy(golden["input"][None]).to(dev)).cpu().numpy()[0]
+    got = macenko_normalize(torch.from_numpy(tiles).to(dev)).cpu().numpy()
+    want = macenko_normalize(torch.from_numpy(tiles)).numpy()
+    row = {}
+    for what, a, b in (("golden", got_golden, golden["normalized"]), ("cpu", got, want)):
+        diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        row[f"vs_{what}_p99"], row[f"vs_{what}_max"] = float(np.percentile(diff, 99)), int(diff.max())
+        if not (row[f"vs_{what}_p99"] <= 2 and row[f"vs_{what}_max"] <= 6):  # tests/test_macenko_groundtruth.py
+            _fail(f"Macenko on the card against the {what}: {row}")
+    images = torch.from_numpy(tiles).to(dev)
+    row["ms_per_batch"] = statistics.median(_time_ms(lambda: macenko_normalize(images), iters=5))
+    row["batch"] = BATCH
+    # uniform noise, as phase 4's slide is (and as preprocess normalizes it
+    # in phase 13's PLIP run): the card and the CPU in f32, each against
+    # the CPU in f64
+    noise = np.random.default_rng(6).integers(60, 200, (BATCH, 224, 224, 3), dtype=np.uint8)
+    on_card = macenko_normalize(torch.from_numpy(noise).to(dev)).cpu().numpy().astype(np.int32)
+    on_cpu = macenko_normalize(torch.from_numpy(noise)).numpy().astype(np.int32)
+    on_cpu_f64 = macenko_normalize(torch.from_numpy(noise), torch.float64).numpy().astype(np.int32)
+    for what, a, b in (("noise_vs_cpu", on_card, on_cpu), ("noise_cpu_vs_f64", on_cpu, on_cpu_f64),
+                       ("noise_vs_f64", on_card, on_cpu_f64)):  # fmt: skip
+        diff = np.abs(a - b)
+        row[f"{what}_p99"], row[f"{what}_max"] = float(np.percentile(diff, 99)), int(diff.max())
+        row[f"{what}_tiles_over_6"] = int((diff.reshape(BATCH, -1).max(axis=1) > 6).sum())
+    print(f"[13 extractor zoo] macenko {json.dumps(row)} on {card}")
+    if not max(row[f"{what}_p99"] for what in ("noise_vs_cpu", "noise_cpu_vs_f64", "noise_vs_f64")) <= MACENKO_P99:
+        _fail(f"Macenko on uniform noise: a 99th percentile of |Δ| above {MACENKO_P99}: {row}")
+    return row
+
+
+def _conch1_5_to_titan(card: str, root: Path) -> dict:
+    """``encode_slides`` with TITAN on the CONCH1.5 features this phase
+    extracted."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.io.h5 import read_h5
+
+    fields = {"encoder": "titan", "output_dir": str(root / "titan"), "feat_dir": str(root / "conch1_5" / "conch1_5"),
+              "device": "cuda", "generate_hash": False}  # fmt: skip
+    config = _yaml(root / "titan.yaml", {"slide_encoding": fields})
+    t0 = time.perf_counter()
+    main(["-c", str(config), "encode_slides"])  # exits non-zero on failure
+    torch.cuda.synchronize()
+    (h5,) = sorted((root / "titan").rglob("*.h5")) or [None]
+    if h5 is None:
+        _fail("TITAN wrote no slide embedding for the CONCH1.5 features")
+    datasets, attrs = read_h5(h5)
+    if datasets["feats"].shape != (768,) or not np.isfinite(datasets["feats"]).all() or attrs["encoder"] != "titan":
+        _fail(f"TITAN on CONCH1.5 features: feats {datasets['feats'].shape}, attrs {attrs}")
+    row = dict(slide=h5.stem, wall_s=time.perf_counter() - t0, norm=float(np.linalg.norm(datasets["feats"])))
+    print(f"[13 extractor zoo] CONCH1.5 → TITAN {json.dumps(row)} on {card}")
+    return row
+
+
+def phase_extractor_zoo(card: str) -> dict:
+    """13: every other tile-extractor family through ``preprocess`` on
+    phase 4's slide (144 tiles, batch 64, random weights at full width):
+    bf16, and int8 for the four whose towers carry rows 1–3 (CONCH,
+    CONCH1.5, KEEP, TICON), with each run's launches checked (rows 1–3 at
+    every block of those four, none of rows 1–9 elsewhere); each family's
+    features on the card against its plain path (rows 1–3's plain versions)
+    or, without a kernel, the port's CPU forward; CONCH and CONCH1.5 tiles/s
+    and MFU; row 1's three-sweep kernel at CONCH's shapes; Macenko on the
+    card (also through ``preprocess``); TITAN on the CONCH1.5 features."""
+    import torch
+
+    root = WORK / "extractors"
+    slides = WORK / "slides"
+    if not (slides / "synthetic.tif").is_file():
+        slides.mkdir(parents=True, exist_ok=True)
+        _write_slide(slides / "synthetic.tif")
+    os.environ["STAMP_RANDOM_WEIGHTS"] = "1"
+    os.environ["STAMP_EXTRACT_BATCH"] = str(BATCH)
+    sites = _zoo_sites(card)
+    runs, checks = [], []
+    for family in EXTRACTOR_FAMILIES:
+        for int8 in (False, True) if family in KERNEL_FAMILIES else (False,):
+            row, _, _ = _extract_run(card, family, root, slides, int8=int8)
+            expected = _expected_counts(family, row["batches"], int8)
+            if {k: v for k, v in row["launches"].items()} != {k: v for k, v in expected.items() if v}:
+                _fail(f"{family} ({row['precision']}): launches {row['launches']}, expected {expected}")
+            runs.append(row)
+            torch.cuda.empty_cache()
+        if family in KERNEL_FAMILIES:
+            checks += [_zoo_against_plain(card, family, int8) for int8 in (False, True)]
+        else:
+            checks.append(_zoo_against_cpu(card, family))
+    macenko_run, _, _ = _extract_run(card, "plip", root, slides, macenko=True)
+    if macenko_run["launches"] or not macenko_run["macenko_s"]:
+        _fail(f"plip with Macenko: {macenko_run}")
+    runs.append(macenko_run)
+    return dict(
+        runs=runs,
+        checks=checks,
+        sites=sites,
+        rates=_conch_rates(card),
+        three_sweep=_three_sweep(card),
+        macenko=_macenko_on_card(card),
+        titan=_conch1_5_to_titan(card, root),
+    )
+
+
 def _timed(fn) -> float:
     """Seconds of one synchronised call of ``fn``."""
     import torch
@@ -2906,6 +3434,7 @@ def main() -> None:
     _timed_phase("10 statistics", phase_statistics, card)
     heatmaps = _timed_phase("11 heatmaps", phase_heatmaps, card)
     _timed_phase("12 zoo", phase_zoo, card)
+    extractors = _timed_phase("13 extractor zoo", phase_extractor_zoo, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
@@ -2923,6 +3452,10 @@ def main() -> None:
         "dist_weighted_sum": trained["runs"]["alibi"]["launches"]["DIST_WEIGHTED_SUM_LAUNCHES"],
     }
     quant_rows = quant["ln_quant_dense"][:UNI2_SITES]
+    # phase 13's preprocess runs launch rows 1–3 too (CONCH, CONCH1.5, KEEP, TICON)
+    zoo_launches = {k: sum(r["launches"].get(k, 0) for r in extractors["runs"])
+                    for k in ("fused_qkv_mha", "ln_dense", "ln_quant_dense")}  # fmt: skip
+    three_sweep = next(r for r in extractors["three_sweep"] if r["heads"] == 16)  # CONCH1.5, [64, 785, 3072]
     alibi2d_row = next(r for r in alibi2d["flash_alibi2d_mha"] if r["shape"][1] == 16385)
     summary = {"kernels": [
         {
@@ -2930,20 +3463,26 @@ def main() -> None:
             "route": "cuda",
             "source": "stamp_tpu_torch/ops/csrc/fused_qkv_attn.cu",
             "replaces": "stamp_tpu/ops/flash_attention.py:589",
-            "launches": main_path["launches"]["fused_qkv_mha"],
-            "max_abs_err": max(r["max_abs_err"] for r in kernels["fused_qkv_mha"]),
+            "launches": main_path["launches"]["fused_qkv_mha"] + zoo_launches["fused_qkv_mha"],
+            "max_abs_err": max(r["max_abs_err"] for r in kernels["fused_qkv_mha"] + extractors["three_sweep"]),
             "ms": attn_row["ms"],
             "plain_ms": attn_row["plain_ms"],
             "bound_ms": attn_bound[0],
             "bound_by": attn_bound[1],
             "library_ms": attn_row["sdpa_bf16_ms"],
+            # the three-sweep kernel at CONCH1.5's [64, 785, 3072] (phase 13)
+            "three_sweep_ms": three_sweep["ms"],
+            "three_sweep_plain_ms": three_sweep["plain_ms"],
+            "three_sweep_bound_ms": three_sweep["bound_ms"],
+            "three_sweep_bound_by": three_sweep["bound_by"],
+            "three_sweep_library_ms": three_sweep["sdpa_bf16_ms"],
         },
         {
             "name": "ln_dense",
             "route": "cuda",
             "source": "stamp_tpu_torch/ops/csrc/ln_dense.cu",
             "replaces": "stamp_tpu/ops/ln_dense.py:185",
-            "launches": main_path["launches"]["ln_dense"],
+            "launches": main_path["launches"]["ln_dense"] + zoo_launches["ln_dense"],
             "max_abs_err": max(r["max_abs_err"] for r in kernels["ln_dense"]),
             "ms": sum(r["ms"] for r in ln_rows),
             "plain_ms": sum(r["plain_ms"] for r in ln_rows),
@@ -3002,7 +3541,7 @@ def main() -> None:
             "route": "cuda",
             "source": "stamp_tpu_torch/ops/csrc/ln_quant_dense.cu",
             "replaces": "stamp_tpu/ops/ln_dense.py:377",
-            "launches": int8_path["launches"]["ln_quant_dense"],
+            "launches": int8_path["launches"]["ln_quant_dense"] + zoo_launches["ln_quant_dense"],
             "max_abs_err": max(r["max_abs_err"] for r in quant["ln_quant_dense"]),
             "ms": sum(r["ms"] for r in quant_rows),  # the three UNI2 sites, M = 16,960
             "plain_ms": sum(r["plain_ms"] for r in quant_rows),

@@ -92,13 +92,23 @@ class _DecoderLayer(nn.Module):
         return tgt + self.ff2(F.relu(self.ff1(self.norm3(tgt))))
 
 
+def encoding_frequencies(d_model: int) -> torch.Tensor:
+    """The d_model/4 frequencies 100000^(i/d_model), i = 0 … d_model/4 − 1, as
+    f32 on the CPU: the exponent i/d_model as an f32 quotient (as the JAX
+    module forms it), the power in f64, rounded once to f32.  That is the
+    correctly rounded f32 power, whatever host or library computes it; an
+    f32 ``pow`` (XLA's, torch's, numpy's, a card's) may be an ulp off in a
+    few of them, ~6e-3 rad at 1e5 µm."""
+    exponent = torch.arange(d_model // 4, dtype=torch.float32) / d_model
+    return torch.pow(100_000.0, exponent.double()).float()
+
+
 def positional_encoding(coords: torch.Tensor, d_model: int) -> torch.Tensor:
     """[B, T, 2] µm → [B, T, d_model]: d_model/4 frequencies × {x, y} ×
-    {sin, cos} (reference barspoon.py:173-186).  The frequencies are taken
-    on the CPU, whose f32 power gives the JAX package's bits on every
-    device (a card's can differ by an ulp, ~1e-3 rad at 2 cm)."""
-    freqs = 100_000 ** (torch.arange(d_model // 4, dtype=coords.dtype) / d_model)
-    scaled = coords[..., None] / freqs.to(coords.device)  # [B, T, 2, d_model // 4]
+    {sin, cos} (reference barspoon.py:173-186), at the correctly rounded
+    frequencies of :func:`encoding_frequencies`."""
+    freqs = encoding_frequencies(d_model).to(device=coords.device, dtype=coords.dtype)
+    scaled = coords[..., None] / freqs  # [B, T, 2, d_model // 4]
     return torch.cat([torch.sin(scaled).flatten(-2), torch.cos(scaled).flatten(-2)], dim=-1)
 
 

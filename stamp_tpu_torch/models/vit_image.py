@@ -23,16 +23,25 @@ at the bottom (``quantize_vit_params``, ``calibrate_act_stats``) mirror
 
 from __future__ import annotations
 
+import contextlib
+import sys
 from dataclasses import dataclass, field
-from typing import Any, Literal, Mapping
+from typing import Any, Iterator, Literal, Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stamp_tpu_torch.ops.flash_attention import fused_qkv_mha
-from stamp_tpu_torch.ops.ln_dense import layer_norm_f32, ln_dense, ln_quant_dense, quantize_activation
+from stamp_tpu_torch.ops.flash_attention import fused_qkv_mha, fused_qkv_mha_reference
+from stamp_tpu_torch.ops.ln_dense import (
+    layer_norm_f32,
+    ln_dense,
+    ln_dense_reference,
+    ln_quant_dense,
+    ln_quant_dense_reference,
+    quantize_activation,
+)
 
 
 @dataclass(frozen=True)
@@ -272,6 +281,25 @@ class ImageViT(nn.Module):
         raise ValueError(cfg.pool)
 
 
+@contextlib.contextmanager
+def plain_kernels() -> Iterator[None]:
+    """Within the block, every ImageViT block (and so CoCa's trunk, KEEP's
+    and TICON's tile tower) runs the plain PyTorch versions of
+    ``fused_qkv_mha``, ``ln_dense`` and ``ln_quant_dense`` in place of their
+    kernels: the path a kernel path is held to on the card."""
+    module = sys.modules[__name__]
+    plain = {"ln_dense": ln_dense_reference, "ln_quant_dense": ln_quant_dense_reference,
+             "fused_qkv_mha": fused_qkv_mha_reference}  # fmt: skip
+    kernels = {name: getattr(module, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in kernels.items():
+            setattr(module, name, fn)
+
+
 def init_random_weights_(model: ImageViT, generator: torch.Generator) -> ImageViT:
     """Random weights for benchmarking, drawn on the CPU from ``generator``.
 
@@ -441,20 +469,21 @@ def quantize_vit_params(state_dict: Mapping[str, torch.Tensor], cfg: ViTConfig) 
     return quantize_sites(state_dict, vit_quant_sites(cfg.depth))
 
 
-def calibrate_act_stats(model: ImageViT, images: torch.Tensor) -> dict[str, torch.Tensor]:
+def calibrate_act_stats(model: nn.Module, *inputs: torch.Tensor) -> dict[str, torch.Tensor]:
     """One observe-mode forward recording each matmul's activation maximum.
 
-    ``model`` is an ``ImageViT`` with ``cfg.quant == "observe"``;
-    ``images`` must already be normalized like the real input.  Returns the
-    ``<site>.amax`` entries (f32, on the model's device) to load beside the
-    quantized weights."""
-    if model.cfg.quant != "observe":
-        raise ValueError(f"calibrate_act_stats needs an observe-mode model, not quant={model.cfg.quant!r}")
+    ``model`` is an ``ImageViT`` or another extractor tower whose
+    ``QuantDense`` sites are all in "observe" mode; ``inputs`` (the
+    images, normalized like the real input) are what its forward takes.  Returns the ``<site>.amax`` entries
+    (f32, on the model's device) to load beside the quantized weights."""
     sites = {name: m for name, m in model.named_modules() if isinstance(m, QuantDense)}
+    modes = {m.mode for m in sites.values()}
+    if modes != {"observe"}:
+        raise ValueError(f"calibrate_act_stats needs an observe-mode model, not QuantDense modes {sorted(modes)}")
     for module in sites.values():
         module.amax = None
     with torch.inference_mode():
-        model(images)
+        model(*inputs)
     return {f"{name}.amax": module.amax for name, module in sites.items()}
 
 

@@ -13,10 +13,14 @@ A producer thread tiles the slide into uint8 batches on a bounded queue
 while the consumer runs the bf16 backbone on the device, so WSI decode,
 host→device transfer and device compute overlap.
 
+With ``macenko_normalization`` each uint8 batch is stain-normalized
+(``ops.macenko``) on the extractor's device before the forward, as the JAX
+package normalizes it on its device.
+
 Differences from the JAX driver: it runs as one process (no fleet share of
-the worklist yet), Macenko normalization raises, and the artifact directory
-hash is that of this package's sources, so its features never mix with the
-JAX package's under skip-if-exists.
+the worklist yet), and the artifact directory hash is that of this
+package's sources, so its features never mix with the JAX package's under
+skip-if-exists.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from PIL import Image
 from tqdm import tqdm
 
 from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+from stamp_tpu_torch.ops.macenko import macenko_normalize
 from stamp_tpu_torch.preprocessing.config import ExtractorName
 from stamp_tpu_torch.preprocessing.extractor import Extractor
 from stamp_tpu_torch.preprocessing.tiling import (
@@ -197,7 +202,7 @@ def _batched_tiles(slide_path: Path, extractor: Extractor, p: _TilingParams):
 
 
 def _extract_slide(
-    slide_path: Path, extractor: Extractor, tiling: _TilingParams
+    slide_path: Path, extractor: Extractor, tiling: _TilingParams, macenko_device: torch.device | None
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """Run one slide through the tiling → device pipeline.
 
@@ -211,6 +216,13 @@ def _extract_slide(
     feat_batches: list[torch.Tensor] = []
     coord_batches: list[np.ndarray] = []
     for batch, coords in _batched_tiles(slide_path, extractor, tiling):
+        if macenko_device is not None:
+            with profiling.stage("preprocess/macenko"):
+                # the normalized batch stays on the device for the forward;
+                # profiling syncs here to attribute the time to this stage
+                batch = macenko_normalize(torch.from_numpy(batch).to(macenko_device))
+                if profiling.timer.enabled and batch.is_cuda:
+                    torch.cuda.synchronize(batch.device)
         # device tensors accumulate without a sync — the next batch's
         # transfer and compute queue behind this one
         with profiling.stage("preprocess/device_forward"):
@@ -255,16 +267,12 @@ def extract_(
     from stamp_tpu_torch.preprocessing.extractor import set_int8_extraction
     from stamp_tpu_torch.preprocessing.extractor.zoo import resolve_extractor
 
-    if macenko_normalization:
-        raise NotImplementedError(
-            "macenko_normalization is not ported to stamp_tpu_torch yet "
-            "(ROADMAP.md Queue A); run `python -m stamp_tpu preprocess`"
-        )
+    device = resolve_device(device)
     if extractor_precision is not None:
         _logger.info(f"extractor precision pinned by config: {extractor_precision}")
         set_int8_extraction(extractor_precision == "int8")
     try:
-        extractor = resolve_extractor(extractor, resolve_device(device))
+        extractor = resolve_extractor(extractor, device)
     finally:
         set_int8_extraction(None)
     code_hash = get_processing_code_hash(Path(__file__))[:8]
@@ -307,7 +315,7 @@ def extract_(
             continue
 
         try:
-            extracted = _extract_slide(slide_path, extractor, tiling)
+            extracted = _extract_slide(slide_path, extractor, tiling, device if macenko_normalization else None)
         except MPPExtractionError:
             _logger.exception(
                 "failed to extract MPP from slide. You can try manually setting "

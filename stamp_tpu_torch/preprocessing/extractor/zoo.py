@@ -1,11 +1,18 @@
-"""Extractor factories for the ImageViT part of the foundation-model zoo.
+"""Extractor factories for the foundation-model zoo.
 
 Counterpart of ``stamp_tpu.preprocessing.extractor.zoo``: the same
-identifiers, architectures and weight-file globs.  The other families (Swin,
-CLIP, CoCa, BEiT3, TICON and ``empty``) are not ported yet and raise.
+identifiers, architectures and weight-file globs, one factory per
+``ExtractorName``.  Most models are instances of the shared ``ImageViT``
+(``_VIT_ZOO``); CTransPath and CHIEF use the Swin backbone
+(``extractor.swin``), PLIP the CLIP tower and KEEP a ViT-L with a head
+(``extractor.clip_like``), CONCH and CONCH1.5 the CoCa tower and MUSK the
+BEiT3 tower (``extractor.coca_beit3``), TICON the contextualizer
+(``extractor.ticon``), and ``empty`` builds tile caches only.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -85,6 +92,31 @@ _VIT_ZOO: dict[ExtractorName, dict] = {
 }
 
 
+def _families(device: torch.device) -> dict[ExtractorName, Callable[[], Extractor]]:
+    """The factories of the families outside the ImageViT zoo."""
+    from stamp_tpu_torch.preprocessing.extractor import clip_like, coca_beit3, swin, ticon
+    from stamp_tpu_torch.preprocessing.extractor.empty import empty
+
+    return {
+        # CTransPath Swin-T with conv stem, and its CHIEF-finetuned weights
+        ExtractorName.CTRANSPATH: lambda: swin.make_ctranspath_extractor(identifier="ctranspath", device=device),
+        ExtractorName.CHIEF_CTRANSPATH: lambda: swin.make_ctranspath_extractor(
+            identifier="chief-ctranspath", weight_hint="chief", device=device
+        ),
+        # CONCH CoCa vision branch, unprojected pooled embedding; v1.5 is TITAN's tile encoder
+        ExtractorName.CONCH: lambda: coca_beit3.make_conch_extractor("conch", "conch", device=device),
+        ExtractorName.CONCH1_5: lambda: coca_beit3.make_conch_extractor("conch1_5", "conch1_5", device=device),
+        # MUSK BEiT3-L vision path, two-scale
+        ExtractorName.MUSK: lambda: coca_beit3.make_musk_extractor("musk", device=device),
+        # PLIP CLIP ViT-B/32 image features; KEEP ViT-L + projection head
+        ExtractorName.PLIP: lambda: clip_like.make_plip_extractor("plip", device=device),
+        ExtractorName.KEEP: lambda: clip_like.make_keep_extractor("keep", device=device),
+        # H-Optimus-1 → TICON contextualizer
+        ExtractorName.TICON: lambda: ticon.make_ticon_extractor("ticon", device=device),
+        ExtractorName.EMPTY: empty,
+    }
+
+
 def resolve_extractor(
     name: ExtractorName | str | Extractor, device: torch.device
 ) -> Extractor:
@@ -92,10 +124,6 @@ def resolve_extractor(
     if isinstance(name, Extractor):
         return name
     name = ExtractorName(name)
-    if name not in _VIT_ZOO:
-        raise NotImplementedError(
-            f"extractor {name.value!r} is not ported to stamp_tpu_torch yet "
-            "(ROADMAP.md Queue A, other extractor families); run "
-            "`python -m stamp_tpu preprocess` for it"
-        )
-    return make_vit_extractor(**_VIT_ZOO[name], device=device)
+    if name in _VIT_ZOO:
+        return make_vit_extractor(**_VIT_ZOO[name], device=device)
+    return _families(device)[name]()

@@ -142,22 +142,37 @@ def test_trans_mil_forward():
 
 
 def test_positional_encoding_against_f64():
-    """The encoding alone at µm coordinates up to 1e5, against numpy in f64
-    on the same f32 argument (coords / freqs, the JAX module's order), for
-    the port and for the JAX module's expression (``barspoon.py:125-140``).
-    Measured: JAX 3.2e-8, port 3.6e-8 (sin and cos of f32 arguments); the
-    tolerance is 1e-6.  The f32 argument itself differs from the exact one
-    by up to an ulp of 1e5, 8.7e-3 rad, in both packages alike."""
+    """The encoding alone at µm coordinates up to 1e5, each package against
+    numpy in f64 on its own f32 argument (coords / freqs, the JAX module's
+    order; ``barspoon.py:125-140``).  Measured: JAX 3.2e-8, port 3.6e-8 (sin
+    and cos of f32 arguments); the tolerance is 1e-6.  The f32 argument
+    itself differs from the exact one by up to an ulp of 1e5, 8.7e-3 rad, in
+    both packages alike.
+
+    The port's frequencies are the correctly rounded f32 powers (the power
+    taken in f64), equal on every host; the JAX module's come from XLA's f32
+    ``pow``, which agrees with them on this host but may be an ulp off
+    elsewhere (an ulp of a frequency moves the argument at 1e5 µm by up to
+    6e-3 rad): they are held to one ulp.  Each package is compared on its
+    own argument, so neither comparison depends on another library's
+    ``pow``."""
     coords = np.random.default_rng(4).uniform(0, 1e5, size=(1, 500, 2)).astype(np.float32)
     d_model = 64
     freqs = 100_000 ** (jnp.arange(d_model // 4, dtype=jnp.float32) / d_model)
     scaled = jnp.asarray(coords)[..., None] / freqs
     jax_pe = np.asarray(jnp.concatenate([jnp.sin(scaled).reshape(1, 500, -1), jnp.cos(scaled).reshape(1, 500, -1)], -1))
-    scaled64 = np.asarray(scaled).astype(np.float64)
-    want = np.concatenate([np.sin(scaled64).reshape(1, 500, -1), np.cos(scaled64).reshape(1, 500, -1)], axis=-1)
+
+    def exact(argument):
+        argument = np.asarray(argument).astype(np.float64)
+        return np.concatenate([np.sin(argument).reshape(1, 500, -1), np.cos(argument).reshape(1, 500, -1)], axis=-1)
+
+    port_freqs = barspoon.encoding_frequencies(d_model).numpy()
+    exponent = np.arange(d_model // 4, dtype=np.float32) / np.float32(d_model)
+    np.testing.assert_array_equal(port_freqs, (100_000.0 ** exponent.astype(np.float64)).astype(np.float32))
+    np.testing.assert_array_max_ulp(np.asarray(freqs), port_freqs, maxulp=1)
     got = barspoon.positional_encoding(torch.from_numpy(coords), d_model).numpy()
-    assert np.abs(jax_pe - want).max() <= 1e-6
-    assert np.abs(got - want).max() <= 1e-6
+    assert np.abs(jax_pe - exact(scaled)).max() <= 1e-6
+    assert np.abs(got - exact(coords[..., None] / port_freqs)).max() <= 1e-6
 
 
 @pytest.mark.parametrize("positional_encoding", [True, False], ids=["pe", "no-pe"])

@@ -46,13 +46,13 @@ def _rel_err(got, want):
     return diff / max(want.float().abs().max().item(), 1e-30)
 
 
-# N = 272 is the one-pass kernel's limit (attn.ONE_PASS_MAX_N); 273 and
-# 1,030 run the three-sweep kernel; 257 and 261 with d = 80 are Virchow's
-# and Virchow2's
+# N = 272 is the one-pass kernel's limit (attn.ONE_PASS_MAX_N); 273, 785
+# and 1,030 run the three-sweep kernel; 257 and 261 with d = 80 are
+# Virchow's and Virchow2's; 785 with 12 and 16 heads CONCH's and CONCH1.5's
 @pytest.mark.parametrize(
     "b,n,h,d",
     [(1, 1, 1, 64), (3, 21, 4, 64), (2, 64, 2, 64), (2, 129, 3, 80), (4, 265, 24, 64), (2, 1030, 2, 64),
-     (2, 272, 2, 64), (2, 273, 2, 64), (2, 257, 16, 80), (2, 261, 16, 80)],
+     (2, 272, 2, 64), (2, 273, 2, 64), (2, 257, 16, 80), (2, 261, 16, 80), (2, 785, 12, 64), (2, 785, 16, 64)],
 )  # fmt: skip
 def test_fused_qkv_mha_kernel(gen, b, n, h, d):
     qkv = _randn(gen, b, n, 3 * h * d)
@@ -72,11 +72,12 @@ def test_fused_qkv_mha_kernel_is_deterministic(gen, n):
 
 # the edges of the kernels' tiles: M off 64 and 128 (1,000; 16,960 = 64·265),
 # K with a tail under one 64-wide box (136, 264), N under 8 and off the tile
-# (1, 7, 200), the UNI2 sites, ViT-L (K = 1024, M = 8·257) and Virchow (1280)
+# (1, 7, 200), the UNI2 sites, ViT-L (K = 1024, M = 8·257), Virchow (1280)
+# and CONCH's qkv and fc1 (K = 768, M = 2·785)
 LN_DENSE_SHAPES = [
     (1, 8, 1, True), (300, 136, 200, True), (256, 512, 256, False), (1000, 1536, 4608, True),
     (1000, 264, 200, True), (1000, 264, 7, True), (16960, 1536, 1, False), (16960, 4096, 1536, True),
-    (2056, 1024, 3072, True), (2056, 1280, 3840, True),
+    (2056, 1024, 3072, True), (2056, 1280, 3840, True), (1570, 768, 2304, True), (1570, 768, 3072, True),
 ]  # fmt: skip
 
 
@@ -541,6 +542,8 @@ def _quant_steps(x, g, b, s_x):
         (2056, 1024, 3072, 4.0, True),  # ViT-L
         (2056, 3416, 1280, 4.0, True),  # Virchow's fc2: K = 8 mod 16, W_q padded to 16-byte rows
         (2056, 3416, 1280, 4.0, False),
+        (1570, 768, 2304, 4.0, True),  # CONCH's qkv and fc1
+        (1570, 768, 3072, 4.0, True),
     ],
 )
 def test_ln_quant_dense_kernel(gen, m, k, n, amax, bias):
@@ -598,14 +601,47 @@ def test_int8_virchow_forward(gen):
     with torch.inference_mode():
         got = qmodel(images).float()
     assert lnd.QUANT_LAUNCHES == before + 3 * cfg.depth  # qkv, fc1, fc2 of each block
-    kernels = (vit_image.ln_quant_dense, vit_image.fused_qkv_mha)
-    vit_image.ln_quant_dense, vit_image.fused_qkv_mha = lnd.ln_quant_dense_reference, attn.fused_qkv_mha_reference
-    try:
-        with torch.inference_mode():
-            want = qmodel(images).float()
-    finally:
-        vit_image.ln_quant_dense, vit_image.fused_qkv_mha = kernels
+    with vit_image.plain_kernels(), torch.inference_mode():
+        want = qmodel(images).float()
     assert torch.isfinite(got).all()
+    assert torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1).min().item() >= 0.99
+
+
+@pytest.mark.parametrize("quant", ["off", "int8"])
+def test_conch_tower_kernel_path(gen, quant):
+    """A CoCa tower at CONCH's width and 448 px (785 tokens: the three-sweep
+    attention kernel), depth 2, on the kernel path against its plain path;
+    int8 calibrated on the card as the extractor does."""
+    import dataclasses
+
+    from stamp_tpu_torch.models import coca, vit_image
+    from stamp_tpu_torch.models.vit_image import calibrate_act_stats, quantize_sites
+
+    cfg = dataclasses.replace(coca.COCA_CONFIGS["conch"], depth=2)
+    with torch.device("meta"):
+        model = coca.CoCaVisionTower(dataclasses.replace(cfg, quant="observe" if quant == "int8" else "off"))
+    model.to_empty(device="cpu")
+    coca.init_random_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(device="cuda", dtype=torch.bfloat16).eval()
+    images = torch.randn(2, 448, 448, 3, device="cuda", generator=gen).bfloat16()
+    if quant == "int8":
+        act_stats = calibrate_act_stats(model, images)
+        with torch.no_grad():
+            qstate = quantize_sites(model.state_dict(), coca.coca_quant_sites(cfg.depth))
+        with torch.device("meta"):
+            model = coca.CoCaVisionTower(dataclasses.replace(cfg, quant="int8"))
+        model.load_state_dict({**qstate, **act_stats}, assign=True)
+        model.eval()
+    before = attn.LAUNCHES, lnd.LAUNCHES, lnd.QUANT_LAUNCHES
+    with torch.inference_mode():
+        got = model(images).float()
+    fused = 2 * cfg.depth  # qkv and fc1 of each block
+    assert (attn.LAUNCHES, lnd.LAUNCHES, lnd.QUANT_LAUNCHES) == (
+        before[0] + cfg.depth, before[1] + (fused if quant == "off" else 0), before[2] + (fused if quant == "int8" else 0)
+    )
+    with vit_image.plain_kernels(), torch.inference_mode():
+        want = model(images).float()
+    assert torch.isfinite(got).all() and got.shape == (2, cfg.pooled_dim)
     assert torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1).min().item() >= 0.99
 
 

@@ -17,6 +17,7 @@ import yaml
 from PIL import Image
 
 from stamp_tpu.models import vit_image as jax_vit
+from stamp_tpu_torch.preprocessing.config import ExtractorName
 from stamp_tpu.types import Microns, TilePixels
 from stamp_tpu_torch.models import vit_image as torch_vit
 from stamp_tpu_torch.ops import flash_attention as torch_attn
@@ -283,6 +284,10 @@ def test_unported_encoders_exit_nonzero(command, encoder, tmp_path, stamp_logger
 
 
 def test_int8_and_macenko_raise(synthetic_slide, tmp_path, monkeypatch):
+    """int8 and Macenko, which raised before they were ported: int8 builds
+    the W8A8 extractor from the environment or the config layer, into its
+    own directory; ``macenko_normalization`` runs and changes the features;
+    and the families that raised resolve."""
     from stamp_tpu_torch.preprocessing.extract import extract_
     from stamp_tpu_torch.preprocessing.extractor import (
         make_vit_extractor,
@@ -313,13 +318,143 @@ def test_int8_and_macenko_raise(synthetic_slide, tmp_path, monkeypatch):
     attrs, feats, _ = _read_h5(h5_path)
     assert attrs["precision"] == "int8" and feats.shape == (16, 64) and np.isfinite(feats).all()
 
-    with pytest.raises(NotImplementedError, match="macenko"):
-        extract_(
-            extractor="uni2",
-            macenko_normalization=True,
-            device="cpu",
-            **_extract_kwargs(synthetic_slide, tmp_path / "out"),
-        )
+    # Macenko is ported: the same bf16 extractor with and without it
+    bf16 = make_vit_extractor(**factory)
+    for macenko, out in ((False, "plain"), (True, "macenko")):
+        extract_(extractor=bf16, macenko_normalization=macenko, device="cpu",
+                 **_extract_kwargs(synthetic_slide, tmp_path / out))  # fmt: skip
+    (_, plain, coords), (_, normalized, macenko_coords) = (
+        _read_h5(next((tmp_path / out).rglob("*.h5"))) for out in ("plain", "macenko")
+    )
+    np.testing.assert_array_equal(coords, macenko_coords)
+    assert normalized.shape == plain.shape == (16, 64) and np.isfinite(normalized).all()
+    assert np.abs(normalized.astype(np.float32) - plain).max() > 1e-2
+
+    _tiny_zoo(monkeypatch)
     for family in ("ctranspath", "conch", "musk", "plip", "ticon", "empty"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_extractor(family, cpu)
+        assert resolve_extractor(family, cpu).identifier == family
+
+
+# --- every ExtractorName, reduced -------------------------------------------------------
+
+_TINY_WIDTH = dict(embed_dim=32, depth=1, num_heads=2)
+
+
+def _tiny_zoo(monkeypatch) -> dict[str, int]:
+    """Every family of the port's zoo reduced to width 32 (Swin to 16 at its
+    depths, TICON's encoder to 32 at its 6 blocks), its structure kept; the
+    feature width each name then gives."""
+    import dataclasses
+    import functools
+
+    from stamp_tpu_torch.models import beit3, clip_vision, coca, swin, ticon
+
+    for arch, cfg in list(torch_vit.VIT_CONFIGS.items()):
+        monkeypatch.setitem(torch_vit.VIT_CONFIGS, arch, dataclasses.replace(cfg, **_TINY_WIDTH))
+    for variant in ("conch", "conch1_5"):
+        tiny = dict(img_size=64, width=32, depth=1, num_heads=2, pooled_dim=16, pool_heads=2)
+        monkeypatch.setitem(coca.COCA_CONFIGS, variant, dataclasses.replace(coca.COCA_CONFIGS[variant], **tiny))
+    for module, name, kwargs in (
+        (beit3, "Beit3Config", dict(img_size=64, width=32, depth=1, num_heads=2)),
+        (clip_vision, "CLIPVisionConfig", dict(embed_dim=32, depth=1, num_heads=2, mlp_dim=64, projection_dim=16)),
+        (swin, "SwinTransformer", dict(embed_dim=16, num_heads=(2, 4, 8, 16))),
+        (ticon, "TiconEncoder", dict(embed_dim=32, num_heads=4, in_dim=32)),
+    ):
+        monkeypatch.setattr(module, name, functools.partial(getattr(module, name), **kwargs))
+    widths = {name: 32 for name in ("uni", "uni2", "virchow", "virchow2", "h-optimus-0", "h-optimus-1",
+                                    "gigapath", "dino-bloom", "red-dino", "mstar", "ticon")}  # fmt: skip
+    return widths | {"virchow-full": 64, "conch": 16, "conch1_5": 16, "musk": 64, "plip": 16, "keep": 768,
+                     "ctranspath": 128, "chief-ctranspath": 128, "empty": 0}  # fmt: skip
+
+
+@pytest.mark.parametrize("name", sorted(e.value for e in ExtractorName))
+def test_every_extractor_name_resolves(name, monkeypatch, tmp_path):
+    """Each of the 20 ``ExtractorName``s resolves on the CPU with random
+    weights (reduced) and extracts a batch of tiles at its input size,
+    given as a numpy array or as a tensor."""
+    from stamp_tpu_torch.preprocessing.extractor.zoo import resolve_extractor
+
+    width = _tiny_zoo(monkeypatch)[name]
+    monkeypatch.setenv("STAMP_RANDOM_WEIGHTS", "1")
+    monkeypatch.setenv("STAMP_EXTRACT_BATCH", "2")
+    extractor = resolve_extractor(name, torch.device("cpu"))
+    assert extractor.identifier == name and extractor.precision == "bfloat16"
+    tile = Image.fromarray(np.random.default_rng(0).integers(0, 256, (224, 224, 3), dtype=np.uint8))
+    batch = np.stack([extractor.transform_host(tile)] * 2)
+    assert batch.shape[1:3] == (extractor.input_px, extractor.input_px) or name == "empty"
+    feats = extractor.forward(batch)
+    assert isinstance(feats, torch.Tensor) and feats.dtype == torch.float32
+    assert feats.shape == (2, width) and torch.isfinite(feats).all()
+    # a batch handed over as a tensor (Macenko's output stays on the device) gives the same features
+    torch.testing.assert_close(extractor.forward(torch.from_numpy(batch)), feats, rtol=0, atol=0)
+
+
+def test_macenko_extraction_matches_jax_package(synthetic_slide, tmp_path, monkeypatch):
+    """``macenko_normalization: true`` through both packages' ``extract_``
+    on the same slide and checkpoint (as ``test_extract_matches_jax_package``)."""
+    from stamp_tpu.preprocessing.extract import extract_ as jax_extract
+    from stamp_tpu.preprocessing.extractor import make_vit_extractor as jax_make
+    from stamp_tpu_torch.preprocessing.extract import extract_ as torch_extract
+    from stamp_tpu_torch.preprocessing.extractor import make_vit_extractor as torch_make
+
+    monkeypatch.setitem(jax_vit.VIT_CONFIGS, "test-tiny", jax_vit.ViTConfig(**_TINY))
+    monkeypatch.setitem(torch_vit.VIT_CONFIGS, "test-tiny", torch_vit.ViTConfig(**_TINY))
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    model = torch_vit.init_random_weights_(
+        torch_vit.ImageViT(torch_vit.ViTConfig(**_TINY)), torch.Generator().manual_seed(3)
+    )
+    torch.save(model.state_dict(), weights / "test-tiny.bin")
+    monkeypatch.setenv("STAMP_WEIGHTS_DIR", str(weights))
+    monkeypatch.delenv("STAMP_RANDOM_WEIGHTS", raising=False)
+    factory = dict(identifier="test-tiny", arch="test-tiny", weight_files=["test-tiny.bin"])
+    jax_extract(extractor=jax_make(**factory), macenko_normalization=True,
+                **_extract_kwargs(synthetic_slide, tmp_path / "jax"))  # fmt: skip
+    torch_extract(extractor=torch_make(**factory, device=torch.device("cpu")), macenko_normalization=True,
+                  device="cpu", **_extract_kwargs(synthetic_slide, tmp_path / "torch"))  # fmt: skip
+    (_, want, want_coords), (_, got, got_coords) = (
+        _read_h5(next((tmp_path / out).rglob("*.h5"))) for out in ("jax", "torch")
+    )
+    np.testing.assert_array_equal(got_coords, want_coords)
+    np.testing.assert_allclose(got.astype(np.float32), want.astype(np.float32), atol=5e-2)
+
+
+def test_extraction_matches_golden_h5(tmp_path, monkeypatch):
+    """The golden-extraction fixture (``tests/data/golden_extraction.h5``,
+    the JAX package's dino_vits14 on its random weights, fp16) reproduced by
+    the port: the same flax init carried over by ``state_dict_from_jax``,
+    the slide of ``tests/wsi_golden.py``, compared sorted by coords at atol
+    5e-2 (the slow ``tests/test_preprocessing.py::test_extraction_matches_golden_h5``
+    holds the JAX package to it)."""
+    import jax
+    import jax.numpy as jnp
+
+    from stamp_tpu_torch.preprocessing.extract import extract_
+    from stamp_tpu_torch.preprocessing.extractor import make_vit_extractor
+    from wsi_golden import GOLDEN_EXTRACTOR_ARCH, write_golden_slide
+
+    cfg = jax_vit.VIT_CONFIGS[GOLDEN_EXTRACTOR_ARCH]
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        variables = jax_vit.ImageViT(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3)))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    torch_cfg = torch_vit.VIT_CONFIGS[GOLDEN_EXTRACTOR_ARCH]
+    torch.save(torch_vit.state_dict_from_jax(variables, torch_cfg), weights / "golden-vit.pth")
+    monkeypatch.setenv("STAMP_WEIGHTS_DIR", str(weights))
+    monkeypatch.delenv("STAMP_RANDOM_WEIGHTS", raising=False)
+    monkeypatch.setenv("STAMP_EXTRACT_BATCH", "64")
+
+    slide = write_golden_slide(tmp_path)
+    extractor = make_vit_extractor(identifier="golden-vit", arch=GOLDEN_EXTRACTOR_ARCH,
+                                   weight_files=["golden-vit.pth"], device=torch.device("cpu"))  # fmt: skip
+    extract_(wsi_dir=slide.parent, output_dir=tmp_path / "out", wsi_list=None, cache_dir=None,
+             cache_tiles_ext="jpg", extractor=extractor, tile_size_px=TilePixels(224),
+             tile_size_um=Microns(256.0), max_workers=2, default_slide_mpp=None, generate_hash=False,
+             device="cpu")  # fmt: skip
+    golden_attrs, golden, golden_coords = _read_h5(REPO / "tests" / "data" / "golden_extraction.h5")
+    attrs, feats, coords = _read_h5(tmp_path / "out" / "golden-vit" / "golden.h5")
+    np.testing.assert_array_equal(coords, golden_coords)
+    assert feats.dtype == np.float16 and feats.shape == golden.shape == (16, 384)
+    np.testing.assert_allclose(feats.astype(np.float32), golden.astype(np.float32), atol=5e-2)
+    assert attrs["tile_size_um"] == golden_attrs["tile_size_um"] and attrs["extractor"] == "golden-vit"

@@ -83,7 +83,8 @@ def _run(probe: str, tmp_path, *args: str) -> subprocess.CompletedProcess:
 def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
     proc = _run(_IMPORT_EVERY_MODULE, tmp_path)
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    # every module of the port, the deploy, training, encoding and model-zoo slices' among them
+    # every module of the port, the deploy, training, encoding, model-zoo and
+    # extractor-family slices' among them
     assert {
         "stamp_tpu_torch.__main__",
         "stamp_tpu_torch.encoding.encoder._virtual_slide",
@@ -99,6 +100,19 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
         "stamp_tpu_torch.modeling.splits",
         "stamp_tpu_torch.modeling.train",
         "stamp_tpu_torch.models.barspoon",
+        "stamp_tpu_torch.models.beit3",
+        "stamp_tpu_torch.models.clip_vision",
+        "stamp_tpu_torch.models.coca",
+        "stamp_tpu_torch.models.swin",
+        "stamp_tpu_torch.models.ticon",
+        "stamp_tpu_torch.models.towers",
+        "stamp_tpu_torch.ops.macenko",
+        "stamp_tpu_torch.preprocessing.extractor.clip_like",
+        "stamp_tpu_torch.preprocessing.extractor.coca_beit3",
+        "stamp_tpu_torch.preprocessing.extractor.empty",
+        "stamp_tpu_torch.preprocessing.extractor.swin",
+        "stamp_tpu_torch.preprocessing.extractor.ticon",
+        "stamp_tpu_torch.preprocessing.extractor.zoo",
         "stamp_tpu_torch.models.mlp",
         "stamp_tpu_torch.models.trans_mil",
         "stamp_tpu_torch.models.vision_transformer",

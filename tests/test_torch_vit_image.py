@@ -188,3 +188,27 @@ def test_random_init_is_seeded():
         torch.testing.assert_close(pa, pb, rtol=0, atol=0, msg=name)
     assert a.blocks[0].ls1.gamma[0].item() == pytest.approx(1e-5)
     assert a.blocks[0].attn.qkv.weight.std().item() == pytest.approx(64**-0.5, rel=0.1)
+
+
+def test_plain_kernels_swaps_and_restores():
+    """``plain_kernels`` puts rows 1–3's plain versions in the blocks' place
+    for the block's duration and the kernel wrappers back after it, also
+    when the block raises; on the CPU both give the same output."""
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.ops import ln_dense as lnd
+
+    kernels = (torch_vit.ln_dense, torch_vit.ln_quant_dense, torch_vit.fused_qkv_mha)
+    assert kernels == (lnd.ln_dense, lnd.ln_quant_dense, attn.fused_qkv_mha)
+    cfg = torch_vit.ViTConfig(img_size=32, patch_size=16, embed_dim=32, depth=1, num_heads=2, init_values=1.0)
+    model = torch_vit.init_random_weights_(torch_vit.ImageViT(cfg), torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(RuntimeError), torch_vit.plain_kernels():
+        assert (torch_vit.ln_dense, torch_vit.ln_quant_dense, torch_vit.fused_qkv_mha) == (
+            lnd.ln_dense_reference, lnd.ln_quant_dense_reference, attn.fused_qkv_mha_reference
+        )
+        with torch.inference_mode():
+            plain = model(x)
+        raise RuntimeError
+    assert (torch_vit.ln_dense, torch_vit.ln_quant_dense, torch_vit.fused_qkv_mha) == kernels
+    with torch.inference_mode():
+        torch.testing.assert_close(model(x), plain, rtol=0, atol=0)
