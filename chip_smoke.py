@@ -13,8 +13,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    shapes in bf16, max |Δ| / max |ref| against a stated tolerance, and the
    median time of each (with a bf16 PyTorch control for reference);
    ``fused_qkv_mha`` also at ViT-L's and Virchow's (d = 80) shapes, and
-   ragged, at the one-pass kernel's N limit and above it (the three-sweep
-   kernel); ``ln_dense`` also at ViT-L's and Virchow's sites (Virchow's fc2
+   ragged, at the one-pass kernel's N limit and above it (the two-pass
+   kernel, N = 273 and 1,030); ``ln_dense`` also at ViT-L's and Virchow's sites (Virchow's fc2
    at K = 3,416) and at ragged K and N (N = 200, 8, 1), with its rate and
    the share of its bound it reaches; ``fused_qkv_mha``, ``ln_dense`` and
    their library controls also timed in runs of back-to-back calls
@@ -169,7 +169,7 @@ Phases (each prints at least one line; any failure exits non-zero):
 13. extractor zoo: every other tile-extractor family through ``python -m
    stamp_tpu_torch -c config.yaml --profile preprocess`` in-process on phase
    4's slide (144 tiles, batch 64, random weights at full width): CONCH and
-   CONCH1.5 (CoCa at 448 px, 785 tokens: row 1's three-sweep kernel), KEEP
+   CONCH1.5 (CoCa at 448 px, 785 tokens: row 1's two-pass kernel), KEEP
    (ViT-L/16 and its head), TICON (H-Optimus-1 and the contextualizer) in
    bf16 and in int8, CTransPath, CHIEF-CTransPath, PLIP, MUSK and ``empty``
    in bf16, and PLIP once more with ``macenko_normalization``; each run's
@@ -184,9 +184,13 @@ Phases (each prints at least one line; any failure exits non-zero):
    ``TICON_INT8_COSINE_MIN``); rows 1–3 at every shape those families give them
    (``ZOO_LN_SITES``, ``ZOO_ATTENTION``) against their plain versions at
    ``KERNEL_TOL``; CONCH and CONCH1.5 tiles/s at batch 64 and MFU over the
-   H100's bf16 peak (``TILE_GFLOP``); row 1's three-sweep kernel at
+   H100's bf16 peak (``TILE_GFLOP``); row 1's two-pass kernel at
    [64, 785, 2304 | 3072] (12 and 16 heads) against its plain version and
-   SDPA bf16, with its bound; Macenko on the card against the golden tile
+   SDPA bf16, one sync a call and back to back, with its bound, the
+   design's floor, its TFLOP/s and a bitwise repeat; the two-pass kernel's
+   launches (``fused_qkv_long``: 12 a CONCH forward, one a block, 24 a
+   CONCH1.5 one, none for KEEP and TICON; none for UNI2 in phases 4 and
+   4b); Macenko on the card against the golden tile
    and the CPU (H&E-like tiles), on uniform-noise tiles the card and the
    CPU each against the CPU in f64 (p99 ≤ ``MACENKO_P99``), and its ms per
    batch; ``encode_slides`` with TITAN on the CONCH1.5 features.
@@ -196,7 +200,7 @@ Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
 ``{"kernels": [...]}``: each kernel's launches on its main path (phase 4,
 4b, 6, 7 or 9, rows 1–3 also phase 13's; the MIL forward's, phases 6 and 7;
 rows 4–8 also ``heatmaps_launches``, phase 11's; row 1 also its
-three-sweep kernel's times at [64, 785, 3072], ``three_sweep_*``), its
+two-pass kernel's launches and times at [64, 785, 3072], ``long_*``), its
 largest error against its plain
 version, its time, the plain version's and the library control's, and the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -470,12 +474,15 @@ def phase_kernels(card: str) -> dict:
         del qkv, got, want
 
     # ragged shapes: N below one 16-row tile's keys, at the one-pass
-    # kernel's limit, and above it (the three-sweep kernel); M and N off
-    # the GEMM tile
+    # kernel's limit, and above it (the two-pass kernel: a last key tile of
+    # 17 keys at 273, of 6 at 1,030); M and N off the GEMM tile
     rel_attn = {}
+    long_before = attn.LONG_LAUNCHES
     for b, n, h in ((3, 21, 4), (2, attn.ONE_PASS_MAX_N, 2), (2, attn.ONE_PASS_MAX_N + 1, 2), (2, 1030, 2)):
         qkv = randn(b, n, 3 * h * 64)
         rel_attn[f"N={n}"] = _error(attn.fused_qkv_mha(qkv, h), attn.fused_qkv_mha_reference(qkv, h))[1]
+    if attn.LONG_LAUNCHES - long_before != 2:
+        _fail(f"N = 273 and 1,030 launched the two-pass kernel {attn.LONG_LAUNCHES - long_before} times, not 2")
     rel_ln = {}
     for n in (200, 8, 1):  # K = 264: a tail of 8 past four 64-wide boxes
         x, g, beta, w, bias = randn(1000, 264), randn(264), randn(264), randn(n, 264, scale=0.06), randn(n)
@@ -722,12 +729,14 @@ def phase_main_path(card: str) -> dict:
     os.environ["STAMP_RANDOM_WEIGHTS"] = "1"
     os.environ["STAMP_EXTRACT_BATCH"] = str(BATCH)
 
-    attn.LAUNCHES = 0
+    attn.LAUNCHES = attn.LONG_LAUNCHES = 0
     lnd.LAUNCHES = 0
     t0 = time.perf_counter()
     main(["-c", str(config), "--profile", "preprocess"])  # exits non-zero on failure
     wall = time.perf_counter() - t0
     launches = {"fused_qkv_mha": attn.LAUNCHES, "ln_dense": lnd.LAUNCHES}
+    if attn.LONG_LAUNCHES:  # UNI2's 265 tokens are the one-pass kernel's
+        _fail(f"UNI2 launched the two-pass attention kernel {attn.LONG_LAUNCHES} times")
 
     h5s = sorted(out.rglob("*.h5"))
     if len(h5s) != 1:
@@ -788,11 +797,13 @@ def phase_int8_main_path(card: str, bf16_row: dict) -> dict:
     config["preprocessing"] |= {"output_dir": str(out), "extractor_precision": "int8"}
     (WORK / "config_int8.yaml").write_text(yaml.safe_dump(config))
 
-    attn.LAUNCHES = lnd.LAUNCHES = lnd.QUANT_LAUNCHES = 0
+    attn.LAUNCHES = attn.LONG_LAUNCHES = lnd.LAUNCHES = lnd.QUANT_LAUNCHES = 0
     t0 = time.perf_counter()
     main(["-c", str(WORK / "config_int8.yaml"), "--profile", "preprocess"])  # exits non-zero on failure
     wall = time.perf_counter() - t0
     launches = {"ln_quant_dense": lnd.QUANT_LAUNCHES, "ln_dense": lnd.LAUNCHES, "fused_qkv_mha": attn.LAUNCHES}
+    if attn.LONG_LAUNCHES:
+        _fail(f"int8 UNI2 launched the two-pass attention kernel {attn.LONG_LAUNCHES} times")
     h5s = sorted(out.rglob("*.h5"))
     if len(h5s) != 1 or h5s[0].parent.name != "uni2-int8":
         _fail(f"expected one h5 under {out / 'uni2-int8'}, found {h5s}")
@@ -2897,8 +2908,9 @@ EXTRACTOR_FAMILIES = {  # name → feature width
     "chief-ctranspath": 768, "plip": 512, "musk": 2048, "empty": 0,
 }  # fmt: skip
 #: the families whose towers carry rows 1–3: (blocks, LayerNorm-fed sites a
-#: block) — qkv and fc1, and SwiGLU's fc2 in H-Optimus-1 (TICON's tile tower)
-KERNEL_FAMILIES = {"conch": (12, 2), "conch1_5": (24, 2), "keep": (24, 2), "ticon": (40, 3)}
+#: block, tokens) — qkv and fc1, and SwiGLU's fc2 in H-Optimus-1 (TICON's
+#: tile tower); the tokens as ``ZOO_LN_SITES`` gives them below
+KERNEL_FAMILIES = {"conch": (12, 2, 785), "conch1_5": (24, 2, 785), "keep": (24, 2, 197), "ticon": (40, 3, 261)}
 #: GFLOP a tile at 448 px, N = 785: matmuls 2·N·12·d² a block plus attention
 #: 4·N²·d (CONCH: d = 768, 12 blocks; CONCH1.5: d = 1024, 24 blocks)
 TILE_GFLOP = {"conch": 156.0, "conch1_5": 536.0}
@@ -2914,7 +2926,7 @@ ZOO_LN_SITES = (
     ("TICON fc2", BATCH * 261, 4096, 1536),
 )  # fmt: skip
 #: row 1 at KEEP's and TICON's attention (B, N, heads; d = 64), one-pass;
-#: CONCH's and CONCH1.5's three-sweep shapes are ``_three_sweep``'s
+#: CONCH's and CONCH1.5's two-pass shapes are ``_two_pass``'s
 ZOO_ATTENTION = (("KEEP", BATCH, 197, 16), ("TICON", BATCH, 261, 24))
 #: the ViT arch of each family whose blocks carry LayerScale: the check
 #: against the plain path builds them with γ = 1, as phase 5(b) does, since
@@ -2952,7 +2964,8 @@ def _zoo_counts() -> dict:
     from stamp_tpu_torch.ops import flash_attention as attn
     from stamp_tpu_torch.ops import ln_dense as lnd
 
-    counts = {"fused_qkv_mha": attn.LAUNCHES, "ln_dense": lnd.LAUNCHES, "ln_quant_dense": lnd.QUANT_LAUNCHES}
+    counts = {"fused_qkv_mha": attn.LAUNCHES, "fused_qkv_long": attn.LONG_LAUNCHES, "ln_dense": lnd.LAUNCHES,
+              "ln_quant_dense": lnd.QUANT_LAUNCHES}  # fmt: skip
     return counts | {name: getattr(attn, name) for name in (*_COUNTERS, "FLASH_ALIBI2D_LAUNCHES")}
 
 
@@ -2960,7 +2973,7 @@ def _zero_counts() -> None:
     from stamp_tpu_torch.ops import flash_attention as attn
     from stamp_tpu_torch.ops import ln_dense as lnd
 
-    attn.LAUNCHES = lnd.LAUNCHES = lnd.QUANT_LAUNCHES = 0
+    attn.LAUNCHES = attn.LONG_LAUNCHES = lnd.LAUNCHES = lnd.QUANT_LAUNCHES = 0
     for name in (*_COUNTERS, "FLASH_ALIBI2D_LAUNCHES"):
         setattr(attn, name, 0)
 
@@ -3010,11 +3023,18 @@ def _extract_run(card: str, family: str, root: Path, slides: Path, *, int8: bool
 
 def _expected_counts(family: str, batches: int, int8: bool) -> dict:
     """Rows 1–3's launches of one ``preprocess``: attention at every block
-    of every forward (the int8 calibration forward too), the LayerNorm-fed
-    sites through ``ln_dense`` or, in int8, ``ln_quant_dense``."""
-    blocks, sites = KERNEL_FAMILIES.get(family, (0, 0))
+    of every forward (the int8 calibration forward too; a family of more
+    than ``ONE_PASS_MAX_N`` tokens through the two-pass kernel,
+    ``fused_qkv_long``: CONCH's and CONCH1.5's 785, 12 and 24 a batch), the
+    LayerNorm-fed sites through ``ln_dense`` or, in int8,
+    ``ln_quant_dense``."""
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    blocks, sites, tokens = KERNEL_FAMILIES.get(family, (0, 0, 0))
     forwards = batches + (1 if int8 and blocks else 0)
-    return {"fused_qkv_mha": blocks * forwards, "ln_dense": 0 if int8 else blocks * sites * batches,
+    long_form = tokens > attn.ONE_PASS_MAX_N
+    return {"fused_qkv_mha": blocks * forwards, "fused_qkv_long": blocks * forwards if long_form else 0,
+            "ln_dense": 0 if int8 else blocks * sites * batches,
             "ln_quant_dense": blocks * sites * batches if int8 else 0}  # fmt: skip
 
 
@@ -3211,10 +3231,14 @@ def _conch_rates(card: str) -> dict:
     return rates
 
 
-def _three_sweep(card: str) -> list[dict]:
-    """Row 1 at CONCH's shapes (N = 785 > ``ONE_PASS_MAX_N``: the three-sweep
-    kernel), batch 64, against its plain version and SDPA bf16, one sync
-    around each call."""
+def _two_pass(card: str) -> list[dict]:
+    """Row 1 at CONCH's shapes (N = 785 > ``ONE_PASS_MAX_N``: the two-pass
+    kernel, ``csrc/fused_qkv_long.cu``), batch 64, against its plain version
+    and SDPA bf16 (timed, never called by the port), one sync around each
+    call and back to back; its bound (4 products), the design's floor (6
+    products at the bf16 peak; 2 ex2 a score at 16 a clock an SM at the
+    card's top SM clock), its useful and executed TFLOP/s, and a bitwise
+    repeat."""
     import torch
     import torch.nn.functional as F
 
@@ -3222,26 +3246,45 @@ def _three_sweep(card: str) -> list[dict]:
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)  # fmt: skip
+    max_sm_hz = float(smi.stdout.split()[0]) * 1e6
     rows = []
     for h in (12, 16):  # CONCH, CONCH1.5
         b, n, d = BATCH, CONCH_TOKENS, 64
         qkv = torch.randn(b, n, 3 * h * d, device=dev, generator=gen).to(torch.bfloat16)
-        abs_err, rel_err = _error(attn.fused_qkv_mha(qkv, h), attn.fused_qkv_mha_reference(qkv, h))
+        before = attn.LONG_LAUNCHES
+        got = attn.fused_qkv_mha(qkv, h)
+        if attn.LONG_LAUNCHES != before + 1:
+            _fail(f"fused_qkv_mha at N = {n} did not launch the two-pass kernel")
+        abs_err, rel_err = _error(got, attn.fused_qkv_mha_reference(qkv, h))
+        repeat = torch.equal(got, attn.fused_qkv_mha(qkv, h))
 
         def sdpa(qkv=qkv, h=h):
             q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
             return F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, h * d)
 
-        t = _compare_timed(lambda: attn.fused_qkv_mha(qkv, h), lambda: attn.fused_qkv_mha_reference(qkv, h), sdpa)
-        bound, by = _bound(b * n * 4 * h * d * 2, {"bf16": 4 * b * h * n * n * d})
+        kernel = lambda: attn.fused_qkv_mha(qkv, h)  # noqa: E731
+        t = _compare_timed(kernel, lambda: attn.fused_qkv_mha_reference(qkv, h), sdpa)
+        b2b = _compare_timed(kernel, None, sdpa, reps=B2B_REPS)
+        flops = 4 * b * h * n * n * d  # q·kᵀ and P·V
+        bound, by = _bound(b * n * 4 * h * d * 2, {"bf16": flops})
+        floor_products = 1.5 * flops / PEAK_FLOPS["bf16"] * 1e3  # q·kᵀ twice
+        floor_ex2 = 2 * b * h * n * n / (16 * sms * max_sm_hz) * 1e3
         row = dict(shape=[b, n, 3 * h * d], heads=h, head_dim=d, max_abs_err=abs_err, rel_err=rel_err,
-                   ms=t["kernel"], plain_ms=t["plain"], sdpa_bf16_ms=t["control"], bound_ms=bound, bound_by=by,
-                   bound_share=bound / t["kernel"])  # fmt: skip
-        print(f"[13 extractor zoo] fused_qkv_mha three-sweep {json.dumps(row)} on {card}")
+                   bitwise_repeat=repeat, ms=t["kernel"], plain_ms=t["plain"], sdpa_bf16_ms=t["control"],
+                   ms_b2b=b2b["kernel"], sdpa_bf16_ms_b2b=b2b["control"], bound_ms=bound, bound_by=by,
+                   bound_share=bound / t["kernel"], floor_products_ms=floor_products, floor_ex2_ms=floor_ex2,
+                   tflops=flops / t["kernel"] / 1e9, executed_tflops=1.5 * flops / t["kernel"] / 1e9,
+                   vs_sdpa=t["kernel"] / t["control"])  # fmt: skip
+        print(f"[13 extractor zoo] fused_qkv_mha two-pass {json.dumps(row)} on {card}")
         if not rel_err <= KERNEL_TOL:
             _fail(f"fused_qkv_mha {row['shape']}: max|Δ|/max|ref| {rel_err} > {KERNEL_TOL}")
+        if not repeat:
+            _fail(f"fused_qkv_mha {row['shape']}: two calls differ")
         rows.append(row)
-        del qkv
+        del qkv, got
     torch.cuda.empty_cache()
     return rows
 
@@ -3346,7 +3389,7 @@ def phase_extractor_zoo(card: str) -> dict:
     every block of those four, none of rows 1–9 elsewhere); each family's
     features on the card against its plain path (rows 1–3's plain versions)
     or, without a kernel, the port's CPU forward; CONCH and CONCH1.5 tiles/s
-    and MFU; row 1's three-sweep kernel at CONCH's shapes; Macenko on the
+    and MFU; row 1's two-pass kernel at CONCH's shapes; Macenko on the
     card (also through ``preprocess``); TITAN on the CONCH1.5 features."""
     import torch
 
@@ -3380,7 +3423,7 @@ def phase_extractor_zoo(card: str) -> dict:
         checks=checks,
         sites=sites,
         rates=_conch_rates(card),
-        three_sweep=_three_sweep(card),
+        two_pass=_two_pass(card),
         macenko=_macenko_on_card(card),
         titan=_conch1_5_to_titan(card, root),
     )
@@ -3454,8 +3497,8 @@ def main() -> None:
     quant_rows = quant["ln_quant_dense"][:UNI2_SITES]
     # phase 13's preprocess runs launch rows 1–3 too (CONCH, CONCH1.5, KEEP, TICON)
     zoo_launches = {k: sum(r["launches"].get(k, 0) for r in extractors["runs"])
-                    for k in ("fused_qkv_mha", "ln_dense", "ln_quant_dense")}  # fmt: skip
-    three_sweep = next(r for r in extractors["three_sweep"] if r["heads"] == 16)  # CONCH1.5, [64, 785, 3072]
+                    for k in ("fused_qkv_mha", "fused_qkv_long", "ln_dense", "ln_quant_dense")}  # fmt: skip
+    two_pass = next(r for r in extractors["two_pass"] if r["heads"] == 16)  # CONCH1.5, [64, 785, 3072]
     alibi2d_row = next(r for r in alibi2d["flash_alibi2d_mha"] if r["shape"][1] == 16385)
     summary = {"kernels": [
         {
@@ -3464,18 +3507,22 @@ def main() -> None:
             "source": "stamp_tpu_torch/ops/csrc/fused_qkv_attn.cu",
             "replaces": "stamp_tpu/ops/flash_attention.py:589",
             "launches": main_path["launches"]["fused_qkv_mha"] + zoo_launches["fused_qkv_mha"],
-            "max_abs_err": max(r["max_abs_err"] for r in kernels["fused_qkv_mha"] + extractors["three_sweep"]),
+            "max_abs_err": max(r["max_abs_err"] for r in kernels["fused_qkv_mha"] + extractors["two_pass"]),
             "ms": attn_row["ms"],
             "plain_ms": attn_row["plain_ms"],
             "bound_ms": attn_bound[0],
             "bound_by": attn_bound[1],
             "library_ms": attn_row["sdpa_bf16_ms"],
-            # the three-sweep kernel at CONCH1.5's [64, 785, 3072] (phase 13)
-            "three_sweep_ms": three_sweep["ms"],
-            "three_sweep_plain_ms": three_sweep["plain_ms"],
-            "three_sweep_bound_ms": three_sweep["bound_ms"],
-            "three_sweep_bound_by": three_sweep["bound_by"],
-            "three_sweep_library_ms": three_sweep["sdpa_bf16_ms"],
+            # the two-pass kernel (N > 272, fused_qkv_long.cu) at CONCH1.5's
+            # [64, 785, 3072] (phase 13); its launches are phase 13's
+            "long_source": "stamp_tpu_torch/ops/csrc/fused_qkv_long.cu",
+            "long_launches": zoo_launches["fused_qkv_long"],
+            "long_ms": two_pass["ms"],
+            "long_ms_b2b": two_pass["ms_b2b"],
+            "long_plain_ms": two_pass["plain_ms"],
+            "long_bound_ms": two_pass["bound_ms"],
+            "long_bound_by": two_pass["bound_by"],
+            "long_library_ms": two_pass["sdpa_bf16_ms"],
         },
         {
             "name": "ln_dense",

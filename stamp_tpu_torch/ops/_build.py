@@ -33,6 +33,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     # qkv, out, batch, n, heads, head_dim, device, stream
     "stamp_fused_qkv_attn": [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
+    # the same, for n > 272 (fused_qkv_long.cu)
+    "stamp_fused_qkv_long": [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
     # x, gamma, beta, weight, dense_bias|NULL, scratch, out, m, n, k, eps,
     # device, stream
     "stamp_ln_dense": [

@@ -1,11 +1,12 @@
 // Hopper's asynchronous machinery, shared by the TMA + wgmma kernels
 // (ln_gemm_sm90.cuh for ln_dense and ln_quant_dense; through
-// tf32_wgmma.cuh, flash_attn.cu, flash_attn_bwd.cu and flash_alibi2d.cu):
-// shared-memory addresses, mbarriers whose waits trap after 10 s instead of
-// hanging the card, TMA loads, register reallocation and named barriers
-// between warpgroups, the wgmma fences and the descriptor of a
-// 128-byte-swizzled K-major operand, and cuTensorMapEncodeTiled reached
-// through the runtime.
+// tf32_wgmma.cuh, flash_attn.cu, flash_attn_bwd.cu and flash_alibi2d.cu;
+// fused_qkv_long.cu): shared-memory addresses, mbarriers whose waits trap
+// after 10 s instead of hanging the card, TMA loads, register reallocation
+// and named barriers between warpgroups, the wgmma fences (and the one that
+// keeps A fragments in their registers), the descriptor of a
+// 128-byte-swizzled K-major operand, the special-function unit's 2^x, and
+// cuTensorMapEncodeTiled reached through the runtime.
 
 #pragma once
 
@@ -121,6 +122,17 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
 }
 
+// Keep A fragments in their registers until the wgmmas that read them
+// completed: the compiler sees them read and written here, after the wait.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
+  }
+}
+
 // named barriers 1 … 15 among `threads` threads (warpgroups taking turns)
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -149,6 +161,15 @@ __device__ __forceinline__ void fence_operands(int (&r)[N]) {
 __device__ __forceinline__ uint64_t smem_desc_sw128(const void* box) {
   const uint64_t addr = smem_addr(box);
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// ---- the special-function unit -----------------------------------------------------
+
+// 2^x by the special-function unit (ex2.approx.ftz.f32; 2^(−1e30) = +0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
 // ---- host side ------------------------------------------------------------------

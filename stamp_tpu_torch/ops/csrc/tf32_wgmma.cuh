@@ -139,17 +139,6 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// Keep A fragments in their registers until the wgmmas that read them
-// completed: the compiler sees them read and written here, after the wait.
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
-  }
-}
-
 // ---- tiling -----------------------------------------------------------------
 
 constexpr int kUnit = 32;          // rows per liveness flag
@@ -188,13 +177,6 @@ __device__ __forceinline__ uint32_t tf32_round(float x) { return (__float_as_uin
 __device__ __forceinline__ float sqrt_approx(float x) {
   float r;
   asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// 2^x by the special-function unit (ex2.approx.ftz.f32; 2^(−1e30) = +0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
 }
 

@@ -5,7 +5,8 @@ pre-softmax 2-D-ALiBi flash attention of the TITAN slide encoder.
 Counterparts of ``stamp_tpu.ops.flash_attention.fused_qkv_mha`` (forward),
 of ``flash_mha`` and ``flash_alibi_mha`` with their custom VJPs, and of
 ``flash_alibi2d_mha`` (forward).  On a CUDA tensor each wrapper launches its
-hand-written kernel (``csrc/fused_qkv_attn.cu``, ``csrc/flash_attn.cu``, for
+hand-written kernel (``csrc/fused_qkv_attn.cu`` and, for N > 272,
+``csrc/fused_qkv_long.cu``; ``csrc/flash_attn.cu``, for
 the backward ``csrc/flash_attn_bwd.cu``, ``csrc/flash_alibi2d.cu``); on a
 CPU tensor it runs the plain PyTorch version beside it (``*_reference``).
 There is no fallback between the two: a CUDA tensor a kernel does not take
@@ -59,8 +60,10 @@ import torch
 from stamp_tpu_torch.ops import _build
 
 # kernel launches since the last reset (the main path's proof of use)
-#: ``fused_qkv_mha``
+#: ``fused_qkv_mha`` (both of its kernels)
 LAUNCHES = 0
+#: ``fused_qkv_mha``'s two-pass kernel, N > ``ONE_PASS_MAX_N`` (also in ``LAUNCHES``)
+LONG_LAUNCHES = 0
 #: ``flash_mha``
 FLASH_MHA_LAUNCHES = 0
 #: ``flash_alibi_mha``
@@ -72,9 +75,9 @@ FLASH_ALIBI_MHA_BWD_LAUNCHES = 0
 #: ``_dist_weighted_sum`` (the ALiBi backward's bias branch)
 DIST_WEIGHTED_SUM_LAUNCHES = 0
 
-_HEAD_DIMS = (64, 80)  # fused_qkv_attn.cu's template instances
+_HEAD_DIMS = (64, 80)  # fused_qkv_attn.cu's and fused_qkv_long.cu's template instances
 #: the longest sequence ``fused_qkv_mha``'s one-pass kernel takes (its
-#: ``kMaxKeys``); a longer one runs the three-sweep kernel
+#: ``kMaxKeys``); a longer one runs the two-pass kernel
 ONE_PASS_MAX_N = 272
 _FLASH_HEAD_DIMS = (32, 64, 128)  # flash_attn.cu's and flash_attn_bwd.cu's template instances
 _NEG_INF = -1e30
@@ -106,8 +109,10 @@ def fused_qkv_mha(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     Returns: [B, N, dim] attention output (before the output projection).
     On CUDA, N <= ``ONE_PASS_MAX_N`` runs the one-pass kernel (scores in
-    registers), a longer N the three-sweep kernel; both count in
-    ``LAUNCHES``.
+    registers, ``csrc/fused_qkv_attn.cu``), a longer N the two-pass kernel
+    (``csrc/fused_qkv_long.cu``: TMA and bf16 wgmma, a pass over the key
+    tiles for the rows' max and sum, a second for p and P·V); both count
+    in ``LAUNCHES``, the two-pass one also in ``LONG_LAUNCHES``.
     """
     if qkv.device.type == "cpu":
         return fused_qkv_mha_reference(qkv, num_heads)
@@ -133,7 +138,9 @@ def fused_qkv_mha(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     out = torch.empty((b, n, dim), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load_library()
-    err = lib.stamp_fused_qkv_attn(
+    long_form = n > ONE_PASS_MAX_N
+    entry = lib.stamp_fused_qkv_long if long_form else lib.stamp_fused_qkv_attn
+    err = entry(
         qkv.data_ptr(),
         out.data_ptr(),
         b,
@@ -144,8 +151,9 @@ def fused_qkv_mha(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     _build.check(err, "fused_qkv_mha")
-    global LAUNCHES
+    global LAUNCHES, LONG_LAUNCHES
     LAUNCHES += 1
+    LONG_LAUNCHES += long_form
     return out
 
 

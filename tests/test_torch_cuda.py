@@ -46,28 +46,45 @@ def _rel_err(got, want):
     return diff / max(want.float().abs().max().item(), 1e-30)
 
 
-# N = 272 is the one-pass kernel's limit (attn.ONE_PASS_MAX_N); 273, 785
-# and 1,030 run the three-sweep kernel; 257 and 261 with d = 80 are
-# Virchow's and Virchow2's; 785 with 12 and 16 heads CONCH's and CONCH1.5's
+# N = 272 is the one-pass kernel's limit (attn.ONE_PASS_MAX_N); 273 (a last
+# key tile of 17 keys), 320 (whole key tiles only), 785, 1,030 and 4,097 run
+# the two-pass kernel (csrc/fused_qkv_long.cu), 1,030 also at d = 80; 257 and
+# 261 with d = 80 are Virchow's and Virchow2's; 785 with 12 and 16 heads
+# CONCH's and CONCH1.5's
 @pytest.mark.parametrize(
     "b,n,h,d",
     [(1, 1, 1, 64), (3, 21, 4, 64), (2, 64, 2, 64), (2, 129, 3, 80), (4, 265, 24, 64), (2, 1030, 2, 64),
-     (2, 272, 2, 64), (2, 273, 2, 64), (2, 257, 16, 80), (2, 261, 16, 80), (2, 785, 12, 64), (2, 785, 16, 64)],
+     (2, 272, 2, 64), (2, 273, 2, 64), (2, 257, 16, 80), (2, 261, 16, 80), (2, 785, 12, 64), (2, 785, 16, 64),
+     (3, 320, 2, 64), (2, 1030, 2, 80), (2, 4097, 2, 64)],
 )  # fmt: skip
 def test_fused_qkv_mha_kernel(gen, b, n, h, d):
     qkv = _randn(gen, b, n, 3 * h * d)
-    before = attn.LAUNCHES
+    before = attn.LAUNCHES, attn.LONG_LAUNCHES
     got = attn.fused_qkv_mha(qkv, h)
-    assert attn.LAUNCHES == before + 1
+    assert (attn.LAUNCHES, attn.LONG_LAUNCHES) == (before[0] + 1, before[1] + (n > attn.ONE_PASS_MAX_N))
     assert got.shape == (b, n, h * d) and got.dtype == torch.bfloat16
     assert _rel_err(got, attn.fused_qkv_mha_reference(qkv, h)) <= TOL
 
 
-@pytest.mark.parametrize("n", [265, 1030], ids=["one-pass", "three-sweep"])
+@pytest.mark.parametrize("n", [265, 785, 1030], ids=["one-pass", "two-pass-785", "two-pass"])
 def test_fused_qkv_mha_kernel_is_deterministic(gen, n):
     """No atomics and a fixed order of keys: two calls are bitwise equal."""
     qkv = _randn(gen, 4, n, 3 * 8 * 64)
     assert torch.equal(attn.fused_qkv_mha(qkv, 8), attn.fused_qkv_mha(qkv, 8))
+
+
+@pytest.mark.parametrize("n,d", [(785, 64), (273, 80)])
+def test_fused_qkv_mha_two_pass_keeps_batch_items_apart(gen, n, d):
+    """The two-pass kernel's tensor map zero-fills the rows past N of each
+    batch item: with item 1's keys 100× larger, a key tile that read into
+    the next item's rows would swamp items 0 and 2."""
+    b, h = 3, 4
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen)
+    qkv[1, :, h * d : 2 * h * d] *= 100
+    qkv = qkv.bfloat16()
+    got, want = attn.fused_qkv_mha(qkv, h), attn.fused_qkv_mha_reference(qkv, h)
+    for item in range(b):
+        assert _rel_err(got[item], want[item]) <= TOL
 
 
 # the edges of the kernels' tiles: M off 64 and 128 (1,000; 16,960 = 64·265),
@@ -609,9 +626,10 @@ def test_int8_virchow_forward(gen):
 
 @pytest.mark.parametrize("quant", ["off", "int8"])
 def test_conch_tower_kernel_path(gen, quant):
-    """A CoCa tower at CONCH's width and 448 px (785 tokens: the three-sweep
-    attention kernel), depth 2, on the kernel path against its plain path;
-    int8 calibrated on the card as the extractor does."""
+    """A CoCa tower at CONCH's width and 448 px (785 tokens: the two-pass
+    attention kernel, csrc/fused_qkv_long.cu), depth 2, on the kernel path
+    against its plain path; int8 calibrated on the card as the extractor
+    does."""
     import dataclasses
 
     from stamp_tpu_torch.models import coca, vit_image
@@ -632,12 +650,15 @@ def test_conch_tower_kernel_path(gen, quant):
             model = coca.CoCaVisionTower(dataclasses.replace(cfg, quant="int8"))
         model.load_state_dict({**qstate, **act_stats}, assign=True)
         model.eval()
-    before = attn.LAUNCHES, lnd.LAUNCHES, lnd.QUANT_LAUNCHES
+    before = attn.LAUNCHES, attn.LONG_LAUNCHES, lnd.LAUNCHES, lnd.QUANT_LAUNCHES
     with torch.inference_mode():
         got = model(images).float()
     fused = 2 * cfg.depth  # qkv and fc1 of each block
-    assert (attn.LAUNCHES, lnd.LAUNCHES, lnd.QUANT_LAUNCHES) == (
-        before[0] + cfg.depth, before[1] + (fused if quant == "off" else 0), before[2] + (fused if quant == "int8" else 0)
+    assert (attn.LAUNCHES, attn.LONG_LAUNCHES, lnd.LAUNCHES, lnd.QUANT_LAUNCHES) == (
+        before[0] + cfg.depth,
+        before[1] + cfg.depth,
+        before[2] + (fused if quant == "off" else 0),
+        before[3] + (fused if quant == "int8" else 0),
     )
     with vit_image.plain_kernels(), torch.inference_mode():
         want = model(images).float()

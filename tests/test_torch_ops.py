@@ -25,13 +25,26 @@ def interpret_pallas(monkeypatch):
     )
 
 
-# UNI2 (265, 64) and Virchow / Virchow2 (257 and 261 tokens, heads of 80)
-@pytest.mark.parametrize("n,head_dim", [(21, 16), (21, 64), (265, 64), (257, 80), (261, 80)])
-def test_fused_qkv_mha_matches_pallas(interpret_pallas, n, head_dim):
+# UNI2 (265, 64), Virchow / Virchow2 (257 and 261 tokens, heads of 80), and
+# CONCH's 785 tokens (the port's two-pass kernel on the card): with 4 heads
+# the Pallas kernel takes its phase-split body, with 12 (one batch item) its
+# interleaved one, as at CONCH's shapes
+@pytest.mark.parametrize(
+    "n,head_dim,b,h",
+    [
+        pytest.param(21, 16, 2, 4, id="21-16"),
+        pytest.param(21, 64, 2, 4, id="21-64"),
+        pytest.param(265, 64, 2, 4, id="265-64"),
+        pytest.param(257, 80, 2, 4, id="257-80"),
+        pytest.param(261, 80, 2, 4, id="261-80"),
+        pytest.param(785, 64, 2, 4, id="785-64-phase-split"),
+        pytest.param(785, 64, 1, 12, id="785-64-interleaved"),
+    ],
+)
+def test_fused_qkv_mha_matches_pallas(interpret_pallas, n, head_dim, b, h):
     from stamp_tpu.ops.flash_attention import fused_qkv_mha
 
     rng = np.random.default_rng(2)
-    b, h = 2, 4
     qkv = rng.normal(size=(b, n, 3 * h * head_dim)).astype(np.float32)
 
     ref = np.asarray(fused_qkv_mha(jnp.asarray(qkv), h))
