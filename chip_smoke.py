@@ -187,7 +187,10 @@ Phases (each prints at least one line; any failure exits non-zero):
    H100's bf16 peak (``TILE_GFLOP``); row 1's two-pass kernel at
    [64, 785, 2304 | 3072] (12 and 16 heads) against its plain version and
    SDPA bf16, one sync a call and back to back, with its bound, the
-   design's floor, its TFLOP/s and a bitwise repeat; the two-pass kernel's
+   design's floor, its TFLOP/s, the share of its outputs bitwise equal to
+   the plain version's (≥ ``TWO_PASS_EQUAL_MIN``: only this tells the JAX
+   package's operation order from p cast before its normalization) and a
+   bitwise repeat; the two-pass kernel's
    launches (``fused_qkv_long``: 12 a CONCH forward, one a block, 24 a
    CONCH1.5 one, none for KEEP and TICON; none for UNI2 in phases 4 and
    4b); Macenko on the card against the golden tile
@@ -195,8 +198,29 @@ Phases (each prints at least one line; any failure exits non-zero):
    CPU each against the CPU in f64 (p99 ≤ ``MACENKO_P99``), and its ms per
    batch; ``encode_slides`` with TITAN on the CONCH1.5 features.
 
+14. encoder zoo: the other slide and patient encoders through ``python -m
+   stamp_tpu_torch -c config.yaml --profile encode_slides`` and
+   ``encode_patients`` in-process at published width (random weights) on
+   synthetic tile features of phase 9's slides (1,500, 4,096, 10,000 (two)
+   and 16,384 tiles) and patient (the two 10,000-tile slides): GigaPath
+   (1536-d ``gigapath``), PRISM (2560-d ``virchow-full``), COBRA (2560-d
+   ``virchow2``, and 512-d ``conch`` slides), MADELEINE (``conch``), CHIEF
+   (768-d ``chief-ctranspath``) and EAGLE (768-d ``ctranspath`` with the
+   Virchow2 files as ``agg_feat_dir``), with the TF32 flags as PyTorch
+   leaves them; the h5 contract (shape, attrs) and skip-if-exists on a
+   rerun; no launch of rows 1–9 (every count 0 before each command and
+   after); each encoder on the card against the port's CPU forward of the
+   same weights on the 1,500-tile slide (``ENCODER_TOL`` of max |CPU|,
+   ``ENCODER_COSINE_MIN``), and GigaPath once more with matmul TF32 on,
+   which the limit must refuse; EAGLE's top-25 tile sets against the CPU's
+   with the rank-25 gap; seconds per slide and patient (the encoder's
+   forward, inputs read beforehand, median of 3) beside the CLI's
+   ``encode/read``, ``encode/forward`` and ``encode/h5_write``; a
+   ``torch.profiler`` split of the 16,384-tile GigaPath, PRISM and COBRA
+   forwards, and each encoder's peak device memory at 16,384 tiles.
+
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
-11, 12, 13 and print their wall time.  The line before the last is
+11, 12, 13, 14 and print their wall time.  The line before the last is
 ``{"kernels": [...]}``: each kernel's launches on its main path (phase 4,
 4b, 6, 7 or 9, rows 1–3 also phase 13's; the MIL forward's, phases 6 and 7;
 rows 4–8 also ``heatmaps_launches``, phase 11's; row 1 also its
@@ -3231,14 +3255,23 @@ def _conch_rates(card: str) -> dict:
     return rates
 
 
+#: the share of row 1′'s outputs bitwise equal to its plain version's.  The
+#: 1e-2 limit cannot tell the JAX package's order (p normalized in f32, then
+#: cast to bf16 for P·V) from p cast first and O·(1/l) after P·V; the share
+#: can: 99.83% for the kernel, 50.1% for the other order
+#: (``scripts/fused_qkv_attn_probe.py`` on an NVIDIA H100 80GB HBM3, 700 W).
+TWO_PASS_EQUAL_MIN = 0.95
+
+
 def _two_pass(card: str) -> list[dict]:
     """Row 1 at CONCH's shapes (N = 785 > ``ONE_PASS_MAX_N``: the two-pass
     kernel, ``csrc/fused_qkv_long.cu``), batch 64, against its plain version
     and SDPA bf16 (timed, never called by the port), one sync around each
     call and back to back; its bound (4 products), the design's floor (6
     products at the bf16 peak; 2 ex2 a score at 16 a clock an SM at the
-    card's top SM clock), its useful and executed TFLOP/s, and a bitwise
-    repeat."""
+    card's top SM clock), its useful and executed TFLOP/s, the share of its
+    outputs bitwise equal to the plain version's (≥ ``TWO_PASS_EQUAL_MIN``)
+    and a bitwise repeat."""
     import torch
     import torch.nn.functional as F
 
@@ -3258,8 +3291,11 @@ def _two_pass(card: str) -> list[dict]:
         got = attn.fused_qkv_mha(qkv, h)
         if attn.LONG_LAUNCHES != before + 1:
             _fail(f"fused_qkv_mha at N = {n} did not launch the two-pass kernel")
-        abs_err, rel_err = _error(got, attn.fused_qkv_mha_reference(qkv, h))
+        ref = attn.fused_qkv_mha_reference(qkv, h)
+        abs_err, rel_err = _error(got, ref)
+        equal_share = (got == ref).float().mean().item()
         repeat = torch.equal(got, attn.fused_qkv_mha(qkv, h))
+        del ref
 
         def sdpa(qkv=qkv, h=h):
             q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
@@ -3273,7 +3309,8 @@ def _two_pass(card: str) -> list[dict]:
         floor_products = 1.5 * flops / PEAK_FLOPS["bf16"] * 1e3  # q·kᵀ twice
         floor_ex2 = 2 * b * h * n * n / (16 * sms * max_sm_hz) * 1e3
         row = dict(shape=[b, n, 3 * h * d], heads=h, head_dim=d, max_abs_err=abs_err, rel_err=rel_err,
-                   bitwise_repeat=repeat, ms=t["kernel"], plain_ms=t["plain"], sdpa_bf16_ms=t["control"],
+                   equal_share=equal_share, bitwise_repeat=repeat, ms=t["kernel"], plain_ms=t["plain"],
+                   sdpa_bf16_ms=t["control"],
                    ms_b2b=b2b["kernel"], sdpa_bf16_ms_b2b=b2b["control"], bound_ms=bound, bound_by=by,
                    bound_share=bound / t["kernel"], floor_products_ms=floor_products, floor_ex2_ms=floor_ex2,
                    tflops=flops / t["kernel"] / 1e9, executed_tflops=1.5 * flops / t["kernel"] / 1e9,
@@ -3283,6 +3320,9 @@ def _two_pass(card: str) -> list[dict]:
             _fail(f"fused_qkv_mha {row['shape']}: max|Δ|/max|ref| {rel_err} > {KERNEL_TOL}")
         if not repeat:
             _fail(f"fused_qkv_mha {row['shape']}: two calls differ")
+        if equal_share < TWO_PASS_EQUAL_MIN:
+            _fail(f"fused_qkv_mha {row['shape']}: {equal_share:.4f} of outputs equal the plain version's "
+                  f"< {TWO_PASS_EQUAL_MIN} (the operation order: p normalized in f32, then cast)")  # fmt: skip
         rows.append(row)
         del qkv, got
     torch.cuda.empty_cache()
@@ -3429,6 +3469,249 @@ def phase_extractor_zoo(card: str) -> dict:
     )
 
 
+#: phase 14's runs: label → (encoder, the extractor of its tile features, EAGLE's
+#: aggregation extractor); every extractor's features share one tile set a slide
+ENCODER_RUNS = {
+    "gigapath": ("gigapath", "gigapath", None),
+    "prism": ("prism", "virchow-full", None),
+    "cobra": ("cobra", "virchow2", None),
+    "cobra-conch": ("cobra", "conch", None),
+    "madeleine": ("madeleine", "conch", None),
+    "chief": ("chief", "chief-ctranspath", None),
+    "eagle": ("eagle", "ctranspath", "virchow2"),
+}
+ENCODER_WIDTHS = {"gigapath": 1536, "virchow-full": 2560, "virchow2": 2560, "conch": 512, "chief-ctranspath": 768,
+                  "ctranspath": 768}  # fmt: skip
+#: the width of each run's embedding (COBRA's and EAGLE's are their raw features')
+ENCODER_OUT = {"gigapath": 768, "prism": 1280, "cobra": 2560, "cobra-conch": 512, "madeleine": 512, "chief": 768,
+               "eagle": 2560}  # fmt: skip
+#: each encoder's embedding on the card against the port's CPU forward of the
+#: same weights on the 1,500-tile slide, max |Δ| / max |CPU|.  Both sides are
+#: f32 (TF32 off): at full width the port's CPU forward in f32 reads at most
+#: 7.5e-7 against its own f64 forward, and with the matmuls' operands rounded
+#: to TF32 (10-bit mantissa) 1.6e-4 to 9.4e-4 (GigaPath 4.2e-4; both from
+#: ``scripts/slide_encoder_rounding.py`` on the CPU).  1e-5 holds the one and
+#: refuses the other; the GigaPath forward with matmul TF32 on must fail it.
+ENCODER_TOL = 1e-5
+#: cosine of the two; TF32 moves it by 3.2e-7 at most (the same script), so it
+#: is a sanity check only and cannot see TF32
+ENCODER_COSINE_MIN = 0.99999
+#: EAGLE's top-25 sets must be equal unless the CPU's rank-25 gap is under this
+#: many times the largest card-to-CPU score difference
+EAGLE_GAP_FACTOR = 10.0
+
+
+def _write_encoder_cohort(root: Path) -> None:
+    """Tile features of every extractor phase 14 reads (fp16, the port's
+    writer) on the slide-shaped grids of phase 9's slide names, and a slide
+    table with one patient of the two 10,000-tile slides."""
+    import numpy as np
+    import pandas as pd
+
+    from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
+
+    rng = np.random.default_rng(14)
+    for name, n in TITAN_TILES.items():
+        coords = (_tissue_grid(n) * 256.0).astype(np.float32)
+        for extractor, width in ENCODER_WIDTHS.items():
+            write_tile_feats_atomic(
+                output_path=root / extractor / f"{name}.h5",
+                feats=rng.standard_normal((n, width), dtype=np.float32).astype(np.float16), coords_um=coords,
+                extractor_id=extractor, tile_size_um=256.0, tile_size_px=224, code_hash="chip-smoke",
+            )  # fmt: skip
+    pd.DataFrame({"PATIENT": ["patient-A"] * 2, "FILENAME": [f"{s}.h5" for s in TITAN_PATIENT]}).to_csv(
+        root / "slide.csv", index=False
+    )
+
+
+def _encoder_embedding(label: str, encoder, root: Path, names: tuple[str, ...]):
+    """``embed(device)`` of the slide (one name) or the patient (two) as the
+    CLI computes it, its inputs read beforehand."""
+    import numpy as np
+
+    from stamp_tpu_torch.io.h5 import read_feats
+
+    _, extractor, agg = ENCODER_RUNS[label]
+    if agg is not None:  # EAGLE: CTransPath scores, Virchow2 features
+        read = encoder._paired_reader(root / extractor, root / agg)
+        pairs = [read(root / extractor / f"{n}.h5")[0] for n in names]
+        ctp, vir2 = (np.concatenate([p[i] for p in pairs]) for i in (0, 1))
+        return lambda dev: encoder._eagle_embedding(ctp, vir2, dev)
+    if label == "gigapath":  # coordinates; a patient is a virtual slide
+        if len(names) == 1:
+            feats, coords = read_feats(root / extractor / f"{names[0]}.h5")
+        else:
+            files = [f"{n}.h5" for n in names]
+            feats, coords = encoder._assemble_virtual_slide(root / extractor, files, patient_id="p")
+        return lambda dev: encoder._generate_slide_embedding(feats, dev, coords=coords)
+    feats = [read_feats(root / extractor / f"{n}.h5")[0] for n in names]
+    if len(names) == 1:
+        return lambda dev: encoder._generate_slide_embedding(feats[0], dev)
+    return lambda dev: encoder._generate_patient_embedding(feats, dev)
+
+
+def _encoder_cli(label: str, root: Path) -> dict:
+    """``encode_slides`` (and, but for COBRA on CONCH, ``encode_patients``)
+    through the CLI with ``--profile``, every launch count 0 before each and
+    checked 0 after; the h5 contract; skip-if-exists on a rerun."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.io.h5 import read_h5
+    from stamp_tpu_torch.utils import profiling
+
+    encoder, extractor, agg = ENCODER_RUNS[label]
+    out = root / "out" / label
+    runs = {}
+    commands = [("encode_slides", "slide_encoding")]
+    if label != "cobra-conch":
+        commands.append(("encode_patients", "patient_encoding"))
+    for command, section in commands:
+        fields = {"encoder": encoder, "output_dir": str(out), "feat_dir": str(root / extractor), "device": "cuda",
+                  "generate_hash": False}  # fmt: skip
+        if agg is not None:
+            fields["agg_feat_dir"] = str(root / agg)
+        if command == "encode_patients":
+            fields["slide_table"] = str(root / "slide.csv")
+        config = root / f"{label}-{command}.yaml"
+        config.write_text(yaml.safe_dump({section: fields}))
+        _zero_counts()
+        t0 = time.perf_counter()
+        main(["-c", str(config), "--profile", command])  # exits non-zero on failure
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _zoo_counts().items() if v}
+        if launched:
+            _fail(f"{label} {command} launched kernels of rows 1–9: {launched}")
+        runs[command] = dict(wall_s=time.perf_counter() - t0) | {
+            stage.split("/")[1] + "_s": profiling.timer.seconds.get(stage, 0.0)
+            for stage in ("encode/read", "encode/forward", "encode/h5_write")
+        }
+    kind = {"encode_slides": "slide", "encode_patients": "pat"}
+    outputs = {p.stem: read_h5(p) for c in runs for p in sorted((out / f"{encoder}-{kind[c]}").glob("*.h5"))}
+    expected = {*TITAN_TILES} | ({"patient-A"} if "encode_patients" in runs else set())
+    if set(outputs) != expected:
+        _fail(f"{label}: encoded files {sorted(outputs)}, expected {sorted(expected)}")
+    precision = "torch.float16" if encoder in ("gigapath", "prism") else "torch.float32"
+    for name, (datasets, attrs) in outputs.items():
+        feat_type = "patient" if name == "patient-A" else "slide"
+        if (datasets["feats"].shape != (ENCODER_OUT[label],) or not np.isfinite(datasets["feats"]).all()
+                or attrs["encoder"] != encoder or attrs["feat_type"] != feat_type or attrs["precision"] != precision
+                or "source_precision" in attrs):  # fmt: skip
+            _fail(f"{label} {name}: feats {datasets['feats'].shape}, attrs {attrs}")
+    written = {p: p.stat().st_mtime_ns for p in out.rglob("*.h5")}
+    main(["-c", str(root / f"{label}-encode_slides.yaml"), "encode_slides"])
+    if {p: p.stat().st_mtime_ns for p in out.rglob("*.h5")} != written:
+        _fail(f"{label}: a rerun of encode_slides rewrote its files (skip-if-exists)")
+    return dict(runs=runs, outputs={name: datasets["feats"] for name, (datasets, _) in outputs.items()})
+
+
+def _eagle_top_sets(card: str, encoder, root: Path) -> list[dict]:
+    """EAGLE's top-25 tile set on the card against the CPU's, each slide,
+    with the CPU's rank-25 gap and the largest card-to-CPU score difference."""
+    import numpy as np
+
+    from stamp_tpu_torch.io.h5 import read_feats
+
+    rows = []
+    for name in TITAN_TILES:
+        ctp, _ = read_feats(root / "ctranspath" / f"{name}.h5")
+        scores = {dev: encoder.net.scores_and_feature(ctp, dev)[0] for dev in ("cuda:0", "cpu")}
+        ranked = np.sort(scores["cpu"])[::-1]
+        gap = float(ranked[24] - ranked[25])
+        diff = float(np.abs(scores["cuda:0"] - scores["cpu"]).max())
+        equal = set(encoder.top_tiles(ctp, "cuda:0").tolist()) == set(encoder.top_tiles(ctp, "cpu").tolist())
+        row = dict(slide=name, equal_sets=equal, rank25_gap=gap, max_score_diff=diff)
+        print(f"[14 encoder zoo] EAGLE top-25 {json.dumps(row)} on {card}")
+        if not equal and gap >= EAGLE_GAP_FACTOR * diff:
+            _fail(f"EAGLE's top-25 set on the card differs from the CPU's with a clear gap: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_encoder_zoo(card: str) -> dict:
+    """14: the other slide and patient encoders (GigaPath, PRISM, COBRA on
+    Virchow2 and on CONCH, MADELEINE, CHIEF, EAGLE) through ``encode_slides``
+    and ``encode_patients`` in-process at published width (random weights;
+    phase 9's slide sizes and patient): the h5 contract and skip-if-exists,
+    no launch of rows 1–9; each encoder on the card against the port's CPU
+    forward on the 1,500-tile slide (``ENCODER_TOL``, and GigaPath with TF32
+    on refused by it); EAGLE's top-25 sets; seconds per slide and patient
+    and the CLI's stages; ``torch.profiler`` splits and peak memory at
+    16,384 tiles."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    root = WORK / "encoders"
+    t0 = time.perf_counter()
+    _write_encoder_cohort(root)
+    print(f"[14 encoder zoo] cohort written in {time.perf_counter() - t0:.1f} s on {card}")
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # as PyTorch leaves them
+    os.environ["STAMP_RANDOM_WEIGHTS"] = "1"
+    classes = {"gigapath": "Gigapath", "prism": "Prism", "cobra": "Cobra", "madeleine": "Madeleine", "chief": "CHIEF",
+               "eagle": "Eagle"}  # fmt: skip
+    dev = torch.device("cuda:0")
+    largest = max(TITAN_TILES, key=TITAN_TILES.get)
+    summary = {}
+    try:
+        for label, (name, _, _) in ENCODER_RUNS.items():
+            row = _encoder_cli(label, root)
+            cli = row.pop("outputs")
+            encoder = getattr(importlib.import_module(f"stamp_tpu_torch.encoding.encoder.{name}"), classes[name])()
+            units = {n: (n,) for n in TITAN_TILES} | ({} if label == "cobra-conch" else {"patient-A": TITAN_PATIENT})
+            row["seconds"] = {}
+            for unit, names in units.items():
+                embed = _encoder_embedding(label, encoder, root, names)
+                got = embed(dev)  # warm-up; the CLI's embedding again
+                abs_err, rel_err = _error(torch.from_numpy(got), torch.from_numpy(cli[unit]))
+                if rel_err > ENCODER_TOL:
+                    _fail(f"{label} {unit}: the encoder's embedding differs from the CLI's by {rel_err}")
+                times = []
+                for _ in range(3):
+                    times.append(_timed(lambda: embed(dev)))
+                row["seconds"][unit] = statistics.median(times)
+                if unit == largest:
+                    torch.cuda.reset_peak_memory_stats()
+                    embed(dev)
+                    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                    if label in ("gigapath", "prism", "cobra"):
+                        _profile_forward(card, f"{label} {unit}", lambda: (None, 1e3 * _timed(lambda: embed(dev))),
+                                         tag="14 encoder zoo")  # fmt: skip
+                if unit == "slide-1500":
+                    cpu = embed("cpu")
+                    abs_err, rel_err = _error(torch.from_numpy(got), torch.from_numpy(cpu))
+                    cos = float(np.dot(got, cpu) / (np.linalg.norm(got) * np.linalg.norm(cpu)))
+                    row["vs_cpu"] = dict(max_abs_err=abs_err, rel_err=rel_err, cosine=cos)
+                    if not (rel_err <= ENCODER_TOL and cos >= ENCODER_COSINE_MIN):
+                        _fail(f"{label} at 1,500 tiles, card against CPU: {row['vs_cpu']}")
+                    if label == "gigapath":
+                        torch.backends.cuda.matmul.allow_tf32 = True
+                        try:
+                            tf32 = embed(dev)
+                        finally:
+                            torch.backends.cuda.matmul.allow_tf32 = False
+                        _, tf32_err = _error(torch.from_numpy(tf32), torch.from_numpy(cpu))
+                        row["vs_cpu"]["tf32_rel_err"] = tf32_err
+                        if tf32_err <= ENCODER_TOL:
+                            _fail(f"GigaPath with TF32 on reads {tf32_err} against the CPU: ENCODER_TOL {ENCODER_TOL} "
+                                  "cannot see TF32")  # fmt: skip
+            if label == "eagle":
+                row["top25"] = _eagle_top_sets(card, encoder, root)
+            print(f"[14 encoder zoo] {label} {json.dumps(row)} on {card}")
+            summary[label] = row
+            (encoder.net if name in ("chief", "eagle") else encoder.model).to("cpu")
+            del encoder
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
 def _timed(fn) -> float:
     """Seconds of one synchronised call of ``fn``."""
     import torch
@@ -3478,6 +3761,7 @@ def main() -> None:
     heatmaps = _timed_phase("11 heatmaps", phase_heatmaps, card)
     _timed_phase("12 zoo", phase_zoo, card)
     extractors = _timed_phase("13 extractor zoo", phase_extractor_zoo, card)
+    _timed_phase("14 encoder zoo", phase_encoder_zoo, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64

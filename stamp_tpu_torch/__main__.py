@@ -3,8 +3,8 @@
 The argument surface and the YAML schema (``StampConfig``, the port's copy
 of ``stamp_tpu/utils/config.py``) are those of ``python -m stamp_tpu``, and
 so are the subcommands: ``init``, ``config``, ``preprocess`` (the ImageViT
-extractors, bf16 and int8), ``encode_slides`` and ``encode_patients`` (the
-TITAN encoder), ``train``, ``crossval``, ``deploy``, ``statistics`` and
+extractors, bf16 and int8), ``encode_slides`` and ``encode_patients`` (every
+slide and patient encoder), ``train``, ``crossval``, ``deploy``, ``statistics`` and
 ``heatmaps`` (every backbone and feature level), and ``export_ckpt SRC DST``,
 which converts between the npz ``model.ckpt`` and the reference's Lightning
 ``.ckpt`` in the direction the source file calls for.  As in the JAX CLI,

@@ -5,7 +5,9 @@ idempotency, hash-named output directories, validation of the required tile
 extractor (with hash-suffix stripping), and atomic h5 writes carrying
 {encoder, precision, feat_type} attrs.  Slide- and patient-mode encoding are
 one worklist of ``_EncodeJob``s drained by ``_run_jobs``; subclasses provide
-the embedding functions.
+the embedding functions, and may pass ``_run_jobs`` a reader of their own
+(EAGLE's paired feature directories).  ``forward_on`` runs a model on the
+requested device under ``torch.inference_mode`` and returns f32 numpy.
 
 What differs: the tile-feature files are read with the port's reader
 (``io.h5``: its own layout without h5py, any other through h5py imported
@@ -27,6 +29,8 @@ from pathlib import Path
 from typing import Callable, Iterable
 
 import numpy as np
+import torch
+from torch import nn
 from tqdm import tqdm
 
 from stamp_tpu_torch.encoding.config import EncoderName
@@ -36,6 +40,7 @@ from stamp_tpu_torch.preprocessing.config import ExtractorName
 from stamp_tpu_torch.types import PandasLabel
 from stamp_tpu_torch.utils import profiling
 from stamp_tpu_torch.utils.cache import get_processing_code_hash
+from stamp_tpu_torch.utils.device import resolve_device
 
 _logger = logging.getLogger("stamp")
 
@@ -51,6 +56,16 @@ def _resolve_extractor_name(name: str) -> str:
     if dash and _HASH_SUFFIX.match(suffix):
         return base
     return name
+
+
+def forward_on(model: nn.Module, device, *inputs: np.ndarray) -> np.ndarray:
+    """``model(*inputs)`` on ``resolve_device(device)`` (the model moved
+    there), under ``torch.inference_mode``, as f32 numpy."""
+    dev = resolve_device(device)
+    model.to(dev)
+    with torch.inference_mode():
+        out = model(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in inputs))
+    return out.float().cpu().numpy()
 
 
 @dataclass(frozen=True)
@@ -139,9 +154,15 @@ class Encoder(ABC):
         embed: Callable[[list, list[CoordsInfo]], np.ndarray],
         *,
         feat_type: str,
+        read: Callable[[Path], tuple] | None = None,
     ) -> None:
-        """Drain the worklist: read and validate each job's tile-feature
-        files, embed them, write the result."""
+        """Drain the worklist: read each job's input files, embed them,
+        write the result.  ``read`` maps one input h5 path to a (features,
+        coords) pair; the default reads and validates a single tile-feature
+        file, and an encoder with richer inputs (EAGLE's paired feature
+        directories) passes its own."""
+        if read is None:
+            read = lambda p: self._validate_and_read_features(str(p))  # noqa: E731
         progress = tqdm(jobs)
         for job in progress:
             progress.set_description(job.description)
@@ -155,7 +176,7 @@ class Encoder(ABC):
             for h5_path in job.input_h5s:
                 try:
                     with profiling.stage("encode/read"):
-                        feats, coords = self._validate_and_read_features(str(h5_path))
+                        feats, coords = read(h5_path)
                 except (FileNotFoundError, ValueError, OSError) as e:
                     tqdm.write(f"Skipping {h5_path.name}: {e}")
                     continue

@@ -11,26 +11,20 @@ Weights: ``STAMP_RANDOM_WEIGHTS=1`` draws random weights from
 random init, whose generator differs); otherwise a pre-seeded upstream
 torch checkpoint (``*TITAN*.bin``, ``*titan*.safetensors``,
 ``*TITAN*.pth``) is loaded from the local caches, and a missing one raises
-with the JAX package's guidance.
+with the JAX package's guidance (``encoder._weights``, shared by the
+slide encoders).
 """
 
 from __future__ import annotations
 
-import logging
-import os
-
 import numpy as np
-import torch
 
 from stamp_tpu_torch.encoding.config import EncoderName
-from stamp_tpu_torch.encoding.encoder import Encoder
+from stamp_tpu_torch.encoding.encoder import Encoder, forward_on
 from stamp_tpu_torch.encoding.encoder._virtual_slide import VirtualSlidePatientMixin
-from stamp_tpu_torch.models.slide_encoders import TitanViT, init_random_weights_, load_titan_state_dict
+from stamp_tpu_torch.encoding.encoder._weights import load_or_init
+from stamp_tpu_torch.models.slide_encoders import TitanViT, load_titan_state_dict
 from stamp_tpu_torch.preprocessing.config import ExtractorName
-from stamp_tpu_torch.preprocessing.extractor import _find_torch_weights, _load_torch_state_dict
-from stamp_tpu_torch.utils.device import resolve_device
-
-_logger = logging.getLogger("stamp")
 
 WEIGHT_FILES = ["*TITAN*.bin", "*titan*.safetensors", "*TITAN*.pth"]
 
@@ -38,21 +32,9 @@ WEIGHT_FILES = ["*TITAN*.bin", "*titan*.safetensors", "*TITAN*.pth"]
 def load_titan(model: TitanViT) -> TitanViT:
     """Random (STAMP_RANDOM_WEIGHTS=1) or pre-seeded upstream weights, on
     the CPU."""
-    if os.environ.get("STAMP_RANDOM_WEIGHTS") == "1":
-        _logger.warning(
-            "titan: using RANDOM weights (STAMP_RANDOM_WEIGHTS=1) — embeddings are only useful for smoke testing"
-        )
-        return init_random_weights_(model, torch.Generator().manual_seed(0))
-    path = _find_torch_weights(WEIGHT_FILES)
-    if path is None:
-        raise FileNotFoundError(
-            f"no weights found for 'titan' (searched caches for {WEIGHT_FILES}). "
-            "Pre-seed the checkpoint into ~/.cache/stamp or set STAMP_WEIGHTS_DIR; "
-            "set STAMP_RANDOM_WEIGHTS=1 for smoke testing without weights."
-        )
-    _logger.info(f"titan: loading torch weights from {path}")
-    model.load_state_dict(load_titan_state_dict(_load_torch_state_dict(path), model))
-    return model
+    return load_or_init(
+        model, name="titan", weight_files=WEIGHT_FILES, load=lambda sd: load_titan_state_dict(sd, model)
+    )
 
 
 class Titan(VirtualSlidePatientMixin, Encoder):
@@ -67,16 +49,10 @@ class Titan(VirtualSlidePatientMixin, Encoder):
     def _generate_slide_embedding(self, feats, device, coords=None, **kwargs) -> np.ndarray:
         if coords is None:
             raise ValueError("Coords must be provided.")
-        dev = resolve_device(device)
         # µm → px → integer tile-grid units
         coords_px = np.asarray(coords.coords_um, np.float64) / coords.mpp
         grid = (coords_px / float(coords.tile_size_px)).astype(np.int64)
-        self.model.to(dev)
-        with torch.inference_mode():
-            out = self.model(
-                torch.as_tensor(np.asarray(feats, np.float32), device=dev), torch.from_numpy(grid).to(dev)
-            )
-        return out.float().cpu().numpy()
+        return forward_on(self.model, device, np.asarray(feats, np.float32), grid)
 
     def _generate_patient_embedding(self, feats_list, device, **kwargs):
         raise RuntimeError("TITAN patients are encoded via the virtual-slide path")  # encode_patients_ is overridden

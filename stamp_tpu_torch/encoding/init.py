@@ -1,8 +1,8 @@
 """Encoder dispatch, in PyTorch.
 
-Counterpart of ``stamp_tpu/encoding/init.py:12-87``.  Only TITAN is ported;
-every other encoder raises ``NotImplementedError`` naming the JAX package's
-command.
+Counterpart of ``stamp_tpu/encoding/init.py:12-87``: every ``EncoderName``
+(CHIEF, EAGLE, TITAN, COBRA, GigaPath, PRISM, MADELEINE) resolves to its
+encoder, imported when it is asked for.
 """
 
 from __future__ import annotations
@@ -14,18 +14,39 @@ from stamp_tpu_torch.encoding.encoder import Encoder
 from stamp_tpu_torch.types import PandasLabel
 
 
-def _resolve(encoder: EncoderName | Encoder, command: str) -> Encoder:
+def _resolve(encoder: EncoderName | Encoder) -> Encoder:
     if isinstance(encoder, Encoder):
         return encoder
-    name = EncoderName(encoder)
-    if name == EncoderName.TITAN:
-        from stamp_tpu_torch.encoding.encoder.titan import Titan
+    match EncoderName(encoder):
+        case EncoderName.CHIEF_CTRANSPATH:
+            from stamp_tpu_torch.encoding.encoder.chief import CHIEF
 
-        return Titan()
-    raise NotImplementedError(
-        f"encoder {name.value!r} is not ported to stamp_tpu_torch yet (only 'titan' is); "
-        f"run `python -m stamp_tpu {command}`"
-    )
+            return CHIEF()
+        case EncoderName.EAGLE:
+            from stamp_tpu_torch.encoding.encoder.eagle import Eagle
+
+            return Eagle()
+        case EncoderName.TITAN:
+            from stamp_tpu_torch.encoding.encoder.titan import Titan
+
+            return Titan()
+        case EncoderName.COBRA:
+            from stamp_tpu_torch.encoding.encoder.cobra import Cobra
+
+            return Cobra()
+        case EncoderName.GIGAPATH:
+            from stamp_tpu_torch.encoding.encoder.gigapath import Gigapath
+
+            return Gigapath()
+        case EncoderName.PRISM:
+            from stamp_tpu_torch.encoding.encoder.prism import Prism
+
+            return Prism()
+        case EncoderName.MADELEINE:
+            from stamp_tpu_torch.encoding.encoder.madeleine import Madeleine
+
+            return Madeleine()
+    raise ValueError(f"unknown encoder: {encoder}")
 
 
 def init_slide_encoder_(
@@ -37,7 +58,7 @@ def init_slide_encoder_(
     generate_hash: bool = True,
 ) -> None:
     """Encode patch-level features to a single feature per slide."""
-    _resolve(encoder, "encode_slides").encode_slides_(
+    _resolve(encoder).encode_slides_(
         output_dir=output_dir,
         feat_dir=feat_dir,
         device=device,
@@ -58,7 +79,7 @@ def init_patient_encoder_(
     generate_hash: bool = True,
 ) -> None:
     """Encode patch-level features to a single feature per patient."""
-    _resolve(encoder, "encode_patients").encode_patients_(
+    _resolve(encoder).encode_patients_(
         output_dir=output_dir,
         feat_dir=feat_dir,
         slide_table_path=slide_table_path,

@@ -721,3 +721,43 @@ def test_flash_alibi2d_mha_raises_on_what_it_does_not_take(gen):
         attn.flash_alibi2d_mha(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous(), coords, slopes)
     with pytest.raises(ValueError, match="coords"):
         attn.flash_alibi2d_mha(q, k, v, coords[:, :5].contiguous(), slopes)
+
+
+# the slide encoders without a kernel, small: (module factory, input width)
+_ENCODERS = {
+    "chief": ("stamp_tpu_torch.encoding.encoder.chief", "ChiefAttentionNet", {}, 768),
+    "madeleine": ("stamp_tpu_torch.models.slide_encoders", "MadeleineNet", dict(dim=64, num_heads=4, input_dim=96), 96),
+    "prism": ("stamp_tpu_torch.models.slide_encoders", "PrismPerceiver",
+              dict(dim=64, input_dim=96, num_latents=16, depth=2, num_heads=4), 96),
+    "gigapath": ("stamp_tpu_torch.models.slide_encoders_longnet", "LongNetViT",
+                 dict(dim=64, depth=2, num_heads=4, input_dim=96), 96),
+    "cobra": ("stamp_tpu_torch.models.slide_encoders_cobra", "CobraNet", dict(d_model=64, input_dims=(96,)), 96),
+}  # fmt: skip
+
+
+@pytest.mark.parametrize("name", list(_ENCODERS))
+def test_slide_encoder_on_the_card_matches_the_cpu(gen, name):
+    """Each slide encoder's forward on the card against the CPU's on the
+    same random weights and 3,000 tiles (GigaPath's largest segment pads,
+    COBRA's scan spans 47 chunks), TF32 off: within 1e-4 of max |CPU|.
+    No kernel of rows 1–9 is launched."""
+    import importlib
+
+    from stamp_tpu_torch.models.slide_encoders import init_random_weights_
+
+    module_name, cls, kwargs, width = _ENCODERS[name]
+    model = getattr(importlib.import_module(module_name), cls)(**kwargs)
+    init_random_weights_(model, torch.Generator().manual_seed(0)).eval()
+    cpu_gen = torch.Generator().manual_seed(1)
+    inputs = [torch.randn(3000, width, generator=cpu_gen)]
+    if name == "gigapath":
+        inputs.append(torch.rand(3000, 2, generator=cpu_gen) * 60)
+    counts = attn.FLASH_ALIBI2D_LAUNCHES, attn.LAUNCHES, lnd.LAUNCHES
+    with torch.inference_mode():
+        want = model(*inputs)
+        got = model.to("cuda")(*(t.cuda() for t in inputs))
+    if name == "chief":  # (scores, pooled feature)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-4 * want[0].abs().max().item())
+        got, want = got[1], want[1]
+    assert _rel_err(got.cpu(), want) <= 1e-4
+    assert (attn.FLASH_ALIBI2D_LAUNCHES, attn.LAUNCHES, lnd.LAUNCHES) == counts

@@ -265,11 +265,15 @@ def test_unported_subcommands_exit_nonzero(command, tmp_path, stamp_logger_handl
 
 @pytest.mark.parametrize("command", ["encode_slides", "encode_patients"])
 @pytest.mark.parametrize("encoder", ["chief", "eagle", "cobra", "gigapath", "prism", "madeleine"])
-def test_unported_encoders_exit_nonzero(command, encoder, tmp_path, stamp_logger_handlers, caplog):
-    """Only TITAN is ported: every other encoder names the JAX package's
-    command."""
+def test_unported_encoders_exit_nonzero(command, encoder, tmp_path, monkeypatch, stamp_logger_handlers, caplog):
+    """Every encoder is ported now (these six last): a failing one exits
+    non-zero with its error logged, here weights that are not there (no
+    checkpoint, no STAMP_RANDOM_WEIGHTS), and writes nothing."""
     from stamp_tpu_torch.__main__ import main
 
+    monkeypatch.delenv("STAMP_RANDOM_WEIGHTS", raising=False)
+    for var in ("STAMP_WEIGHTS_DIR", "XDG_CACHE_HOME", "HF_HOME"):
+        monkeypatch.setenv(var, str(tmp_path / "no-weights"))
     section = "slide_encoding" if command == "encode_slides" else "patient_encoding"
     fields = {"encoder": encoder, "output_dir": str(tmp_path / "out"), "feat_dir": str(tmp_path), "device": "cpu"}
     if command == "encode_patients":
@@ -279,7 +283,7 @@ def test_unported_encoders_exit_nonzero(command, encoder, tmp_path, stamp_logger
     with pytest.raises(SystemExit) as exc:
         main(["-c", str(config), command])
     assert exc.value.code != 0
-    assert f"run `python -m stamp_tpu {command}`" in caplog.text
+    assert "STAMP_RANDOM_WEIGHTS" in caplog.text and "not ported" not in caplog.text
     assert not (tmp_path / "out").exists() or not list((tmp_path / "out").rglob("*.h5"))
 
 

@@ -83,12 +83,23 @@ def _run(probe: str, tmp_path, *args: str) -> subprocess.CompletedProcess:
 def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
     proc = _run(_IMPORT_EVERY_MODULE, tmp_path)
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    # every module of the port, the deploy, training, encoding, model-zoo and
-    # extractor-family slices' among them
+    # every module of the port, the deploy, training, encoding, model-zoo,
+    # extractor-family and encoder-zoo slices' among them
     assert {
         "stamp_tpu_torch.__main__",
         "stamp_tpu_torch.encoding.encoder._virtual_slide",
         "stamp_tpu_torch.encoding.encoder.titan",
+        "stamp_tpu_torch.encoding.encoder._weights",
+        "stamp_tpu_torch.encoding.encoder.chief",
+        "stamp_tpu_torch.encoding.encoder.cobra",
+        "stamp_tpu_torch.encoding.encoder.eagle",
+        "stamp_tpu_torch.encoding.encoder.gigapath",
+        "stamp_tpu_torch.encoding.encoder.madeleine",
+        "stamp_tpu_torch.encoding.encoder.prism",
+        "stamp_tpu_torch.models.slide_encoders_cobra",
+        "stamp_tpu_torch.models.slide_encoders_longnet",
+        "stamp_tpu_torch.ops.dilated_attention",
+        "stamp_tpu_torch.ops.ssd",
         "stamp_tpu_torch.encoding.init",
         "stamp_tpu_torch.models.slide_encoders",
         "stamp_tpu_torch.heatmaps._colormaps",
