@@ -219,11 +219,29 @@ Phases (each prints at least one line; any failure exits non-zero):
    ``torch.profiler`` split of the 16,384-tile GigaPath, PRISM and COBRA
    forwards, and each encoder's peak device memory at 16,384 tiles.
 
+15. parallel: ``stamp_tpu_torch.parallel`` on the one card (see
+   ``phase_parallel``): (a) ``train`` with ``mesh_shape: {dp: 1}`` (a
+   process group of one, NCCL) on phase 7's cohort and configs, its
+   ``model.ckpt`` against phase 7's (≤ 1e-6 of max |param|, bitwise
+   expected) and rows 4–8 launched as in phase 7; (b) a fleet of two ranks
+   sharing the card (gloo, collectives staged through pinned host
+   memory): whole-slide ``train`` with ``{dp: 2}`` against (a) (≤ 1e-6,
+   bitwise expected) and ALiBi at ``bag_size: 512``, ``batch_size: 4``
+   against a run without a mesh (≤ 1e-5); (c) ``preprocess`` (UNI2 bf16)
+   as a fleet of two ranks on four small slides: the shares
+   ``shard_worklist``'s, the features bitwise a single process's, a
+   crashed rank's share picked up by one process; (d) ``crossval`` as a
+   fleet of two ranks, one fold each, each fold's probabilities within
+   1e-6 of a single-process run; (e) phase 7's training epoch with the
+   prefetching feed and with the synchronous one: the epoch's wall time
+   and the device's idle share.
+
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
-11, 12, 13, 14 and print their wall time.  The line before the last is
+11, 12, 13, 14, 15 and print their wall time.  The line before the last is
 ``{"kernels": [...]}``: each kernel's launches on its main path (phase 4,
 4b, 6, 7 or 9, rows 1–3 also phase 13's; the MIL forward's, phases 6 and 7;
-rows 4–8 also ``heatmaps_launches``, phase 11's; row 1 also its
+rows 4–8 also ``heatmaps_launches``, phase 11's; rows 1, 2 and 4–8 also
+``parallel_launches``, phase 15's in-process runs; row 1 also its
 two-pass kernel's launches and times at [64, 785, 3072], ``long_*``), its
 largest error against its plain
 version, its time, the plain version's and the library control's, and the
@@ -248,6 +266,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -3712,6 +3731,370 @@ def phase_encoder_zoo(card: str) -> dict:
     return summary
 
 
+# --- phase 15: the parallel layer ---------------------------------------------------
+
+#: (a) and (b)'s whole-slide runs hold their parameters to max |param| times this
+MESH_PARAM_TOL = 1e-6
+#: (b)'s bag-512 run against the single rank: the gradient's sum order differs
+MESH_BAG_TOL = 1e-5
+#: (d) each fold's probabilities against the single-process runs
+FLEET_PROB_TOL = 1e-6
+#: (c) the extraction fleet's cohort: slides of 3×3 and 3×4 tiles of 256 µm
+FLEET_SLIDES = 4
+
+
+def _ckpt_diff(got: Path, want: Path) -> tuple[float, float]:
+    """(max |Δ|, max |value| of ``want``) of two ``model.ckpt``, in the
+    collection where the ratio is worst: the parameters, or the ALiBi
+    statistics (µm, four orders above the weights)."""
+    import numpy as np
+
+    from stamp_tpu_torch.modeling.checkpoint import load_checkpoint
+    from stamp_tpu_torch.models.weights import flatten
+
+    g, w = (flatten(load_checkpoint(p)["variables"]) for p in (got, want))
+    if set(g) != set(w):
+        _fail(f"{got} and {want} hold different variables")
+    by_collection = {}
+    for collection in {k[0] for k in w}:
+        keys = [k for k in w if k[0] == collection]
+        by_collection[collection] = (
+            max(float(np.abs(g[k].astype(np.float64) - w[k]).max()) for k in keys),
+            max(float(np.abs(w[k]).max()) for k in keys),
+        )
+    worst = by_collection["params"]
+    for diff, scale in by_collection.values():
+        if diff / scale > worst[0] / worst[1]:
+            worst = (diff, scale)
+    return worst
+
+
+def _train_yaml(root: Path, name: str, **advanced) -> Path:
+    """Phase 7's ``train`` config on its cohort, into ``root/name``."""
+    body = {"bag_size": None, "max_epochs": TRAIN_EPOCHS, "seed": 0, "accelerator": "cuda", "num_workers": 4}
+    return _yaml(root / f"{name}.yaml", {
+        "training": {
+            "output_dir": str(root / name), "clini_table": str(root / "clini.csv"),
+            "slide_table": str(root / "slide.csv"), "feature_dir": str(root / "features"),
+            "ground_truth_label": "label", "task": "classification",
+        },
+        "advanced_config": body | advanced,
+    })  # fmt: skip
+
+
+def _epoch_feed(readings: list, feed):
+    """``feed`` (the prefetching one or a synchronous one) timed from the
+    epoch's first batch request to its last step's end, with the device's
+    kernel time in that window (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed(iterable, *, size, device):
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        prof.start()
+        t0 = time.perf_counter()
+        yield from feed(iterable, size=size, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.stop()
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+        copies = sum(e.device_time_total for e in events if "memcpy" in e.key.lower()) / 1e6
+        kernels = sum(e.device_time_total for e in events) / 1e6 - copies
+        readings.append(dict(epoch_s=wall, kernels_s=kernels, copies_s=copies, idle_share=1 - kernels / wall))
+
+    return timed
+
+
+def _synchronous_feed(iterable, *, size, device):
+    """The feed before the prefetching one: each batch copied (pinned) to
+    the card when the step asks for it."""
+    from stamp_tpu_torch.modeling import train
+    from stamp_tpu_torch.parallel.prefetch import _map
+
+    for batch in iterable:
+        yield _map(batch, lambda x: train._to_device(x, device))
+
+
+def _write_fleet_slides(root: Path) -> None:
+    import numpy as np
+    from PIL import Image
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(15)
+    for i in range(FLEET_SLIDES):
+        arr = rng.integers(60, 200, (768, 768 + 256 * (i % 2), 3), dtype=np.uint8)
+        Image.fromarray(arr).save(root / f"fleet{i}.tif", format="TIFF", compression="tiff_lzw",
+                                  resolution=10000.0, resolution_unit=3)  # fmt: skip
+
+
+def _fleet_features(out: Path) -> dict:
+    """slide stem → (feats, coords) sorted by coordinate."""
+    import numpy as np
+
+    from stamp_tpu_torch.io.h5 import read_h5
+
+    result = {}
+    for path in sorted(out.rglob("*.h5")):
+        datasets, _ = read_h5(path)
+        order = np.lexsort((datasets["coords"][:, 1], datasets["coords"][:, 0]))
+        result[path.stem] = (datasets["feats"][order], datasets["coords"][order])
+    return result
+
+
+def _extraction_fleet(card: str, root: Path) -> dict:
+    """(c): ``preprocess`` (UNI2 bf16) as a fleet of two ranks on the card,
+    against one process; then a crashed rank and its pickup."""
+    import numpy as np
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.ops import ln_dense as lnd
+    from stamp_tpu_torch.parallel import distributed
+    from stamp_tpu_torch.parallel._extract_fleet_dryrun import launch_extract_fleet
+
+    slides = root / "slides"
+    _write_fleet_slides(slides)
+
+    def config(name: str) -> Path:
+        return _yaml(root / f"{name}.yaml", {"preprocessing": {
+            "output_dir": str(root / name), "wsi_dir": str(slides), "extractor": "uni2", "device": "cuda",
+            "generate_hash": False, "default_slide_mpp": 1.0, "max_workers": 4,
+        }})  # fmt: skip
+
+    attn.LAUNCHES = attn.LONG_LAUNCHES = lnd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    main(["-c", str(config("single")), "preprocess"])
+    single_s = time.perf_counter() - t0
+    want = _fleet_features(root / "single")
+    stems = sorted(want)
+    if len(stems) != FLEET_SLIDES or any(len(f) > BATCH for f, _ in want.values()):
+        _fail(f"extraction fleet: the single run wrote {stems}, or a slide needs more than one batch")
+
+    crashed = config("crashed")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # the fleet and the crashed one at once: each rank builds UNI2's weights
+        fleet = pool.submit(launch_extract_fleet, config("fleet"), timeout=300)
+        crash = pool.submit(launch_extract_fleet, crashed, crash_pid=1, timeout=300)
+        log, crash_log = fleet.result(), crash.result()
+    fleets_s = time.perf_counter() - t0
+    got = _fleet_features(root / "fleet")
+    takes = [f"extraction fleet: process {r}/2 takes {FLEET_SLIDES // 2} slides" for r in range(2)]
+    if sorted(got) != stems or not all(t in log for t in takes):
+        _fail(f"extraction fleet: wrote {sorted(got)} of {stems}, shares logged {[t in log for t in takes]}")
+    for stem in stems:
+        if not (np.array_equal(got[stem][0], want[stem][0]) and np.array_equal(got[stem][1], want[stem][1])):
+            _fail(f"extraction fleet: {stem}'s features differ from the single process's")
+
+    paths = sorted(slides.glob("*.tif"))
+    shares = [sorted(p.stem for p in distributed.shard_worklist(paths, index=r, count=2)) for r in range(2)]
+    if set(shares[0]) & set(shares[1]) or sorted(shares[0] + shares[1]) != stems:
+        _fail(f"extraction fleet: shares {shares} are not a partition of {stems}")
+
+    left = sorted(_fleet_features(root / "crashed"))
+    if "[1] simulated crash before extraction" not in crash_log or left != shares[0]:
+        _fail(f"extraction fleet: with rank 1 crashed the directory holds {left}, expected rank 0's {shares[0]}")
+    main(["-c", str(crashed), "preprocess"])  # one process picks the rest up
+    launches = {"fused_qkv_mha": attn.LAUNCHES, "ln_dense": lnd.LAUNCHES}  # the single run and the pickup
+    picked = _fleet_features(root / "crashed")
+    if sorted(picked) != stems or not all(np.array_equal(picked[s][0], want[s][0]) for s in stems):
+        _fail(f"extraction fleet: the pickup left {sorted(picked)} or its features differ")
+    batches = FLEET_SLIDES + len(shares[1])  # one batch a slide
+    if launches != {"fused_qkv_mha": 24 * batches, "ln_dense": 72 * batches} or attn.LONG_LAUNCHES:
+        _fail(f"extraction fleet: launches {launches} in this process, expected rows 1–2 at 24 blocks × {batches}")
+    return dict(slides=FLEET_SLIDES, tiles=sum(len(c) for _, c in want.values()), shares=shares, bitwise=True,
+                launches=launches, single_s=single_s, fleets_s=fleets_s, crash_left=left)  # fmt: skip
+
+
+def phase_parallel(card: str, trained: dict) -> dict:
+    """15: the parallel layer (``stamp_tpu_torch.parallel``) on the card.
+
+    (a) ``train`` with ``mesh_shape: {dp: 1}`` (a process group of one, NCCL)
+    on phase 7's cohort and configs (``vit`` and ALiBi, 512 wide, 8 heads,
+    2 layers, whole slides): its ``model.ckpt`` against phase 7's (the same
+    run without a mesh), rows 4–8 launched as in phase 7.  (b) an explicit
+    fleet of two ranks sharing the card (gloo, collectives staged through
+    pinned host memory): whole-slide ``train`` of both variants with
+    ``{dp: 2}`` (a batch of one cycled to two rows: both ranks hold the same
+    bag) against (a), and ALiBi at ``bag_size: 512``, ``batch_size: 4``
+    (9 training patients: batches of 4, 4 and 1, the last cycled to 2)
+    against a run without a mesh.  (c) ``preprocess`` with UNI2 bf16 as a
+    fleet of two ranks on four small slides (9 and 12 tiles, one batch
+    each) into one directory: the union is the cohort, the shares are
+    ``shard_worklist``'s, the features bitwise a single process's; a rank
+    crashed before extracting, and its share picked up by one process.
+    (d) ``crossval`` (phase 8's config: 2 folds, ``bag_size`` 512, batches
+    of 2) as a fleet of two ranks without a mesh: each rank one fold, each
+    fold's ``patient-preds.csv`` against a single-process run that reaches
+    it with the other fold done (a fold's bags depend on the folds one
+    process trained before it, in both packages), every process with
+    ``PYTHONHASHSEED=0`` (the fold's patient order is a set's).  (e) phase
+    7's training epoch (2 epochs cut to 1) with the prefetching feed, then
+    with the synchronous one: the epoch's wall time and the device's idle
+    share (``torch.profiler`` kernel time in the epoch).
+
+    Cut for time (most of it the fleets' start-up and UNI2's random
+    weights, made once a process): (c) four slides of 9–12 tiles instead of
+    phase 4's 144-tile slide; (e) one epoch a run, one run a feed.  Runs
+    that do not depend on each other overlap: (b)'s single-rank bag-512 run
+    in this process while the fleet runs, (c)'s fleet and crashed fleet at
+    once, and (d)'s two single processes while (c) runs.  Widths are phase
+    7's, 4's and 8's."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.modeling import train
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.parallel._dist_dryrun import launch_local_fleet
+    from stamp_tpu_torch.parallel.prefetch import prefetch_to_device
+
+    cohort = WORK / "train"  # phase 7's
+    root = WORK / "parallel"
+    root.mkdir()
+    os.environ["STAMP_RANDOM_WEIGHTS"] = "1"  # (c)'s UNI2, as in phase 4
+    os.environ["STAMP_EXTRACT_BATCH"] = str(BATCH)
+    result: dict = {}
+
+    # (a) a mesh of one rank
+    for variant, use_alibi in (("vit", False), ("alibi", True)):
+        config = _train_yaml(cohort, f"{variant}-dp1", mesh_shape={"dp": 1},
+                             model_params={"vit": {"use_alibi": use_alibi}})  # fmt: skip
+        for name in _COUNTERS:
+            setattr(attn, name, 0)
+        t0 = time.perf_counter()
+        main(["-c", str(config), "train"])  # exits non-zero on failure
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(attn, name) for name in _COUNTERS}
+        if launches != trained["runs"][variant]["launches"]:
+            _fail(f"(a) {variant} dp=1: launches {launches}, phase 7's {trained['runs'][variant]['launches']}")
+        diff, scale = _ckpt_diff(cohort / f"{variant}-dp1" / "model.ckpt", cohort / variant / "model.ckpt")
+        if not diff <= MESH_PARAM_TOL * scale:
+            _fail(f"(a) {variant} dp=1: model.ckpt differs from phase 7's by {diff} (max |param| {scale})")
+        row = dict(variant=variant, launches=launches, wall_s=wall, max_param_diff=diff, max_param=scale,
+                   bitwise=diff == 0.0)  # fmt: skip
+        print(f"[15a mesh of one rank] {json.dumps(row)} on {card}")
+        result.setdefault("dp1", []).append(row)
+
+    # (b) and (d): one fleet of two ranks on the card
+    alibi = {"vit": {"use_alibi": True}}
+    configs = [
+        _train_yaml(cohort, "vit-dp2", mesh_shape={"dp": 2}, model_params={"vit": {"use_alibi": False}}),
+        _train_yaml(cohort, "alibi-dp2", mesh_shape={"dp": 2}, model_params=alibi),
+        _train_yaml(cohort, "bag512-dp2", mesh_shape={"dp": 2}, model_params=alibi, bag_size=512, batch_size=4),
+    ]
+    crossval = _yaml(cohort / "crossval-fleet.yaml", {
+        "crossval": {
+            "output_dir": str(cohort / "crossval-fleet"), "clini_table": str(cohort / "clini.csv"),
+            "slide_table": str(cohort / "slide.csv"), "feature_dir": str(cohort / "features"),
+            "ground_truth_label": "label", "task": "classification", "n_splits": 2,
+        },
+        "advanced_config": {"max_epochs": CROSSVAL_EPOCHS, "batch_size": 2, "seed": 0, "accelerator": "cuda",
+                            "num_workers": 4, "model_params": alibi},
+    })  # fmt: skip
+    args = [a for c in configs for a in (str(c), "train")] + [str(crossval), "crossval"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:  # (b)'s single-rank reference in this process meanwhile
+        fleet = pool.submit(launch_local_fleet, ["cli", *args], timeout=600, env_extra={"PYTHONHASHSEED": "0"})
+        bag512 = _train_yaml(cohort, "bag512-single", model_params=alibi, bag_size=512, batch_size=4)
+        main(["-c", str(bag512), "train"])
+        log = fleet.result()
+    fleet_s = time.perf_counter() - t0
+    (root / "fleet.log").write_text(log)
+    staged = "staged through pinned host tensors" in log
+    backend = "backend gloo (2 ranks share 1 card(s)" in log
+    print(f"[15b fleet] two ranks on the card: gloo {backend}, collectives staged through pinned host memory "
+          f"{staged}, {fleet_s:.1f} s for three train runs and a crossval (and the single-rank bag-512 run in "
+          f"this process meanwhile) on {card}")  # fmt: skip
+    if not (staged and backend):
+        _fail(f"(b) the fleet did not run on gloo with staged collectives: see {root / 'fleet.log'}")
+    for variant in ("vit", "alibi"):
+        diff, scale = _ckpt_diff(cohort / f"{variant}-dp2" / "model.ckpt", cohort / f"{variant}-dp1" / "model.ckpt")
+        row = dict(variant=variant, max_param_diff=diff, max_param=scale, bitwise=diff == 0.0)
+        print(f"[15b dp=2 whole slides] {json.dumps(row)} on {card}")
+        if not diff <= MESH_PARAM_TOL * scale:
+            _fail(f"(b) {variant} dp=2: model.ckpt differs from (a)'s by {diff} (max |param| {scale})")
+        result.setdefault("dp2", []).append(row)
+    diff, scale = _ckpt_diff(cohort / "bag512-dp2" / "model.ckpt", cohort / "bag512-single" / "model.ckpt")
+    row = dict(variant="alibi bag 512, batch 4", max_param_diff=diff, max_param=scale)
+    print(f"[15b dp=2 bag 512] {json.dumps(row)} on {card}")
+    if not diff <= MESH_BAG_TOL * scale:
+        _fail(f"(b) bag 512 dp=2: model.ckpt differs from the single rank's by {diff} (max |param| {scale})")
+    result["dp2_bag512"] = row
+
+    # (d) each fold against a single process that reaches it with the other done: both processes run
+    # while (c) runs, and are checked after it
+    fleet_dir = cohort / "crossval-fleet"
+    if not all(f"skipping split {1 - r}: assigned to process {1 - r} of the fleet" in log for r in range(2)):
+        _fail(f"(d) the crossval fleet did not partition its folds: see {root / 'fleet.log'}")
+    procs, errs = [], []
+    for fold in (0, 1):
+        single = cohort / f"crossval-single{fold}"
+        (single / f"split-{1 - fold}").mkdir(parents=True)
+        shutil.copy(fleet_dir / "splits.json", single)
+        shutil.copy(fleet_dir / f"split-{1 - fold}" / "patient-preds.csv", single / f"split-{1 - fold}")
+        body = yaml.safe_load(crossval.read_text())
+        body["crossval"]["output_dir"] = str(single)
+        errs.append(open(root / f"crossval-single{fold}.err", "w+"))  # a file: no pipe to fill meanwhile
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "stamp_tpu_torch", "-c", str(_yaml(single.with_suffix(".yaml"), body)), "crossval"],
+            cwd=REPO, env=os.environ | {"PYTHONHASHSEED": "0"}, stdout=subprocess.DEVNULL, stderr=errs[-1],
+        ))  # fmt: skip
+    try:
+        # (c) the extraction fleet
+        row = _extraction_fleet(card, root / "extract")
+        print(f"[15c extraction fleet] {json.dumps(row)} on {card}")
+        result["extract"] = row
+        for proc in procs:
+            proc.wait(timeout=300)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    folds = []
+    for fold, proc in enumerate(procs):
+        errs[fold].seek(0)
+        err = errs[fold].read()
+        errs[fold].close()
+        if proc.returncode != 0:
+            _fail(f"(d) the single-process crossval of fold {fold} failed:\n{err[-3000:]}")
+        got = pd.read_csv(fleet_dir / f"split-{fold}" / "patient-preds.csv").set_index("PATIENT").sort_index()
+        want = pd.read_csv(cohort / f"crossval-single{fold}" / f"split-{fold}" / "patient-preds.csv")
+        want = want.set_index("PATIENT").sort_index()
+        columns = ["label_neg", "label_pos"]
+        if list(got.index) != list(want.index):
+            _fail(f"(d) fold {fold}: the fleet predicted {list(got.index)}, one process {list(want.index)}")
+        diff = float(np.abs(got[columns].to_numpy() - want[columns].to_numpy()).max())
+        folds.append(dict(fold=fold, patients=len(got), max_prob_diff=diff))
+        if not diff <= FLEET_PROB_TOL:
+            _fail(f"(d) fold {fold}: the fleet's probabilities differ from one process's by {diff}")
+    print(f"[15d crossval fleet] {json.dumps(folds)} on {card}")
+    result["crossval"] = folds
+
+    # (e) the prefetching feed against the synchronous one, in turns
+    readings: dict = {}
+    try:
+        for variant, use_alibi in (("vit", False), ("alibi", True)):
+            for i, (feed_name, feed) in enumerate((("prefetch", prefetch_to_device), ("synchronous", _synchronous_feed))):
+                samples = readings.setdefault(variant, {}).setdefault(feed_name, [])
+                train.prefetch_to_device = _epoch_feed(samples, feed)
+                config = _train_yaml(cohort, f"{variant}-epoch{i}", max_epochs=1,
+                                     model_params={"vit": {"use_alibi": use_alibi}})  # fmt: skip
+                main(["-c", str(config), "train"])
+    finally:
+        train.prefetch_to_device = prefetch_to_device
+    for variant, by_feed in readings.items():
+        row = {"variant": variant} | {feed: runs[0] for feed, runs in by_feed.items()}
+        print(f"[15e prefetch] {json.dumps(row)} on {card}")
+        result.setdefault("prefetch", []).append(row)
+    return result
+
+
 def _timed(fn) -> float:
     """Seconds of one synchronised call of ``fn``."""
     import torch
@@ -3762,6 +4145,7 @@ def main() -> None:
     _timed_phase("12 zoo", phase_zoo, card)
     extractors = _timed_phase("13 extractor zoo", phase_extractor_zoo, card)
     _timed_phase("14 encoder zoo", phase_encoder_zoo, card)
+    parallel = _timed_phase("15 parallel", phase_parallel, card, trained)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
@@ -3779,6 +4163,10 @@ def main() -> None:
         "dist_weighted_sum": trained["runs"]["alibi"]["launches"]["DIST_WEIGHTED_SUM_LAUNCHES"],
     }
     quant_rows = quant["ln_quant_dense"][:UNI2_SITES]
+    # phase 15: (a)'s two mesh runs (rows 4–8), (c)'s two in-process preprocess runs (rows 1–2)
+    parallel_launches = parallel["extract"]["launches"] | {
+        counter: sum(row["launches"][counter] for row in parallel["dp1"]) for counter in _COUNTERS
+    }
     # phase 13's preprocess runs launch rows 1–3 too (CONCH, CONCH1.5, KEEP, TICON)
     zoo_launches = {k: sum(r["launches"].get(k, 0) for r in extractors["runs"])
                     for k in ("fused_qkv_mha", "fused_qkv_long", "ln_dense", "ln_quant_dense")}  # fmt: skip
@@ -3807,6 +4195,7 @@ def main() -> None:
             "long_bound_ms": two_pass["bound_ms"],
             "long_bound_by": two_pass["bound_by"],
             "long_library_ms": two_pass["sdpa_bf16_ms"],
+            "parallel_launches": parallel_launches["fused_qkv_mha"],
         },
         {
             "name": "ln_dense",
@@ -3820,6 +4209,7 @@ def main() -> None:
             "bound_ms": sum(r["bound_ms"] for r in ln_rows),
             "bound_by": "operations" if all(r["bound_by"] == "operations" for r in ln_rows) else "bytes",
             "library_ms": sum(r["layer_norm_linear_bf16_ms"] for r in ln_rows),
+            "parallel_launches": parallel_launches["ln_dense"],
         },
         *(
             {
@@ -3839,6 +4229,7 @@ def main() -> None:
                 "bound_by": flash_rows[name]["bound_by"],
                 "library_ms": flash_rows[name]["library_ms"],
                 "heatmaps_launches": heatmaps["launches"][counter],  # phase 11's Grad-CAM
+                "parallel_launches": parallel_launches[counter],  # phase 15 (a)
             } | ({"bound_f32_ms": flash_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in flash_rows[name] else {})
             for name, replaces, counter in (
                 ("flash_mha", "stamp_tpu/ops/flash_attention.py:307", "FLASH_MHA_LAUNCHES"),
@@ -3860,6 +4251,7 @@ def main() -> None:
                 "bound_by": bwd_rows[name]["bound_by"],
                 "library_ms": bwd_rows[name]["library_ms"],
                 "heatmaps_launches": heatmaps["launches"][counter],  # phase 11's Grad-CAM
+                "parallel_launches": parallel_launches[counter],  # phase 15 (a)
             } | ({"bound_f32_ms": bwd_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in bwd_rows[name] else {})
             for name, replaces, counter in (
                 ("flash_mha_bwd", "stamp_tpu/ops/flash_attention.py:236", "FLASH_MHA_BWD_LAUNCHES"),

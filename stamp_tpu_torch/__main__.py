@@ -10,6 +10,14 @@ which converts between the npz ``model.ckpt`` and the reference's Lightning
 ``.ckpt`` in the direction the source file calls for.  As in the JAX CLI,
 ``advanced_config.seed`` seeds the run (``utils.seed.Seed``) before any
 command runs.
+
+``train``, ``crossval`` and ``preprocess`` join the fleet the environment
+names (``STAMP_COORDINATOR_ADDRESS``, ``STAMP_NUM_PROCESSES``,
+``STAMP_PROCESS_ID``; ``parallel.distributed``) before resolving the
+device, so each rank computes on its own card.  A single process whose
+``advanced_config.mesh_shape`` holds P > 1 ranks, with no fleet in its
+environment, runs P local ranks of the same command (one per card, or CPU
+ranks for ``accelerator: cpu``) and fails if any of them fails.
 """
 
 from __future__ import annotations
@@ -63,9 +71,11 @@ def _add_file_handle_(logger: logging.Logger, *, output_dir: Path) -> None:
 
 
 def _run_preprocess(section) -> None:
+    from stamp_tpu_torch.parallel.distributed import init_distributed
     from stamp_tpu_torch.preprocessing.extract import extract_
     from stamp_tpu_torch.utils.device import resolve_device
 
+    init_distributed(use_cuda=section.device != "cpu")
     extract_(
         output_dir=section.output_dir,
         wsi_dir=section.wsi_dir,
@@ -143,23 +153,55 @@ def _run_encode_patients(section) -> None:
     )
 
 
-def _run_train(config, section) -> None:
+def _launched_local_ranks(advanced, argv: list[str]) -> bool:
+    """With a ``mesh_shape`` of P > 1 ranks and no fleet in the
+    environment: run this command as P local ranks (one per card, or CPU
+    ranks for ``accelerator: cpu``), wait for them, and return True."""
+    import math
+
+    import torch
+
+    from stamp_tpu_torch.parallel import distributed
+    from stamp_tpu_torch.parallel._fleet_launch import launch_fleet
+
+    if not advanced.mesh_shape or distributed.in_fleet():
+        return False
+    n = math.prod(advanced.mesh_shape.values())
+    if n == 1:
+        return False
+    distributed.check_mesh_axes(advanced.mesh_shape)
+    if advanced.accelerator != "cpu" and (visible := torch.cuda.device_count()) < n:
+        raise ValueError(f"mesh_shape {advanced.mesh_shape} needs {n} devices but {visible} are visible")
+    _logger.info(f"mesh_shape {advanced.mesh_shape}: running this command as {n} local ranks")
+    launch_fleet(["-m", "stamp_tpu_torch", *argv], n_processes=n, capture=False)
+    return True
+
+
+def _run_train(config, section, argv: list[str]) -> None:
     from stamp_tpu_torch.modeling.train import train_categorical_model_
+    from stamp_tpu_torch.parallel.distributed import init_distributed
     from stamp_tpu_torch.utils.device import resolve_device
 
     if section.task is None:
         raise ValueError("task must be set in training configuration")
     advanced = config.advanced_config
+    if _launched_local_ranks(advanced, argv):
+        return
+    init_distributed(use_cuda=advanced.accelerator != "cpu")
     train_categorical_model_(config=section, advanced=advanced, device=resolve_device(advanced.accelerator))
 
 
-def _run_crossval(config, section) -> None:
+def _run_crossval(config, section, argv: list[str]) -> None:
     from stamp_tpu_torch.modeling.crossval import categorical_crossval_
+    from stamp_tpu_torch.parallel.distributed import init_distributed
     from stamp_tpu_torch.utils.device import resolve_device
 
     if section.task is None:
         raise ValueError("task must be set in crossval configuration")
     advanced = config.advanced_config
+    if _launched_local_ranks(advanced, argv):
+        return
+    init_distributed(use_cuda=advanced.accelerator != "cpu")
     categorical_crossval_(config=section, advanced=advanced, device=resolve_device(advanced.accelerator))
 
 
@@ -213,22 +255,22 @@ def _run_export_ckpt(src: Path, dst: Path) -> None:
         _logger.info(f"converted npz checkpoint {src} -> reference Lightning {dst}")
 
 
-# command → (config section, runner(config, section))
+# command → (config section, runner(config, section, argv))
 _RUNNERS = {
-    "preprocess": ("preprocessing", lambda config, section: _run_preprocess(section)),
-    "encode_slides": ("slide_encoding", lambda config, section: _run_encode_slides(section)),
-    "encode_patients": ("patient_encoding", lambda config, section: _run_encode_patients(section)),
+    "preprocess": ("preprocessing", lambda config, section, argv: _run_preprocess(section)),
+    "encode_slides": ("slide_encoding", lambda config, section, argv: _run_encode_slides(section)),
+    "encode_patients": ("patient_encoding", lambda config, section, argv: _run_encode_patients(section)),
     "train": ("training", _run_train),
     "crossval": ("crossval", _run_crossval),
-    "deploy": ("deployment", lambda config, section: _run_deploy(section)),
-    "statistics": ("statistics", lambda config, section: _run_statistics(section)),
-    "heatmaps": ("heatmaps", lambda config, section: _run_heatmaps(section)),
+    "deploy": ("deployment", lambda config, section, argv: _run_deploy(section)),
+    "statistics": ("statistics", lambda config, section, argv: _run_statistics(section)),
+    "heatmaps": ("heatmaps", lambda config, section, argv: _run_heatmaps(section)),
 }
 # commands that take advanced_config (a default one when the YAML has none)
 _NEEDS_ADVANCED = {"train", "crossval"}
 
 
-def _run_cli(args: argparse.Namespace) -> None:
+def _run_cli(args: argparse.Namespace, argv: list[str]) -> None:
     if args.command == "export_ckpt":
         _run_export_ckpt(args.src, args.dst)
         return
@@ -271,7 +313,7 @@ def _run_cli(args: argparse.Namespace) -> None:
         profiling.timer.enabled = True
         profiling.timer.reset()
     try:
-        run(config, section)
+        run(config, section, argv)
     finally:
         if args.profile:
             _logger.info("profile — per-stage wall time:\n" + profiling.timer.report())
@@ -305,12 +347,13 @@ def main(argv: list[str] | None = None) -> None:
             sub.add_argument("src", type=Path, help="checkpoint to convert")
             sub.add_argument("dst", type=Path, help="output path")
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
         sys.exit(1)
     try:
-        _run_cli(args)
+        _run_cli(args, argv)
     except Exception as e:
         _logger.exception(e)
         sys.exit(1)

@@ -12,8 +12,21 @@ the exported columns), folds skipped when their ``patient-preds.csv``
 exists and re-exported from ``model.ckpt`` when only that exists, and each
 fold trained on the other folds with the held-out fold as its early-stop
 validation set.  The held-out predictions go through the port's deploy
-path.  Folds run one after another in one process (the JAX package's
-fleet partition of folds is parallel training, not ported).
+path.
+
+Across a fleet of ranks (``parallel.distributed``) the folds are split
+round-robin (``fold_is_mine``, the JAX package's shares and log line,
+``stamp_tpu/modeling/crossval.py:390-407``); with a ``mesh_shape`` every
+rank trains every fold together and rank 0 alone writes.  The port's mesh
+always spans the fleet's ranks (a rank is one device), so any
+``mesh_shape`` keeps the partition off — the part the JAX package's rule
+gives only a ``dcn`` axis, since its ``dp``-only mesh may stay inside each
+host.  Rank 0 writes ``splits.json`` before the others read it, and the
+per-fold skip-if-exists keeps restarts and crashed ranks safe.  The folds of
+one process share the host generator in turn, as in the JAX package, so a
+fold's bags depend on the folds that process trained before it: a fleet's
+fold equals a single-process run that reaches it with the earlier folds
+already done (their ``patient-preds.csv`` present).
 """
 
 from __future__ import annotations
@@ -32,7 +45,6 @@ from stamp_tpu_torch.modeling.config import AdvancedConfig, CrossvalConfig
 from stamp_tpu_torch.modeling.data import (
     BatchIterator,
     PatientData,
-    _not_ported,
     create_dataset,
     load_patient_data_,
     log_patient_class_summary,
@@ -47,6 +59,7 @@ from stamp_tpu_torch.modeling.deploy import (
 from stamp_tpu_torch.modeling.splits import KFold, StratifiedKFold
 from stamp_tpu_torch.modeling.train import setup_model_from_dataloaders, train_model_
 from stamp_tpu_torch.modeling.transforms import VaryPrecisionTransform
+from stamp_tpu_torch.parallel import distributed
 from stamp_tpu_torch.types import GroundTruth, PatientId
 
 _logger = logging.getLogger("stamp")
@@ -168,6 +181,10 @@ def _fit_fold(
     validation set)."""
     train_ids = [pid for pid in split.train_patients if pid in patient_to_data]
     test_ids = [pid for pid in split.test_patients if pid in patient_to_data]
+    if advanced.mesh_shape:
+        # a set's order follows the process's string hashing: the ranks
+        # of a mesh draw their batches in rank 0's order
+        train_ids, test_ids = distributed.broadcast_object((train_ids, test_ids))
     transform = VaryPrecisionTransform(min_fraction_bits=1) if config.use_vary_precision_transform else None
     train_ds, train_categories = create_dataset(
         feature_type=feature_type,
@@ -213,6 +230,7 @@ def _fit_fold(
         patience=advanced.patience,
         device=device,
         pad_train_buckets=advanced.bag_size is None,
+        mesh_shape=advanced.mesh_shape,
     )
 
 
@@ -228,8 +246,10 @@ def _export_fold_predictions(
     categories_for_export: Any,
     config: CrossvalConfig,
     device: torch.device,
+    write: bool = True,
 ) -> None:
-    """Held-out-fold predictions → ``split-i/patient-preds.csv``."""
+    """Held-out-fold predictions → ``split-i/patient-preds.csv`` (computed
+    without ``write`` too: the feed's draws keep a mesh's ranks in step)."""
     test_ids = [pid for pid in split.test_patients if pid in patient_to_data]
     test_ds, _ = create_dataset(
         feature_type=feature_type,
@@ -246,6 +266,8 @@ def _export_fold_predictions(
         patient_ids=test_ids,
         device=device,
     )
+    if not write:
+        return
     ground_truths = {pid: p.ground_truth for pid, p in patient_to_data.items()}
     if config.task in ("survival", "regression") and any(isinstance(gt, dict) for gt in ground_truths.values()):
         _logger.warning(f"Multi-target {config.task} prediction export not yet supported; skipping CSV save")
@@ -271,8 +293,6 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
     """``stamp crossval`` (reference crossval.py:338-449)."""
     if config.task is None:
         raise ValueError("task must be set to 'classification' | 'regression' | 'survival'")
-    if advanced.mesh_shape:
-        raise _not_ported("sharded training (mesh_shape)", "crossval")
     patient_to_data, feature_type = load_patient_data_(
         feature_dir=config.feature_dir,
         clini_table=config.clini_table,
@@ -290,9 +310,20 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
         raise ValueError(f"Unknown feature type: {feature_type}")
 
     config.output_dir.mkdir(parents=True, exist_ok=True)
-    splits = _load_or_create_splits(
-        config.output_dir / "splits.json", patient_to_data, n_splits=config.n_splits, task=config.task
-    )
+    distributed.init_distributed(use_cuda=device.type == "cuda")
+    rank, n_ranks = distributed.process_index(), distributed.process_count()
+
+    def splits_of_run() -> _Splits:
+        return _load_or_create_splits(
+            config.output_dir / "splits.json", patient_to_data, n_splits=config.n_splits, task=config.task
+        )
+
+    # rank 0 writes splits.json before the others read it
+    if rank == 0:
+        splits = splits_of_run()
+    distributed.barrier()
+    if rank != 0:
+        splits = splits_of_run()
 
     # one category inventory for every fold, so heads and CSVs line up
     categories: Sequence[GroundTruth] | None
@@ -307,8 +338,13 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
         categories_for_export = _multitarget_categories(patient_to_data)
         categories = config.categories or None
 
+    # a fleet without a mesh trains its folds round-robin, one share a rank
+    partition_folds = n_ranks > 1 and not advanced.mesh_shape
     for split_i, split in enumerate(splits.splits):
         split_dir = config.output_dir / f"split-{split_i}"
+        if partition_folds and not distributed.fold_is_mine(split_i):
+            _logger.info(f"skipping split {split_i}: assigned to process {split_i % n_ranks} of the fleet")
+            continue
         if (split_dir / "patient-preds.csv").exists():
             _logger.info(f"skipping training for split {split_i}, as a model checkpoint is already present")
             continue
@@ -339,4 +375,5 @@ def categorical_crossval_(config: CrossvalConfig, advanced: AdvancedConfig, devi
             categories_for_export=categories_for_export,
             config=config,
             device=device,
+            write=not advanced.mesh_shape or rank == 0,  # under a mesh rank 0 alone writes
         )

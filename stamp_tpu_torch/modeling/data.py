@@ -67,10 +67,6 @@ __all__ = [
 _logger = logging.getLogger("stamp")
 
 
-def _not_ported(what: str, command: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; run `python -m stamp_tpu {command}`")
-
-
 @dataclass
 class PatientData(Generic[GroundTruthType]):
     """All raw (i.e. non-generated) information we have on the patient."""

@@ -22,12 +22,31 @@ and attended with a key mask, so ``vit`` bags of 4,096 tiles and more reach
 the flash kernels and their backward.  Validation runs whole bags under
 ``torch.inference_mode()``, bucket-padded the same way for those backbones
 and at their own length otherwise; slide and patient batches are one vector
-a patient.  Host → device copies go through pinned memory.  The random draws (split, epoch
+a patient.  Training batches reach the device through
+``parallel.prefetch.prefetch_to_device`` (a producer thread, pinned memory
+and a side stream), as the JAX package's single-device path feeds them
+(``stamp_tpu/modeling/train.py:837``).  The random draws (split, epoch
 order, bag seeds, the initial batch the JAX package reads for its
 initialisation) follow the JAX package's order from ``Seed.numpy_rng()``;
 initial weights come from ``Seed.torch_generator()`` and differ from
-flax's.  Not ported (raises ``NotImplementedError`` naming ``python -m
-stamp_tpu train``): ``mesh_shape`` (sharded training).
+flax's.
+
+``mesh_shape`` (``advanced_config.mesh_shape``, axes ``dcn`` and ``dp``)
+trains data-parallel over a mesh of ranks, with the JAX package's semantics
+(``stamp_tpu/modeling/train.py:593-884``): every rank draws the same global
+batch (a fixed ``advanced.seed`` is required with several ranks), a batch
+whose rows do not divide by the mesh is padded by cycling its own rows
+(those rows count twice in that batch's loss, as in the JAX package),
+whole-slide bags are bucket-padded before the rows are split, each rank
+runs its contiguous rows, and ``parallel.mesh.make_dp_train_step`` takes
+the gradient of the loss over the global batch (the ALiBi statistic,
+dropout masks and the survival median are the global batch's too).
+Validation runs whole on every rank, and rank 0's monitored value decides
+early stopping for all, so they stay in lockstep; only rank 0 writes
+``metrics.csv`` and the checkpoints, and the others wait at a barrier.  A
+single process given a mesh of one rank joins a process group of its own.
+The ``sp`` axis raises ``NotImplementedError`` naming ``python -m
+stamp_tpu``.
 """
 
 from __future__ import annotations
@@ -49,7 +68,6 @@ from stamp_tpu_torch.modeling.data import (
     BagDataset,
     BatchIterator,
     PatientData,
-    _not_ported,
     _parse_survival_status,
     create_dataset,
     load_patient_data_,
@@ -59,6 +77,11 @@ from stamp_tpu_torch.modeling.splits import train_test_split
 from stamp_tpu_torch.modeling.tasks import TaskModel
 from stamp_tpu_torch.modeling.transforms import VaryPrecisionTransform
 from stamp_tpu_torch.models import weights
+from stamp_tpu_torch.parallel import distributed
+from stamp_tpu_torch.parallel._fleet_launch import free_port
+from stamp_tpu_torch.parallel.distributed import Mesh
+from stamp_tpu_torch.parallel.mesh import make_dp_train_step, pad_rows
+from stamp_tpu_torch.parallel.prefetch import prefetch_to_device
 from stamp_tpu_torch.types import Category, PandasLabel, PatientId, Task
 from stamp_tpu_torch.utils import profiling
 from stamp_tpu_torch.utils.seed import Seed
@@ -70,8 +93,6 @@ def train_categorical_model_(*, config: TrainConfig, advanced: AdvancedConfig, d
     """``stamp train`` (reference train.py:45-99)."""
     if config.task is None:
         raise ValueError("task must be set to 'classification' | 'regression' | 'survival'")
-    if advanced.mesh_shape:
-        raise _not_ported("sharded training (mesh_shape)", "train")
 
     patient_to_data, feature_type = load_patient_data_(
         feature_dir=config.feature_dir,
@@ -112,6 +133,7 @@ def train_categorical_model_(*, config: TrainConfig, advanced: AdvancedConfig, d
         patience=advanced.patience,
         device=device,
         pad_train_buckets=advanced.bag_size is None,
+        mesh_shape=advanced.mesh_shape,
     )
 
 
@@ -407,19 +429,15 @@ class _EpochLogger:
                 writer.writerow(r)
 
 
-def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch array on ``device``, through pinned memory for a card."""
+def _to_device(array: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host batch array on ``device``, through pinned memory for a card
+    (a tensor, e.g. from the prefetching feed, is moved as it is)."""
+    if isinstance(array, torch.Tensor):
+        return array.to(device)
     tensor = torch.from_numpy(np.ascontiguousarray(array))
     if device.type == "cuda":
         return tensor.pin_memory().to(device, non_blocking=True)
     return tensor.to(device)
-
-
-def _targets_to_device(targets, device: torch.device):
-    """A batch's targets on ``device`` (per target for multi-target)."""
-    if isinstance(targets, dict):
-        return {k: _to_device(v, device) for k, v in targets.items()}
-    return _to_device(targets, device)
 
 
 def forward_batch(model: TaskModel, batch: tuple, key_mask: np.ndarray | None, device: torch.device, **kwargs):
@@ -467,14 +485,68 @@ def train_model_(
     patience: int,
     device: torch.device,
     pad_train_buckets: bool = False,
+    mesh_shape: Mapping[str, int] | None = None,
 ) -> tuple[TaskModel, Any]:
     """Train ``model`` on ``device``; the best checkpoint goes to
     ``output_dir/model.ckpt``.  Returns (task model, best variable tree).
 
     ``pad_train_buckets`` is whole-slide training (``bag_size: null``):
     each ragged bag is padded to a power-of-two bucket and attended with a
-    key mask."""
-    output_dir = Path(output_dir)
+    key mask.  ``mesh_shape`` trains data-parallel over a mesh of ranks
+    (``{"dp": …}``, ``{"dcn": …, "dp": …}``; the product must equal the
+    fleet's rank count), ``device`` being this rank's."""
+    mesh = None
+    own_group = bool(mesh_shape) and not torch.distributed.is_initialized() and math.prod(mesh_shape.values()) == 1
+    if own_group:  # one rank: a process group of its own
+        distributed.init_distributed(
+            coordinator_address=f"localhost:{free_port()}", num_processes=1, process_id=0,
+            use_cuda=device.type == "cuda",
+        )  # fmt: skip
+    try:
+        if mesh_shape:
+            if distributed.process_count() > 1 and Seed.seed is None:
+                raise ValueError(
+                    "multi-process sharded training needs a fixed advanced.seed so every rank draws identical batches"
+                )
+            mesh = distributed.make_global_mesh(mesh_shape)
+            _logger.info(
+                f"sharded training on mesh {mesh.shape} ({distributed.process_count()} rank(s), "
+                f"backend {distributed.backend()})"
+            )
+        return _train_model_impl(
+            output_dir=Path(output_dir), model=model, train_dl=train_dl, valid_dl=valid_dl, max_epochs=max_epochs,
+            patience=patience, device=device, pad_train_buckets=pad_train_buckets, mesh=mesh,
+        )  # fmt: skip
+    finally:
+        if own_group:
+            distributed.shutdown_distributed()
+
+
+def _mesh_feed(batches: Iterator, mesh: Mesh) -> Iterator:
+    """This rank's rows of each global (batch, key_mask), its targets
+    whole: a ragged batch first padded to a multiple of the mesh by
+    cycling its rows."""
+    for batch, key_mask in batches:
+        n_rows = batch[0].shape[0]
+        if n_rows % mesh.size:
+            batch, key_mask = pad_rows((batch, key_mask), n_rows, mesh.size)
+            _logger.debug(f"padding ragged batch {n_rows} → {batch[0].shape[0]} rows (dp={mesh.size}) by cycling rows")
+        inputs, key_mask = distributed.split_local_rows((batch[:-1], key_mask))
+        yield (*inputs, batch[-1]), key_mask
+
+
+def _train_model_impl(
+    *,
+    output_dir: Path,
+    model: TaskModel,
+    train_dl: BatchIterator,
+    valid_dl: BatchIterator,
+    max_epochs: int,
+    patience: int,
+    device: torch.device,
+    pad_train_buckets: bool,
+    mesh: Mesh | None,
+) -> tuple[TaskModel, Any]:
     output_dir.mkdir(parents=True, exist_ok=True)
     if pad_train_buckets and not model.pads_bags:
         raise ValueError(
@@ -492,11 +564,19 @@ def train_model_(
     first_pass.close()
     _init_module(model)
     module = model.module.to(device)
+    if mesh is not None:
+        distributed.replicate_global(module)
     optimizer = model.make_optimizer(module.parameters())
     schedule = model.lr_schedule()
     generator = Seed.torch_generator(device)
+    step = make_dp_train_step(
+        model, optimizer, mesh, schedule=schedule,
+        forward=lambda batch, key_mask: forward_batch(model, batch, key_mask, device, train=True, generator=generator),
+    )  # fmt: skip
 
-    logger = _EpochLogger(output_dir)
+    # under a mesh every rank computes the same metrics; one writes them
+    is_main = mesh is None or distributed.process_index() == 0
+    logger = _EpochLogger(output_dir) if is_main else None
     best_value = math.inf
     best_variables = None
     best_ckpt_path: Path | None = None
@@ -506,20 +586,17 @@ def train_model_(
     for epoch in range(max_epochs):
         train_losses: list[torch.Tensor] = []
         train_outputs: list[np.ndarray] = []
-        for batch, key_mask in _bucketed(train_dl) if pad_train_buckets else ((b, None) for b in train_dl):
+        feed = _bucketed(train_dl) if pad_train_buckets else ((b, None) for b in train_dl)
+        if mesh is not None:
+            feed = _mesh_feed(feed, mesh)
+        for batch, key_mask in prefetch_to_device(feed, size=2, device=device):
             with profiling.stage("train/step"):
-                outputs = forward_batch(model, batch, key_mask, device, train=True, generator=generator)
-                loss = model.loss(outputs, _targets_to_device(batch[-1], device))
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                for group in optimizer.param_groups:
-                    group["lr"] = schedule(global_step)  # optax: schedule(updates done so far)
-                optimizer.step()
+                loss, outputs = step(batch, key_mask, global_step)
                 if profiling.timer.enabled and device.type == "cuda":
                     torch.cuda.synchronize(device)  # the device time belongs to the step
-            train_losses.append(loss.detach())
+            train_losses.append(loss)
             if is_survival:
-                train_outputs.append(outputs.detach().float().cpu().numpy().reshape(-1))
+                train_outputs.append(outputs.float().cpu().numpy().reshape(-1))
             global_step += 1
 
         if not train_losses:
@@ -550,9 +627,12 @@ def train_model_(
         metrics["learning_rate"] = schedule(max(global_step - 1, 0))
         if is_survival and model.train_pred_median is not None:
             metrics["train_pred_median"] = model.train_pred_median
-        logger.log(metrics)
+        if logger is not None:
+            logger.log(metrics)
 
         current = metrics.get(monitor_metric, math.nan)
+        if mesh is not None:  # rank 0's value decides, so every rank stops together
+            current = float(distributed.broadcast_(torch.tensor(current, dtype=torch.float64, device=device)))
         _logger.info(
             f"epoch {epoch}: "
             + " ".join(f"{k}={v:.4f}" for k, v in metrics.items() if k not in ("epoch", "step") and isinstance(v, float))
@@ -563,10 +643,11 @@ def train_model_(
             best_variables = weights.variables_of(module)
             ckpt_dir = output_dir / "checkpoints"
             new_ckpt_path = ckpt_dir / f"checkpoint-epoch={epoch:02d}-{monitor_metric}={current:0.3f}.ckpt"
-            ckpt_dir.mkdir(exist_ok=True, parents=True)
-            if best_ckpt_path is not None and best_ckpt_path.exists():
-                best_ckpt_path.unlink()  # save_top_k=1
-            save_checkpoint(new_ckpt_path, hyper_parameters=model.checkpoint_hparams(), variables=best_variables)
+            if is_main:
+                ckpt_dir.mkdir(exist_ok=True, parents=True)
+                if best_ckpt_path is not None and best_ckpt_path.exists():
+                    best_ckpt_path.unlink()  # save_top_k=1
+                save_checkpoint(new_ckpt_path, hyper_parameters=model.checkpoint_hparams(), variables=best_variables)
             best_ckpt_path = new_ckpt_path
         else:
             wait += 1
@@ -578,6 +659,10 @@ def train_model_(
         # no epoch improved (e.g. an all-nan monitor): save the final state
         best_variables = weights.variables_of(module)
         best_ckpt_path = output_dir / "checkpoints" / "checkpoint-final.ckpt"
-        save_checkpoint(best_ckpt_path, hyper_parameters=model.checkpoint_hparams(), variables=best_variables)
-    shutil.copy(best_ckpt_path, output_dir / "model.ckpt")
+        if is_main:
+            save_checkpoint(best_ckpt_path, hyper_parameters=model.checkpoint_hparams(), variables=best_variables)
+    if is_main:
+        shutil.copy(best_ckpt_path, output_dir / "model.ckpt")
+    if mesh is not None:
+        distributed.barrier()  # the others wait for rank 0's files
     return model, best_variables

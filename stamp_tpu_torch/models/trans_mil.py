@@ -10,7 +10,9 @@ decide the numbers are the JAX module's:
 * the sequence is padded on the *left* to a multiple of the landmarks, and
   the last ``n`` outputs kept;
 * ``moore_penrose_iter_pinv`` scales by the *global* max of the column and
-  row sums, over batch and heads, then takes six Newton–Schulz steps;
+  row sums, over batch and heads (in a data-parallel step over the whole
+  batch's ranks, ``parallel.mesh.global_max``), then takes six
+  Newton–Schulz steps;
 * the residual convolution is 33 × 1 over (sequence, head width), one
   filter per head, without bias; PPEG's convolutions have biases.
 
@@ -35,6 +37,7 @@ from torch import nn
 
 from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops.attention import dropout
+from stamp_tpu_torch.parallel.mesh import global_max
 
 _EPS = 1e-6  # flax LayerNorm's default epsilon
 
@@ -45,7 +48,8 @@ def moore_penrose_iter_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
     abs_x = x.abs()
     col = abs_x.sum(dim=-1)
     row = abs_x.sum(dim=-2)
-    z = x.transpose(-1, -2) / (col.max() * row.max())
+    # maxima over the whole batch (in a data-parallel step, over the ranks)
+    z = x.transpose(-1, -2) / (global_max(col.max()) * global_max(row.max()))
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)[None]
     for _ in range(iters):
         xz = x @ z

@@ -33,7 +33,10 @@ dropout), ALiBi always does; each ALiBi block updates its Welford running
 mean once per training forward, under ``no_grad``, from the mean pairwise
 distance of the bag (streamed on the flash path, dense on the einsum path;
 the CLS token at (0, 0) counts as a tile, as in the JAX module) and uses the
-updated mean in the same forward.  The JAX module's ``alibi_mask`` (which
+updated mean in the same forward.  In a data-parallel step
+(``parallel.mesh``) the distance total and the pair count are summed over
+the ranks before the division, so the statistic is the whole batch's, as
+XLA computes it under the JAX package's mesh.  The JAX module's ``alibi_mask`` (which
 its ``VisionTransformer`` never sets) is not ported.
 
 What the JAX module sows into ``intermediates`` for heatmaps
@@ -60,10 +63,11 @@ from stamp_tpu_torch.ops.attention import (
     alibi_attention,
     attention_weights,
     dropout,
-    mean_pairwise_distance,
     multi_head_attention,
+    pairwise_distance_sums,
     pairwise_distances,
 )
+from stamp_tpu_torch.parallel.mesh import global_sum
 
 # At or above this many tokens (tiles + CLS), attention takes the flash
 # kernels: a [T, T] weight matrix per head no longer fits comfortably.
@@ -173,12 +177,14 @@ class MultiHeadALiBi(nn.Module):
             # to the scalar mean pairwise distance of this bag
             with torch.no_grad():
                 if use_flash:
-                    mean_d = mean_pairwise_distance(coords, mask=key_mask)
+                    total, n_pairs = pairwise_distance_sums(coords, mask=key_mask)
                 elif key_mask is not None:
                     pair_w = (key_mask[:, :, None] & key_mask[:, None, :]).to(distances.dtype)
-                    mean_d = torch.sum(distances * pair_w) / torch.clamp_min(torch.sum(pair_w), 1.0)
+                    total, n_pairs = torch.sum(distances * pair_w), torch.sum(pair_w)
                 else:
-                    mean_d = torch.mean(distances)
+                    total, n_pairs = torch.sum(distances), distances.new_tensor(float(distances.numel()))
+                # a ratio of sums: in a data-parallel step, over the whole batch
+                mean_d = global_sum(total) / torch.clamp_min(global_sum(n_pairs), 1.0)
                 self.running_mean.copy_(self.running_mean + (mean_d - self.running_mean) / self.items_so_far)
                 self.items_so_far.add_(1.0)
         if use_flash:

@@ -13,9 +13,11 @@ matrix).  Two details are the reference's and are kept:
 
 Invalid keys (``key_mask`` False) are excluded from the softmax and zeroed
 afterwards, so a bucket-padded bag gives the result of the unpadded one.
-Training adds attention dropout (drawn from an explicit generator) and
-``mean_pairwise_distance``, the ALiBi Welford statistic streamed in row
-blocks (``stamp_tpu/ops/attention.py:77-115``).
+Training adds attention dropout (drawn from an explicit generator; in a
+data-parallel step the whole batch's masks, ``parallel.mesh.global_draw``)
+and ``pairwise_distance_sums``, the total and pair count of the ALiBi
+Welford statistic streamed in row blocks, kept apart so that a data-parallel
+step sums them over ranks before it divides.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from stamp_tpu_torch.parallel.mesh import global_draw
 
 _NEG_INF = -1e30
 
@@ -44,7 +48,8 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     Identity without a generator (inference) or at rate 0."""
     if rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    # in a data-parallel step: the whole batch's draw, this rank's rows
+    keep = global_draw(x.shape, lambda shape: torch.rand(shape, generator=generator, device=x.device)) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -75,24 +80,24 @@ def pairwise_distances(coords_q: torch.Tensor, coords_k: torch.Tensor) -> torch.
     return torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1), 0.0))
 
 
-def mean_pairwise_distance(
+def pairwise_distance_sums(
     coords: torch.Tensor,  # [B, T, 2]
     *,
     mask: torch.Tensor | None = None,  # [B, T] True = valid tile
     block: int = 512,
-) -> torch.Tensor:
-    """Mean Euclidean distance over all ordered pairs of valid tiles, in
-    row blocks of ``block`` tiles (no [B, T, T] tensor): the scalar the ALiBi
-    Welford update needs on the flash path.  With ``mask`` (bucket-padded
-    bags) only valid–valid pairs count."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the Euclidean distances over all ordered pairs of valid
+    tiles, number of such pairs), in row blocks of ``block`` tiles (no
+    [B, T, T] tensor).  With ``mask`` (bucket-padded bags) only valid–valid
+    pairs count.  The numerator and denominator of
+    ``stamp_tpu/ops/attention.py:77-115`` (``mean_pairwise_distance``)."""
     col_valid = mask.to(coords.dtype) if mask is not None else coords.new_ones(coords.shape[:2])
     total = coords.new_zeros(())
     for start in range(0, coords.shape[1], block):
         d = pairwise_distances(coords[:, start : start + block], coords)  # [B, block, T]
         row_valid = col_valid[:, start : start + block]
         total = total + torch.sum(d * row_valid[:, :, None] * col_valid[:, None, :])
-    n_pairs = torch.sum(torch.sum(col_valid, dim=1) ** 2)
-    return total / torch.clamp_min(n_pairs, 1.0)
+    return total, torch.sum(torch.sum(col_valid, dim=1) ** 2)
 
 
 def alibi_attention(

@@ -17,10 +17,16 @@ With ``macenko_normalization`` each uint8 batch is stain-normalized
 (``ops.macenko``) on the extractor's device before the forward, as the JAX
 package normalizes it on its device.
 
-Differences from the JAX driver: it runs as one process (no fleet share of
-the worklist yet), and the artifact directory hash is that of this
-package's sources, so its features never mix with the JAX package's under
-skip-if-exists.
+In a fleet (``parallel.distributed``: ``STAMP_COORDINATOR_ADDRESS``,
+``STAMP_NUM_PROCESSES``, ``STAMP_PROCESS_ID``) each rank takes its
+disjoint share of the worklist (``shard_worklist``, the JAX package's
+shares, ``stamp_tpu/preprocessing/extract.py:317-333``) into the shared
+output directory; skip-if-exists and atomic writes let a later run pick up
+a crashed rank's share.
+
+Difference from the JAX package's extraction: the artifact directory hash is that of
+this package's sources, so its features never mix with the JAX package's
+under skip-if-exists.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from tqdm import tqdm
 
 from stamp_tpu_torch.io.h5 import write_tile_feats_atomic
 from stamp_tpu_torch.ops.macenko import macenko_normalize
+from stamp_tpu_torch.parallel.distributed import init_distributed, process_count, process_index, shard_worklist
 from stamp_tpu_torch.preprocessing.config import ExtractorName
 from stamp_tpu_torch.preprocessing.extractor import Extractor
 from stamp_tpu_torch.preprocessing.tiling import (
@@ -289,6 +296,12 @@ def extract_(
     feat_output_dir = output_dir / (f"{dir_id}-{code_hash}" if generate_hash else dir_id)
 
     worklist = _build_worklist(wsi_dir, wsi_list)
+    # an extraction fleet: each rank takes its disjoint share (slides never
+    # span ranks, so no collective runs)
+    init_distributed(use_cuda=device.type == "cuda")
+    if process_count() > 1:
+        worklist = shard_worklist(worklist)
+        _logger.info(f"extraction fleet: process {process_index()}/{process_count()} takes {len(worklist)} slides")
     output_dir.mkdir(parents=True, exist_ok=True)
     tiling = _TilingParams(
         cache_dir=cache_dir,

@@ -5,13 +5,17 @@ from __future__ import annotations
 
 import torch
 
+from stamp_tpu_torch.parallel.distributed import local_device_index
+
 
 def resolve_device(requested: str | torch.device) -> torch.device:
     """Map a config ``device`` / ``accelerator`` value onto a ``torch.device``.
 
     ``"cpu"`` gives the CPU; ``"auto"``, ``"cuda"``, ``"gpu"`` and
     ``"cuda:N"`` give a CUDA card and raise when PyTorch sees none, so a GPU
-    run never quietly becomes a CPU run.  ``"tpu"`` raises by name (that is
+    run never quietly becomes a CPU run.  Inside a fleet (a process group,
+    ``parallel.distributed``) ``"auto"``, ``"cuda"`` and ``"gpu"`` give the
+    rank's card, ``cuda:{rank % device_count}``; ``"cuda:N"`` is kept.  ``"tpu"`` raises by name (that is
     the JAX package's device).  A ``torch.device`` passes through unchanged.
     """
     if isinstance(requested, torch.device):
@@ -30,7 +34,9 @@ def resolve_device(requested: str | torch.device) -> torch.device:
                 "is_available() is False; set `device: cpu` (or `accelerator: "
                 "cpu`) in the config to run on the CPU"
             )
-        return torch.device(requested if requested.startswith("cuda:") else "cuda:0")
+        if requested.startswith("cuda:"):
+            return torch.device(requested)
+        return torch.device("cuda", local_device_index())
     raise ValueError(
         f"unknown device {requested!r}: expected 'auto', 'cpu', 'cuda', 'gpu' or 'cuda:N'"
     )

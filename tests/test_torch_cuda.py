@@ -761,3 +761,51 @@ def test_slide_encoder_on_the_card_matches_the_cpu(gen, name):
         got, want = got[1], want[1]
     assert _rel_err(got.cpu(), want) <= 1e-4
     assert (attn.FLASH_ALIBI2D_LAUNCHES, attn.LAUNCHES, lnd.LAUNCHES) == counts
+
+
+# --- parallel: a process group of one on the card; the prefetching feed -------
+
+
+def test_nccl_group_of_one(gen):
+    """A one-rank fleet with a card takes NCCL; its collectives run."""
+    from stamp_tpu_torch.parallel import distributed
+    from stamp_tpu_torch.parallel._fleet_launch import free_port
+
+    distributed.init_distributed(
+        coordinator_address=f"localhost:{free_port()}", num_processes=1, process_id=0, use_cuda=True
+    )
+    try:
+        assert distributed.backend() == "nccl" and distributed.process_count() == 1
+        t = torch.randn(1000, device="cuda", generator=gen)
+        summed = t.clone()
+        torch.distributed.all_reduce(summed)  # the flat-gradient all-reduce of a one-rank mesh
+        assert torch.equal(summed, t)
+        distributed.barrier()
+    finally:
+        distributed.shutdown_distributed()
+
+
+def test_prefetch_copies_on_a_side_stream(gen, monkeypatch):
+    """The tensors equal a synchronous copy; each copy was issued on a
+    stream other than the consumer's."""
+    import numpy as np
+
+    from stamp_tpu_torch.parallel import prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(8, 512, 64)).astype(np.float32), {"t": np.arange(i, i + 8)}, None) for i in range(6)]
+    copy_streams = []
+    as_tensor = prefetch._as_tensor
+
+    def recording(x):
+        copy_streams.append(torch.cuda.current_stream())
+        return as_tensor(x)
+
+    monkeypatch.setattr(prefetch, "_as_tensor", recording)
+    consumer = torch.cuda.current_stream()
+    got = list(prefetch.prefetch_to_device(iter(batches), size=2, device="cuda:0"))
+    torch.cuda.synchronize()
+    assert copy_streams and all(s != consumer for s in copy_streams)
+    for (x, d, _), (gx, gd, gnone) in zip(batches, got, strict=True):
+        assert gx.is_cuda and torch.equal(gx, torch.from_numpy(x).cuda())
+        assert torch.equal(gd["t"], torch.from_numpy(d["t"]).cuda()) and gnone is None

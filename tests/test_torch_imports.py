@@ -133,11 +133,35 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
         "stamp_tpu_torch.statistics.core",
         "stamp_tpu_torch.statistics.metrics",
         "stamp_tpu_torch.statistics.plots",
+        "stamp_tpu_torch.parallel.distributed",
+        "stamp_tpu_torch.parallel.mesh",
+        "stamp_tpu_torch.parallel.prefetch",
+        "stamp_tpu_torch.parallel._fleet_launch",
+        "stamp_tpu_torch.parallel._dist_dryrun",
+        "stamp_tpu_torch.parallel._extract_fleet_dryrun",
     } <= set(seen.pop("imported"))
     assert seen == {
         "jax": [], "flax": [], "stamp_tpu": [], "triton": False, "h5py": False,
         "sklearn": False, "matplotlib": False, "library_loaded": False,
     }
+
+
+_IMPORT_PARALLEL = _REFUSE + r"""
+import importlib
+
+for name in ("distributed", "mesh", "prefetch", "_fleet_launch", "_dist_dryrun", "_extract_fleet_dryrun"):
+    importlib.import_module("stamp_tpu_torch.parallel." + name)
+print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+"""
+
+
+def test_parallel_modules_import_alone(tmp_path):
+    """``stamp_tpu_torch.parallel.*`` alone loads no JAX, nothing of the JAX
+    package, no matplotlib, scikit-learn or h5py."""
+    proc = _run(_IMPORT_PARALLEL, tmp_path)
+    tops = set(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert "torch" in tops
+    assert not tops & {"jax", "flax", "jaxlib", "stamp_tpu", "matplotlib", "sklearn", "h5py", "triton"}
 
 
 _WITHOUT_MATPLOTLIB = _REFUSE + r"""
