@@ -19,7 +19,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    the share of its bound it reaches; ``fused_qkv_mha``, ``ln_dense`` and
    their library controls also timed in runs of back-to-back calls
    (``*_b2b``) beside the per-call timer.
-4. main path: ``python -m stamp_tpu_torch -c config.yaml --profile
+4. main path: ``python -m stamp_tpu_torch -c config.yaml
    preprocess`` in-process, UNI2 at full width with random weights on a
    synthetic 3072×3072 px slide (144 tiles at 256 µm / 224 px, batch 64);
    checks the h5 and that every kernel launch count grew as the model's
@@ -39,7 +39,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    ones, a sequence with no valid key, every key masked at a ragged T,
    Tq ≠ Tk, d = 32, 128; bitwise-equal reruns); then a head width of 48 at
    T = 4,097 through the public wrappers (zero-padded to the 64 instance).
-6. deploy: ``python -m stamp_tpu_torch -c config.yaml --profile deploy``
+6. deploy: ``python -m stamp_tpu_torch -c config.yaml deploy``
    in-process, an ensemble of two MIL ViT checkpoints at the default width
    (``vit`` and ``vit`` + ALiBi, random weights, UNI2 inputs of width 1536)
    on four patients of 2,500 to 20,000 tiles (T = 4,097 … 32,769 after
@@ -69,7 +69,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    stay f32-accurate (ALiBi's D·V and the distance-weighted sum) is bounded
    at the better of the f32 rate and three TF32 products (``bound_ms``);
    ``bound_f32_ms`` is the same bound at the f32 rate alone.
-7. train: ``python -m stamp_tpu_torch -c config.yaml --profile train``
+7. train: ``python -m stamp_tpu_torch -c config.yaml train``
    in-process, whole-slide training (``bag_size: null``, 2 epochs) of the
    default MIL ViT (``vit`` and ``vit`` + ALiBi, width 512, UNI2 inputs) on
    twelve synthetic patients of 2,100 to 12,000 tiles (T = 4,097, 8,193,
@@ -107,7 +107,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    steady-state int8 and bf16 rates at batch 64 in turns, a
    ``torch.profiler`` split of one int8 forward, and the int8 model on the
    kernel path against its plain path.
-9. TITAN: ``python -m stamp_tpu_torch -c config.yaml --profile
+9. TITAN: ``python -m stamp_tpu_torch -c config.yaml
    encode_slides`` and ``encode_patients`` in-process at full width
    (random weights) on synthetic CONCH1.5 slides of 1,500, 4,096, 10,000
    (two) and 16,384 tiles and one patient of the two 10,000-tile slides
@@ -123,7 +123,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    predictions: every table exists and is finite, each AUROC in the tables
    is the numpy metric computed from its CSV, and each figure is written
    or (no matplotlib on the machine) named in the command's warning.
-11. heatmaps: ``python -m stamp_tpu_torch -c config.yaml --profile
+11. heatmaps: ``python -m stamp_tpu_torch -c config.yaml
    heatmaps`` in-process, one slide a run, with phase 7's trained
    checkpoints (``vit`` and ``vit`` + ALiBi, width 512, 8 heads of 64, 2
    layers) on synthetic TIFF slides (32 µm/px, 256 µm tiles) with UNI2
@@ -167,7 +167,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    each backbone's training step and 12,000-tile forward.
 
 13. extractor zoo: every other tile-extractor family through ``python -m
-   stamp_tpu_torch -c config.yaml --profile preprocess`` in-process on phase
+   stamp_tpu_torch -c config.yaml preprocess`` in-process on phase
    4's slide (144 tiles, batch 64, random weights at full width): CONCH and
    CONCH1.5 (CoCa at 448 px, 785 tokens: row 1's two-pass kernel), KEEP
    (ViT-L/16 and its head), TICON (H-Optimus-1 and the contextualizer) in
@@ -199,7 +199,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    batch; ``encode_slides`` with TITAN on the CONCH1.5 features.
 
 14. encoder zoo: the other slide and patient encoders through ``python -m
-   stamp_tpu_torch -c config.yaml --profile encode_slides`` and
+   stamp_tpu_torch -c config.yaml encode_slides`` and
    ``encode_patients`` in-process at published width (random weights) on
    synthetic tile features of phase 9's slides (1,500, 4,096, 10,000 (two)
    and 16,384 tiles) and patient (the two 10,000-tile slides): GigaPath
@@ -236,12 +236,36 @@ Phases (each prints at least one line; any failure exits non-zero):
    prefetching feed and with the synchronous one: the epoch's wall time
    and the device's idle share.
 
+16. sequence: ``stamp_tpu_torch.parallel``'s ``sp`` axis, ``--profile``'s
+   trace and ``preprocess`` over several cards, on the one card (see
+   ``phase_sequence``): (a) a fleet of two ranks sharing the card (gloo,
+   staged) trains phase 7's ``vit`` and ALiBi configs on whole slides
+   with ``mesh_shape: {sp: 2}`` (rows 4–8 at Tq = T/2 + 1 against T + 1
+   gathered keys): each ``model.ckpt`` against phase 7's (≤ 1e-5 of max
+   |param|), each rank's rows 4–8 launches equal to phase 7's run, their
+   sum printed as ``sp_launches``; one ``{sp: 2}`` step at T = 4,097 on the
+   card, its all-reduced gradients against one process's (≤ 1e-3 of each
+   tensor's largest, a limit the doubled gradients fail); (b) in the same fleet,
+   ``make_sp_eval_forward`` of phase 7's ``vit`` on a 16,384-tile bag
+   against the single forward (≤ 1e-5); (c) ``--profile train`` of phase
+   7's ``vit`` and ALiBi: the trace under ``<output_dir>/profile/`` naming
+   the flash kernels, the stage table, ``model.ckpt`` bitwise the run
+   without ``--profile``, the mean step with and without the trace, the
+   trace's top five device operations and the device's idle share per
+   epoch; (d) phase 4's ``preprocess`` with two cards seen
+   by the parent: two ranks share the card, the h5 bitwise phase 4's.
+
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
-11, 12, 13, 14, 15 and print their wall time.  The line before the last is
+11, 12, 13, 14, 15, 16 and print their wall time.  The phases that read a
+command's stage timer (4, 4b, 6, 7, 9, 11, 13, 14) run it in-process with
+the timer on and no trace (``_staged_cli``: ``--profile``'s stage table
+without its ``torch.profiler`` trace), so their rates are untraced; 16a's
+ranks and 16c run ``--profile`` itself.  The line before the last is
 ``{"kernels": [...]}``: each kernel's launches on its main path (phase 4,
 4b, 6, 7 or 9, rows 1–3 also phase 13's; the MIL forward's, phases 6 and 7;
 rows 4–8 also ``heatmaps_launches``, phase 11's; rows 1, 2 and 4–8 also
-``parallel_launches``, phase 15's in-process runs; row 1 also its
+``parallel_launches``, phase 15's in-process runs; rows 4–8 also
+``sp_launches``, phase 16's ``sp`` training on both ranks; row 1 also its
 two-pass kernel's launches and times at [64, 785, 3072], ``long_*``), its
 largest error against its plain
 version, its time, the plain version's and the library control's, and the
@@ -742,7 +766,6 @@ def phase_main_path(card: str) -> dict:
     import numpy as np
     import yaml
 
-    from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.io.h5 import read_h5
     from stamp_tpu_torch.ops import flash_attention as attn
     from stamp_tpu_torch.ops import ln_dense as lnd
@@ -775,7 +798,7 @@ def phase_main_path(card: str) -> dict:
     attn.LAUNCHES = attn.LONG_LAUNCHES = 0
     lnd.LAUNCHES = 0
     t0 = time.perf_counter()
-    main(["-c", str(config), "--profile", "preprocess"])  # exits non-zero on failure
+    _staged_cli(["-c", str(config), "preprocess"])  # exits non-zero on failure
     wall = time.perf_counter() - t0
     launches = {"fused_qkv_mha": attn.LAUNCHES, "ln_dense": lnd.LAUNCHES}
     if attn.LONG_LAUNCHES:  # UNI2's 265 tokens are the one-pass kernel's
@@ -826,7 +849,6 @@ def phase_int8_main_path(card: str, bf16_row: dict) -> dict:
     import torch
     import yaml
 
-    from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.io.h5 import read_h5
     from stamp_tpu_torch.models import vit_image
     from stamp_tpu_torch.ops import flash_attention as attn
@@ -842,7 +864,7 @@ def phase_int8_main_path(card: str, bf16_row: dict) -> dict:
 
     attn.LAUNCHES = attn.LONG_LAUNCHES = lnd.LAUNCHES = lnd.QUANT_LAUNCHES = 0
     t0 = time.perf_counter()
-    main(["-c", str(WORK / "config_int8.yaml"), "--profile", "preprocess"])  # exits non-zero on failure
+    _staged_cli(["-c", str(WORK / "config_int8.yaml"), "preprocess"])  # exits non-zero on failure
     wall = time.perf_counter() - t0
     launches = {"ln_quant_dense": lnd.QUANT_LAUNCHES, "ln_dense": lnd.LAUNCHES, "fused_qkv_mha": attn.LAUNCHES}
     if attn.LONG_LAUNCHES:
@@ -1236,7 +1258,6 @@ def phase_deploy(card: str) -> dict:
     import torch
     import yaml
 
-    from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.modeling.checkpoint import save_checkpoint
     from stamp_tpu_torch.modeling.config import VitModelParams
     from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
@@ -1274,7 +1295,7 @@ def phase_deploy(card: str) -> dict:
     attn.FLASH_MHA_LAUNCHES = 0
     attn.FLASH_ALIBI_MHA_LAUNCHES = 0
     t0 = time.perf_counter()
-    main(["-c", str(config), "--profile", "deploy"])  # exits non-zero on failure
+    _staged_cli(["-c", str(config), "deploy"])  # exits non-zero on failure
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_mha": attn.FLASH_MHA_LAUNCHES, "flash_alibi_mha": attn.FLASH_ALIBI_MHA_LAUNCHES}
@@ -1830,7 +1851,7 @@ def phase_train(card: str) -> dict:
         for name in _COUNTERS:
             setattr(attn, name, 0)
         t0 = time.perf_counter()
-        main(["-c", str(config), "--profile", "train"])  # exits non-zero on failure
+        _staged_cli(["-c", str(config), "train"])  # exits non-zero on failure
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: getattr(attn, name) for name in _COUNTERS}
@@ -2046,7 +2067,6 @@ def phase_titan(card: str) -> dict:
     import torch
     import yaml
 
-    from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.encoding.encoder.titan import Titan
     from stamp_tpu_torch.io.h5 import read_feats, read_h5
     from stamp_tpu_torch.models import slide_encoders
@@ -2065,7 +2085,7 @@ def phase_titan(card: str) -> dict:
         (root / f"{command}.yaml").write_text(yaml.safe_dump({section: fields}))
         attn.FLASH_ALIBI2D_LAUNCHES = 0
         t0 = time.perf_counter()
-        main(["-c", str(root / f"{command}.yaml"), "--profile", command])  # exits non-zero on failure
+        _staged_cli(["-c", str(root / f"{command}.yaml"), command])  # exits non-zero on failure
         torch.cuda.synchronize()
         runs[command] = dict(launches=attn.FLASH_ALIBI2D_LAUNCHES, wall_s=time.perf_counter() - t0,
                              forward_s=profiling.timer.seconds["encode/forward"])  # fmt: skip
@@ -2386,7 +2406,6 @@ def phase_heatmaps(card: str) -> dict:
     import torch
     import yaml
 
-    from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.heatmaps import generate as gen
     from stamp_tpu_torch.io.h5 import read_feats
     from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
@@ -2416,7 +2435,7 @@ def phase_heatmaps(card: str) -> dict:
                 setattr(attn, name, 0)
             t0 = time.perf_counter()
             with _kept_warnings() as warnings:
-                main(["-c", str(config), "--profile", "heatmaps"])  # exits non-zero on failure
+                _staged_cli(["-c", str(config), "heatmaps"])  # exits non-zero on failure
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = {name: getattr(attn, name) for name in _COUNTERS}
@@ -3028,7 +3047,6 @@ def _extract_run(card: str, family: str, root: Path, slides: Path, *, int8: bool
     import numpy as np
     import torch
 
-    from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.io.h5 import read_h5
     from stamp_tpu_torch.preprocessing import extract
 
@@ -3039,7 +3057,7 @@ def _extract_run(card: str, family: str, root: Path, slides: Path, *, int8: bool
     config = _yaml(root / f"{out.name}.yaml", {"preprocessing": section})
     _zero_counts()
     t0 = time.perf_counter()
-    main(["-c", str(config), "--profile", "preprocess"])  # exits non-zero on failure
+    _staged_cli(["-c", str(config), "preprocess"])  # exits non-zero on failure
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _zoo_counts()
@@ -3598,7 +3616,7 @@ def _encoder_cli(label: str, root: Path) -> dict:
         config.write_text(yaml.safe_dump({section: fields}))
         _zero_counts()
         t0 = time.perf_counter()
-        main(["-c", str(config), "--profile", command])  # exits non-zero on failure
+        _staged_cli(["-c", str(config), command])  # exits non-zero on failure
         torch.cuda.synchronize()
         launched = {k: v for k, v in _zoo_counts().items() if v}
         if launched:
@@ -4095,6 +4113,432 @@ def phase_parallel(card: str, trained: dict) -> dict:
     return result
 
 
+#: (a) a model.ckpt trained on {sp: 2} against phase 7's, over max |param|: the
+#: sequence group sums each step's gradient in two parts and the ALiBi
+#: statistic in two, which moves f32 sums by an ulp or so a step; phase 15b
+#: measured 5.6e-7 for the same kind of reordering (rows) over 9 steps, so
+#: 1e-5 leaves an order of magnitude for 18 steps.  The attention key biases
+#: are held apart: their gradient is 0 in exact arithmetic (softmax ignores a
+#: shift shared by all keys), so both runs step them on rounding noise, which
+#: Adam scales up towards lr a step; they are held to 2 · max_lr · steps
+SP_PARAM_TOL = 1e-5
+#: (b) the sequence-sharded forward against the single-process one (the JAX
+#: package's make_sp_eval_forward test's atol)
+SP_EVAL_ATOL = 1e-5
+#: (b) a whole-slide bag on the flash path: 16,384 tiles + CLS
+SP_EVAL_TILES = 16384
+#: (a) one sharded training step on the card at phase 7's widths: a bag of
+#: this many tiles (T = 4,097 with CLS, the flash path)
+SP_STEP_TILES = 4096
+#: (a) that step's all-reduced gradients against one process's step on the
+#: card: max |Δ| of each tensor within SP_GRAD_TOL of the tensor's largest
+#: |gradient|, at least SP_GRAD_FLOOR of the model's largest (a gradient
+#: that cancels keeps the rounding of its terms); the attention key biases,
+#: whose gradient is rounding noise, SP_GRAD_TOL of the model's.  Both steps
+#: run the same kernels at the same precision; only the split of the
+#: queries and the order of the sums differ (the CPU tests read ≤ 1e-5).
+#: A gradient counted twice is off by its own size, 1,000 times the limit:
+#: the check also runs on the doubled gradients and must fail there.
+SP_GRAD_TOL = 1e-3
+SP_GRAD_FLOOR = 1e-5
+#: (c) device operations printed from the trace
+TRACE_TOP = 5
+#: the card phase 16 computes on in this process and in (b)'s ranks
+SEQ_DEVICE = "cuda:0"
+
+
+def _sp_ckpt_diff(got: Path, want: Path) -> dict:
+    """Two ``model.ckpt`` compared: max |Δ| over the parameters but the
+    attention key biases (``in_proj``'s middle third, ``k_proj``) and max
+    |param|; max |Δ| of the key biases; the ALiBi statistics' largest
+    relative difference (0 without them)."""
+    import numpy as np
+
+    from stamp_tpu_torch.modeling.checkpoint import load_checkpoint
+    from stamp_tpu_torch.models.weights import flatten
+
+    g, w = (flatten(load_checkpoint(p)["variables"]) for p in (got, want))
+    rest, walk, stats = 0.0, 0.0, 0.0
+    for key, value in w.items():
+        delta = np.abs(g[key].astype(np.float64) - value)
+        if key[0] != "params":
+            stats = max(stats, float((delta / np.abs(value)).max()))
+        elif key[-2:] == ("in_proj", "bias"):
+            third = len(delta) // 3
+            walk = max(walk, float(delta[third : 2 * third].max()))
+            rest = max(rest, float(delta[:third].max()), float(delta[2 * third :].max()))
+        elif key[-2:] == ("k_proj", "bias"):
+            walk = max(walk, float(delta.max()))
+        else:
+            rest = max(rest, float(delta.max()))
+    scale = max(float(np.abs(v).max()) for k, v in w.items() if k[0] == "params")
+    return dict(max_param_diff=rest, max_param=scale, ratio=rest / scale, key_bias_diff=walk, stats_rel_diff=stats)
+
+
+def _trace_summary(trace: Path) -> dict:
+    """From a ``--profile`` Chrome trace of ``train``: the device
+    operations (kernels, copies, memsets) that took the most time, and per
+    epoch (first to last ``train/step`` range, split at ``train/eval``) the
+    device's idle share: 1 − (union of device operations in the window) /
+    window."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    totals: dict = {}
+    for e in device:
+        name = e["name"]
+        total, calls = totals.get(name, (0.0, 0))
+        totals[name] = (total + e["dur"], calls + 1)
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation" and e.get("name") in ("train/step", "train/eval"))  # fmt: skip
+    epochs, current = [], []
+    for start, end, name in ranges:
+        if name == "train/step":
+            current.append((start, end))
+        elif current:
+            epochs.append((current[0][0], current[-1][1], len(current)))
+            current = []
+    if current:
+        epochs.append((current[0][0], current[-1][1], len(current)))
+    intervals = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    rows = []
+    for start, end, steps in epochs:
+        busy, reach = 0.0, start
+        for a, b in intervals:
+            a, b = max(a, reach), min(b, end)
+            if b > a:
+                busy += b - a
+                reach = b
+        rows.append(dict(steps=steps, epoch_ms=(end - start) / 1e3, device_busy_ms=busy / 1e3,
+                         idle_share=1 - busy / (end - start)))  # fmt: skip
+    steps = [end - start for start, end, name in ranges if name == "train/step"]
+    return dict(events=len(events), device_events=len(device), epochs=rows,
+                step_ms=sum(steps) / max(len(steps), 1) / 1e3,
+                top=[dict(op=name[:80], calls=calls, device_ms=total / 1e3) for name, (total, calls) in top])  # fmt: skip
+
+
+def _sp_step_job(root: Path, variant: str) -> tuple[dict, dict]:
+    """(job, inputs) of one ``{sp: 2}`` training step on the card at phase
+    7's widths (``_dist_dryrun``'s ``step`` job): random weights and one
+    bag of ``SP_STEP_TILES`` tiles on a grid, from a seed."""
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.models import weights
+    from stamp_tpu_torch.parallel._dist_dryrun import task_model
+
+    spec = dict(task="classification", model_name="vit", dim_input=UNI2_DIM, total_steps=4,
+                model=dict(dim_model=512, n_layers=2, n_heads=8, dim_feedforward=512, use_alibi=variant == "alibi"),
+                mesh_shape={"sp": 2}, device="cuda")  # fmt: skip
+    model = task_model(spec)
+    weights.init_weights_(model.module, torch.Generator().manual_seed(16))
+    rng = np.random.default_rng(16)
+    side = math.isqrt(SP_STEP_TILES)
+    idx = np.arange(SP_STEP_TILES)
+    arrays = dict(bags=rng.standard_normal((1, SP_STEP_TILES, UNI2_DIM), dtype=np.float32),
+                  coords=(np.stack([idx % side, idx // side], axis=1)[None] * 256.0).astype(np.float32),
+                  sizes=np.array([SP_STEP_TILES], np.int32), targets=np.eye(2, dtype=np.float32)[[1]],
+                  **{f"state/{k}": v.numpy() for k, v in model.module.state_dict().items()})  # fmt: skip
+    job = root / f"step-{variant}"
+    job.mkdir()
+    np.savez(job / "inputs.npz", **arrays)
+    return dict(kind="step", spec=spec, dir=str(job)), arrays
+
+
+def _single_step_grads(spec: dict, arrays: dict) -> tuple[float, dict]:
+    """(loss, gradients) of the same step in this process on the card, on
+    the whole bag."""
+    import torch
+
+    from stamp_tpu_torch.modeling.train import forward_batch
+    from stamp_tpu_torch.parallel._dist_dryrun import _tensors, batch_of, task_model
+    from stamp_tpu_torch.parallel.mesh import make_dp_train_step
+
+    dev = torch.device(SEQ_DEVICE)
+    model = task_model(spec)
+    model.module.load_state_dict({k.removeprefix("state/"): torch.from_numpy(v) for k, v in arrays.items()
+                                  if k.startswith("state/")})  # fmt: skip
+    model.module.to(dev)
+    step = make_dp_train_step(
+        model, model.make_optimizer(model.module.parameters()), None, schedule=model.lr_schedule(),
+        forward=lambda batch, key_mask, group: forward_batch(model, batch, key_mask, dev, train=True, group=group),
+    )  # fmt: skip
+    loss, _ = step(_tensors(batch_of(arrays), dev), None, 0)
+    return float(loss), {n: p.grad.double().cpu().numpy() for n, p in model.module.named_parameters()}
+
+
+def _sp_grad_worst(got: dict, want: dict, factor: float = 1.0) -> tuple[float, str]:
+    """The largest max |factor · got − want| over its limit (``SP_GRAD_TOL``,
+    ``SP_GRAD_FLOOR``), and the tensor or part where it is."""
+    import numpy as np
+
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    worst = (0.0, "")
+    for name, w in want.items():
+        g = factor * got[name].astype(np.float64)
+        parts = [(name, w, g, name.endswith("k_proj.bias"))]
+        if name.endswith("in_proj.bias"):  # q | k | v: the key third is the key bias
+            t = len(w) // 3
+            parts = [(f"{name}[{p}]", w[i * t : (i + 1) * t], g[i * t : (i + 1) * t], p == "k")
+                     for i, p in enumerate("qkv")]  # fmt: skip
+        for part, wp, gp, walking in parts:
+            limit = SP_GRAD_TOL * scale if walking else max(SP_GRAD_TOL * float(np.abs(wp).max()), SP_GRAD_FLOOR * scale)
+            worst = max(worst, (float(np.abs(gp - wp).max()) / limit, part))
+    return worst
+
+
+def phase_sequence(card: str, trained: dict) -> dict:
+    """16: sequence parallelism, ``--profile``'s trace and several cards in
+    one ``preprocess``, on the one card.
+
+    (a) a fleet of two ranks sharing the card (gloo, collectives staged
+    through pinned host memory): whole-slide ``train`` of phase 7's ``vit``
+    and ALiBi configs with ``mesh_shape: {sp: 2}`` (each rank half of every
+    bucket-padded bag: Tq = T/2 + 1 queries against the T + 1 gathered
+    keys), each ``model.ckpt`` against phase 7's (``SP_PARAM_TOL`` of max
+    |param|), each rank's launches of rows 4–8 (counted in the ranks, set
+    to 0 before each command) equal to phase 7's run, their sum
+    ``sp_launches``; both ranks run with ``--profile``, and each rank's
+    trace gives its mean ``train/step`` and the share of each epoch its own
+    kernels leave idle (the card's other rank is in another trace), beside
+    the trace of the same config's run in this process, (c)'s.  In the same
+    fleet, one ``{sp: 2}`` step per config at phase 7's widths on a bag of
+    ``SP_STEP_TILES`` tiles on the card, its all-reduced gradients against
+    the same step in this process (``SP_GRAD_TOL``; Adam's first update,
+    lr·sign(g), would hide a gradient counted twice from the checkpoints).
+    (b) in the same fleet, ``make_sp_eval_forward`` of
+    phase 7's trained ``vit`` on a 16,384-tile bag (T = 16,385, the flash
+    path) against this process's single forward (``SP_EVAL_ATOL``), the
+    output equal on both ranks.  (c) ``--profile train`` of phase 7's
+    ``vit`` and ALiBi configs in this process: the trace under
+    ``<output_dir>/profile/``, its CUDA events naming the flash kernels
+    (a trace without CUDA activity must come with the warning, the CPU
+    side and the step ranges), the stage table in the log, ``model.ckpt``
+    bitwise equal to the same run without ``--profile`` (run before it and
+    again after it); the mean step with and without the trace, the trace's top device operations and the
+    device's idle share per epoch.  (d) phase 4's ``preprocess`` with
+    the visible card count patched to 2 in this process only: two ranks
+    share the card, and the h5 equals phase 4's, bitwise.
+
+    Widths are phase 7's and 4's; one card shared by two ranks shows no
+    speed-up, only that the sharded path runs and agrees."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.io.h5 import read_h5
+    from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
+    from stamp_tpu_torch.models import weights
+    from stamp_tpu_torch.parallel._dist_dryrun import launch_local_fleet
+
+    cohort = WORK / "train"  # phase 7's
+    root = WORK / "sequence"
+    root.mkdir()
+    result: dict = {}
+
+    # (a) and (b): one fleet of two ranks on the card
+    configs = {variant: _train_yaml(cohort, f"{variant}-sp2", mesh_shape={"sp": 2},
+                                    model_params={"vit": {"use_alibi": variant == "alibi"}})
+               for variant in ("vit", "alibi")}  # fmt: skip
+    rng = np.random.default_rng(16)
+    side = math.isqrt(SP_EVAL_TILES)
+    idx = np.arange(SP_EVAL_TILES)
+    bag = dict(bags=rng.standard_normal((1, SP_EVAL_TILES, UNI2_DIM), dtype=np.float32),
+               coords=(np.stack([idx % side, idx // side], axis=1)[None] * 256.0).astype(np.float32),
+               key_mask=np.ones((1, SP_EVAL_TILES), bool))  # fmt: skip
+    eval_dir = root / "sp-eval"
+    eval_dir.mkdir()
+    np.savez(eval_dir / "inputs.npz", **bag)
+    dev = torch.device(SEQ_DEVICE)
+    spec = dict(ckpt=str(cohort / "vit" / "model.ckpt"), device=dev.type, mesh_shape={"sp": 2})
+    jobs = [dict(kind="cli", spec=dict(config=str(configs[v]), command="train", flags=["--profile"])) for v in configs]
+    jobs.append(dict(kind="sp_eval", spec=spec, dir=str(eval_dir)))
+    step_jobs = {variant: _sp_step_job(root, variant) for variant in configs}
+    jobs += [job for job, _ in step_jobs.values()]
+    (root / "jobs.json").write_text(json.dumps(jobs))
+    t0 = time.perf_counter()
+    log = launch_local_fleet(["jobs", str(root / "jobs.json")], timeout=600)
+    fleet_s = time.perf_counter() - t0
+    (root / "fleet.log").write_text(log)
+    staged = "staged through pinned host tensors" in log
+    backend = "backend gloo (2 ranks share 1 card(s)" in log
+    if not (staged and backend):
+        _fail(f"(16a) the fleet did not run on gloo with staged collectives: see {root / 'fleet.log'}")
+    ranks = [json.loads(line.split(" ", 2)[2]) | {"rank": int(line.split(" ", 2)[1])}
+             for line in log.splitlines() if line.startswith("LAUNCHES ")]  # fmt: skip
+    sp_launches = {name: 0 for name in _COUNTERS}
+    for variant, config in configs.items():
+        runs = [r for r in ranks if r["config"] == str(config)]
+        want = trained["runs"][variant]["launches"]
+        for r in runs:
+            got = {name: r[name] for name in _COUNTERS}
+            if got != want:
+                _fail(f"(16a) {variant} sp=2 rank {r['rank']}: launches {got}, phase 7's {want}")
+            for name in _COUNTERS:
+                sp_launches[name] += got[name]
+        if len(runs) != 2:
+            _fail(f"(16a) {variant}: {len(runs)} ranks reported their launches, expected 2")
+        diff = _sp_ckpt_diff(cohort / f"{variant}-sp2" / "model.ckpt", cohort / variant / "model.ckpt")
+        walk_limit = 2 * 1e-4 * trained["runs"][variant]["steps"]  # max_lr (the config's default) a step
+        row = dict(variant=variant, **diff, limit=SP_PARAM_TOL, key_bias_limit=walk_limit, launches_per_rank=want)
+        print(f"[16a sp=2 whole slides] {json.dumps(row)} on {card}")
+        if not (diff["ratio"] <= SP_PARAM_TOL and diff["stats_rel_diff"] <= SP_PARAM_TOL
+                and diff["key_bias_diff"] <= walk_limit):  # fmt: skip
+            _fail(f"(16a) {variant} sp=2: model.ckpt differs from phase 7's: {row}")
+        result.setdefault("train", []).append(row)
+    if not all(sp_launches.values()):
+        _fail(f"(16a) a kernel of rows 4–8 never ran under sp: {sp_launches}")
+    result["sp_launches"] = sp_launches
+    print(f"[16a sp=2] sp_launches {json.dumps(sp_launches)}; fleet {fleet_s:.1f} s for two train runs, (b) and "
+          f"two steps, gloo {backend}, staged {staged} on {card}")  # fmt: skip
+    # one sharded step on the card: its all-reduced gradients against one process's
+    for variant, (job, arrays) in step_jobs.items():
+        sharded = dict(np.load(Path(job["dir"]) / "result.npz"))
+        loss, want = _single_step_grads(job["spec"], arrays)
+        got = {k.removeprefix("grad/"): v for k, v in sharded.items() if k.startswith("grad/")}
+        if set(got) != set(want):
+            _fail(f"(16a) {variant} sp=2 step: gradients of {sorted(set(got) ^ set(want))} on one side only")
+        worst, where = _sp_grad_worst(got, want)
+        doubled, _ = _sp_grad_worst(got, want, factor=2.0)
+        row = dict(variant=variant, tiles=SP_STEP_TILES, loss=float(sharded["loss"]), single_loss=loss,
+                   worst_over_limit=worst, worst_at=where, doubled_over_limit=doubled,
+                   grad_tol=SP_GRAD_TOL, grad_floor=SP_GRAD_FLOOR)  # fmt: skip
+        print(f"[16a sp=2 step gradients] {json.dumps(row)} on {card}")
+        if not (worst <= 1.0 < doubled and abs(row["loss"] - loss) <= 1e-5 * abs(loss)):
+            _fail(f"(16a) {variant} sp=2 step: gradients or loss differ from one process's on the card: {row}")
+        result.setdefault("step", []).append(row)
+
+    sharded = dict(np.load(eval_dir / "result.npz"))
+    model, variables = load_model_from_ckpt(cohort / "vit" / "model.ckpt")
+    weights.load_variables_(model.module, variables)
+    module = model.module.to(dev)
+    bags, coords, key_mask = (torch.from_numpy(bag[k]).to(dev) for k in ("bags", "coords", "key_mask"))
+    with torch.inference_mode():
+        single = module(bags, coords=coords, key_mask=key_mask).float().cpu().numpy()
+    del module, bags, coords, key_mask
+    err = float(np.abs(sharded["out"] - single).max())
+    row = dict(tiles=SP_EVAL_TILES, seq_len=SP_EVAL_TILES + 1, max_abs_err=err, atol=SP_EVAL_ATOL,
+               rank_spread=float(sharded["rank_spread"]), logits=single.tolist())  # fmt: skip
+    print(f"[16b sp eval] {json.dumps(row)} on {card}")
+    if not (err <= SP_EVAL_ATOL and row["rank_spread"] == 0.0):
+        _fail(f"(16b) the sharded forward differs from the single one by {err} (ranks by {row['rank_spread']})")
+    result["eval"] = row
+
+    # (c) --profile train in this process, and the same run without it (the
+    # stage timer on), for both of phase 7's configs
+    from stamp_tpu_torch.utils import profiling
+
+    def step_ms() -> float:  # the mean train/step of the run that just ended
+        return 1e3 * profiling.timer.seconds["train/step"] / profiling.timer.calls["train/step"]
+
+    result["profile"] = []
+    for variant in configs:
+        params = {"vit": {"use_alibi": variant == "alibi"}}
+        plain = _train_yaml(cohort, f"{variant}-plain16", model_params=params)
+        profiled = _train_yaml(cohort, f"{variant}-profile16", model_params=params)
+        again = _train_yaml(cohort, f"{variant}-again16", model_params=params)
+        _staged_cli(["-c", str(plain), "train"])
+        plain_step_ms = step_ms()
+        t0 = time.perf_counter()
+        main(["-c", str(profiled), "--profile", "train"])
+        profiled_s = time.perf_counter() - t0
+        traced_step_ms = step_ms()
+        _staged_cli(["-c", str(again), "train"])  # untraced again: the step's drift between runs
+        again_step_ms = step_ms()
+        out = cohort / f"{variant}-profile16"
+        trace = out / "profile" / "stamp.pt.trace.json"
+        log = (out / "logfile.log").read_text()
+        warnings = [line for line in log.splitlines()
+                    if any(w in line for w in ("tracing unavailable", "device trace failed", "torch.profiler:",
+                                               "no CUDA activity"))]  # fmt: skip
+        if not trace.is_file():
+            _fail(f"(16c) {variant}: no trace at {trace}; the log says {warnings}")
+        if "profile — per-stage wall time" not in log or "train/step" not in log:
+            _fail(f"(16c) {variant}: the stage table is not in the log")
+        for other in (out, cohort / f"{variant}-again16"):
+            diff, scale = _ckpt_diff(other / "model.ckpt", cohort / f"{variant}-plain16" / "model.ckpt")
+            if diff != 0.0:
+                _fail(f"(16c) {variant}: {other.name}'s model.ckpt differs from the plain run's by {diff} "
+                      f"(max |param| {scale})")  # fmt: skip
+        summary = _trace_summary(trace)
+        events = json.loads(trace.read_text())["traceEvents"]
+        names = {t["op"] for t in summary["top"]} | {e["name"] for e in events if e.get("cat") == "kernel"}
+        wanted = {**_FWD_KERNELS, **_BWD_KERNELS, **(_DWS_KERNELS if variant == "alibi" else {})}
+        kernels = {k: any(v in n for n in names) for k, v in wanted.items()}
+        # what the trace costs: the mean step (stage timer) of the untraced
+        # runs before and after the traced one, and of the traced one
+        row = dict(variant=variant, trace=str(trace.relative_to(WORK)), trace_mb=trace.stat().st_size / 2**20,
+                   wall_s=profiled_s, plain_step_ms=[plain_step_ms, again_step_ms], traced_step_ms=traced_step_ms,
+                   kernels_named=kernels, **summary)  # fmt: skip
+        if not summary["device_events"]:  # the profiler could not trace the card: the CPU side and the warning
+            print(f"[16c profile] the trace holds no CUDA activity; the command's log says: {warnings}")
+            cpu_ops = sum(e.get("cat") == "cpu_op" for e in events)
+            if not (any("no CUDA activity" in line for line in warnings) and cpu_ops and summary["epochs"]):
+                _fail(f"(16c) a trace without CUDA activity must come with the warning, cpu_op events ({cpu_ops}) "
+                      f"and the train/step ranges ({summary['epochs']})")  # fmt: skip
+            row["cuda_activity"] = False
+        elif not all(kernels.values()):
+            _fail(f"(16c) {variant}: the trace's CUDA events do not name every flash kernel: {kernels}")
+        print(f"[16c profile] {json.dumps(row)} on {card}")
+        result["profile"].append(row)
+
+    # (a)'s steps on the shared card against the same config's run in one
+    # process, both traced (the sp ranks ran with --profile; 16c's runs)
+    for row, single in zip(result["train"], result["profile"], strict=True):
+        variant = row["variant"]
+        timing = {"single (16c)": _trace_summary(cohort / f"{variant}-profile16" / "profile" / "stamp.pt.trace.json")}
+        for r in range(2):
+            timing[f"sp rank {r}"] = _trace_summary(cohort / f"{variant}-sp2" / "profile" / f"rank{r}.pt.trace.json")
+        timing = {k: dict(step_ms=v["step_ms"], epochs=v["epochs"], top=v["top"]) for k, v in timing.items()}
+        run = trained["runs"][variant]  # its stage timer's train/step total over its steps
+        timing["phase 7 (untraced)"] = dict(step_ms=1e3 * run["train_step_s"] / run["steps"])
+        print(f"[16a sp=2 steps] {variant}: {json.dumps(timing)} on {card}")
+        row["timing"] = timing
+
+    # (d) phase 4's preprocess with two cards seen by this process
+    body = yaml.safe_load((WORK / "config.yaml").read_text())
+    body["preprocessing"]["output_dir"] = str(root / "features")
+    config = _yaml(root / "preprocess.yaml", body)
+    real_count = torch.cuda.device_count
+    torch.cuda.device_count = lambda: 2
+    try:
+        t0 = time.perf_counter()
+        main(["-c", str(config), "preprocess"])
+        preprocess_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.device_count = real_count
+    plog = (root / "features" / "logfile.log").read_text()
+    launched = "2 cards: running this command as 2 local ranks" in plog
+    if not (launched and "backend gloo (2 ranks share 1 card(s)" in plog):
+        _fail(f"(16d) preprocess did not run as two ranks sharing the card: see {root / 'features' / 'logfile.log'}")
+    got, want = (sorted(d.rglob("*.h5")) for d in (root / "features", WORK / "features"))
+    if [p.name for p in got] != [p.name for p in want]:
+        _fail(f"(16d) the ranks wrote {got}, phase 4 {want}")
+    for g, w in zip(got, want):
+        gd, wd = read_h5(g)[0], read_h5(w)[0]
+        if not all(np.array_equal(a, b) for a, b in zip(_sorted_by_coords(gd), _sorted_by_coords(wd))):
+            _fail(f"(16d) {g.name} differs from phase 4's")
+    shares = [line.split("\t")[-1] for line in plog.splitlines() if "extraction fleet: process" in line]
+    row = dict(files=[p.name for p in got], bitwise=True, wall_s=preprocess_s, shares=shares)
+    print(f"[16d preprocess on two cards] {json.dumps(row)} on {card}")
+    result["preprocess"] = row
+    return result
+
+
+def _staged_cli(argv: list[str]) -> None:
+    """``python -m stamp_tpu_torch <argv>`` in this process with the CLI's
+    stage timer on (``profiling.stage_table``, the table ``--profile``
+    logs) and no ``torch.profiler`` trace, so that the rates a phase reads
+    from the timer are those of an untraced run; phase 16c runs
+    ``--profile`` itself and measures what the trace costs."""
+    from stamp_tpu_torch.__main__ import main
+    from stamp_tpu_torch.utils import profiling
+
+    with profiling.stage_table():
+        main(argv)  # exits non-zero on failure
+
+
 def _timed(fn) -> float:
     """Seconds of one synchronised call of ``fn``."""
     import torch
@@ -4146,6 +4590,7 @@ def main() -> None:
     extractors = _timed_phase("13 extractor zoo", phase_extractor_zoo, card)
     _timed_phase("14 encoder zoo", phase_encoder_zoo, card)
     parallel = _timed_phase("15 parallel", phase_parallel, card, trained)
+    sequence = _timed_phase("16 sequence", phase_sequence, card, trained)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
@@ -4230,6 +4675,7 @@ def main() -> None:
                 "library_ms": flash_rows[name]["library_ms"],
                 "heatmaps_launches": heatmaps["launches"][counter],  # phase 11's Grad-CAM
                 "parallel_launches": parallel_launches[counter],  # phase 15 (a)
+                "sp_launches": sequence["sp_launches"][counter],  # phase 16 (a), both ranks
             } | ({"bound_f32_ms": flash_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in flash_rows[name] else {})
             for name, replaces, counter in (
                 ("flash_mha", "stamp_tpu/ops/flash_attention.py:307", "FLASH_MHA_LAUNCHES"),
@@ -4252,6 +4698,7 @@ def main() -> None:
                 "library_ms": bwd_rows[name]["library_ms"],
                 "heatmaps_launches": heatmaps["launches"][counter],  # phase 11's Grad-CAM
                 "parallel_launches": parallel_launches[counter],  # phase 15 (a)
+                "sp_launches": sequence["sp_launches"][counter],  # phase 16 (a), both ranks
             } | ({"bound_f32_ms": bwd_rows[name]["bound_f32_ms"]} if "bound_f32_ms" in bwd_rows[name] else {})
             for name, replaces, counter in (
                 ("flash_mha_bwd", "stamp_tpu/ops/flash_attention.py:236", "FLASH_MHA_BWD_LAUNCHES"),

@@ -14,10 +14,20 @@ command runs.
 ``train``, ``crossval`` and ``preprocess`` join the fleet the environment
 names (``STAMP_COORDINATOR_ADDRESS``, ``STAMP_NUM_PROCESSES``,
 ``STAMP_PROCESS_ID``; ``parallel.distributed``) before resolving the
-device, so each rank computes on its own card.  A single process whose
-``advanced_config.mesh_shape`` holds P > 1 ranks, with no fleet in its
-environment, runs P local ranks of the same command (one per card, or CPU
-ranks for ``accelerator: cpu``) and fails if any of them fails.
+device, so each rank computes on its own card.  With no fleet in its
+environment, a single process runs several local ranks of the same command
+and fails if any of them fails: ``train`` and ``crossval`` whose
+``advanced_config.mesh_shape`` holds P > 1 ranks (axes ``dcn``, ``dp``,
+``sp``) run P (one per card, or CPU ranks for ``accelerator: cpu``), and
+``preprocess`` on a card (``device`` auto, cuda or gpu) with N > 1 cards
+visible runs N, one a card, each extracting its ``shard_worklist`` share of
+the slides.
+
+``--profile`` wraps the command in ``utils.profiling.profiled_run``: a
+``torch.profiler`` trace under ``<output_dir>/profile/`` (CUDA activity too
+when the command runs on a card) and the per-stage wall-time table in the
+log.  A process that launches local ranks leaves the profile to them (each
+writes its own trace).
 """
 
 from __future__ import annotations
@@ -68,6 +78,63 @@ def _add_file_handle_(logger: logging.Logger, *, output_dir: Path) -> None:
     file_handler.setLevel(logging.DEBUG)
     file_handler.setFormatter(logging.Formatter("%(asctime)s\t%(levelname)s\t%(message)s"))
     logger.addHandler(file_handler)
+
+
+def _card_ranks(device: str) -> int:
+    """The local ranks ``preprocess`` on ``device`` runs as: one a card when
+    several are visible, no fleet is set and the device is a card chosen
+    by the rank (auto, cuda, gpu); 0 otherwise (it runs in this process)."""
+    import torch
+
+    from stamp_tpu_torch.parallel import distributed
+
+    if device not in ("auto", "cuda", "gpu") or distributed.in_fleet() or not torch.cuda.is_available():
+        return 0
+    n = torch.cuda.device_count()
+    return n if n > 1 else 0
+
+
+def _mesh_ranks(advanced) -> int:
+    """The local ranks ``train`` or ``crossval`` runs as: the
+    ``mesh_shape``'s P > 1 when no fleet is set (raising when the cards
+    are fewer), 0 otherwise."""
+    import math
+
+    import torch
+
+    from stamp_tpu_torch.parallel import distributed
+
+    if not advanced.mesh_shape or distributed.in_fleet():
+        return 0
+    n = math.prod(advanced.mesh_shape.values())
+    if n == 1:
+        return 0
+    distributed.check_mesh_axes(advanced.mesh_shape)
+    if advanced.accelerator != "cpu" and (visible := torch.cuda.device_count()) < n:
+        raise ValueError(f"mesh_shape {advanced.mesh_shape} needs {n} devices but {visible} are visible")
+    return n
+
+
+def _local_ranks(config, command: str, section) -> int:
+    """How many local ranks this command runs as (0: in this process)."""
+    if command in ("train", "crossval"):
+        if section.task is None:
+            raise ValueError(f"task must be set in {'training' if command == 'train' else command} configuration")
+        return _mesh_ranks(config.advanced_config)
+    if command == "preprocess":
+        return _card_ranks(section.device)
+    return 0
+
+
+def _on_card(config, command: str, section) -> bool:
+    """Whether the command computes on a card (its trace records CUDA activity)."""
+    import torch
+
+    if command in ("train", "crossval"):
+        device = config.advanced_config.accelerator
+    else:
+        device = getattr(section, "device", None) or getattr(section, "accelerator", None) or "cpu"
+    return str(device) != "cpu" and torch.cuda.is_available()
 
 
 def _run_preprocess(section) -> None:
@@ -153,54 +220,22 @@ def _run_encode_patients(section) -> None:
     )
 
 
-def _launched_local_ranks(advanced, argv: list[str]) -> bool:
-    """With a ``mesh_shape`` of P > 1 ranks and no fleet in the
-    environment: run this command as P local ranks (one per card, or CPU
-    ranks for ``accelerator: cpu``), wait for them, and return True."""
-    import math
-
-    import torch
-
-    from stamp_tpu_torch.parallel import distributed
-    from stamp_tpu_torch.parallel._fleet_launch import launch_fleet
-
-    if not advanced.mesh_shape or distributed.in_fleet():
-        return False
-    n = math.prod(advanced.mesh_shape.values())
-    if n == 1:
-        return False
-    distributed.check_mesh_axes(advanced.mesh_shape)
-    if advanced.accelerator != "cpu" and (visible := torch.cuda.device_count()) < n:
-        raise ValueError(f"mesh_shape {advanced.mesh_shape} needs {n} devices but {visible} are visible")
-    _logger.info(f"mesh_shape {advanced.mesh_shape}: running this command as {n} local ranks")
-    launch_fleet(["-m", "stamp_tpu_torch", *argv], n_processes=n, capture=False)
-    return True
-
-
-def _run_train(config, section, argv: list[str]) -> None:
+def _run_train(config, section) -> None:
     from stamp_tpu_torch.modeling.train import train_categorical_model_
     from stamp_tpu_torch.parallel.distributed import init_distributed
     from stamp_tpu_torch.utils.device import resolve_device
 
-    if section.task is None:
-        raise ValueError("task must be set in training configuration")
     advanced = config.advanced_config
-    if _launched_local_ranks(advanced, argv):
-        return
     init_distributed(use_cuda=advanced.accelerator != "cpu")
     train_categorical_model_(config=section, advanced=advanced, device=resolve_device(advanced.accelerator))
 
 
-def _run_crossval(config, section, argv: list[str]) -> None:
+def _run_crossval(config, section) -> None:
     from stamp_tpu_torch.modeling.crossval import categorical_crossval_
     from stamp_tpu_torch.parallel.distributed import init_distributed
     from stamp_tpu_torch.utils.device import resolve_device
 
-    if section.task is None:
-        raise ValueError("task must be set in crossval configuration")
     advanced = config.advanced_config
-    if _launched_local_ranks(advanced, argv):
-        return
     init_distributed(use_cuda=advanced.accelerator != "cpu")
     categorical_crossval_(config=section, advanced=advanced, device=resolve_device(advanced.accelerator))
 
@@ -255,16 +290,16 @@ def _run_export_ckpt(src: Path, dst: Path) -> None:
         _logger.info(f"converted npz checkpoint {src} -> reference Lightning {dst}")
 
 
-# command → (config section, runner(config, section, argv))
+# command → (config section, runner(config, section))
 _RUNNERS = {
-    "preprocess": ("preprocessing", lambda config, section, argv: _run_preprocess(section)),
-    "encode_slides": ("slide_encoding", lambda config, section, argv: _run_encode_slides(section)),
-    "encode_patients": ("patient_encoding", lambda config, section, argv: _run_encode_patients(section)),
+    "preprocess": ("preprocessing", lambda config, section: _run_preprocess(section)),
+    "encode_slides": ("slide_encoding", lambda config, section: _run_encode_slides(section)),
+    "encode_patients": ("patient_encoding", lambda config, section: _run_encode_patients(section)),
     "train": ("training", _run_train),
     "crossval": ("crossval", _run_crossval),
-    "deploy": ("deployment", lambda config, section, argv: _run_deploy(section)),
-    "statistics": ("statistics", lambda config, section, argv: _run_statistics(section)),
-    "heatmaps": ("heatmaps", lambda config, section, argv: _run_heatmaps(section)),
+    "deploy": ("deployment", lambda config, section: _run_deploy(section)),
+    "statistics": ("statistics", lambda config, section: _run_statistics(section)),
+    "heatmaps": ("heatmaps", lambda config, section: _run_heatmaps(section)),
 }
 # commands that take advanced_config (a default one when the YAML has none)
 _NEEDS_ADVANCED = {"train", "crossval"}
@@ -309,15 +344,18 @@ def _run_cli(args: argparse.Namespace, argv: list[str]) -> None:
         "using the following configuration:\n"
         f"{yaml.dump(section.model_dump(mode='json', exclude_none=True))}"
     )
-    if args.profile:  # per-stage wall-time table into the log (no device trace yet)
-        profiling.timer.enabled = True
-        profiling.timer.reset()
-    try:
-        run(config, section, argv)
-    finally:
-        if args.profile:
-            _logger.info("profile — per-stage wall time:\n" + profiling.timer.report())
-            profiling.timer.enabled = False
+    if n := _local_ranks(config, args.command, section):
+        from stamp_tpu_torch.parallel._fleet_launch import launch_fleet
+
+        why = "mesh_shape " + str(config.advanced_config.mesh_shape) if args.command != "preprocess" else f"{n} cards"
+        _logger.info(f"{why}: running this command as {n} local ranks")
+        launch_fleet(["-m", "stamp_tpu_torch", *argv], n_processes=n, capture=False)
+        return
+    if args.profile:  # a torch.profiler trace and the per-stage wall-time table
+        with profiling.profiled_run(section.output_dir, cuda=_on_card(config, args.command, section)):
+            run(config, section)
+    else:
+        run(config, section)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -338,7 +376,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument(
         "--profile",
         action="store_true",
-        help="Log a per-stage wall-time table for the command.",
+        help="Write a torch.profiler trace under <output_dir>/profile and log a per-stage wall-time table.",
     )
     subparsers = parser.add_subparsers(dest="command")
     for name, help_text in _COMMANDS.items():

@@ -181,12 +181,12 @@ class AdvancedConfig(BaseModel):
     seed: int | None = None
     mesh_shape: dict[str, int] | None = Field(
         default=None,
-        description="Mesh of ranks for data-parallel training, e.g. "
-        '{"dp": 4} on one host or {"dcn": 2, "dp": 4} across hosts. A rank '
-        "is one process on one device, so the axis product must equal the "
-        "number of ranks (STAMP_NUM_PROCESSES in a fleet; a single process "
-        "launches that many local ranks, one per card, or CPU ranks with "
-        "accelerator: cpu — see parallel/distributed.py). The 'sp' axis is "
-        "not ported (python -m stamp_tpu). null = single-device training, "
-        "the reference's behavior.",
+        description="Mesh of ranks for sharded training, e.g. "
+        '{"dp": 4, "sp": 2} on one host or {"dcn": 2, "dp": 2, "sp": 2} '
+        "across hosts: dcn and dp split the batch's rows, sp each bag's "
+        "tiles. A rank is one process on one device, so the axis product "
+        "must equal the number of ranks (STAMP_NUM_PROCESSES in a fleet; a "
+        "single process launches that many local ranks, one per card, or "
+        "CPU ranks with accelerator: cpu — see parallel/distributed.py). "
+        "null = single-device training, the reference's behavior.",
     )

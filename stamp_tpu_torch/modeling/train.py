@@ -31,22 +31,25 @@ initialisation) follow the JAX package's order from ``Seed.numpy_rng()``;
 initial weights come from ``Seed.torch_generator()`` and differ from
 flax's.
 
-``mesh_shape`` (``advanced_config.mesh_shape``, axes ``dcn`` and ``dp``)
-trains data-parallel over a mesh of ranks, with the JAX package's semantics
+``mesh_shape`` (``advanced_config.mesh_shape``, axes ``dcn``, ``dp`` and
+``sp``) trains over a mesh of ranks, with the JAX package's semantics
 (``stamp_tpu/modeling/train.py:593-884``): every rank draws the same global
 batch (a fixed ``advanced.seed`` is required with several ranks), a batch
-whose rows do not divide by the mesh is padded by cycling its own rows
-(those rows count twice in that batch's loss, as in the JAX package),
-whole-slide bags are bucket-padded before the rows are split, each rank
-runs its contiguous rows, and ``parallel.mesh.make_dp_train_step`` takes
-the gradient of the loss over the global batch (the ALiBi statistic,
-dropout masks and the survival median are the global batch's too).
-Validation runs whole on every rank, and rank 0's monitored value decides
-early stopping for all, so they stay in lockstep; only rank 0 writes
-``metrics.csv`` and the checkpoints, and the others wait at a barrier.  A
-single process given a mesh of one rank joins a process group of its own.
-The ``sp`` axis raises ``NotImplementedError`` naming ``python -m
-stamp_tpu``.
+whose rows do not divide by the data-parallel axes (``dcn`` × ``dp``) is
+padded by cycling its own rows (those rows count twice in that batch's
+loss, as in the JAX package), whole-slide bags are bucket-padded before
+they are split, each rank runs its contiguous rows and, with ``sp``, its
+contiguous share of their tiles (a tile bag whose length does not divide
+by ``sp`` raises, with the JAX package's message; the power-of-two
+whole-slide buckets divide; slide and patient vectors are the same on the
+ranks of a sequence group, as the JAX package replicates them over
+``sp``), and ``parallel.mesh.make_dp_train_step`` takes the gradient of the
+loss over the global batch (the ALiBi statistic, dropout masks and the
+survival median are the global batch's too).  Validation runs whole on
+every rank, and rank 0's monitored value decides early stopping for all,
+so they stay in lockstep; only rank 0 writes ``metrics.csv`` and the
+checkpoints, and the others wait at a barrier.  A single process given a
+mesh of one rank joins a process group of its own.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.parallel import distributed
 from stamp_tpu_torch.parallel._fleet_launch import free_port
 from stamp_tpu_torch.parallel.distributed import Mesh
-from stamp_tpu_torch.parallel.mesh import make_dp_train_step, pad_rows
+from stamp_tpu_torch.parallel.mesh import make_dp_train_step, pad_rows, shard_batch
 from stamp_tpu_torch.parallel.prefetch import prefetch_to_device
 from stamp_tpu_torch.types import Category, PandasLabel, PatientId, Task
 from stamp_tpu_torch.utils import profiling
@@ -493,8 +496,9 @@ def train_model_(
     ``pad_train_buckets`` is whole-slide training (``bag_size: null``):
     each ragged bag is padded to a power-of-two bucket and attended with a
     key mask.  ``mesh_shape`` trains data-parallel over a mesh of ranks
-    (``{"dp": …}``, ``{"dcn": …, "dp": …}``; the product must equal the
-    fleet's rank count), ``device`` being this rank's."""
+    (``{"dp": …}``, ``{"dcn": …, "dp": …}``, ``{"dp": …, "sp": …}``; the
+    product must equal the fleet's rank count), ``device`` being this
+    rank's."""
     mesh = None
     own_group = bool(mesh_shape) and not torch.distributed.is_initialized() and math.prod(mesh_shape.values()) == 1
     if own_group:  # one rank: a process group of its own
@@ -522,16 +526,32 @@ def train_model_(
             distributed.shutdown_distributed()
 
 
+def _sp_axis(mesh: Mesh | None) -> str | None:
+    return "sp" if mesh is not None and "sp" in mesh.axis_names else None
+
+
 def _mesh_feed(batches: Iterator, mesh: Mesh) -> Iterator:
-    """This rank's rows of each global (batch, key_mask), its targets
-    whole: a ragged batch first padded to a multiple of the mesh by
-    cycling its rows."""
+    """This rank's part of each global (batch, key_mask), its targets
+    whole: a ragged batch first padded to a multiple of the data-parallel
+    axes by cycling its rows; a tile bag whose length does not divide by
+    ``sp`` raises."""
+    sp_axis = _sp_axis(mesh)
+    dp_total = len(mesh.ranks_along(mesh.data_axes(sp_axis)))
+    sp_total = mesh.size // dp_total
     for batch, key_mask in batches:
         n_rows = batch[0].shape[0]
-        if n_rows % mesh.size:
-            batch, key_mask = pad_rows((batch, key_mask), n_rows, mesh.size)
-            _logger.debug(f"padding ragged batch {n_rows} → {batch[0].shape[0]} rows (dp={mesh.size}) by cycling rows")
-        inputs, key_mask = distributed.split_local_rows((batch[:-1], key_mask))
+        if n_rows % dp_total:
+            batch, key_mask = pad_rows((batch, key_mask), n_rows, dp_total)
+            _logger.debug(f"padding ragged batch {n_rows} → {batch[0].shape[0]} rows (dp={dp_total}) by cycling rows")
+        if len(batch) == 4:  # a tile batch: bags, coordinates and the key mask also by tiles
+            if sp_axis and batch[0].shape[1] % sp_total != 0:
+                raise ValueError(
+                    f"bag size {batch[0].shape[1]} not divisible by sp={sp_total}; pick a divisible bag_size"
+                )
+            bags, coords, key_mask = shard_batch((batch[0], batch[1], key_mask), mesh, sp_axis=sp_axis)
+            inputs = (bags, coords, shard_batch(batch[2], mesh, sp_axis=sp_axis, tiles=False))
+        else:
+            inputs = shard_batch(batch[:-1], mesh, sp_axis=sp_axis, tiles=False)
         yield (*inputs, batch[-1]), key_mask
 
 
@@ -570,8 +590,10 @@ def _train_model_impl(
     schedule = model.lr_schedule()
     generator = Seed.torch_generator(device)
     step = make_dp_train_step(
-        model, optimizer, mesh, schedule=schedule,
-        forward=lambda batch, key_mask: forward_batch(model, batch, key_mask, device, train=True, generator=generator),
+        model, optimizer, mesh, schedule=schedule, sp_axis=_sp_axis(mesh),
+        forward=lambda batch, key_mask, group: forward_batch(
+            model, batch, key_mask, device, train=True, generator=generator, group=group
+        ),
     )  # fmt: skip
 
     # under a mesh every rank computes the same metrics; one writes them

@@ -18,6 +18,16 @@ powers are computed on the CPU on every device.
 LayerNorms use flax's ε = 1e-6.  The submodules carry the JAX tree's names
 (``projector``, ``encoder_{i}``, ``decoder_{i}``, ``class_token_{t}``,
 ``head_{t}`` with ``t = sanitize(target)``).
+
+Under sequence parallelism (a ``group`` with ``seq_parts`` > 1) each rank
+holds a share of the tiles: the projection, the positional encoding and
+the feed-forwards run on it, and every attention over the tiles (the
+encoder's self-attention and the decoder's cross-attention from the target
+tokens) gathers the keys and values of the whole bag, with its key mask
+(``group.gather_seq``; the backward reduce-scatters dK and dV).  The
+encoder's queries stay local.  The target tokens are the same on every
+rank, so the output is; the step counts its gradient once
+(``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from torch import nn
 
 from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops.attention import multi_head_attention
+from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 
 _EPS = 1e-6  # flax LayerNorm's default epsilon
 
@@ -52,8 +63,20 @@ class _MHA(nn.Module):
         b, s, dim = t.shape
         return t.reshape(b, s, self.heads, dim // self.heads).transpose(1, 2)
 
-    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, *, key_mask: torch.Tensor | None = None) -> torch.Tensor:
-        q, k, v = self._to_heads(self.q(q_in)), self._to_heads(self.k(kv_in)), self._to_heads(self.v(kv_in))
+    def forward(
+        self,
+        q_in: torch.Tensor,
+        kv_in: torch.Tensor,
+        *,
+        key_mask: torch.Tensor | None = None,
+        group: StepGroup = SINGLE,  # gathers the keys and values of a sharded kv_in
+    ) -> torch.Tensor:
+        """``key_mask`` is the keys' (the whole bag's under ``group``)."""
+        if group.seq_parts == 1:
+            k, v = self.k(kv_in), self.v(kv_in)
+        else:
+            k, v = group.gather_seq(torch.cat([self.k(kv_in), self.v(kv_in)], dim=-1), dim=1).chunk(2, dim=-1)
+        q, k, v = self._to_heads(self.q(q_in)), self._to_heads(k), self._to_heads(v)
         out = multi_head_attention(q, k, v, key_mask=key_mask)
         b, h, s, d = out.shape
         return self.out(out.transpose(1, 2).reshape(b, s, h * d))
@@ -68,9 +91,9 @@ class _EncoderLayer(nn.Module):
         self.ff1 = nn.Linear(dim, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, dim)
 
-    def forward(self, x: torch.Tensor, *, key_mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, key_mask: torch.Tensor | None, group: StepGroup = SINGLE) -> torch.Tensor:
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, key_mask=key_mask)
+        x = x + self.self_attn(h, h, key_mask=key_mask, group=group)
         return x + self.ff2(F.relu(self.ff1(self.norm2(x))))
 
 
@@ -85,10 +108,12 @@ class _DecoderLayer(nn.Module):
         self.ff1 = nn.Linear(dim, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, dim)
 
-    def forward(self, tgt: torch.Tensor, memory: torch.Tensor, *, key_mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(
+        self, tgt: torch.Tensor, memory: torch.Tensor, *, key_mask: torch.Tensor | None, group: StepGroup = SINGLE
+    ) -> torch.Tensor:
         h = self.norm1(tgt)
         tgt = tgt + self.self_attn(h, h)
-        tgt = tgt + self.cross_attn(self.norm2(tgt), memory, key_mask=key_mask)
+        tgt = tgt + self.cross_attn(self.norm2(tgt), memory, key_mask=key_mask, group=group)
         return tgt + self.ff2(F.relu(self.ff1(self.norm3(tgt))))
 
 
@@ -153,17 +178,20 @@ class EncDecTransformer(nn.Module):
         key_mask: torch.Tensor | None = None,  # [B, T] True = valid tile
         train: bool = False,
         generator: torch.Generator | None = None,
+        group: StepGroup = SINGLE,  # a step's collectives; a share of the bag under sp
     ) -> dict[str, torch.Tensor]:
         """``train`` and ``generator`` are the engine's uniform call (no dropout here)."""
         x = F.relu(self.projector(tile_tokens))
         if self.positional_encoding:
             x = x + positional_encoding(coords, self.d_model)
+        if key_mask is not None and group.seq_parts > 1:
+            key_mask = group.gather_seq(key_mask, dim=1)  # the keys are the whole bag's
         for i in range(self.num_encoder_layers):
-            x = getattr(self, f"encoder_{i}")(x, key_mask=key_mask)
+            x = getattr(self, f"encoder_{i}")(x, key_mask=key_mask, group=group)
         class_tokens = torch.stack([getattr(self, f"class_token_{sanitize(t)}") for t, _ in self.target_n_outs])
         tgt = class_tokens.expand(tile_tokens.shape[0], *class_tokens.shape)
         for i in range(self.num_decoder_layers):
-            tgt = getattr(self, f"decoder_{i}")(tgt, x, key_mask=key_mask)
+            tgt = getattr(self, f"decoder_{i}")(tgt, x, key_mask=key_mask, group=group)
         return {t: getattr(self, f"head_{sanitize(t)}")(tgt[:, i]) for i, (t, _) in enumerate(self.target_n_outs)}
 
     @staticmethod

@@ -6,7 +6,10 @@ blocks of Linear → ReLU → dropout, then the output Linear; ``Linear`` is
 one Linear.  The submodules carry the JAX tree's names (``fc{i}``, ``out``;
 ``fc``), so ``variables_from_jax`` / ``variables_to_jax`` are
 ``models.weights``' rule.  Dropout (``train=True``) draws from the
-``generator`` the caller passes, as ``ops.attention.dropout``.
+``generator`` the caller passes, as ``ops.attention.dropout``.  Under
+sequence parallelism a tile bag's share is gathered before the mean
+(``group.gather_seq``); slide and patient vectors have no sequence axis and
+are the same on every rank of a sequence group.
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ from torch import nn
 
 from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops.attention import dropout
+from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 
 
-def _pool(x: torch.Tensor) -> torch.Tensor:
-    return x.mean(dim=1) if x.ndim == 3 else x
+def _pool(x: torch.Tensor, group: StepGroup) -> torch.Tensor:
+    return group.gather_seq(x, dim=1).mean(dim=1) if x.ndim == 3 else x
 
 
 class MLP(nn.Module):
@@ -39,13 +43,18 @@ class MLP(nn.Module):
         self.out = nn.Linear(dim_input if num_layers == 1 else dim_hidden, dim_output)
 
     def forward(
-        self, x: torch.Tensor, *, train: bool = False, generator: torch.Generator | None = None
+        self,
+        x: torch.Tensor,
+        *,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        group: StepGroup = SINGLE,
     ) -> torch.Tensor:
         if train and self.dropout > 0.0 and generator is None:
             raise ValueError("training with dropout draws its masks from a generator; pass one")
-        x = _pool(x)
+        x = _pool(x, group)
         for i in range(self.num_layers - 1):
-            x = dropout(F.relu(getattr(self, f"fc{i}")(x)), self.dropout, generator if train else None)
+            x = dropout(F.relu(getattr(self, f"fc{i}")(x)), self.dropout, generator if train else None, group)
         return self.out(x)
 
     @staticmethod
@@ -61,10 +70,15 @@ class Linear(nn.Module):
         self.fc = nn.Linear(dim_input, dim_output)
 
     def forward(
-        self, x: torch.Tensor, *, train: bool = False, generator: torch.Generator | None = None
+        self,
+        x: torch.Tensor,
+        *,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        group: StepGroup = SINGLE,
     ) -> torch.Tensor:
         """``train`` and ``generator`` are the engine's uniform call (no dropout here)."""
-        return self.fc(_pool(x))
+        return self.fc(_pool(x, group))
 
     @staticmethod
     def model_params_keys() -> list[str]:

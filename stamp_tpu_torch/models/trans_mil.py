@@ -10,9 +10,8 @@ decide the numbers are the JAX module's:
 * the sequence is padded on the *left* to a multiple of the landmarks, and
   the last ``n`` outputs kept;
 * ``moore_penrose_iter_pinv`` scales by the *global* max of the column and
-  row sums, over batch and heads (in a data-parallel step over the whole
-  batch's ranks, ``parallel.mesh.global_max``), then takes six
-  Newton–Schulz steps;
+  row sums, over batch and heads (in a step over a mesh, over the whole
+  batch's ranks: ``StepGroup.max``), then takes six Newton–Schulz steps;
 * the residual convolution is 33 × 1 over (sequence, head width), one
   filter per head, without bias; PPEG's convolutions have biases.
 
@@ -24,6 +23,18 @@ flag touches them, forward or backward.  Attention dropout (0.1 after
 a convolution's flax ``{name}_kernel`` [kh, kw, 1, C] is the port's
 ``{name}.weight`` [C, 1, kh, kw] (and ``{name}_bias`` its ``bias``).
 TransMIL takes no coordinates and no key mask (``supports_coords`` False).
+
+Under sequence parallelism (a ``group`` with ``seq_parts`` > 1) each rank
+projects its share of the tiles (``fc1``, the one per-tile layer) and then
+gathers the projected tokens of the whole bag (``group.gather_seq``, whose
+backward reduce-scatters their gradient to the owners).  Every layer after
+it needs the whole sequence: the square grid's filler repeats the bag's
+first tokens, the sequence is padded on the left to a multiple of the
+landmarks, the landmarks pool groups that straddle any split, and PPEG
+convolves the grid.  So each rank runs them on the whole sequence, and the
+output is the same on every rank; the step counts its gradient once
+(``parallel.mesh``).  The dropout draws cover the whole sequence on every
+rank, as without sharding.
 """
 
 from __future__ import annotations
@@ -37,19 +48,19 @@ from torch import nn
 
 from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops.attention import dropout
-from stamp_tpu_torch.parallel.mesh import global_max
+from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 
 _EPS = 1e-6  # flax LayerNorm's default epsilon
 
 
-def moore_penrose_iter_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
+def moore_penrose_iter_pinv(x: torch.Tensor, iters: int = 6, group: StepGroup = SINGLE) -> torch.Tensor:
     """Iterative Moore–Penrose pseudo-inverse of [..., n, n] (reference
     trans_mil.py:23-37)."""
     abs_x = x.abs()
     col = abs_x.sum(dim=-1)
     row = abs_x.sum(dim=-2)
-    # maxima over the whole batch (in a data-parallel step, over the ranks)
-    z = x.transpose(-1, -2) / (global_max(col.max()) * global_max(row.max()))
+    # maxima over the whole batch (in a step over a mesh, over the ranks)
+    z = x.transpose(-1, -2) / (group.max(col.max()) * group.max(row.max()))
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)[None]
     for _ in range(iters):
         xz = x @ z
@@ -102,7 +113,9 @@ class NystromAttention(nn.Module):
         self.to_out = nn.Linear(inner_dim, dim)
         self.res_conv = DepthwiseConv2d(heads, (residual_conv_kernel, 1), bias=False)
 
-    def forward(self, x: torch.Tensor, *, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, *, generator: torch.Generator | None = None, group: StepGroup = SINGLE
+    ) -> torch.Tensor:
         b, n, _ = x.shape
         h, m, dh = self.heads, self.num_landmarks, self.dim_head
         if remainder := n % m:  # pad on the LEFT (reference F.pad(x, (0, 0, pad, 0)))
@@ -122,11 +135,11 @@ class NystromAttention(nn.Module):
         attn1 = torch.softmax(q @ k_land.transpose(-1, -2), dim=-1)
         attn2 = torch.softmax(q_land @ k_land.transpose(-1, -2), dim=-1)
         attn3 = torch.softmax(q_land @ k.transpose(-1, -2), dim=-1)
-        attn2_inv = moore_penrose_iter_pinv(attn2, self.pinv_iterations)
+        attn2_inv = moore_penrose_iter_pinv(attn2, self.pinv_iterations, group)
 
         out = (attn1 @ attn2_inv) @ (attn3 @ v) + self.res_conv(v)  # conv over (sequence, head width)
         out = self.to_out(out.transpose(1, 2).reshape(b, n_padded, h * dh))
-        return dropout(out, self.dropout, generator)[:, -n:]
+        return dropout(out, self.dropout, generator, group)[:, -n:]
 
 
 class TransLayer(nn.Module):
@@ -137,8 +150,10 @@ class TransLayer(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=_EPS)
         self.attn = NystromAttention(dim, dim_head=dim // 8, heads=8, num_landmarks=dim // 2, dropout=0.1)
 
-    def forward(self, x: torch.Tensor, *, generator: torch.Generator | None = None) -> torch.Tensor:
-        return x + self.attn(self.norm(x), generator=generator)
+    def forward(
+        self, x: torch.Tensor, *, generator: torch.Generator | None = None, group: StepGroup = SINGLE
+    ) -> torch.Tensor:
+        return x + self.attn(self.norm(x), generator=generator, group=group)
 
 
 class PPEG(nn.Module):
@@ -175,19 +190,24 @@ class TransMIL(nn.Module):
         self.fc2 = nn.Linear(dim_hidden, dim_output)
 
     def forward(
-        self, h: torch.Tensor, *, train: bool = False, generator: torch.Generator | None = None
+        self,
+        h: torch.Tensor,
+        *,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        group: StepGroup = SINGLE,  # a step's collectives; a share of the bag under sp
     ) -> torch.Tensor:  # [B, T, F] → [B, out]
         if train and generator is None:
             raise ValueError("training draws the attention dropout from a generator; pass one")
         generator = generator if train else None
-        h = F.relu(self.fc1(h))
+        h = group.gather_seq(F.relu(self.fc1(h)), dim=1)  # the whole bag from here on
         n = h.shape[1]
         side = int(math.ceil(math.sqrt(n)))
         h = torch.cat([h, h[:, : side * side - n]], dim=1)
         h = torch.cat([self.cls_token.expand(h.shape[0], 1, -1), h], dim=1)
-        h = self.layer1(h, generator=generator)
+        h = self.layer1(h, generator=generator, group=group)
         h = self.pos_layer(h, side)
-        h = self.layer2(h, generator=generator)
+        h = self.layer2(h, generator=generator, group=group)
         return self.fc2(self.norm(h)[:, 0])
 
     @staticmethod

@@ -33,11 +33,35 @@ dropout), ALiBi always does; each ALiBi block updates its Welford running
 mean once per training forward, under ``no_grad``, from the mean pairwise
 distance of the bag (streamed on the flash path, dense on the einsum path;
 the CLS token at (0, 0) counts as a tile, as in the JAX module) and uses the
-updated mean in the same forward.  In a data-parallel step
-(``parallel.mesh``) the distance total and the pair count are summed over
-the ranks before the division, so the statistic is the whole batch's, as
-XLA computes it under the JAX package's mesh.  The JAX module's ``alibi_mask`` (which
-its ``VisionTransformer`` never sets) is not ported.
+updated mean in the same forward.  In a step over a mesh of ranks the
+distance total and the pair count are summed over the ranks
+(``StepGroup.sum``) before the division, so the statistic is the whole
+batch's, as XLA computes it under the JAX package's mesh.  The JAX
+module's ``alibi_mask`` (which its ``VisionTransformer`` never sets) is not
+ported.
+
+Sequence parallelism (a ``group`` with ``seq_parts`` > 1, handed in by the
+training step or by ``parallel.mesh.make_sp_eval_forward``): each rank
+holds a contiguous share of the bag's tiles, and every attention layer
+gathers the keys and values of the whole sequence (``group.gather_seq``,
+one collective for both, whose backward reduce-scatters dK and dV to their
+owners); the coordinates and key mask of the whole sequence are gathered
+once a forward.  Queries stay local, so both attention paths run with Tq ≠
+Tk: Tq = T/sp + 1 queries against the T + 1 keys.  The flash path is chosen
+from the whole sequence's length, as without sharding.
+
+The CLS token lives on every rank: each rank prepends it to its share and
+computes its query, so the head's input is the same on every rank after
+the forward with no broadcast.  Its key and value are taken from the rank's
+own copy and put in front of the gathered tiles, so every rank's keys are
+the unsharded sequence in its order (the CLS key once).  It is counted once
+where it is summed: the ALiBi statistic counts the CLS row on the
+sequence's first rank only, and the step keeps the output's gradient on
+that rank only (``parallel.mesh``), so the other ranks' copies of the CLS
+stream receive no gradient from the loss; what they pass on (dK and dV of
+the tiles their queries attend) is their share.  Dropout masks are the
+rank's rows of the unsharded draw (``lead=1``: the CLS row, then the share),
+so sp = N draws what sp = 1 draws.
 
 What the JAX module sows into ``intermediates`` for heatmaps
 (``stamp_tpu/models/vision_transformer.py:78-88, 250-259``) the port puts
@@ -67,7 +91,7 @@ from stamp_tpu_torch.ops.attention import (
     pairwise_distance_sums,
     pairwise_distances,
 )
-from stamp_tpu_torch.parallel.mesh import global_sum
+from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 
 # At or above this many tokens (tiles + CLS), attention takes the flash
 # kernels: a [T, T] weight matrix per head no longer fits comfortably.
@@ -101,6 +125,14 @@ def _flat_mask(key_mask: torch.Tensor | None, b: int, h: int, s: int, device) ->
     return _flat(key_mask[:, None, :].expand(b, h, s))
 
 
+def _whole(t: torch.Tensor, group: StepGroup) -> torch.Tensor:
+    """[B, 1 + share, ...] (the CLS token, then this rank's tiles) → [B,
+    1 + T, ...]: the rank's own CLS entry, then every rank's tiles in order."""
+    if group.seq_parts == 1:
+        return t
+    return torch.cat([t[:, :1], group.gather_seq(t[:, 1:], dim=1)], dim=1)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Vanilla MHA, torch ``nn.MultiheadAttention`` semantics, fused qkv."""
 
@@ -120,20 +152,27 @@ class MultiHeadSelfAttention(nn.Module):
         generator: torch.Generator | None = None,
         store: dict | None = None,
         sow_weights: bool = False,
+        group: StepGroup = SINGLE,
     ) -> torch.Tensor:
-        q, k, v = (_to_heads(t, self.num_heads) for t in self.in_proj(x).chunk(3, dim=-1))
+        """``key_mask`` is the keys' (the whole sequence's under ``group``)."""
+        # the whole sequence's keys and values under ``group``, gathered in one collective
+        q, kv = self.in_proj(x).split([x.shape[-1], 2 * x.shape[-1]], dim=-1)
+        q, k, v = (_to_heads(t, self.num_heads) for t in (q, *_whole(kv, group).chunk(2, dim=-1)))
         b, h, s, d = q.shape
+        tk = k.shape[2]
         if store is not None:
             store["attn_q"], store["attn_k"] = q, k
             if sow_weights:
                 store["attn_weights"] = attention_weights(q, k, key_mask)
         # the flash kernels have no attention dropout: in training they are
         # taken only when dropout is off (the MIL default)
-        if _use_flash(s) and not (train and self.dropout > 0.0):
-            km = _flat_mask(key_mask, b, h, s, x.device)
+        if _use_flash(tk) and not (train and self.dropout > 0.0):
+            km = _flat_mask(key_mask, b, h, tk, x.device)
             out = flash_attention.flash_mha(_flat(q), _flat(k), _flat(v), km).reshape(b, h, s, d)
         else:
-            out = multi_head_attention(q, k, v, key_mask=key_mask, dropout_rate=self.dropout, generator=generator)
+            out = multi_head_attention(
+                q, k, v, key_mask=key_mask, dropout_rate=self.dropout, generator=generator, group=group, lead=1
+            )
         return self.out_proj(_from_heads(out))
 
 
@@ -157,42 +196,46 @@ class MultiHeadALiBi(nn.Module):
         self,
         x: torch.Tensor,  # [B, T, D]
         *,
-        coords: torch.Tensor,  # [B, T, 2] µm
-        key_mask: torch.Tensor | None,
+        coords: torch.Tensor,  # [B, Q, 2] µm, the queries'
+        key_mask: torch.Tensor | None,  # [B, K], the keys'
         train: bool = False,
         store: dict | None = None,
         sow_weights: bool = False,
+        group: StepGroup = SINGLE,
+        coords_k: torch.Tensor | None = None,  # [B, K, 2]: under ``group``, the whole sequence's
+        query_mask: torch.Tensor | None = None,  # [B, Q]: the rows the statistic counts (default: key_mask)
     ) -> torch.Tensor:
-        q, k, v = (_to_heads(proj(x), self.num_heads) for proj in (self.q_proj, self.k_proj, self.v_proj))
+        q = _to_heads(self.q_proj(x), self.num_heads)
+        # the whole sequence's keys and values under ``group``, gathered in one collective
+        kv = _whole(torch.cat([self.k_proj(x), self.v_proj(x)], dim=-1), group)
+        k, v = (_to_heads(t, self.num_heads) for t in kv.chunk(2, dim=-1))
+        coords_k = coords if coords_k is None else coords_k
+        query_mask = key_mask if query_mask is None else query_mask
         b, h, s, d = q.shape
+        tk = k.shape[2]
         if store is not None:
             store["attn_q"], store["attn_k"] = q, k
             if sow_weights:  # not a distribution with the distance term: the softmax part only
                 store["attn_weights"] = attention_weights(q, k, key_mask)
-        use_flash = _use_flash(s)
+        use_flash = _use_flash(tk)
         if not use_flash:
-            distances = pairwise_distances(coords, coords)  # [B, T, T]
+            distances = pairwise_distances(coords, coords_k)  # [B, Q, K]
         if train:
             # Welford update (reference vision_tranformer.py:23-31), reduced
             # to the scalar mean pairwise distance of this bag
-            with torch.no_grad():
-                if use_flash:
-                    total, n_pairs = pairwise_distance_sums(coords, mask=key_mask)
-                elif key_mask is not None:
-                    pair_w = (key_mask[:, :, None] & key_mask[:, None, :]).to(distances.dtype)
-                    total, n_pairs = torch.sum(distances * pair_w), torch.sum(pair_w)
-                else:
-                    total, n_pairs = torch.sum(distances), distances.new_tensor(float(distances.numel()))
-                # a ratio of sums: in a data-parallel step, over the whole batch
-                mean_d = global_sum(total) / torch.clamp_min(global_sum(n_pairs), 1.0)
+            with torch.no_grad():  # the counted rows against the whole sequence's keys
+                total, n_pairs = pairwise_distance_sums(coords, mask=query_mask, coords_k=coords_k, key_mask=key_mask)
+                # a ratio of sums: in a step over a mesh, over the whole batch
+                mean_d = group.sum(total) / torch.clamp_min(group.sum(n_pairs), 1.0)
                 self.running_mean.copy_(self.running_mean + (mean_d - self.running_mean) / self.items_so_far)
                 self.items_so_far.add_(1.0)
         if use_flash:
-            km = _flat_mask(key_mask, b, h, s, x.device)
+            km = _flat_mask(key_mask, b, h, tk, x.device)
             dist_scale = (self.bias_scale / self.running_mean)[None, :].expand(b, h).reshape(b * h)
             cq = _flat(coords[:, None].expand(b, h, s, 2))
+            ck = cq if coords_k is coords else _flat(coords_k[:, None].expand(b, h, tk, 2))
             out = flash_attention.flash_alibi_mha(
-                _flat(q), _flat(k), _flat(v), cq, cq, dist_scale.contiguous(), km
+                _flat(q), _flat(k), _flat(v), cq, ck, dist_scale.contiguous(), km
             ).reshape(b, h, s, d)
         else:
             scaled = (
@@ -214,9 +257,12 @@ class FeedForward(nn.Module):
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
-    def forward(self, x: torch.Tensor, *, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = dropout(F.gelu(self.fc1(self.norm(x))), self.dropout, generator)
-        return dropout(self.fc2(x), self.dropout, generator)
+    def forward(
+        self, x: torch.Tensor, *, generator: torch.Generator | None = None, group: StepGroup = SINGLE
+    ) -> torch.Tensor:
+        seq = dict(seq_dim=1, lead=1)  # x: the CLS token, then this rank's tiles
+        x = dropout(F.gelu(self.fc1(self.norm(x))), self.dropout, generator, group, **seq)
+        return dropout(self.fc2(x), self.dropout, generator, group, **seq)
 
 
 class TransformerBlock(nn.Module):
@@ -239,15 +285,20 @@ class TransformerBlock(nn.Module):
         generator: torch.Generator | None = None,
         store: dict | None = None,
         sow_weights: bool = False,
+        group: StepGroup = SINGLE,
+        coords_k: torch.Tensor | None = None,
+        query_mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
         h = self.attn_norm(x)
-        collect = dict(store=store, sow_weights=sow_weights)
+        collect = dict(store=store, sow_weights=sow_weights, group=group)
         if self.use_alibi:
-            attn_out = self.mhsa(h, coords=coords, key_mask=key_mask, train=train, **collect)
+            attn_out = self.mhsa(
+                h, coords=coords, key_mask=key_mask, train=train, coords_k=coords_k, query_mask=query_mask, **collect
+            )
         else:
             attn_out = self.mhsa(h, key_mask=key_mask, train=train, generator=generator, **collect)
         x = attn_out + x
-        return self.ff(x, generator=generator) + x
+        return self.ff(x, generator=generator, group=group) + x
 
 
 class VisionTransformer(nn.Module):
@@ -291,25 +342,33 @@ class VisionTransformer(nn.Module):
         sow_weights: bool = False,  # attention maps into ``intermediates``
         generator: torch.Generator | None = None,  # training: the dropout draws
         intermediates: dict | None = None,  # per block: q, k (and the maps)
+        group: StepGroup = SINGLE,  # a step's collectives; a share of the bag under sp
     ) -> torch.Tensor:
         if sow_weights and intermediates is None:
             raise ValueError("sow_weights collects attention maps into `intermediates`; pass a dict")
         if train and self.dropout > 0.0 and generator is None:
             raise ValueError("training with dropout draws its masks from a generator; pass one")
-        if _use_flash(bags.shape[1] + 1):  # a head the flash kernels cannot take raises before any work
+        if _use_flash(bags.shape[1] * group.seq_parts + 1):  # a head the kernels cannot take raises before any work
             flash_attention.flash_width("VisionTransformer", self.head_dim)
         generator = generator if train else None  # no dropout outside training
         b = bags.shape[0]
-        x = dropout(F.gelu(self.project(bags)), self.dropout, generator)
+        x = dropout(F.gelu(self.project(bags)), self.dropout, generator, group, seq_dim=1)
         x = torch.cat([self.class_token.expand(b, 1, -1), x], dim=1)
         coords = torch.cat([coords.new_zeros(b, 1, 2), coords], dim=1)
         if key_mask is not None:
             key_mask = torch.cat([key_mask.new_ones(b, 1), key_mask], dim=1)
+        # the keys' coordinates and mask: the whole sequence's under sp
+        coords_k, key_mask_k, query_mask = coords, key_mask, None
+        if group.seq_parts > 1:
+            coords_k = _whole(coords, group)
+            key_mask_k = None if key_mask is None else _whole(key_mask, group)
+            query_mask = torch.ones_like(coords[..., 0], dtype=torch.bool) if key_mask is None else key_mask.clone()
+            query_mask[:, 0] = group.seq_index == 0  # the CLS row counts once
         for i in range(self.n_layers):
             store = None if intermediates is None else intermediates.setdefault(f"block_{i}", {})
             x = getattr(self, f"block_{i}")(
-                x, coords=coords, key_mask=key_mask, train=train, generator=generator, store=store,
-                sow_weights=sow_weights,
+                x, coords=coords, key_mask=key_mask_k, train=train, generator=generator, store=store,
+                sow_weights=sow_weights, group=group, coords_k=coords_k, query_mask=query_mask,
             )  # fmt: skip
         return self.head(self.norm(x)[:, 0])
 

@@ -14,10 +14,12 @@ matrix).  Two details are the reference's and are kept:
 Invalid keys (``key_mask`` False) are excluded from the softmax and zeroed
 afterwards, so a bucket-padded bag gives the result of the unpadded one.
 Training adds attention dropout (drawn from an explicit generator; in a
-data-parallel step the whole batch's masks, ``parallel.mesh.global_draw``)
-and ``pairwise_distance_sums``, the total and pair count of the ALiBi
-Welford statistic streamed in row blocks, kept apart so that a data-parallel
-step sums them over ranks before it divides.
+step over a mesh the whole batch's masks, ``StepGroup.draw``) and
+``pairwise_distance_sums``, the total and pair count of the ALiBi Welford
+statistic streamed in row blocks, kept apart so that a step over a mesh
+sums them over ranks before it divides.  Queries and keys may differ in
+number (``Q`` ≠ ``K``): under sequence parallelism a rank holds its own
+share of the queries and the whole sequence's keys.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import math
 
 import torch
 
-from stamp_tpu_torch.parallel.mesh import global_draw
+from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 
 _NEG_INF = -1e30
 
@@ -42,14 +44,28 @@ def masked_softmax(
     return weights.masked_fill(~key_mask, 0.0)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    generator: torch.Generator | None,
+    group: StepGroup = SINGLE,
+    *,
+    seq_dim: int | None = None,
+    lead: int = 0,
+) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 − rate
     (a uniform draw below it) and scale the kept ones by 1 / (1 − rate).
-    Identity without a generator (inference) or at rate 0."""
+    Identity without a generator (inference) or at rate 0.  In a step over
+    a mesh the mask is this rank's part of the whole batch's draw
+    (``group.draw``; ``seq_dim`` and ``lead`` say where x holds a share of
+    the sequence)."""
     if rate == 0.0 or generator is None:
         return x
-    # in a data-parallel step: the whole batch's draw, this rank's rows
-    keep = global_draw(x.shape, lambda shape: torch.rand(shape, generator=generator, device=x.device)) < 1.0 - rate
+
+    def uniform(shape):
+        return torch.rand(shape, generator=generator, device=x.device)
+
+    keep = group.draw(x.shape, uniform, seq_dim=seq_dim, lead=lead) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -67,9 +83,11 @@ def multi_head_attention(
     key_mask: torch.Tensor | None = None,  # [B, K] True = valid
     dropout_rate: float = 0.0,
     generator: torch.Generator | None = None,  # training: dropout on the weights
+    group: StepGroup = SINGLE,
+    lead: int = 0,  # queries every rank holds before its share (the CLS token)
 ) -> torch.Tensor:
     """Scaled-dot-product attention. Returns [B, H, Q, D]."""
-    weights = dropout(attention_weights(q, k, key_mask), dropout_rate, generator)
+    weights = dropout(attention_weights(q, k, key_mask), dropout_rate, generator, group, seq_dim=2, lead=lead)
     return torch.matmul(weights, v)
 
 
@@ -85,19 +103,30 @@ def pairwise_distance_sums(
     *,
     mask: torch.Tensor | None = None,  # [B, T] True = valid tile
     block: int = 512,
+    coords_k: torch.Tensor | None = None,  # [B, K, 2]
+    key_mask: torch.Tensor | None = None,  # [B, K]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of the Euclidean distances over all ordered pairs of valid
     tiles, number of such pairs), in row blocks of ``block`` tiles (no
     [B, T, T] tensor).  With ``mask`` (bucket-padded bags) only valid–valid
     pairs count.  The numerator and denominator of
-    ``stamp_tpu/ops/attention.py:77-115`` (``mean_pairwise_distance``)."""
-    col_valid = mask.to(coords.dtype) if mask is not None else coords.new_ones(coords.shape[:2])
+    ``stamp_tpu/ops/attention.py:77-115`` (``mean_pairwise_distance``).
+
+    With ``coords_k`` the pairs are (row of ``coords``, row of
+    ``coords_k``), the latter valid where ``key_mask`` says: a rank's share
+    of the rows against the whole sequence, whose sums over the sequence
+    group are the whole bag's."""
+    row_valid = mask.to(coords.dtype) if mask is not None else coords.new_ones(coords.shape[:2])
+    if coords_k is None:
+        coords_k, col_valid = coords, row_valid
+    else:
+        col_valid = key_mask.to(coords.dtype) if key_mask is not None else coords.new_ones(coords_k.shape[:2])
     total = coords.new_zeros(())
     for start in range(0, coords.shape[1], block):
-        d = pairwise_distances(coords[:, start : start + block], coords)  # [B, block, T]
-        row_valid = col_valid[:, start : start + block]
-        total = total + torch.sum(d * row_valid[:, :, None] * col_valid[:, None, :])
-    return total, torch.sum(torch.sum(col_valid, dim=1) ** 2)
+        d = pairwise_distances(coords[:, start : start + block], coords_k)  # [B, block, K]
+        rows = row_valid[:, start : start + block]
+        total = total + torch.sum(d * rows[:, :, None] * col_valid[:, None, :])
+    return total, torch.sum(torch.sum(row_valid, dim=1) * torch.sum(col_valid, dim=1))
 
 
 def alibi_attention(

@@ -13,9 +13,13 @@ holding all of its local devices).
   topology: ``nccl`` when every rank on a host has a card of its own,
   ``gloo`` on the CPU or when ranks share a card (NCCL refuses two ranks on
   one device).  Rank *r* takes ``cuda:{r % torch.cuda.device_count()}``.
-* ``make_global_mesh`` names the ranks' axes (``dcn`` across hosts, ``dp``
-  inside them); both are data-parallel, so the data-parallel group is the
-  whole world.  The sequence-parallel ``sp`` axis is not ported.
+* ``make_global_mesh`` names the ranks' axes, in the order ``dcn`` (across
+  hosts), ``dp``, ``sp`` (innermost, so a sequence group's ranks are
+  neighbours): ``dcn`` and ``dp`` are data-parallel, ``sp`` shards a bag's
+  tiles.  With an ``sp`` axis it creates one process subgroup per sequence
+  group and one per data-parallel group (``torch.distributed.new_group``:
+  every rank creates every group, in the same order); a collective names
+  its group by the tuple of its ranks (None: the world).
 * ``shard_worklist``, ``assign_folds`` and ``fold_is_mine`` give each rank
   the JAX package's deterministic, disjoint share of slides or crossval
   folds for the same (rank, world size).
@@ -23,10 +27,14 @@ holding all of its local devices).
   takes this rank's contiguous rows of a batch every rank drew alike.
 * ``all_reduce_``, ``all_gather_rows``, ``broadcast_`` and ``barrier`` are
   the collectives the training engine uses (identities without a process
-  group; a group of one runs them).  gloo's CUDA support covers
-  only some collectives (PyTorch's backend table leaves ``all_gather`` out),
-  so under gloo every collective on a CUDA tensor is staged through pinned
-  host tensors; the step itself still runs on the card.
+  group; a group of one runs them).  ``gather_seq`` is the sequence
+  axis's, with autograd: an all-gather along a dimension whose backward is
+  a reduce-scatter (``reduce_scatter_seq``).  gloo's CUDA support
+  covers only some collectives (PyTorch's backend table leaves
+  ``all_gather`` out), so under gloo every collective on a CUDA tensor is
+  staged through pinned host tensors; the step itself still runs on the
+  card.  gloo has no reduce-scatter either: there it is an all-reduce of
+  the whole tensor and a slice.  A collective that fails raises.
 """
 
 from __future__ import annotations
@@ -54,6 +62,11 @@ _ENV = ("STAMP_COORDINATOR_ADDRESS", "STAMP_NUM_PROCESSES", "STAMP_PROCESS_ID")
 _backend: str | None = None
 _n_hosts = 1
 _staging_logged = False
+#: the mesh's process subgroups by their ranks (``make_global_mesh``)
+_groups: dict[tuple[int, ...], Any] = {}
+
+#: the mesh axes the JAX package knows, in the port's order (sp innermost)
+MESH_AXES = ("dcn", "dp", "sp")
 
 
 def _split_address(address: str) -> tuple[str, int]:
@@ -148,6 +161,7 @@ def shutdown_distributed() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _backend, _n_hosts = None, 1
+    _groups.clear()
 
 
 def backend() -> str | None:
@@ -170,7 +184,8 @@ def local_device_index() -> int:
 @dataclass(frozen=True)
 class Mesh:
     """Named axes over the ranks, row-major: rank r sits at
-    ``np.unravel_index(r, sizes)``.  Every axis is data-parallel."""
+    ``np.unravel_index(r, sizes)``.  ``sp`` shards the sequence; every
+    other axis is data-parallel."""
 
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
@@ -188,28 +203,45 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.sizes)
 
+    def ranks_along(self, axes: Sequence[str], rank: int | None = None) -> tuple[int, ...]:
+        """The ranks that share ``rank``'s (default: this rank's) coordinates
+        on every axis not in ``axes``, in row-major order."""
+        at = np.unravel_index(self.rank if rank is None else rank, self.sizes)
+        grid = np.arange(self.size).reshape(self.sizes)
+        index = tuple(slice(None) if a in axes else int(c) for a, c in zip(self.axis_names, at))
+        return tuple(int(r) for r in grid[index].reshape(-1))
+
+    def data_axes(self, sp_axis: str | None = "sp") -> tuple[str, ...]:
+        """The data-parallel axes: all but ``sp_axis``."""
+        return tuple(a for a in self.axis_names if a != sp_axis)
+
 
 def check_mesh_axes(mesh_shape: Mapping[str, int]) -> None:
-    """Raise ``NotImplementedError`` for the ``sp`` axis (not ported)."""
-    if "sp" in mesh_shape:
-        raise NotImplementedError(
-            "sequence parallelism (the 'sp' mesh axis) is not ported yet; run `python -m stamp_tpu "
-            "train|crossval`, or give mesh_shape only 'dcn' and 'dp' axes"
-        )
+    """Raise ``ValueError`` for an axis name the JAX package does not know
+    (``MESH_AXES``) or a size below 1."""
+    unknown = [a for a in mesh_shape if a not in MESH_AXES]
+    if unknown:
+        raise ValueError(f"mesh_shape {dict(mesh_shape)}: unknown axis {unknown}; the axes are {list(MESH_AXES)}")
+    if any(int(s) < 1 for s in mesh_shape.values()):
+        raise ValueError(f"mesh_shape {dict(mesh_shape)}: every axis needs a size of at least 1")
 
 
 def make_global_mesh(mesh_shape: Mapping[str, int] | None = None) -> Mesh:
     """A mesh over all ranks.  ``mesh_shape`` maps axis names to sizes, e.g.
-    ``{"dcn": 2, "dp": 4}``; its product must equal the world size.  Without
-    it: ``dcn`` = the host count (dropped at 1) and the rest on ``dp``.  A
-    ``dcn`` axis must align with the hosts (one a multiple of the other),
-    as in the JAX package.  ``sp`` raises ``NotImplementedError``."""
+    ``{"dcn": 2, "dp": 4}`` or ``{"dp": 2, "sp": 2}``; its product must
+    equal the world size, and its axes are put in the order ``dcn``,
+    ``dp``, ``sp``.  Without it: ``dcn`` = the host count (dropped at 1) and
+    the rest on ``dp``.  A ``dcn`` axis must align with the hosts (one a
+    multiple of the other), as in the JAX package.  With an ``sp`` axis
+    this creates the mesh's process subgroups (a collective call: every
+    rank calls it with the same shape)."""
     n = process_count()
     if mesh_shape is None:
         axes, shape = (("dcn", "dp"), (_n_hosts, n // _n_hosts)) if _n_hosts > 1 else (("dp",), (n,))
     else:
         check_mesh_axes(mesh_shape)
-        axes, shape = tuple(mesh_shape.keys()), tuple(int(s) for s in mesh_shape.values())
+        axes = tuple(a for a in MESH_AXES if a in mesh_shape)
+        shape = tuple(int(mesh_shape[a]) for a in axes)
     if math.prod(shape) != n:
         raise ValueError(f"mesh_shape {dict(zip(axes, shape))} needs {math.prod(shape)} devices but {n} are visible")
     if _n_hosts > 1:
@@ -218,7 +250,30 @@ def make_global_mesh(mesh_shape: Mapping[str, int] | None = None) -> Mesh:
             raise ValueError(
                 f"dcn axis ({dcn}) must align with the host count ({_n_hosts}) so every dcn group is whole hosts"
             )
-    return Mesh(axes, shape, process_index())
+    mesh = Mesh(axes, shape, process_index())
+    if "sp" in axes and dist.is_initialized():
+        _new_groups(mesh)
+    return mesh
+
+
+def _new_groups(mesh: Mesh) -> None:
+    """One process group per sequence group and one per data-parallel
+    group of ``mesh``, made by every rank in the same order (sorted by
+    ranks); a group of one rank or of the world needs none."""
+    for axes in (("sp",), mesh.data_axes()):
+        for ranks in sorted({mesh.ranks_along(axes, r) for r in range(mesh.size)}):
+            if 1 < len(ranks) < process_count() and ranks not in _groups:
+                _groups[ranks] = dist.new_group(list(ranks))
+
+
+def _process_group(ranks: tuple[int, ...] | None):
+    """The process group of ``ranks`` (None for the world)."""
+    if ranks is None or len(ranks) == process_count():
+        return None
+    try:
+        return _groups[ranks]
+    except KeyError:
+        raise ValueError(f"no process group over ranks {ranks}: make_global_mesh creates a mesh's groups") from None
 
 
 def shard_worklist(
@@ -270,10 +325,12 @@ def replicate_global(tree: Any) -> Any:
     return tree
 
 
-def split_local_rows(batch: Any, *, axis: int = 0) -> Any:
-    """This rank's contiguous share of a batch along ``axis`` (numpy arrays
-    or tensors, in dicts, lists and tuples; None passes)."""
-    n, i = process_count(), process_index()
+def split_local_rows(batch: Any, *, axis: int = 0, index: int | None = None, count: int | None = None) -> Any:
+    """Share ``index`` of ``count`` (default: this rank's of the world) of
+    a batch along ``axis``, contiguous (numpy arrays or tensors, in dicts,
+    lists and tuples; None passes)."""
+    n = process_count() if count is None else count
+    i = process_index() if index is None else index
 
     def one(x):
         if x is None:
@@ -284,7 +341,7 @@ def split_local_rows(batch: Any, *, axis: int = 0) -> Any:
             return type(x)(one(v) for v in x)
         b = x.shape[axis]
         if b % n != 0:
-            raise ValueError(f"batch axis {b} not divisible by {n} processes")
+            raise ValueError(f"batch axis {b} not divisible by {n} shares")
         step = b // n
         index = [slice(None)] * x.ndim
         index[axis] = slice(i * step, (i + 1) * step)
@@ -314,16 +371,20 @@ def _host_copy(tensor: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def all_reduce_(tensor: torch.Tensor, op: dist.ReduceOp.RedOpType = dist.ReduceOp.SUM) -> torch.Tensor:
-    """All-reduce ``tensor`` in place over the world; returns it."""
-    if not dist.is_initialized():
+def all_reduce_(
+    tensor: torch.Tensor, op: dist.ReduceOp.RedOpType = dist.ReduceOp.SUM, ranks: tuple[int, ...] | None = None
+) -> torch.Tensor:
+    """All-reduce ``tensor`` in place over ``ranks`` (None: the world);
+    returns it."""
+    if not dist.is_initialized() or (ranks is not None and len(ranks) == 1):
         return tensor
+    group = _process_group(ranks)
     if _staged(tensor):
         host = _host_copy(tensor)
-        dist.all_reduce(host, op=op)
+        dist.all_reduce(host, op=op, group=group)
         tensor.copy_(host)
     else:
-        dist.all_reduce(tensor, op=op)
+        dist.all_reduce(tensor, op=op, group=group)
     return tensor
 
 
@@ -349,19 +410,71 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
     return box[0]
 
 
-def all_gather_rows(tensor: torch.Tensor) -> list[torch.Tensor]:
-    """Every rank's ``tensor`` (equal shapes), in rank order."""
-    if not dist.is_initialized():
+def all_gather_rows(tensor: torch.Tensor, ranks: tuple[int, ...] | None = None) -> list[torch.Tensor]:
+    """Every rank's ``tensor`` (equal shapes) of ``ranks`` (None: the
+    world), in rank order."""
+    if not dist.is_initialized() or (ranks is not None and len(ranks) == 1):
         return [tensor]
+    group = _process_group(ranks)
+    n = process_count() if ranks is None else len(ranks)
     tensor = tensor.contiguous()
     if _staged(tensor):
         host = _host_copy(tensor)
-        parts = [torch.empty_like(host) for _ in range(process_count())]
-        dist.all_gather(parts, host)
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
         return [p.to(tensor.device) for p in parts]
-    parts = [torch.empty_like(tensor) for _ in range(process_count())]
-    dist.all_gather(parts, tensor)
+    parts = [torch.empty_like(tensor) for _ in range(n)]
+    dist.all_gather(parts, tensor, group=group)
     return parts
+
+
+def all_gather_seq(tensor: torch.Tensor, dim: int, ranks: tuple[int, ...] | None = None) -> torch.Tensor:
+    """Every rank's ``tensor`` of ``ranks`` concatenated along ``dim`` in
+    rank order (equal shapes; a bool tensor travels as uint8)."""
+    if not dist.is_initialized() or (ranks is not None and len(ranks) == 1):
+        return tensor
+    moved = tensor.movedim(dim, 0)
+    if tensor.dtype == torch.bool:
+        return torch.cat(all_gather_rows(moved.to(torch.uint8), ranks)).bool().movedim(0, dim)
+    return torch.cat(all_gather_rows(moved, ranks)).movedim(0, dim)
+
+
+def reduce_scatter_seq(tensor: torch.Tensor, dim: int, ranks: tuple[int, ...] | None = None) -> torch.Tensor:
+    """This rank's share along ``dim`` (its place among ``ranks``) of the
+    sum of every rank's ``tensor``; the length along ``dim`` divides by the
+    number of ranks.  gloo has no reduce-scatter: there it is an all-reduce
+    of the whole tensor, then the slice."""
+    if not dist.is_initialized() or (ranks is not None and len(ranks) == 1):
+        return tensor
+    n = process_count() if ranks is None else len(ranks)
+    index = process_index() if ranks is None else ranks.index(process_index())
+    share = tensor.shape[dim] // n
+    if _backend == "gloo":
+        whole = all_reduce_(tensor.contiguous().clone(), ranks=ranks)
+        return whole.narrow(dim, index * share, share).contiguous()
+    moved = tensor.movedim(dim, 0).contiguous()
+    out = moved.new_empty((share, *moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, group=_process_group(ranks))
+    return out.movedim(0, dim)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """``all_gather_seq``; the backward reduce-scatters the gradient (each
+    rank's is its part of the whole tensor's) back to the owners."""
+
+    @staticmethod
+    def forward(ctx, tensor, dim, ranks):
+        ctx.dim, ctx.ranks = dim, ranks
+        return all_gather_seq(tensor, dim, ranks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_seq(grad, ctx.dim, ctx.ranks), None, None
+
+
+def gather_seq(tensor: torch.Tensor, dim: int, ranks: tuple[int, ...] | None = None) -> torch.Tensor:
+    """``all_gather_seq`` with autograd (backward: a reduce-scatter)."""
+    return _GatherSeq.apply(tensor, dim, ranks)
 
 
 def barrier() -> None:

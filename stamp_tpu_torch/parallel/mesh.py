@@ -1,43 +1,54 @@
-"""The data-parallel training step over a mesh of ranks.
+"""The training step over a mesh of ranks, and sequence-parallel evaluation.
 
 Counterpart of ``stamp_tpu/parallel/mesh.py`` (``make_mesh``, ``replicate``,
-``make_dp_train_step``, ``shard_batch``) for the ``dp`` axes.  XLA computes,
-from the JAX package's shardings, the gradient of the task's loss over the
-**global** batch; the port's step computes the same explicitly, for every
-task by one code path:
+``make_dp_train_step``, ``shard_batch``, ``make_sp_eval_forward``).  XLA
+computes, from the JAX package's shardings, the gradient of the task's loss
+over the **global** batch; the port's step computes the same explicitly,
+for every task by one code path:
 
 1. each rank runs the forward on its own contiguous rows of the global
-   batch (every rank drew the same batch from the shared seed);
-2. the outputs of every rank are gathered: the local rows stay live for
-   autograd, the others are detached, so every rank computes the same
-   global loss (the Cox losses sum over the risk sets of the whole batch,
-   which a mean of per-rank losses would get wrong);
-3. after the backward, the gradients are all-reduced with SUM as one flat
-   buffer — the sum over ranks of each rank's share is the global
-   gradient — and the replicated optimizer steps on every rank alike.
+   batch (its place on the data-parallel axes; every rank drew the same
+   batch from the shared seed) and, with an ``sp`` axis, on its contiguous
+   share of those rows' tiles (its place on ``sp``);
+2. the outputs of every data-parallel rank are gathered: the local rows
+   stay live for autograd, the others are detached, so every rank computes
+   the same global loss (the Cox losses sum over the risk sets of the whole
+   batch, which a mean of per-rank losses would get wrong).  The ranks of a
+   sequence group all hold their rows' outputs; only the group's first rank
+   keeps their gradient, so it is counted once;
+3. after the backward, the gradients are all-reduced with SUM over every
+   rank as one flat buffer.  Each rank's gradient is its part of the global
+   loss's gradient: over a sequence group the parts of one set of rows
+   (each rank's queries), over the data-parallel axes those of different
+   rows (the global loss is the mean over rows, so this sum is the average
+   over the data-parallel groups of each group's gradient).  The
+   replicated optimizer then steps on every rank alike.
 
-What a forward computes over the whole batch is made global while the
-step's forward runs (``global_rows``): ``global_sum`` (the ALiBi Welford
-statistic's distance total and pair count, summed before the division),
-``global_max`` (TransMIL's pseudo-inverse scale; its gradient goes back to
-the rank that holds the maximum) and ``global_draw`` (dropout masks: every
-rank draws the masks of the whole batch from the same generator state and
-keeps its own rows, so dp = N gives the dp = 1 result for one seed).
-Outside the step these are identities.
+What a forward computes over the whole batch or the whole sequence goes
+through the ``StepGroup`` (``ops.step_group``) the step hands to the model
+(``step_group``): ``sum`` (the ALiBi Welford statistic's distance total and
+pair count, summed before the division), ``max`` (TransMIL's pseudo-inverse
+scale; its gradient goes back to the ranks that hold the maximum),
+``draw`` (dropout masks: every rank draws the masks of the whole batch and
+sequence from the same generator state and keeps its own rows and tiles, so
+a mesh gives the one-rank result for one seed) and ``gather_seq`` (the
+sequence group's all-gather, whose backward reduce-scatters).  Outside a step the model gets the group
+of one, whose methods are identities.
 
-``make_sp_eval_forward`` (sequence-parallel evaluation) is not ported.
+``make_sp_eval_forward`` shards a [1, T, F] bag's tiles over every rank of
+the mesh and returns the output, the same on every rank.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
-from collections.abc import Callable, Iterator, Mapping, Sequence
-from dataclasses import dataclass
+from collections.abc import Callable, Mapping, Sequence
 from typing import Any
 
+import numpy as np
 import torch
 
+from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 from stamp_tpu_torch.parallel import distributed
 from stamp_tpu_torch.parallel.distributed import Mesh, make_global_mesh, replicate_global, split_local_rows
 
@@ -57,43 +68,69 @@ def replicate(tree: Any, mesh: Mesh | None = None) -> Any:
     return replicate_global(tree)
 
 
-def shard_batch(batch: Any, mesh: Mesh | None = None) -> Any:
-    """This rank's rows of a global host batch."""
-    return split_local_rows(batch)
+def shard_batch(batch: Any, mesh: Mesh, *, sp_axis: str | None = None, tiles: bool = True) -> Any:
+    """This rank's part of a global host batch (arrays or tensors, in
+    tuples, lists and dicts): its rows on the data-parallel axes and, with
+    ``sp_axis`` and ``tiles`` (a tile batch's bags, coordinates and key
+    mask), its share of the tiles on that axis."""
+    dp = mesh.ranks_along(mesh.data_axes(sp_axis))
+    batch = split_local_rows(batch, index=dp.index(mesh.rank), count=len(dp))
+    if sp_axis is None or not tiles:
+        return batch
+    sp = mesh.ranks_along((sp_axis,))
+    return split_local_rows(batch, axis=1, index=sp.index(mesh.rank), count=len(sp))
 
 
-@dataclass(frozen=True)
-class _Rows:
-    offset: int  # this rank's first row of the global batch
-    local: int
-    total: int
+class _MeshGroup(StepGroup):
+    """A step's collectives over a mesh (see the module's docstring): this
+    rank holds rows ``offset`` … ``offset + local`` of a batch of ``total``
+    rows and, on a sequence group ``seq_ranks`` of ``seq_parts`` ranks,
+    share ``seq_index`` of their tiles."""
+
+    def __init__(self, *, offset: int, local: int, total: int, seq_ranks: tuple[int, ...], seq_index: int) -> None:
+        self.offset, self.local, self.total = offset, local, total
+        self.seq_ranks, self.seq_parts, self.seq_index = seq_ranks, len(seq_ranks), seq_index
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return distributed.all_reduce_(t.detach().clone())
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return _GlobalMax.apply(t)
+
+    def draw(self, shape, draw, *, seq_dim=None, lead=0):
+        if shape[0] != self.local:
+            raise ValueError(
+                f"StepGroup.draw in a step over a mesh needs the {self.local} local rows first, "
+                f"got shape {tuple(shape)}"
+            )
+        whole = [self.total, *shape[1:]]
+        sharded = seq_dim is not None and self.seq_parts > 1
+        if sharded:
+            share = shape[seq_dim] - lead
+            whole[seq_dim] = lead + share * self.seq_parts
+        out = draw(whole)[self.offset : self.offset + self.local]
+        if sharded:
+            start = lead + self.seq_index * share
+            index = torch.cat([torch.arange(lead), torch.arange(start, start + share)]).to(out.device)
+            out = out.index_select(seq_dim, index)
+        return out
+
+    def gather_seq(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return t if self.seq_parts == 1 else distributed.gather_seq(t, dim, self.seq_ranks)
 
 
-_rows: _Rows | None = None
-
-
-@contextlib.contextmanager
-def global_rows(mesh: Mesh | None, local: int) -> Iterator[None]:
-    """While a step's forward runs: this rank holds ``local`` contiguous
-    rows of a global batch of ``local × mesh.size`` rows."""
-    global _rows
+def step_group(mesh: Mesh | None, local_rows: int, *, sp_axis: str | None = None) -> StepGroup:
+    """The ``StepGroup`` of a step on ``mesh`` whose rank holds
+    ``local_rows`` rows (its share of their tiles on ``sp_axis``); the group
+    of one without a mesh or on one rank."""
     if mesh is None or mesh.size == 1:
-        yield
-        return
-    saved = _rows
-    _rows = _Rows(offset=distributed.process_index() * local, local=local, total=local * mesh.size)
-    try:
-        yield
-    finally:
-        _rows = saved
-
-
-def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks inside a step's forward (no
-    gradient), else ``t``."""
-    if _rows is None:
-        return t
-    return distributed.all_reduce_(t.detach().clone())
+        return SINGLE
+    dp = mesh.ranks_along(mesh.data_axes(sp_axis))
+    seq = mesh.ranks_along((sp_axis,)) if sp_axis is not None else (mesh.rank,)
+    return _MeshGroup(
+        offset=dp.index(mesh.rank) * local_rows, local=local_rows, total=local_rows * len(dp),
+        seq_ranks=seq, seq_index=seq.index(mesh.rank),
+    )  # fmt: skip
 
 
 class _GlobalMax(torch.autograd.Function):
@@ -113,34 +150,30 @@ class _GlobalMax(torch.autograd.Function):
         return distributed.all_reduce_(grad.clone()) * is_max / count
 
 
-def global_max(t: torch.Tensor) -> torch.Tensor:
-    """The max of a scalar ``t`` over the ranks inside a step's forward
-    (differentiable), else ``t``."""
-    return t if _rows is None else _GlobalMax.apply(t)
+class _CountOnce(torch.autograd.Function):
+    """The identity; the gradient passes on the sequence group's first rank
+    and is zero on the others, whose copies of the same rows it would count
+    again."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, first: bool) -> torch.Tensor:
+        ctx.first = first
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return (grad if ctx.first else torch.zeros_like(grad)), None
 
 
-def global_draw(shape: Sequence[int], draw: Callable[[Sequence[int]], torch.Tensor]) -> torch.Tensor:
-    """``draw(shape)`` for a tensor whose first axis is this rank's rows:
-    inside a step's forward the draw covers the whole batch and this rank
-    keeps its rows, so every rank consumes the generator alike.  Inside a
-    step a tensor that is not batch-major raises: a local draw there would
-    advance each rank's generator differently."""
-    if _rows is None:
-        return draw(shape)
-    if shape[0] != _rows.local:
-        raise ValueError(
-            f"global_draw in a data-parallel step needs the {_rows.local} local rows first, got shape {tuple(shape)}"
-        )
-    return draw((_rows.total, *shape[1:]))[_rows.offset : _rows.offset + _rows.local]
-
-
-def _gather_rows(local: Any) -> Any:
-    """The global batch's outputs: every rank's rows in rank order, this
-    rank's live for autograd (a tensor, or a dict of them per target)."""
+def _gather_rows(local: Any, mesh: Mesh, group: StepGroup, sp_axis: str | None) -> Any:
+    """The global batch's outputs: every data-parallel rank's rows in rank
+    order, this rank's live for autograd (counted on the first rank of its
+    sequence group only), a tensor or a dict of them per target."""
     if isinstance(local, Mapping):
-        return {k: _gather_rows(v) for k, v in local.items()}
-    parts = distributed.all_gather_rows(local.detach())
-    parts[distributed.process_index()] = local
+        return {k: _gather_rows(v, mesh, group, sp_axis) for k, v in local.items()}
+    dp = mesh.ranks_along(mesh.data_axes(sp_axis))
+    parts = distributed.all_gather_rows(local.detach(), dp)
+    parts[dp.index(mesh.rank)] = local if group.seq_parts == 1 else _CountOnce.apply(local, group.seq_index == 0)
     return torch.cat(parts)
 
 
@@ -161,32 +194,37 @@ def make_dp_train_step(
     optimizer: torch.optim.Optimizer,
     mesh: Mesh | None,
     *,
-    forward: Callable[[tuple, torch.Tensor | None], Any],
+    forward: Callable[[tuple, torch.Tensor | None, StepGroup], Any],
     schedule: Callable[[int], float],
+    sp_axis: str | None = None,
 ) -> Callable[[tuple, torch.Tensor | None, int], tuple[torch.Tensor, Any]]:
     """``step(batch, key_mask, count)`` → (loss, global outputs), both
-    detached.  ``batch`` holds this rank's rows of the inputs and the
-    global batch's targets last; ``forward(batch, key_mask)`` runs the
-    backbone on the rows.  ``count`` (updates done so far) sets the
-    learning rate from ``schedule`` before the update.  With ``mesh`` None
-    (or of one rank) the step is the single-device one: no collective."""
+    detached.  ``batch`` holds this rank's part of the inputs
+    (``shard_batch``) and the global batch's targets last;
+    ``forward(batch, key_mask, group)`` runs the backbone on it with the
+    step's ``StepGroup``.  ``sp_axis`` names the mesh axis that shards the
+    tiles (None: every axis is data-parallel).  ``count`` (updates done so
+    far) sets the learning rate from ``schedule`` before the update.  With
+    ``mesh`` None (or of one rank) the step is the single-device one: no
+    collective."""
+    if sp_axis is not None and (mesh is None or sp_axis not in mesh.axis_names):
+        raise ValueError(f"sp_axis {sp_axis!r} is not an axis of the mesh {None if mesh is None else mesh.shape}")
     params = [p for p in task_model.module.parameters() if p.requires_grad]
     parallel = mesh is not None and mesh.size > 1
 
     def step(batch: tuple, key_mask: torch.Tensor | None, count: int) -> tuple[torch.Tensor, Any]:
         targets = batch[-1]
-        local_rows = batch[0].shape[0]
-        with global_rows(mesh, local_rows):
-            outputs = forward(batch, key_mask)
-            if parallel:
-                outputs = _gather_rows(outputs)
+        group = step_group(mesh, batch[0].shape[0], sp_axis=sp_axis)
+        outputs = forward(batch, key_mask, group)
+        if parallel:
+            outputs = _gather_rows(outputs, mesh, group, sp_axis)
         loss = task_model.loss(outputs, targets)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if mesh is not None:
             _all_reduce_grads(params)
-        for group in optimizer.param_groups:
-            group["lr"] = schedule(count)  # optax: schedule(updates done so far)
+        for param_group in optimizer.param_groups:
+            param_group["lr"] = schedule(count)  # optax: schedule(updates done so far)
         optimizer.step()
         detached = {k: v.detach() for k, v in outputs.items()} if isinstance(outputs, Mapping) else outputs.detach()
         return loss.detach(), detached
@@ -214,7 +252,35 @@ def pad_rows(tree: Any, n_rows: int, multiple: int) -> Any:
 
 
 def make_sp_eval_forward(task_model, mesh: Mesh, *, sp_axis: str = "sp"):
-    """Sequence-sharded evaluation (the JAX package's ``sp`` axis)."""
-    raise NotImplementedError(
-        "sequence-parallel evaluation (the 'sp' mesh axis) is not ported yet; run `python -m stamp_tpu`"
-    )
+    """Sequence-sharded whole-bag forward: ``forward(bags, coords,
+    key_mask=None)`` takes a [1, T, F] bag (and [1, T, 2] coordinates, a
+    [1, T] key mask; numpy arrays or tensors, the whole bag on every rank),
+    runs each rank's contiguous share of the T tiles (over every axis of the
+    mesh, as the JAX package's ``P(None, axes)``) on the module's device,
+    and returns the output, the same on every rank.  T must divide by the
+    mesh's size.  For slides whose attention does not fit on one device.
+    ``sp_axis`` is the JAX package's argument; the tiles span every axis."""
+    module = task_model.module
+    ranks = tuple(range(mesh.size))
+    group = _MeshGroup(offset=0, local=1, total=1, seq_ranks=ranks, seq_index=mesh.rank)
+    device = next(module.parameters()).device
+
+    def local(x, start: int, stop: int) -> torch.Tensor | None:
+        if x is None:
+            return None
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        return x[:, start:stop].to(device)
+
+    def forward(bags, coords, key_mask=None):
+        t = bags.shape[1]
+        if t % mesh.size:
+            raise ValueError(f"bag size {t} not divisible by the mesh's {mesh.size} ranks; pad the bag")
+        share = t // mesh.size
+        start, stop = mesh.rank * share, (mesh.rank + 1) * share
+        kwargs: dict = dict(train=False, group=group)
+        if task_model.uses_coords:
+            kwargs.update(coords=local(coords, start, stop), key_mask=local(key_mask, start, stop))
+        with torch.inference_mode():
+            return module(local(bags, start, stop), **kwargs)
+
+    return forward

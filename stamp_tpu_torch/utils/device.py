@@ -4,8 +4,7 @@ silent CPU fallback."""
 from __future__ import annotations
 
 import torch
-
-from stamp_tpu_torch.parallel.distributed import local_device_index
+import torch.distributed as dist
 
 
 def resolve_device(requested: str | torch.device) -> torch.device:
@@ -36,7 +35,8 @@ def resolve_device(requested: str | torch.device) -> torch.device:
             )
         if requested.startswith("cuda:"):
             return torch.device(requested)
-        return torch.device("cuda", local_device_index())
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        return torch.device("cuda", rank % torch.cuda.device_count())
     raise ValueError(
         f"unknown device {requested!r}: expected 'auto', 'cpu', 'cuda', 'gpu' or 'cuda:N'"
     )

@@ -5,8 +5,9 @@ the JAX package's, and its fleets through the CLI, on the CPU:
   for world sizes 1–4, held to the JAX functions with ``jax.process_index``
   and ``jax.process_count`` monkeypatched (equal shares, equal order);
 * mesh validation: the product and ``dcn`` checks with the JAX package's
-  wording, ``sp`` raising, rank coordinates, and the backend chosen from
-  the topology;
+  wording (an ``sp`` axis under the same checks, an unknown axis
+  refused), rank coordinates, the ``(dcn, dp, sp)`` layout with ``sp``
+  innermost and its groups, and the backend chosen from the topology;
 * the extraction fleet (two processes, ``preprocess`` with DinoBloom at
   random weights into one directory): every slide once, each rank's
   ``shard_worklist`` share, a crashed rank's share picked up by a
@@ -112,9 +113,30 @@ def test_mesh_checks(monkeypatch):
 
 
 @pytest.mark.parametrize("shape", [{"sp": 2}, {"dp": 1, "sp": 1}, {"dcn": 1, "dp": 2, "sp": 2}])
-def test_sp_axis_raises(shape):
-    with pytest.raises(NotImplementedError, match=r"python -m stamp_tpu"):
+def test_sp_axis_raises(shape, monkeypatch):
+    """A mesh with an ``sp`` axis raises where any mesh does: on 3 ranks
+    none of these fits (the JAX package's wording); an axis name the JAX
+    package does not know raises too."""
+    _as_rank(monkeypatch, 0, 3)
+    with pytest.raises(ValueError, match=rf"needs {np.prod(list(shape.values()))} devices but 3 are visible"):
         distributed.make_global_mesh(shape)
+    with pytest.raises(ValueError, match=r"unknown axis \['tp'\]"):
+        distributed.make_global_mesh({**shape, "tp": 1})
+
+
+def test_sp_mesh_layout(monkeypatch):
+    """``{sp: 2, dp: 2}`` is laid out ``(dp, sp)``, ``sp`` innermost: a
+    sequence group is two neighbouring ranks, a data-parallel group the
+    ranks with the same ``sp`` coordinate."""
+    _as_rank(monkeypatch, 3, 4)
+    mesh = distributed.make_global_mesh({"sp": 2, "dp": 2})
+    assert mesh.axis_names == ("dp", "sp") and mesh.coords == {"dp": 1, "sp": 1}
+    assert mesh.ranks_along(("sp",)) == (2, 3) and mesh.ranks_along(mesh.data_axes()) == (1, 3)
+    assert mesh.ranks_along(("sp",), rank=0) == (0, 1) and mesh.data_axes(None) == ("dp", "sp")
+    _as_rank(monkeypatch, 5, 8)
+    mesh = distributed.make_global_mesh({"dcn": 2, "dp": 2, "sp": 2})
+    assert mesh.coords == {"dcn": 1, "dp": 0, "sp": 1}
+    assert mesh.ranks_along(("sp",)) == (4, 5) and mesh.ranks_along(("dcn", "dp")) == (1, 3, 5, 7)
 
 
 @pytest.mark.parametrize(
@@ -343,11 +365,11 @@ def test_cli_mesh_ranks_run_in_the_callers_directory(tmp_path):
 
 @pytest.mark.parametrize("mesh_shape,message", [
     ({"dp": 2}, "needs 2 devices but 0 are visible"),
-    ({"dp": 2, "sp": 2}, "python -m stamp_tpu"),
+    ({"dp": 2, "sp": 2}, "needs 4 devices but 0 are visible"),
 ])  # fmt: skip
 def test_cli_refuses_a_mesh_it_cannot_run(tmp_path, mesh_shape, message, stamp_logger_handlers, caplog):  # noqa: F811
-    """``accelerator: cuda`` with fewer cards than ranks, and the ``sp``
-    axis, raise before any rank starts."""
+    """``accelerator: cuda`` with fewer cards than ranks raises before any
+    rank starts, with or without an ``sp`` axis."""
     from stamp_tpu_torch.__main__ import main
 
     cohort = _cohort(tmp_path, "classification")

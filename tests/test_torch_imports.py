@@ -164,6 +164,46 @@ def test_parallel_modules_import_alone(tmp_path):
     assert not tops & {"jax", "flax", "jaxlib", "stamp_tpu", "matplotlib", "sklearn", "h5py", "triton"}
 
 
+_IMPORT_OPS_AND_MODELS = r"""
+import importlib
+import json
+import pkgutil
+import sys
+
+import stamp_tpu_torch.models
+import stamp_tpu_torch.ops
+
+names = [info.name for package in (stamp_tpu_torch.ops, stamp_tpu_torch.models)
+         for info in pkgutil.walk_packages(package.__path__, package.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "parallel": sorted(m for m in sys.modules if m.startswith("stamp_tpu_torch.parallel"))}))
+"""
+
+
+def test_ops_and_models_import_nothing_of_the_parallel_layer(tmp_path):
+    """The layering: a step hands its collectives to the forward
+    (``ops.step_group``), so no module under ``ops/`` or ``models/`` imports
+    ``stamp_tpu_torch.parallel``, at the top or inside a function (read
+    from the sources), nor loads it through another module (a fresh
+    interpreter that imports all of them)."""
+    import ast
+
+    package = REPO / "stamp_tpu_torch"
+    for path in sorted([*(package / "ops").rglob("*.py"), *(package / "models").rglob("*.py")]):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            assert not any(n.startswith("stamp_tpu_torch.parallel") for n in names), (path, ast.dump(node))
+    seen = json.loads(_run(_IMPORT_OPS_AND_MODELS, tmp_path).stdout.strip().splitlines()[-1])
+    assert "stamp_tpu_torch.ops.step_group" in seen["imported"] and "stamp_tpu_torch.models.trans_mil" in seen["imported"]
+    assert seen["parallel"] == []
+
+
 _WITHOUT_MATPLOTLIB = _REFUSE + r"""
 import logging
 import sys

@@ -255,18 +255,17 @@ def test_mesh_of_one_rank_is_the_single_process_run(tmp_path):
     assert not torch.distributed.is_initialized()  # the group of one is left again
 
 
-def test_sp_mesh_raises(tmp_path):
-    spec = _spec("alibi_dropout")
-    with pytest.raises(NotImplementedError, match="python -m stamp_tpu"):
-        _train_single(spec, _train_inputs("classification", 4), tmp_path / "sp", mesh_shape={"dp": 1, "sp": 1})
-    assert not torch.distributed.is_initialized()
-
-
 def test_global_helpers_are_identities_outside_a_step():
+    """Outside a step a forward gets the group of one, whose collectives
+    are identities (as is the step group of a mesh of one rank)."""
+    from stamp_tpu_torch.ops.step_group import SINGLE
+
     t = torch.tensor(3.0)
-    assert mesh.global_sum(t) is t and mesh.global_max(t) is t
-    draw = mesh.global_draw((2, 3), lambda shape: torch.zeros(shape))
+    assert SINGLE.sum(t) is t and SINGLE.max(t) is t
+    assert SINGLE.gather_seq(t) is t
+    draw = SINGLE.draw((2, 3), lambda shape: torch.zeros(shape))
     assert draw.shape == (2, 3)
+    assert mesh.step_group(None, 2) is SINGLE
 
 
 def test_global_draw_inside_a_step_needs_the_rows_first():
@@ -278,10 +277,10 @@ def test_global_draw_inside_a_step_needs_the_rows_first():
     def draw(shape):
         return torch.arange(int(np.prod(shape))).reshape(tuple(shape))
 
-    with mesh.global_rows(Mesh(axis_names=("dp",), sizes=(2,), rank=0), local=2):
-        assert torch.equal(mesh.global_draw((2, 3), draw), draw((4, 3))[:2])
-        with pytest.raises(ValueError, match="local rows first"):
-            mesh.global_draw((3, 2), draw)
+    group = mesh.step_group(Mesh(axis_names=("dp",), sizes=(2,), rank=0), 2)
+    assert torch.equal(group.draw((2, 3), draw), draw((4, 3))[:2])
+    with pytest.raises(ValueError, match="local rows first"):
+        group.draw((3, 2), draw)
 
 
 # --- prefetch ---------------------------------------------------------------------------
