@@ -255,8 +255,26 @@ Phases (each prints at least one line; any failure exits non-zero):
    epoch; (d) phase 4's ``preprocess`` with two cards seen
    by the parent: two ranks share the card, the h5 bitwise phase 4's.
 
+17. model parallel: ``stamp_tpu_torch.parallel``'s ``make_tp_forward`` and
+   ``make_pp_forward``, the MCP server and shapecheck, on the one card (see
+   ``phase_model_parallel``): (a) UNI2 at full width (random weights,
+   LayerScale γ = 1) on 64 tiles, TP over two ranks sharing the card (gloo,
+   staged) in bf16 and int8 against the one-rank forward, each rank's
+   launches of rows 1–3 by its counters and by the profiler; the two new
+   entry forms of rows 2 and 3 at UNI2's fc2 under TP (the caller's row
+   statistics, the partial-sum epilogue) against their plain versions,
+   timed beside their library controls and bound, and row 1 at 12 and 6
+   heads; (b) PP over the two ranks, 12 blocks a stage, 4 microbatches, in
+   bf16 and int8 on the 64 tiles and a ragged 61, bitwise or its largest
+   difference against one rank; the forwards' wall times beside one
+   rank's and the share the collectives hold; (c) ``python -m
+   stamp_tpu_torch.mcp.server`` as a subprocess: ``initialize``,
+   ``tools/list``, ``check_available_devices`` (names the card) and
+   ``deploy_stamp`` of phase 7's checkpoint, its CSV equal to the CLI's;
+   (d) a wrongly shaped ``fused_qkv_mha`` call raises with no launch.
+
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 5, 6, 7, 8, 9, 10,
-11, 12, 13, 14, 15, 16 and print their wall time.  The phases that read a
+11, 12, 13, 14, 15, 16, 17 and print their wall time.  The phases that read a
 command's stage timer (4, 4b, 6, 7, 9, 11, 13, 14) run it in-process with
 the timer on and no trace (``_staged_cli``: ``--profile``'s stage table
 without its ``torch.profiler`` trace), so their rates are untraced; 16a's
@@ -265,7 +283,10 @@ ranks and 16c run ``--profile`` itself.  The line before the last is
 4b, 6, 7 or 9, rows 1–3 also phase 13's; the MIL forward's, phases 6 and 7;
 rows 4–8 also ``heatmaps_launches``, phase 11's; rows 1, 2 and 4–8 also
 ``parallel_launches``, phase 15's in-process runs; rows 4–8 also
-``sp_launches``, phase 16's ``sp`` training on both ranks; row 1 also its
+``sp_launches``, phase 16's ``sp`` training on both ranks; rows 1–3 also
+``tp_launches`` and ``pp_launches``, phase 17's on both ranks, rows 2 and 3
+the ``forms`` TP runs at fc2 and row 1 the heads of a rank, ``tp_heads``;
+row 1 also its
 two-pass kernel's launches and times at [64, 785, 3072], ``long_*``), its
 largest error against its plain
 version, its time, the plain version's and the library control's, and the
@@ -4526,6 +4547,478 @@ def phase_sequence(card: str, trained: dict) -> dict:
     return result
 
 
+# 17: UNI2 at full width with LayerScale γ = 1 (at UNI2's 1e-5 the blocks
+# barely move the residual stream, which would hide a fault of the sharded
+# blocks, as phase 5b says) and random biases and LayerNorm γ, β
+# (``_dist_dryrun.VIT_AFFINE_STD``), a batch of 64 tiles, two ranks sharing
+# the card
+MP_RANKS = 2
+MP_MICROBATCHES = 4
+MP_RAGGED = 61
+# per-tile cosine against the one-rank forward: TP sums the row-sharded
+# sites' partial sums in another order (f32, then one bf16 rounding), which
+# over 24 blocks of random weights at γ = 1 moves bf16 outputs by rounding
+# steps; in int8 the i32 sums are exact and only SwiGLU's statistics
+# (all-reduced, another order) move, but a value they move across a
+# quantization step moves by a whole step, which the blocks amplify: the
+# one-rank forward with TP's statistics at fc2 (``_tp_statistics``) moves
+# as far from the plain one-rank forward, and TP's int8 output must equal
+# that control (``MP_CONTROL_COSINE_MIN``; bitwise expected)
+MP_COSINE_MIN = {"off": 0.999, "int8": 0.98}
+MP_CONTROL_COSINE_MIN = 0.9999
+# the faults these limits must reject, planted in the one-rank forward with
+# TP's statistics (what TP with the fault computes): each row-sharded
+# site's bias added on every rank, and rank 0's slice of SwiGLU's inner
+# LayerNorm γ and β on every rank
+MP_FAULTS = ("bias_on_every_rank", "rank0_norm_slice")
+# M, K, N of UNI2's fc2 under TP at tp = 2: K = 4,096 / 2
+MP_FORM_SHAPE = (BATCH * UNI2_TOKENS, 2048, 1536)
+MCP_TOOLS = 13
+SHAPECHECK_REPS = 8
+
+
+def _mp_model(cfg, spec: dict, job_dir: Path, dev):
+    """The one-rank ImageViT of a phase-17 job's weights on the card."""
+    import torch
+
+    from stamp_tpu_torch.models import vit_image
+    from stamp_tpu_torch.parallel._dist_dryrun import vit_state
+
+    with torch.device("meta"):
+        model = vit_image.ImageViT(cfg)
+    model.load_state_dict(vit_state(spec, job_dir, dev), assign=True)
+    return model.eval()
+
+
+@contextlib.contextmanager
+def _tp_statistics(k: int):
+    """Within the block, the one-rank ImageViT's LayerNorm GEMMs over K = ``k``
+    (SwiGLU's inner norm → fc2) take the row statistics TP computes over
+    two ranks: each K half's sums, added, in two passes
+    (``ops.ln_dense.row_stats`` in each rank, its sums all-reduced)."""
+    import torch
+
+    from stamp_tpu_torch.models import vit_image
+
+    def tp_stats(x, eps: float):  # two ranks: each sums its slice, the all-reduce adds the two
+        a, b = (p.float() for p in x.reshape(-1, k).chunk(2, dim=-1))
+        mean = (a.sum(dim=-1) + b.sum(dim=-1)) / k
+        ca, cb = a - mean[:, None], b - mean[:, None]
+        var = (ca * ca).sum(dim=-1) + (cb * cb).sum(dim=-1)
+        return torch.stack([mean, torch.rsqrt(var / k + eps)])
+
+    def with_stats(fn):
+        def call(x, *args, eps: float = 1e-6, **kwargs):
+            if x.shape[-1] == k:
+                kwargs["stats"] = tp_stats(x, eps)
+            return fn(x, *args, eps=eps, **kwargs)
+
+        return call
+
+    real = {name: getattr(vit_image, name) for name in ("ln_dense", "ln_quant_dense")}
+    for name, fn in real.items():
+        setattr(vit_image, name, with_stats(fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(vit_image, name, fn)
+
+
+@contextlib.contextmanager
+def _planted_fault(model, fault: str):
+    """Within the block, the one-rank ``model`` computes what TP over
+    ``MP_RANKS`` ranks computes with ``fault`` (``MP_FAULTS``)."""
+    import torch
+
+    saved = []
+    with torch.no_grad():
+        for block in model.blocks:
+            if fault == "bias_on_every_rank":
+                for site in (block.attn.proj, block.mlp.fc2):
+                    saved.append((site.bias, site.bias.clone()))
+                    site.bias.mul_(MP_RANKS)
+            else:
+                for t in (block.mlp.norm.weight, block.mlp.norm.bias):
+                    saved.append((t, t.clone()))
+                    t.copy_(t[: t.shape[0] // MP_RANKS].repeat(MP_RANKS))
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, value in saved:
+                t.copy_(value)
+
+
+def _mp_agreement(got, want) -> dict:
+    """max |Δ| / max |ref|, the least per-tile cosine and bitwise equality."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    return dict(rel_err=float(np.abs(got - want).max() / np.abs(want).max()), min_cosine=float(cos.min()),
+                bitwise=bool(np.array_equal(got, want)), max_abs_err=float(np.abs(got - want).max()))  # fmt: skip
+
+
+def _mp_expected(parallel: str, quant: str) -> tuple[dict, dict]:
+    """A rank's launches of rows 1–3 in one UNI2 forward (24 blocks): by the
+    counters, and by the profiler's kernel names.  A TP rank runs every
+    block on the whole batch, a PP stage its 12 blocks on each of the
+    microbatches."""
+    blocks = 24 if parallel == "tp" else 24 // MP_RANKS * MP_MICROBATCHES
+    name = "ln_dense" if quant == "off" else "ln_quant_dense"
+    partial = blocks if parallel == "tp" else 0  # fc2 in the partial-sum form
+    counts = {"fused_qkv_mha": blocks, "ln_dense": 0, "ln_dense_partial": 0, "ln_quant_dense": 0,
+              "ln_quant_dense_partial": 0} | {name: 3 * blocks, f"{name}_partial": partial}  # fmt: skip
+    profiled = {"fused_qkv_attn": blocks, "ln_dense": 0, "ln_dense_partial": 0, "ln_quant_dense": 0,
+                "ln_quant_dense_partial": 0, "ln_row_stats": 3 * blocks} | {
+        name: 3 * blocks - partial, f"{name}_partial": partial}  # fmt: skip
+    return counts, profiled
+
+
+def _mp_forms(card: str) -> dict:
+    """17a: the two new entry forms of rows 2 and 3 at UNI2's fc2 under TP
+    (``MP_FORM_SHAPE``), the caller's statistics and the partial-sum
+    epilogue, against their plain versions, timed (one sync a call) beside
+    the library control (``layer_norm`` + ``linear`` in bf16;
+    ``torch._int_mm`` on the pre-quantized activation) and their bound; and
+    row 1 at the heads a rank holds under TP (12 and 6 of UNI2's 24)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stamp_tpu_torch.models.vit_image import _quantized_dense_site
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.ops import ln_dense as lnd
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=gen)).to(torch.bfloat16)
+
+    m, k, n = MP_FORM_SHAPE
+    x, beta, bias = randn(m, k), randn(k, scale=0.1), randn(n, scale=0.1)
+    g = (1.0 + 0.1 * torch.randn(k, device=dev, generator=gen)).to(torch.bfloat16)
+    w = randn(n, k, scale=k**-0.5)
+    quant = _quantized_dense_site(w, None)
+    wq, ws = quant["weight_q"], quant["w_scale"]
+    stats = lnd.row_stats(x, 1e-6)
+    y = lnd.layer_norm_f32(x, g, beta, 1e-6).to(torch.bfloat16)
+    s_x = y.abs().max().float().clamp_min(1e-6) * 1.05
+    xq = lnd.quantize_activation(y, s_x)
+    del y
+    ops = 2 * m * k * n
+    common = 2 * m * k + 8 * m + 8 * k  # x, the statistics, f32 γ and β
+    forms = {
+        # name: (kernel, plain, control, bytes, operations type)
+        "ln_dense/stats": (lambda: lnd.ln_dense(x, g, beta, w, bias, stats=stats),
+                           lambda: lnd.ln_dense_reference(x, g, beta, w, bias, stats=stats),
+                           lambda: F.linear(F.layer_norm(x, (k,), g, beta, 1e-6), w, bias),
+                           common + 2 * n * k + 2 * n + 2 * m * n, "bf16"),
+        "ln_dense/partial": (lambda: lnd.ln_dense(x, g, beta, w, stats=stats, partial=True),
+                             lambda: lnd.ln_dense_reference(x, g, beta, w, stats=stats, partial=True),
+                             lambda: F.linear(F.layer_norm(x, (k,), g, beta, 1e-6), w),
+                             common + 2 * n * k + 4 * m * n, "bf16"),
+        "ln_quant_dense/stats": (lambda: lnd.ln_quant_dense(x, g, beta, s_x, wq, ws, bias, stats=stats),
+                                 lambda: lnd.ln_quant_dense_reference(x, g, beta, s_x, wq, ws, bias, stats=stats),
+                                 lambda: torch._int_mm(xq, wq.t()), common + n * k + 6 * n + 2 * m * n, "int8"),
+        "ln_quant_dense/partial": (lambda: lnd.ln_quant_dense(x, g, beta, s_x, wq, ws, stats=stats, partial=True),
+                                   lambda: lnd.ln_quant_dense_reference(x, g, beta, s_x, wq, ws, stats=stats,
+                                                                        partial=True),
+                                   lambda: torch._int_mm(xq, wq.t()), common + n * k + 4 * m * n, "int8"),
+    }  # fmt: skip
+    rows = {}
+    for name, (kernel, plain, control, nbytes, kind) in forms.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        abs_err, rel_err = _error(got, want)
+        exact = bool(torch.equal(got, want))
+        del got, want
+        t = _compare_timed(kernel, plain, control)
+        bound, by = _bound(nbytes, {kind: ops})
+        rows[name] = dict(shape=[m, k, n], max_abs_err=abs_err, rel_err=rel_err, bitwise=exact, ms=t["kernel"],
+                          plain_ms=t["plain"], library_ms=t["control"], bound_ms=bound, bound_by=by,
+                          bound_share=bound / t["kernel"])  # fmt: skip
+        print(f"[17a entry forms] {name} {json.dumps(rows[name])} on {card}")
+        # the int8 sums with the caller's statistics: the plain version's bit for bit
+        if not rel_err <= KERNEL_TOL or (name == "ln_quant_dense/partial" and not exact):
+            _fail(f"(17a) {name}: max|Δ|/max|ref| {rel_err} > {KERNEL_TOL}, or int8 sums not exact ({exact})")
+    del x, w, wq, xq
+    heads = []
+    for h in (24 // MP_RANKS, 24 // (2 * MP_RANKS)):  # the heads of a rank at tp = 2 and 4
+        qkv = randn(BATCH, UNI2_TOKENS, 3 * h * 64)
+
+        def sdpa(qkv=qkv, h=h):
+            q, kk, v = qkv.view(BATCH, UNI2_TOKENS, 3, h, 64).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(q, kk, v).transpose(1, 2).reshape(BATCH, UNI2_TOKENS, h * 64)
+
+        abs_err, rel_err = _error(attn.fused_qkv_mha(qkv, h), attn.fused_qkv_mha_reference(qkv, h))
+        t = _compare_timed(lambda: attn.fused_qkv_mha(qkv, h), lambda: attn.fused_qkv_mha_reference(qkv, h), sdpa)
+        b, nn_, three = qkv.shape
+        bound, by = _bound(b * nn_ * three * 2 * 4 / 3, {"bf16": 4 * b * h * nn_ * nn_ * 64})
+        row = dict(shape=[b, nn_, three], heads=h, max_abs_err=abs_err, rel_err=rel_err, ms=t["kernel"],
+                   plain_ms=t["plain"], library_ms=t["control"], bound_ms=bound, bound_by=by)  # fmt: skip
+        print(f"[17a entry forms] fused_qkv_mha at {h} heads {json.dumps(row)} on {card}")
+        if not rel_err <= KERNEL_TOL:
+            _fail(f"(17a) fused_qkv_mha at {h} heads: max|Δ|/max|ref| {rel_err} > {KERNEL_TOL}")
+        heads.append(row)
+    torch.cuda.empty_cache()
+    return {"forms": rows, "heads": heads}
+
+
+def _mcp_deploy(card: str, kind: str, root: Path) -> dict:
+    """17c: ``python -m stamp_tpu_torch.mcp.server`` as a subprocess over
+    stdio: ``initialize``, ``tools/list``, ``check_available_devices`` and
+    one ``deploy_stamp`` of phase 7's ``vit`` checkpoint on its cohort,
+    whose ``patient-preds.csv`` must equal the CLI's ``deploy`` of the same
+    inputs."""
+    from stamp_tpu_torch.__main__ import main
+
+    cohort = WORK / "train"  # phase 7's
+    deployment = dict(output_dir=str(root / "mcp-deploy"), checkpoint_paths=[str(cohort / "vit" / "model.ckpt")],
+                      clini_table=str(cohort / "clini.csv"), slide_table=str(cohort / "slide.csv"),
+                      feature_dir=str(cohort / "features"), ground_truth_label="label")  # fmt: skip
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    log = open(root / "mcp-server.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "stamp_tpu_torch.mcp.server"], cwd=root, env=env, text=True,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log)  # fmt: skip
+    replies = {}
+    try:
+        for rid, method, params in ((1, "initialize", {}), (2, "tools/list", {}),
+                                    (3, "tools/call", {"name": "check_available_devices"}),
+                                    (4, "tools/call", {"name": "deploy_stamp", "arguments": deployment})):  # fmt: skip
+            proc.stdin.write(json.dumps({"jsonrpc": "2.0", "id": rid, "method": method, "params": params}) + "\n")
+            proc.stdin.flush()
+            while True:  # notifications/message lines stream the CLI's log
+                line = proc.stdout.readline()
+                if not line:
+                    _fail(f"(17c) the MCP server closed its output before answering {method}: see {log.name}")
+                message = json.loads(line)
+                if message.get("id") == rid:
+                    replies[method if rid < 3 else params["name"]] = message
+                    break
+        proc.stdin.close()
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    server_s = time.perf_counter() - t0
+    tools = [t["name"] for t in replies["tools/list"]["result"]["tools"]]
+    devices = replies["check_available_devices"]["result"]["content"][0]["text"]
+    deployed = replies["deploy_stamp"].get("result", {}).get("content", [{}])[0].get("text", str(replies["deploy_stamp"]))
+    if len(tools) != MCP_TOOLS or kind not in devices or "completed successfully" not in deployed:
+        _fail(f"(17c) MCP server: {len(tools)} tools, devices {devices!r}, deploy {deployed!r}")
+    body = {"deployment": {**deployment, "output_dir": str(root / "cli-deploy")}}
+    main(["-c", str(_yaml(root / "cli-deploy.yaml", body)), "deploy"])  # exits non-zero on failure
+    mcp_csv, cli_csv = (root / d / "patient-preds.csv" for d in ("mcp-deploy", "cli-deploy"))
+    equal = mcp_csv.read_bytes() == cli_csv.read_bytes()
+    row = dict(server=replies["initialize"]["result"]["serverInfo"], tools=len(tools), devices=devices,
+               deploy=deployed, csv_equal=equal, server_s=server_s)  # fmt: skip
+    print(f"[17c mcp] {json.dumps(row)} on {card}")
+    if not equal:
+        _fail(f"(17c) the MCP deploy's patient-preds.csv differs from the CLI's: {mcp_csv}, {cli_csv}")
+    return row
+
+
+def _shapecheck_trace() -> dict:
+    """17d's traces, in a fresh process (``_shapecheck_on_card``): the
+    launches of ``fused_qkv_mha``'s kernel that ``torch.profiler`` records
+    over ``SHAPECHECK_REPS`` wrongly shaped calls (each must raise) and over
+    as many good ones, and the launches the wrapper counted for the bad."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+
+    bad = torch.zeros(BATCH * UNI2_TOKENS, 3 * UNI2_DIM, device="cuda:0", dtype=torch.bfloat16)  # no batch axis
+    good = bad.view(BATCH, UNI2_TOKENS, 3 * UNI2_DIM)
+    torch.cuda.synchronize()
+
+    def attention_events(qkv) -> tuple[str, int]:
+        raised = ""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SHAPECHECK_REPS):
+                try:
+                    attn.fused_qkv_mha(qkv, 24)
+                except TypeError as e:
+                    raised = str(e)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        return raised, sum(e.count for e in events if str(e.device_type).endswith("CUDA") and "fused_qkv" in e.key)
+
+    raised, bad_events = attention_events(bad)
+    bad_launches = attn.LAUNCHES
+    _, good_events = attention_events(good)  # the same trace sees the good calls
+    return dict(raised=raised, bad_device_events=bad_events, bad_launches=bad_launches, good_device_events=good_events)
+
+
+def _shapecheck_on_card(card: str, main_path: dict) -> dict:
+    """17d: a wrongly shaped ``fused_qkv_mha`` call raises before any
+    launch (counted, and traced by ``torch.profiler`` in a fresh process:
+    late in this long process a trace has come back without the kernel's
+    events, where the ranks' fresh processes record them), good calls
+    launch, and a repeat of a good signature is not checked again."""
+    import torch
+
+    from stamp_tpu_torch.ops import flash_attention as attn
+    from stamp_tpu_torch.utils import shapecheck
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    probe = "import chip_smoke, json; print('SHAPECHECK', json.dumps(chip_smoke._shapecheck_trace()))"
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)  # fmt: skip
+    line = next((x for x in proc.stdout.splitlines() if x.startswith("SHAPECHECK ")), None)
+    if proc.returncode != 0 or line is None:
+        _fail(f"(17d) the trace process failed (rc {proc.returncode}): {proc.stderr[-3000:]}")
+    row = json.loads(line.split(" ", 1)[1])
+    good = torch.zeros(BATCH, UNI2_TOKENS, 3 * UNI2_DIM, device="cuda:0", dtype=torch.bfloat16)
+    attn.fused_qkv_mha(good, 24)
+    checks = shapecheck.CHECKS
+    attn.fused_qkv_mha(good, 24)  # a signature that passed: not checked again
+    row |= dict(repeat_checks=shapecheck.CHECKS - checks, uni2_tiles_per_s=main_path["forward_tiles_per_s"])
+    print(f"[17d shapecheck] {json.dumps(row)} on {card}")
+    if not (row["raised"] and row["bad_device_events"] == 0 and row["bad_launches"] == 0
+            and row["good_device_events"] >= 1 and row["repeat_checks"] == 0):  # fmt: skip
+        _fail(f"(17d) a wrongly shaped call must raise before any launch, a good one launch: {row}")
+    return row
+
+
+def phase_model_parallel(card: str, kind: str, main_path: dict) -> dict:
+    """17: tensor and pipeline parallelism of an extractor ViT, the MCP
+    server, and shapecheck, on the one card.
+
+    (a) a fleet of ``MP_RANKS`` ranks sharing the card (gloo, collectives
+    staged through pinned host memory; ``parallel._dist_dryrun``'s ``vit``
+    job): ``make_tp_forward`` of UNI2 at full width (seeded random weights,
+    biases, LayerNorm γ and β, LayerScale γ = 1) on 64 tiles in bf16 and
+    int8 (calibrated on the batch in this process), against this process's
+    one-rank forward of the same weights (``MP_COSINE_MIN`` per tile, max
+    |Δ| / max |ref| printed; each planted fault of ``MP_FAULTS`` must fail
+    these limits), the
+    output equal on both ranks, each rank's launches of rows 1–3 by the
+    counters and by the profiler's kernel names (fc2 in the partial-sum
+    form); the forward's wall time beside one rank's, and the share the
+    collectives hold.  The two new entry forms of rows 2 and 3 and row 1 at
+    12 and 6 heads (``_mp_forms``).  (b) in the same fleet
+    ``make_pp_forward`` (12 blocks a stage, ``MP_MICROBATCHES``
+    microbatches of 16) in bf16 and int8 on the 64 tiles and a ragged 61,
+    bitwise against the one-rank forward or its largest difference.  (c)
+    the MCP server (``_mcp_deploy``).  (d) shapecheck on the card
+    (``_shapecheck_on_card``).  One card shared by two ranks shows no
+    speed-up, only that the sharded paths run and agree."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stamp_tpu_torch.models import vit_image
+    from stamp_tpu_torch.parallel._dist_dryrun import launch_local_fleet
+
+    root = WORK / "model_parallel"
+    root.mkdir()
+    dev = torch.device("cuda:0")
+    cfg = dataclasses.replace(vit_image.VIT_CONFIGS["uni2"], init_values=1.0)
+    tiles = np.random.default_rng(17).integers(60, 200, (BATCH, 224, 224, 3), dtype=np.uint8)
+    images = ((tiles - 255.0 * np.array(cfg.mean)) / (255.0 * np.array(cfg.std))).astype(np.float32)
+    x = torch.from_numpy(images).to(dev, torch.bfloat16)
+    batches = {"full": images, "ragged": images[:MP_RAGGED]}
+    base = dict(seed=0, dtype="bfloat16", device="cuda", timed=True, n_microbatches=MP_MICROBATCHES)
+
+    # one rank in this process: the references, their times, int8's calibration
+    (root / "calibration").mkdir()
+    spec = dict(base, config=dataclasses.asdict(cfg))
+    model = _mp_model(dataclasses.replace(cfg, quant="observe"), spec, root / "calibration", dev)
+    amax = {k: v.float().cpu().numpy() for k, v in vit_image.calibrate_act_stats(model, x).items()}
+    del model
+    jobs, want, control, single_s, faults = [], {}, {}, {}, {}
+    for quant in ("off", "int8"):
+        qcfg = dataclasses.replace(cfg, quant=quant)
+        for parallel in ("tp", "pp"):
+            job_dir = root / f"{parallel}-{quant}"
+            job_dir.mkdir()
+            np.savez(job_dir / "amax.npz", **amax)
+            np.savez(job_dir / "inputs.npz", **batches)
+            names = ["full"] if parallel == "tp" else ["full", "ragged"]
+            jobs.append(dict(kind="vit", dir=str(job_dir),
+                             spec=dict(base, parallel=parallel, config=dataclasses.asdict(qcfg), batches=names)))
+        model = _mp_model(qcfg, dict(base, config=dataclasses.asdict(qcfg)), root / f"tp-{quant}", dev)
+        with torch.inference_mode():
+            want[quant] = {name: model(x[: len(b)]).float().cpu().numpy() for name, b in batches.items()}
+            single_s[quant] = statistics.median(_timed(lambda: model(x)) for _ in range(3))
+            with _tp_statistics(int(cfg.embed_dim * cfg.mlp_ratio) // 2):
+                control[quant] = model(x).float().cpu().numpy()
+                for fault in MP_FAULTS:
+                    with _planted_fault(model, fault):
+                        faults[quant, fault] = model(x).float().cpu().numpy()
+        del model
+        torch.cuda.empty_cache()
+    for (quant, fault), out in faults.items():  # the limits below must reject each fault
+        row = dict(quant=quant, fault=fault, one_rank=_mp_agreement(out, want[quant]["full"]),
+                   control=_mp_agreement(out, control[quant]))  # fmt: skip
+        print(f"[17a planted fault] {json.dumps(row)} on {card}")
+        passes = row["one_rank"]["min_cosine"] >= MP_COSINE_MIN[quant] and (
+            quant == "off" or row["control"]["min_cosine"] >= MP_CONTROL_COSINE_MIN)  # fmt: skip
+        if passes:
+            _fail(f"(17a) TP's limits would pass the planted fault {fault} in {quant}: {row}")
+    (root / "jobs.json").write_text(json.dumps(jobs))
+    t0 = time.perf_counter()
+    log = launch_local_fleet(["jobs", str(root / "jobs.json")], timeout=600)
+    fleet_s = time.perf_counter() - t0
+    (root / "fleet.log").write_text(log)
+    if not ("staged through pinned host tensors" in log and "backend gloo (2 ranks share 1 card(s)" in log):
+        _fail(f"(17) the fleet did not run on gloo with staged collectives: see {root / 'fleet.log'}")
+    reports = [json.loads(line.split(" ", 2)[2]) | {"rank": int(line.split(" ", 2)[1])}
+               for line in log.splitlines() if line.startswith("VIT ")]  # fmt: skip
+    if len(reports) != MP_RANKS * len(jobs):
+        _fail(f"(17) {len(reports)} rank reports, expected {MP_RANKS * len(jobs)}")
+    tp_launches = {"fused_qkv_mha": 0, "ln_dense": 0, "ln_quant_dense": 0}
+    pp_launches = dict(tp_launches)
+    rows = []
+    for job in jobs:
+        parallel, quant = Path(job["dir"]).name.split("-")
+        got = dict(np.load(Path(job["dir"]) / "result.npz"))
+        counts, profiled = _mp_expected(parallel, quant)
+        for name in job["spec"]["batches"]:
+            agree = _mp_agreement(got[name], want[quant][name])
+            ranks = [r["batches"][name] for r in reports if r["job"] == f"{parallel}-{quant}"]
+            if parallel == "tp":  # the one-rank forward with TP's statistics at fc2
+                agree["control"] = _mp_agreement(got[name], control[quant])
+                agree["control_vs_one_rank"] = _mp_agreement(control[quant], want[quant][name])
+            row = dict(parallel=parallel, quant=quant, batch=name, tiles=len(batches[name]), **agree,
+                       rank_spread=max(r["rank_spread"] for r in ranks), launches=[r["launches"] for r in ranks],
+                       profiled=[r["profiled"] for r in ranks], forward_s=[r["forward_s"] for r in ranks],
+                       forward_s_collectives_timed=[r["forward_s_collectives_timed"] for r in ranks],
+                       collectives_s=[r["collectives_s"] for r in ranks], single_s=single_s[quant])  # fmt: skip
+            row["collectives_share"] = [c / f for c, f in zip(row["collectives_s"], row["forward_s_collectives_timed"])]
+            print(f"[17{'a' if parallel == 'tp' else 'b'} {parallel} {quant}] {json.dumps(row)} on {card}")
+            # the counters exactly; the profiler may drop an event from its
+            # buffers, never add one: every kernel seen, at most as often as launched
+            bad = [r for r in ranks if r["launches"] != counts or any(
+                not (0.9 * want <= r["profiled"][k] <= want) for k, want in profiled.items())]  # fmt: skip
+            if bad or len(ranks) != MP_RANKS:
+                _fail(f"(17) {parallel} {quant} {name}: launches {bad}, expected {counts} and {profiled}")
+            if not (agree["min_cosine"] >= MP_COSINE_MIN[quant] and row["rank_spread"] == 0.0):
+                _fail(f"(17) {parallel} {quant} {name}: cosine {agree['min_cosine']} < {MP_COSINE_MIN[quant]} "
+                      f"against one rank, or the ranks differ ({row['rank_spread']})")  # fmt: skip
+            if parallel == "tp" and quant == "int8" and not agree["control"]["min_cosine"] >= MP_CONTROL_COSINE_MIN:
+                _fail(f"(17) tp int8: cosine {agree['control']['min_cosine']} < {MP_CONTROL_COSINE_MIN} against "
+                      "the one-rank forward with TP's statistics")  # fmt: skip
+            total = tp_launches if parallel == "tp" else pp_launches
+            for key in total:
+                total[key] += sum(r["launches"][key] for r in ranks)
+            rows.append(row)
+    print(f"[17 model parallel] fleet {fleet_s:.1f} s; tp_launches {json.dumps(tp_launches)}, "
+          f"pp_launches {json.dumps(pp_launches)} on {card}")  # fmt: skip
+    result = dict(runs=rows, tp_launches=tp_launches, pp_launches=pp_launches, fleet_s=fleet_s)
+    result |= _mp_forms(card)
+    result["mcp"] = _mcp_deploy(card, kind, root)
+    result["shapecheck"] = _shapecheck_on_card(card, main_path)
+    return result
+
+
 def _staged_cli(argv: list[str]) -> None:
     """``python -m stamp_tpu_torch <argv>`` in this process with the CLI's
     stage timer on (``profiling.stage_table``, the table ``--profile``
@@ -4591,6 +5084,7 @@ def main() -> None:
     _timed_phase("14 encoder zoo", phase_encoder_zoo, card)
     parallel = _timed_phase("15 parallel", phase_parallel, card, trained)
     sequence = _timed_phase("16 sequence", phase_sequence, card, trained)
+    model_parallel = _timed_phase("17 model parallel", phase_model_parallel, card, kind, main_path)
     shutil.rmtree(WORK, ignore_errors=True)
 
     attn_row = kernels["fused_qkv_mha"][0]  # UNI2 shape, batch 64
@@ -4641,6 +5135,11 @@ def main() -> None:
             "long_bound_by": two_pass["bound_by"],
             "long_library_ms": two_pass["sdpa_bf16_ms"],
             "parallel_launches": parallel_launches["fused_qkv_mha"],
+            # phase 17: both ranks' launches under TP (bf16 and int8) and PP
+            # (bf16 and int8, 64 and 61 tiles); the heads of a rank under TP
+            "tp_launches": model_parallel["tp_launches"]["fused_qkv_mha"],
+            "pp_launches": model_parallel["pp_launches"]["fused_qkv_mha"],
+            "tp_heads": model_parallel["heads"],
         },
         {
             "name": "ln_dense",
@@ -4655,6 +5154,10 @@ def main() -> None:
             "bound_by": "operations" if all(r["bound_by"] == "operations" for r in ln_rows) else "bytes",
             "library_ms": sum(r["layer_norm_linear_bf16_ms"] for r in ln_rows),
             "parallel_launches": parallel_launches["ln_dense"],
+            "tp_launches": model_parallel["tp_launches"]["ln_dense"],
+            "pp_launches": model_parallel["pp_launches"]["ln_dense"],
+            # the entry forms TP runs at fc2 (phase 17a): the caller's statistics, the partial sums
+            "forms": {k.split("/")[1]: v for k, v in model_parallel["forms"].items() if k.startswith("ln_dense/")},
         },
         *(
             {
@@ -4718,6 +5221,10 @@ def main() -> None:
             "bound_ms": sum(r["bound_ms"] for r in quant_rows),
             "bound_by": "operations" if all(r["bound_by"] == "operations" for r in quant_rows) else "bytes",
             "library_ms": sum(r["int_mm_ms"] for r in quant_rows),
+            "tp_launches": model_parallel["tp_launches"]["ln_quant_dense"],
+            "pp_launches": model_parallel["pp_launches"]["ln_quant_dense"],
+            "forms": {k.split("/")[1]: v for k, v in model_parallel["forms"].items()
+                      if k.startswith("ln_quant_dense/")},  # fmt: skip
         },
         {
             "name": "flash_alibi2d_mha",

@@ -128,8 +128,9 @@ def main() -> None:
         for key in [*libs, *reversed(libs)]:
             kind, variant = key
             fn = libs[key]
-            args = (x, g, b, w, bias, scratch, out) if kind == "bf16" else (x, g, b, s_x, wq, ws, bias, scratch, out)
-            ptrs = [t.data_ptr() for t in args]
+            args = (x, g, b, w, bias) if kind == "bf16" else (x, g, b, s_x, wq, ws, bias)
+            # no caller statistics (NULL), the bf16 epilogue (partial 0)
+            ptrs = [*(t.data_ptr() for t in args), None, scratch.data_ptr(), out.data_ptr(), 0]
             call = lambda: fn(*ptrs, m, n, k, 1e-6, 0, stream)  # noqa: E731
             if call() != 0:
                 raise SystemExit(f"{kind} {variant}: launch failed")

@@ -42,6 +42,7 @@ from torch import nn
 from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops.attention import multi_head_attention
 from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
+from stamp_tpu_torch.utils.shapecheck import Bool, Float, shapechecked
 
 _EPS = 1e-6  # flax LayerNorm's default epsilon
 
@@ -170,12 +171,13 @@ class EncDecTransformer(nn.Module):
         for t, n_out in self.target_n_outs:
             self.add_module(f"head_{sanitize(t)}", nn.Linear(d_model, n_out))
 
+    @shapechecked
     def forward(
         self,
-        tile_tokens: torch.Tensor,  # [B, T, F]
+        tile_tokens: Float[torch.Tensor, "batch tiles feat"],
         *,
-        coords: torch.Tensor,  # [B, T, 2] µm
-        key_mask: torch.Tensor | None = None,  # [B, T] True = valid tile
+        coords: Float[torch.Tensor, "batch tiles 2"],  # µm
+        key_mask: Bool[torch.Tensor, "batch tiles"] | None = None,  # True = valid tile
         train: bool = False,
         generator: torch.Generator | None = None,
         group: StepGroup = SINGLE,  # a step's collectives; a share of the bag under sp

@@ -23,6 +23,7 @@ from torch import nn
 from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops.attention import dropout
 from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
+from stamp_tpu_torch.utils.shapecheck import Float, shapechecked
 
 
 def _pool(x: torch.Tensor, group: StepGroup) -> torch.Tensor:
@@ -42,14 +43,15 @@ class MLP(nn.Module):
             self.add_module(f"fc{i}", nn.Linear(dim_input if i == 0 else dim_hidden, dim_hidden))
         self.out = nn.Linear(dim_input if num_layers == 1 else dim_hidden, dim_output)
 
+    @shapechecked
     def forward(
         self,
-        x: torch.Tensor,
+        x: Float[torch.Tensor, "batch feat"] | Float[torch.Tensor, "batch tiles feat"],
         *,
         train: bool = False,
         generator: torch.Generator | None = None,
         group: StepGroup = SINGLE,
-    ) -> torch.Tensor:
+    ) -> Float[torch.Tensor, "batch out"]:
         if train and self.dropout > 0.0 and generator is None:
             raise ValueError("training with dropout draws its masks from a generator; pass one")
         x = _pool(x, group)
@@ -69,14 +71,15 @@ class Linear(nn.Module):
         super().__init__()
         self.fc = nn.Linear(dim_input, dim_output)
 
+    @shapechecked
     def forward(
         self,
-        x: torch.Tensor,
+        x: Float[torch.Tensor, "batch feat"] | Float[torch.Tensor, "batch tiles feat"],
         *,
         train: bool = False,
         generator: torch.Generator | None = None,
         group: StepGroup = SINGLE,
-    ) -> torch.Tensor:
+    ) -> Float[torch.Tensor, "batch out"]:
         """``train`` and ``generator`` are the engine's uniform call (no dropout here)."""
         return self.fc(_pool(x, group))
 

@@ -49,6 +49,7 @@ from torch import nn
 from stamp_tpu_torch.models import weights
 from stamp_tpu_torch.ops.attention import dropout
 from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
+from stamp_tpu_torch.utils.shapecheck import Float, shapechecked
 
 _EPS = 1e-6  # flax LayerNorm's default epsilon
 
@@ -189,14 +190,15 @@ class TransMIL(nn.Module):
         self.norm = nn.LayerNorm(dim_hidden, eps=_EPS)
         self.fc2 = nn.Linear(dim_hidden, dim_output)
 
+    @shapechecked
     def forward(
         self,
-        h: torch.Tensor,
+        h: Float[torch.Tensor, "batch tiles feat"],
         *,
         train: bool = False,
         generator: torch.Generator | None = None,
         group: StepGroup = SINGLE,  # a step's collectives; a share of the bag under sp
-    ) -> torch.Tensor:  # [B, T, F] → [B, out]
+    ) -> Float[torch.Tensor, "batch out"]:
         if train and generator is None:
             raise ValueError("training draws the attention dropout from a generator; pass one")
         generator = generator if train else None

@@ -92,6 +92,7 @@ from stamp_tpu_torch.ops.attention import (
     pairwise_distances,
 )
 from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
+from stamp_tpu_torch.utils.shapecheck import Bool, Float, shapechecked
 
 # At or above this many tokens (tiles + CLS), attention takes the flash
 # kernels: a [T, T] weight matrix per head no longer fits comfortably.
@@ -332,18 +333,19 @@ class VisionTransformer(nn.Module):
         self.norm = nn.LayerNorm(dim_model, eps=_EPS)
         self.head = nn.Linear(dim_model, dim_output)
 
+    @shapechecked
     def forward(
         self,
-        bags: torch.Tensor,  # [B, T, F]
+        bags: Float[torch.Tensor, "batch tiles feat"],
         *,
-        coords: torch.Tensor,  # [B, T, 2] µm
-        key_mask: torch.Tensor | None = None,  # [B, T] True = valid tile
+        coords: Float[torch.Tensor, "batch tiles 2"],  # µm
+        key_mask: Bool[torch.Tensor, "batch tiles"] | None = None,  # True = valid tile
         train: bool = False,
         sow_weights: bool = False,  # attention maps into ``intermediates``
         generator: torch.Generator | None = None,  # training: the dropout draws
         intermediates: dict | None = None,  # per block: q, k (and the maps)
         group: StepGroup = SINGLE,  # a step's collectives; a share of the bag under sp
-    ) -> torch.Tensor:
+    ) -> Float[torch.Tensor, "batch out"]:
         if sow_weights and intermediates is None:
             raise ValueError("sow_weights collects attention maps into `intermediates`; pass a dict")
         if train and self.dropout > 0.0 and generator is None:

@@ -100,7 +100,13 @@ class QuantDense(nn.Module):
     the fused JAX branch does), "observe" applies it unfused.  An int8 site
     without a LayerNorm quantizes, takes an exact integer product and adds
     the bias after the cast to the activation dtype, as the JAX package's
-    unfused branch does."""
+    unfused branch does.
+
+    ``partial`` and ``finish`` split a site whose weight is sharded along K
+    across ranks (tensor parallelism, ``parallel/tp_extractor.py``):
+    ``partial`` gives this shard's sums before the epilogue (f32 in "off",
+    exact i32 in "int8"), the caller all-reduces them, and ``finish``
+    applies the epilogue once, in the order ``forward`` applies it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, mode: str = "off") -> None:
         super().__init__()
@@ -121,27 +127,69 @@ class QuantDense(nn.Module):
             if norm is not None:
                 return ln_dense(x, norm.weight, norm.bias, self.weight, self.bias, eps=norm.eps)
             return F.linear(x, self.weight, self.bias)
-        if self.mode == "observe":
-            if norm is not None:
-                x = layer_norm_f32(x, norm.weight, norm.bias, norm.eps).to(x.dtype)
-            amax = x.abs().max().float()
-            self.amax = amax if self.amax is None else torch.maximum(self.amax, amax)
-            y = F.linear(x, self.weight.to(x.dtype))
-        else:
-            # 5% headroom over the calibration max, in f32 on the device
-            s_x = self.amax.clamp_min(1e-6) * 1.05
+        if self.mode == "int8":
             if norm is not None:
                 return ln_quant_dense(
-                    x, norm.weight, norm.bias, s_x, self.weight_q, self.w_scale, self.bias, eps=norm.eps
+                    x, norm.weight, norm.bias, self._s_x(), self.weight_q, self.w_scale, self.bias, eps=norm.eps
                 )
-            # the JAX package leaves this product to XLA, outside any Pallas
-            # kernel: here cuBLASLt's int8 GEMM on the card, exact i32 sums
-            acc = torch._int_mm(quantize_activation(x, s_x).reshape(-1, x.shape[-1]), self.weight_q.t())
-            y = (acc.float() * (s_x / 127.0) * self.w_scale.float()).to(x.dtype)
-            y = y.reshape(*x.shape[:-1], -1)
+            return self.finish(self.partial(x), x.dtype, fused=False)
+        if norm is not None:
+            x = layer_norm_f32(x, norm.weight, norm.bias, norm.eps).to(x.dtype)
+        amax = x.abs().max().float()
+        self.amax = amax if self.amax is None else torch.maximum(self.amax, amax)
+        y = F.linear(x, self.weight.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+    def _s_x(self) -> torch.Tensor:
+        """The int8 mode's static activation scale: 5% headroom over the
+        calibration max, in f32 on the device."""
+        return self.amax.clamp_min(1e-6) * 1.05
+
+    def partial(
+        self, x: torch.Tensor, norm: nn.LayerNorm | None = None, stats: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """The sums of ``x @ weight.T`` over this site's K (a shard of the
+        whole K), before the bias and the cast: f32 in "off" (the LayerNorm
+        kernel's partial-sum form after ``norm``, else an f32 product of the
+        operands), exact i32 in "int8" (``ln_quant_dense``'s partial-sum
+        form, else ``torch._int_mm`` of the quantized activation).  ``norm``
+        is the LayerNorm over the whole K and ``stats`` ([2, M] f32, μ and
+        1/σ of x's rows over the whole K) its statistics; ``norm`` holds
+        this shard's slice of γ and β."""
+        if self.mode == "off":
+            if norm is not None:
+                return ln_dense(x, norm.weight, norm.bias, self.weight, eps=norm.eps, stats=stats, partial=True)
+            return torch.matmul(x.float(), self.weight.to(x.dtype).float().t())
+        if self.mode == "int8":
+            s_x = self._s_x()
+            if norm is not None:
+                return ln_quant_dense(
+                    x, norm.weight, norm.bias, s_x, self.weight_q, self.w_scale, eps=norm.eps, stats=stats,
+                    partial=True,
+                )  # fmt: skip
+            # the JAX package leaves this product to XLA, outside any Pallas
+            # kernel: here cuBLASLt's int8 GEMM on the card, exact i32 sums
+            acc = torch._int_mm(quantize_activation(x, s_x).reshape(-1, x.shape[-1]), self.weight_q.t())
+            return acc.reshape(*x.shape[:-1], -1)
+        raise ValueError("QuantDense.partial: an observe-mode site is not sharded; calibrate on one rank")
+
+    def finish(self, acc: torch.Tensor, dtype: torch.dtype, *, fused: bool) -> torch.Tensor:
+        """The epilogue of ``forward`` on all-reduced ``partial`` sums, in
+        ``dtype``: "off" adds the bias in f32 and casts once; "int8"
+        dequantizes (``acc · (s_x / 127) · w_scale``) and, where the site
+        is LayerNorm-fed (``fused``: ``ln_quant_dense``), adds the bias in
+        f32 before the cast, else after it, as ``forward`` does."""
+        if self.mode == "off":
+            y = acc if self.bias is None else acc + self.bias.float()
+            return y.to(dtype)
+        y = acc.float() * (self._s_x() / 127.0) * self.w_scale.float()
+        if self.bias is None:
+            return y.to(dtype)
+        if fused:
+            return (y + self.bias.float()).to(dtype)
+        return y.to(dtype) + self.bias.to(dtype)
 
 
 class _LayerScale(nn.Module):
@@ -244,8 +292,29 @@ class ImageViT(nn.Module):
         self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(dim, eps=cfg.norm_eps)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: [B, H, W, 3] float, already normalized. Returns [B, D_out]."""
+    def forward(self, images: torch.Tensor, part: str = "all") -> torch.Tensor:
+        """images: [B, H, W, 3] float, already normalized. Returns [B, D_out].
+
+        ``part`` splits the forward for pipeline parallelism
+        (``parallel/pp_extractor.py``), as the JAX package's does:
+        ``"embed"`` runs the patch embedding and token assembly and returns
+        the [B, N, D] tokens; ``"head"`` takes such tokens and runs the
+        final norm and the pooling; the blocks between them are the
+        pipeline's.  ``"all"`` (the default) is the whole forward."""
+        if part == "head":
+            return self.head(images)
+        if part not in ("all", "embed"):
+            raise ValueError(f"ImageViT part {part!r} is not one of 'all', 'embed', 'head'")
+        x = self.embed(images)
+        if part == "embed":
+            return x
+        for block in self.blocks:
+            x = block(x)
+        return self.head(x)
+
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """The patch embedding and the token assembly: [B, N, D] tokens
+        (class token, register tokens, patches)."""
         cfg = self.cfg
         b = images.shape[0]
         x = self.patch_embed(images)
@@ -263,9 +332,10 @@ class ImageViT(nn.Module):
         if cfg.num_reg_tokens:
             tokens.append(self.reg_token.expand(b, -1, -1))
         tokens.append(x)
-        x = torch.cat(tokens, dim=1)
-        for block in self.blocks:
-            x = block(x)
+        return torch.cat(tokens, dim=1)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the pooling of [B, N, D] tokens: [B, D_out]."""
         return self._pool(self.norm(x))
 
     def _pool(self, x: torch.Tensor) -> torch.Tensor:
@@ -300,14 +370,24 @@ def plain_kernels() -> Iterator[None]:
             setattr(module, name, fn)
 
 
-def init_random_weights_(model: ImageViT, generator: torch.Generator) -> ImageViT:
+def init_random_weights_(model: ImageViT, generator: torch.Generator, affine_std: float = 0.0) -> ImageViT:
     """Random weights for benchmarking, drawn on the CPU from ``generator``.
 
     The distributions follow the flax module's initializers (dense and conv
     kernels normal with std fan_in^-1/2, biases and tokens zero, pos_embed
     normal with std 0.02, LayerNorm scale one, LayerScale ``init_values``),
     but the values differ from flax's: the two frameworks' generators give
-    different numbers for the same seed."""
+    different numbers for the same seed.  With ``affine_std`` > 0 every
+    bias and LayerNorm β is normal with that std and every LayerNorm γ one
+    plus such a draw, as in a trained model, where they differ from
+    channel to channel."""
+
+    def affine_(t: torch.Tensor, base: float) -> None:
+        if affine_std:
+            t.normal_(base, affine_std, generator=generator)
+        else:
+            t.fill_(base)
+
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, (nn.Linear, nn.Conv2d)) or (
@@ -316,10 +396,10 @@ def init_random_weights_(model: ImageViT, generator: torch.Generator) -> ImageVi
                 fan_in = module.weight[0].numel()
                 module.weight.normal_(0.0, fan_in**-0.5, generator=generator)
                 if module.bias is not None:
-                    module.bias.zero_()
+                    affine_(module.bias, 0.0)
             elif isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+                affine_(module.weight, 1.0)
+                affine_(module.bias, 0.0)
             elif isinstance(module, _LayerScale):
                 module.gamma.fill_(float(model.cfg.init_values))
         model.pos_embed.normal_(0.0, 0.02, generator=generator)

@@ -35,17 +35,17 @@ _SIGNATURES = {
     "stamp_fused_qkv_attn": [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
     # the same, for n > 272 (fused_qkv_long.cu)
     "stamp_fused_qkv_long": [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
-    # x, gamma, beta, weight, dense_bias|NULL, scratch, out, m, n, k, eps,
-    # device, stream
+    # x, gamma, beta, weight, dense_bias|NULL, stats|NULL, scratch, out,
+    # partial, m, n, k, eps, device, stream
     "stamp_ln_dense": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-        ctypes.c_float, _INT, _PTR,
-    ],
-    # x, gamma, beta, s_x, weight_q, w_scale, dense_bias|NULL, scratch, out, m,
-    # n, k, eps, device, stream
-    "stamp_ln_quant_dense": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
         _INT, ctypes.c_float, _INT, _PTR,
+    ],
+    # x, gamma, beta, s_x, weight_q, w_scale, dense_bias|NULL, stats|NULL,
+    # scratch, out, partial, m, n, k, eps, device, stream
+    "stamp_ln_quant_dense": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+        _INT, _INT, _INT, ctypes.c_float, _INT, _PTR,
     ],
     # q, k, v, coords, slopes, workspace, out, bh, n, head_dim, scale,
     # exempt_first, device, stream

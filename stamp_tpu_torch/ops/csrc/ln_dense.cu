@@ -24,6 +24,13 @@
 // LayerNorm is (x·(1/σ) − μ/σ)·γ + β in two FMAs; the plain version rounds
 // x − μ and the product separately, which moves y by an f32 ulp or two,
 // far below the bf16 cast that follows.
+//
+// Two more entry forms serve tensor parallelism (parallel/tp_extractor.py),
+// at SwiGLU's fc2, whose inner LayerNorm runs over a K sharded across
+// ranks: the rows' μ and 1/σ given by the caller (all-reduced sums of the
+// K slices), and the partial-sum epilogue (LnDenseOp<true>), which writes
+// the f32 accumulators of this K slice with no bias and no cast, for the
+// caller to all-reduce before adding the bias and casting once.
 
 #include "ln_gemm_sm90.cuh"
 
@@ -36,16 +43,19 @@ __device__ __forceinline__ uint32_t ln_pair(uint32_t raw, float rstd, float shif
   return ln_gemm::pack_bf16(fmaf(fmaf(x.x, rstd, shift), g.x, b.x), fmaf(fmaf(x.y, rstd, shift), g.y, b.y));
 }
 
+struct LnDenseParams {
+  const __nv_bfloat16* bias;  // [n] or NULL (NULL in the partial-sum form)
+  void* out;                  // [m, n]: bf16, or the f32 accumulators in the partial-sum form
+};
+
+template <bool kPartial>
 struct LnDenseOp {
   static constexpr int kBK = 64;      // one 128-byte box row of bf16
   static constexpr int kKSteps = 4;   // wgmma k16 steps per stage
   static constexpr int kXBoxes = 1;
   static constexpr int kStages = 4;  // 48 KB a stage
   using Acc = float;
-  struct Params {
-    const __nv_bfloat16* bias;  // [n] or NULL
-    __nv_bfloat16* out;         // [m, n]
-  };
+  using Params = LnDenseParams;
 
   __device__ static float factor(const Params&) { return 0.0f; }
 
@@ -71,9 +81,14 @@ struct LnDenseOp {
     ln_gemm::wgmma_bf16_n256(acc, a, desc, 1);
   }
 
-  // f32 accumulators + f32 dense bias, one cast to bf16
+  // f32 accumulators + f32 dense bias, one cast to bf16 (the partial-sum
+  // form: the f32 accumulators as they are)
   __device__ static void epilogue(const float (&acc)[ln_gemm::kBN / 2], const Params& p, int row, int n0, int m, int n,
                                   int lane) {
+    if constexpr (kPartial) {
+      ln_gemm::store_acc(acc, static_cast<float*>(p.out), row, n0, m, n, lane);
+      return;
+    }
     ln_gemm::store_tile(
         [&](int j, int col) {
           float2 b = make_float2(0.0f, 0.0f);
@@ -83,7 +98,7 @@ struct LnDenseOp {
           }
           return make_float4(acc[4 * j] + b.x, acc[4 * j + 1] + b.y, acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
         },
-        p.out, row, n0, m, n, lane);
+        static_cast<__nv_bfloat16*>(p.out), row, n0, m, n, lane);
   }
 };
 
@@ -92,17 +107,25 @@ struct LnDenseOp {
 extern "C" {
 
 // x: [m, k] bf16; gamma, beta: [k] bf16; w: [n, k] bf16 (nn.Linear layout);
-// dense_bias: [n] bf16 or NULL; scratch: [2k + 2m] f32; out: [m, n] bf16.
-// All contiguous, 16-byte aligned, k a multiple of 8.  Launches the row
-// statistics and the GEMM on `stream`.  Returns a cudaError_t.
+// dense_bias: [n] bf16 or NULL; stats: [μ (m), 1/σ (m)] f32 or NULL (then
+// computed here); scratch: [2k] f32 with stats, else [2k + 2m]; out: [m, n]
+// bf16, or with `partial` the f32 accumulators (dense_bias NULL).  All
+// contiguous, 16-byte aligned, k a multiple of 8.  Launches the row
+// statistics (or γ, β's conversion alone) and the GEMM on `stream`.
+// Returns a cudaError_t.
 int stamp_ln_dense(const void* x, const void* gamma, const void* beta, const void* w,
-                   const void* dense_bias, void* scratch, void* out, int m, int n, int k, float eps,
-                   int device, void* stream) {
-  if (k % 8 != 0) return cudaErrorInvalidValue;
-  return ln_gemm::launch<LnDenseOp>(
-      x, gamma, beta, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, static_cast<float*>(scratch),
-      {static_cast<const __nv_bfloat16*>(dense_bias), static_cast<__nv_bfloat16*>(out)}, m, n, k, eps, device,
-      static_cast<cudaStream_t>(stream));
+                   const void* dense_bias, const void* stats, void* scratch, void* out, int partial, int m, int n,
+                   int k, float eps, int device, void* stream) {
+  if (k % 8 != 0 || (partial && dense_bias != nullptr)) return cudaErrorInvalidValue;
+  const LnDenseParams p{static_cast<const __nv_bfloat16*>(dense_bias), out};
+  const float* given = static_cast<const float*>(stats);
+  float* f32_scratch = static_cast<float*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr CUtensorMapDataType kW = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return partial ? ln_gemm::launch<LnDenseOp<true>>(x, gamma, beta, w, kW, k, given, f32_scratch, p, m, n, k, eps,
+                                                    device, s)
+                 : ln_gemm::launch<LnDenseOp<false>>(x, gamma, beta, w, kW, k, given, f32_scratch, p, m, n, k, eps,
+                                                     device, s);
 }
 
 }  // extern "C"

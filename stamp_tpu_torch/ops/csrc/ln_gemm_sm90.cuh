@@ -7,7 +7,11 @@
 //   1. ln_row_stats_kernel: μ and 1/σ of every row of x, once, one warp per
 //      row, two passes in f32 (μ, then mean((x − μ)²), then rsqrt(σ² + eps)),
 //      and γ, β converted to f32, into an f32 scratch the wrapper allocates:
-//      [γ (K), β (K), μ (M), 1/σ (M)].
+//      [γ (K), β (K), μ (M), 1/σ (M)].  A caller that holds the rows'
+//      statistics already (tensor parallelism: SwiGLU's inner LayerNorm over
+//      a K sharded across ranks, its sums all-reduced) passes them as
+//      [μ (M), 1/σ (M)] f32; the kernel then converts γ, β only, and the
+//      GEMM reads the caller's statistics.
 //   2. ln_gemm_kernel<Op>: persistent (one block per SM, gridDim.x =
 //      min(tiles, SMs)), warp-specialized, 384 threads:
 //      * warpgroup 2 is the producer (40 registers, setmaxnreg): one thread
@@ -27,7 +31,11 @@
 //        once the wgmmas that read it completed;
 //      * Op::epilogue writes the tile straight from the accumulator
 //        registers with masked 16-byte stores (store_tile): no
-//        shared-memory tile.
+//        shared-memory tile.  An op's partial-sum form (its kPartial
+//        template parameter) writes the f32 or i32 accumulators themselves,
+//        no bias, no scale, no cast (store_acc): the partial sums of a K
+//        slice, which the caller all-reduces across ranks before the
+//        epilogue's arithmetic.
 // Output tiles are walked in a grouped order (kGroupM row tiles at a time,
 // the row tile fastest), so the blocks in flight share W tiles and x rows in
 // L2.  TMA zero-fills everything past M, N and K; γ and β past K are zero,
@@ -90,10 +98,12 @@ __device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
 // reads x again only past that.
 constexpr int kRowVecs = 16;
 
+// With stat_rows = 0 (the caller gives the statistics) only γ, β are
+// converted.
 __global__ void __launch_bounds__(256)
 ln_row_stats_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gamma,
                     const __nv_bfloat16* __restrict__ beta, float* __restrict__ scratch, int m, int k,
-                    float eps) {
+                    float eps, int stat_rows) {
   for (int i = blockIdx.x * 256 + threadIdx.x; i < k; i += gridDim.x * 256) {
     scratch[i] = __bfloat162float(gamma[i]);
     scratch[k + i] = __bfloat162float(beta[i]);
@@ -101,7 +111,7 @@ ln_row_stats_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   float* stats = scratch + 2 * k;
   const int row = blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= m) return;
+  if (row >= stat_rows) return;
   const __nv_bfloat16* xr = x + (size_t)row * k;
   uint4 held[kRowVecs];
   float f[8];
@@ -310,6 +320,38 @@ __device__ __forceinline__ void store_tile(const Value& value, __nv_bfloat16* __
   }
 }
 
+// The partial-sum epilogue: a consumer thread's f32 or i32 accumulators of
+// a 128 × 256 tile stored as they are (row `row`: d[4j + e], row + 8:
+// d[4j + 2 + e], columns n0 + 8j + 2·(lane % 4) + e), in pairs of 8 bytes
+// where N is even, else one by one.  Rows past m and columns past n are not
+// stored.
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+__device__ __forceinline__ void store_pair(int* p, int lo, int hi) { *reinterpret_cast<int2*>(p) = make_int2(lo, hi); }
+
+template <class T>
+__device__ __forceinline__ void store_acc(const T (&acc)[kBN / 2], T* __restrict__ out, int row, int n0, int m, int n,
+                                          int lane) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row + 8 * h >= m) continue;
+      T* dst = out + (size_t)(row + 8 * h) * n + col;
+      if (n % 2 == 0) {  // col is even, so col + 1 < n and the pair is 8-byte aligned
+        store_pair(dst, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        dst[0] = acc[4 * j + 2 * h];
+        if (col + 1 < n) dst[1] = acc[4 * j + 2 * h + 1];
+      }
+    }
+  }
+}
+
 // ---- the kernel ---------------------------------------------------------------
 
 // What a consumer thread needs for its A fragment: its lane, the first row
@@ -500,11 +542,14 @@ inline cudaError_t encode_1d(CUtensorMap* map, const void* ptr, int len, int box
 
 // Row statistics, then the GEMM, on `stream`.  x: [m, k] bf16 (k % 8 == 0),
 // w: [n, w_ld] with w_type (w_ld >= k, a 16-byte row; columns past k are
-// not read), gamma/beta: [k] bf16, scratch: [2k + 2m] f32.
+// not read), gamma/beta: [k] bf16, stats: [μ (m), 1/σ (m)] f32 of the
+// caller or NULL, scratch: [2k] f32 with the caller's statistics, else
+// [2k + 2m].
 template <class Op>
 cudaError_t launch(const void* x, const void* gamma, const void* beta, const void* w,
-                   CUtensorMapDataType w_type, int w_ld, float* scratch, const typename Op::Params& params, int m,
-                   int n, int k, float eps, int device, cudaStream_t stream) {
+                   CUtensorMapDataType w_type, int w_ld, const float* stats, float* scratch,
+                   const typename Op::Params& params, int m, int n, int k, float eps, int device,
+                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
@@ -523,13 +568,14 @@ cudaError_t launch(const void* x, const void* gamma, const void* beta, const voi
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
 
-  ln_row_stats_kernel<<<(m + 7) / 8, 256, 0, stream>>>(
+  const int stat_rows = stats == nullptr ? m : 0;
+  ln_row_stats_kernel<<<stats == nullptr ? (m + 7) / 8 : (k + 255) / 256, 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gamma),
-      static_cast<const __nv_bfloat16*>(beta), scratch, m, k, eps);
+      static_cast<const __nv_bfloat16*>(beta), scratch, m, k, eps, stat_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ln_gemm_kernel<Op><<<(int)(tiles < sms ? tiles : sms), kThreads, kSmem, stream>>>(
-      x_map, w_map, g_map, b_map, scratch + 2 * k, params, m, n, k);
+      x_map, w_map, g_map, b_map, stats == nullptr ? scratch + 2 * k : stats, params, m, n, k);
   return cudaGetLastError();
 }
 

@@ -29,6 +29,12 @@
 // to f32 (rounded), multiplies by s_x/127 and w_scale, adds the dense bias
 // in f32 and casts once to bf16.  s_x is read on the device: the host never
 // waits for it.
+//
+// As ln_dense.cu, two more entry forms serve tensor parallelism: the rows'
+// μ and 1/σ given by the caller, and the partial-sum epilogue
+// (LnQuantDenseOp<true>), which writes this K slice's exact i32 sums with
+// no scale, no bias and no cast; the caller all-reduces them (still exact)
+// and dequantizes once.
 
 #include "ln_gemm_sm90.cuh"
 
@@ -64,18 +70,21 @@ __device__ __forceinline__ uint32_t quantize4(uint2 raw, const float (&g)[4], co
   return __byte_perm(__byte_perm(q[0], q[1], 0x0040), __byte_perm(q[2], q[3], 0x0040), 0x5410);
 }
 
+struct LnQuantDenseParams {
+  const float* s_x;           // [1], on the device
+  const float* w_scale;       // [n]
+  const __nv_bfloat16* bias;  // [n] or NULL (NULL in the partial-sum form)
+  void* out;                  // [m, n]: bf16, or the i32 sums in the partial-sum form
+};
+
+template <bool kPartial>
 struct LnQuantDenseOp {
   static constexpr int kBK = 128;     // one 128-byte box row of int8 W
   static constexpr int kKSteps = 4;   // wgmma k32 steps per stage
   static constexpr int kXBoxes = 2;   // two 64-column bf16 boxes of raw x
   static constexpr int kStages = 3;  // 65 KB a stage
   using Acc = int;
-  struct Params {
-    const float* s_x;           // [1], on the device
-    const float* w_scale;       // [n]
-    const __nv_bfloat16* bias;  // [n] or NULL
-    __nv_bfloat16* out;         // [m, n]
-  };
+  using Params = LnQuantDenseParams;
 
   __device__ static float factor(const Params& p) { return __fdiv_rn(127.0f, p.s_x[0]); }
 
@@ -106,9 +115,14 @@ struct LnQuantDenseOp {
     ln_gemm::wgmma_s8_n256(acc, a, desc, 1);
   }
 
-  // exact i32 sums → f32 · s_x/127 · w_scale + dense bias, one cast
+  // exact i32 sums → f32 · s_x/127 · w_scale + dense bias, one cast (the
+  // partial-sum form: the i32 sums as they are)
   __device__ static void epilogue(const int (&acc)[ln_gemm::kBN / 2], const Params& p, int row, int n0, int m, int n,
                                   int lane) {
+    if constexpr (kPartial) {
+      ln_gemm::store_acc(acc, static_cast<int*>(p.out), row, n0, m, n, lane);
+      return;
+    }
     const float dequant = __fdiv_rn(p.s_x[0], 127.0f);
     ln_gemm::store_tile(
         [&](int j, int col) {
@@ -128,7 +142,7 @@ struct LnQuantDenseOp {
           }
           return make_float4(v[0], v[1], v[2], v[3]);
         },
-        p.out, row, n0, m, n, lane);
+        static_cast<__nv_bfloat16*>(p.out), row, n0, m, n, lane);
   }
 };
 
@@ -139,19 +153,28 @@ extern "C" {
 // x: [m, k] bf16; gamma, beta: [k] bf16; s_x: [1] f32 (device); w:
 // [n, k16] int8 (nn.Linear layout, its rows padded to k16 = k rounded up to
 // 16, the 16-byte row TMA needs; the columns past k are not read);
-// w_scale: [n] f32; dense_bias: [n] bf16 or NULL; scratch: [2k + 2m] f32;
-// out: [m, n] bf16.  All contiguous, 16-byte aligned, k a multiple of 8.
-// Launches the row statistics and the GEMM on `stream`.  Returns a
-// cudaError_t.
+// w_scale: [n] f32; dense_bias: [n] bf16 or NULL; stats: [μ (m), 1/σ (m)]
+// f32 or NULL (then computed here); scratch: [2k] f32 with stats, else
+// [2k + 2m]; out: [m, n] bf16, or with `partial` the i32 sums (dense_bias
+// NULL).  All contiguous, 16-byte aligned, k a multiple of 8.  Launches the
+// row statistics (or γ, β's conversion alone) and the GEMM on `stream`.
+// Returns a cudaError_t.
 int stamp_ln_quant_dense(const void* x, const void* gamma, const void* beta, const void* s_x,
-                         const void* w, const void* w_scale, const void* dense_bias, void* scratch, void* out,
-                         int m, int n, int k, float eps, int device, void* stream) {
-  if (k % 8 != 0) return cudaErrorInvalidValue;
-  return ln_gemm::launch<LnQuantDenseOp>(
-      x, gamma, beta, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, (k + 15) / 16 * 16, static_cast<float*>(scratch),
-      {static_cast<const float*>(s_x), static_cast<const float*>(w_scale),
-       static_cast<const __nv_bfloat16*>(dense_bias), static_cast<__nv_bfloat16*>(out)},
-      m, n, k, eps, device, static_cast<cudaStream_t>(stream));
+                         const void* w, const void* w_scale, const void* dense_bias, const void* stats,
+                         void* scratch, void* out, int partial, int m, int n, int k, float eps, int device,
+                         void* stream) {
+  if (k % 8 != 0 || (partial && dense_bias != nullptr)) return cudaErrorInvalidValue;
+  const LnQuantDenseParams p{static_cast<const float*>(s_x), static_cast<const float*>(w_scale),
+                             static_cast<const __nv_bfloat16*>(dense_bias), out};
+  const float* given = static_cast<const float*>(stats);
+  float* f32_scratch = static_cast<float*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr CUtensorMapDataType kW = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const int w_ld = (k + 15) / 16 * 16;
+  return partial ? ln_gemm::launch<LnQuantDenseOp<true>>(x, gamma, beta, w, kW, w_ld, given, f32_scratch, p, m, n,
+                                                         k, eps, device, s)
+                 : ln_gemm::launch<LnQuantDenseOp<false>>(x, gamma, beta, w, kW, w_ld, given, f32_scratch, p, m,
+                                                          n, k, eps, device, s);
 }
 
 }  // extern "C"

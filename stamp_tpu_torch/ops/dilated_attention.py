@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from stamp_tpu_torch.utils.shapecheck import Float, shapechecked
+
 _NEG_INF = -1e30
 
 
@@ -53,10 +55,11 @@ def _segment_dilated(
     return out.transpose(2, 3).reshape(h, L, d)
 
 
+@shapechecked
 def dilated_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
+    q: Float[torch.Tensor, "h l d"],
+    k: Float[torch.Tensor, "h l d"],
+    v: Float[torch.Tensor, "h l d"],
     *,
     segment_lengths: tuple[int, ...],
     dilation_rates: tuple[int, ...],

@@ -58,6 +58,7 @@ import ctypes
 import torch
 
 from stamp_tpu_torch.ops import _build
+from stamp_tpu_torch.utils.shapecheck import Bool, Float, shapechecked
 
 # kernel launches since the last reset (the main path's proof of use)
 #: ``fused_qkv_mha`` (both of its kernels)
@@ -98,7 +99,10 @@ def fused_qkv_mha_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(b, n, dim)
 
 
-def fused_qkv_mha(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+@shapechecked
+def fused_qkv_mha(
+    qkv: Float[torch.Tensor, "b n three_dim"], num_heads: int
+) -> Float[torch.Tensor, "b n dim"]:
     """Fused multi-head attention over a packed qkv tensor.
 
     Args:
@@ -340,8 +344,12 @@ def _flash_forward(
     return o, lse
 
 
+@shapechecked
 def flash_mha(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+    q: Float[torch.Tensor, "bh q d"],
+    k: Float[torch.Tensor, "bh k d"],
+    v: Float[torch.Tensor, "bh k d"],
+    key_mask: Bool[torch.Tensor, "bh k"],
 ) -> torch.Tensor:
     """Masked flash attention over flattened (batch×head) sequences.
 
@@ -681,12 +689,13 @@ def flash_alibi2d_mha_reference(
     return torch.matmul(p, v).div_(denom)
 
 
+@shapechecked
 def flash_alibi2d_mha(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    coords: torch.Tensor,
-    slopes: torch.Tensor,
+    q: Float[torch.Tensor, "bh n d"],
+    k: Float[torch.Tensor, "bh n d"],
+    v: Float[torch.Tensor, "bh n d"],
+    coords: Float[torch.Tensor, "bh n 2"],
+    slopes: Float[torch.Tensor, "bh"],
     *,
     exempt_first: bool = True,
 ) -> torch.Tensor:

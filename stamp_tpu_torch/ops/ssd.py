@@ -41,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stamp_tpu_torch.utils.shapecheck import Float, shapechecked
+
 
 def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """The sequential recurrence on x [L, H, P], dt [L, H], A [H], B and
@@ -64,8 +66,15 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return sums.masked_fill(~strict.logical_or(torch.eye(c, dtype=torch.bool, device=a.device)), -math.inf)
 
 
+@shapechecked
 def ssd_chunked(
-    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64
+    x: Float[torch.Tensor, "l h p"],
+    dt: Float[torch.Tensor, "l h"],
+    A: Float[torch.Tensor, "h"],
+    B: Float[torch.Tensor, "l n"],
+    C: Float[torch.Tensor, "l n"],
+    *,
+    chunk: int = 64,
 ) -> torch.Tensor:
     """Chunked SSD on x [L, H, P], dt [L, H], A [H] (negative), B and C
     [L, N] → y [L, H, P]: O(L·chunk) work, L padded to a multiple of

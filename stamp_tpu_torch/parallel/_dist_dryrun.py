@@ -17,10 +17,17 @@ layer as a real fleet would.  A worker runs one of:
     the spec's model or of a ``ckpt`` on a whole bag, on the spec's
     ``device``; rank 0 writes ``result.npz`` with the output and its
     largest difference between ranks), ``collectives`` (the sequence
-    collective with autograd, checked in each rank) and ``cli`` (one CLI
+    collective with autograd, checked in each rank), ``cli`` (one CLI
     command with the spec's ``flags``, such as ``--profile``; the kernel
     launch counts of ``ops.flash_attention`` are set to 0 before it and
-    printed after it as ``LAUNCHES <rank> <json>``).
+    printed after it as ``LAUNCHES <rank> <json>``) and ``vit`` (an
+    extractor ViT's ``make_tp_forward`` or ``make_pp_forward`` over the
+    world on the spec's images, ``vit_state``'s weights, with
+    ``against_single`` also the whole model in the rank; rank 0 writes
+    ``result.npz``, every rank prints ``VIT <rank> <json>``: its launches
+    of rows 1–3, the ranks' largest difference, and on a card the kernels
+    one forward launched by the profiler's count and the timed forward's
+    seconds with those its collectives held).
 ``cli <config> <command> [<config> <command> …]``
     the ``stamp`` CLI's commands in order, in one process group.
 
@@ -33,6 +40,7 @@ hand with the fleet's environment set (``STAMP_COORDINATOR_ADDRESS``,
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 from pathlib import Path
@@ -119,7 +127,7 @@ def _job_device(spec: dict):
     from stamp_tpu_torch.parallel import distributed
 
     device = torch.device(spec.get("device", "cpu"))
-    return torch.device("cuda", distributed.local_device_index()) if device.type == "cuda" else device
+    return distributed.rank_device() if device.type == "cuda" else device
 
 
 def _step_job(spec: dict, job_dir: Path) -> None:
@@ -229,6 +237,185 @@ def _cli_job(spec: dict, job_dir: Path) -> None:
     print(f"LAUNCHES {distributed.process_index()} {json.dumps(dict(config=spec['config'], **launches))}", flush=True)
 
 
+#: the std of the ``vit`` jobs' random biases and LayerNorm γ − 1 and β
+#: (``init_random_weights_``'s ``affine_std``): each row-sharded site's
+#: bias and each rank's slice of SwiGLU's inner γ and β then tell in the output
+VIT_AFFINE_STD = 0.1
+
+
+@functools.lru_cache(maxsize=1)
+def _random_weights(config: str, seed: int, dtype: str, device: str) -> dict:
+    """``init_random_weights_`` of an ImageViT of the JSON ``config`` from
+    ``seed`` with ``affine_std=VIT_AFFINE_STD`` (on the CPU, then in
+    ``dtype`` on ``device``); the jobs of a worker that share them build
+    them once."""
+    import torch
+
+    from stamp_tpu_torch.models import vit_image
+
+    with torch.device("meta"):
+        model = vit_image.ImageViT(vit_image.ViTConfig(**json.loads(config)))
+    model.to_empty(device="cpu")
+    vit_image.init_random_weights_(model, torch.Generator().manual_seed(seed), affine_std=VIT_AFFINE_STD)
+    return {k: v.to(device, getattr(torch, dtype)) for k, v in model.state_dict().items()}
+
+
+def vit_state(spec: dict, job_dir: Path, device) -> dict:
+    """An ImageViT state dict for a ``vit`` job on ``device``: the arrays
+    of ``<job_dir>/state.npz`` (e.g. a JAX variable tree through
+    ``state_dict_from_jax``), or seeded random weights of ``spec["config"]``
+    (``_random_weights``: ``init_random_weights_`` with
+    ``torch.Generator().manual_seed(spec["seed"])`` and random biases, γ
+    and β, on the CPU, in ``spec["dtype"]``), quantized for an
+    int8 config with the activation maxima of ``<job_dir>/amax.npz``."""
+    import torch
+
+    from stamp_tpu_torch.models import vit_image
+
+    cfg = vit_image.ViTConfig(**spec["config"])
+    if (job_dir / "state.npz").is_file():
+        return {k: torch.from_numpy(v).to(device) for k, v in np.load(job_dir / "state.npz").items()}
+    plain = {**spec["config"], "quant": "off"}
+    state = _random_weights(json.dumps(plain, sort_keys=True), spec["seed"], spec["dtype"], str(device))
+    if cfg.quant == "int8":
+        with torch.no_grad():
+            state = vit_image.quantize_vit_params(state, cfg)
+        state |= {k: torch.from_numpy(v).to(device) for k, v in np.load(job_dir / "amax.npz").items()}
+    return state
+
+
+def _vit_counts(reset: bool = False) -> dict:
+    """The launch counts of rows 1–3 (set to 0 first with ``reset``)."""
+    from stamp_tpu_torch.ops import flash_attention, ln_dense
+
+    counters = {"fused_qkv_mha": (flash_attention, "LAUNCHES"), "ln_dense": (ln_dense, "LAUNCHES"),
+                "ln_dense_partial": (ln_dense, "PARTIAL_LAUNCHES"), "ln_quant_dense": (ln_dense, "QUANT_LAUNCHES"),
+                "ln_quant_dense_partial": (ln_dense, "QUANT_PARTIAL_LAUNCHES")}  # fmt: skip
+    if reset:
+        for module, name in counters.values():
+            setattr(module, name, 0)
+    return {key: getattr(module, name) for key, (module, name) in counters.items()}
+
+
+def profiled_kernels(fn) -> tuple:
+    """(``fn()``, the launches of rows 1–3's kernels in the call by the
+    CUDA events of a ``torch.profiler`` trace, by kernel: the attention
+    kernel, the LayerNorm GEMM in each of its four instances (the bf16 and
+    int8 ops, each with the bf16 or the partial-sum epilogue) and the row
+    statistics kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+    kinds = {"fused_qkv_attn": "fused_qkv_attn_one_pass_kernel", "ln_dense": "LnDenseOp<false>",
+             "ln_dense_partial": "LnDenseOp<true>", "ln_quant_dense": "LnQuantDenseOp<false>",
+             "ln_quant_dense_partial": "LnQuantDenseOp<true>", "ln_row_stats": "ln_row_stats_kernel"}  # fmt: skip
+    return out, {kind: sum(n for key, n in counts.items() if text in key) for kind, text in kinds.items()}
+
+
+def _timed_forward(forward, images) -> dict:
+    """Two synced forwards on the card after a barrier: ``forward_s`` of
+    the first, then of the second with each collective of
+    ``distributed`` synced on entry and timed (``collectives_s``: the
+    share of the forward the ranks spend in them, staging included)."""
+    import time
+
+    import torch
+
+    from stamp_tpu_torch.parallel import distributed
+
+    held = [0.0]
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                held[0] += time.perf_counter() - t0
+
+        return wrapper
+
+    def one() -> float:
+        distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(images)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    names = ("all_reduce_", "send_", "recv_", "broadcast_")
+    real = {n: getattr(distributed, n) for n in names}
+    plain_s = one()
+    try:
+        for n in names:
+            setattr(distributed, n, timed(real[n]))
+        timed_s = one()
+    finally:
+        for n, fn in real.items():
+            setattr(distributed, n, fn)
+    return dict(forward_s=plain_s, forward_s_collectives_timed=timed_s, collectives_s=held[0])
+
+
+def _vit_job(spec: dict, job_dir: Path) -> None:
+    """``make_tp_forward`` (``spec["parallel"] == "tp"``) or
+    ``make_pp_forward`` (``"pp"``, ``spec["n_microbatches"]``) over the
+    world on each image batch of ``inputs.npz`` (``spec["batches"]``)."""
+    import torch
+
+    from stamp_tpu_torch.models import vit_image
+    from stamp_tpu_torch.parallel import distributed, pp_extractor, tp_extractor
+
+    device = _job_device(spec)
+    cfg = vit_image.ViTConfig(**spec["config"])
+    with torch.device("meta"):
+        module = vit_image.ImageViT(cfg)
+    state = vit_state(spec, job_dir, device)
+    if spec["parallel"] == "tp":
+        forward, _ = tp_extractor.make_tp_forward(module, state, device=device)
+    else:
+        forward, _ = pp_extractor.make_pp_forward(module, state, None, spec["n_microbatches"], device=device)
+    if spec.get("against_single"):  # the whole model in this rank, on the same weights
+        with torch.device("meta"):
+            single = vit_image.ImageViT(cfg)
+        single.load_state_dict(state, assign=True)
+        single.eval()
+    del state
+    arrays = dict(np.load(job_dir / "inputs.npz"))
+    rank = distributed.process_index()
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    report: dict = {"job": job_dir.name, "batches": {}}
+    outs = {}
+    on_card = device.type == "cuda"
+    for name in spec["batches"]:
+        images = torch.from_numpy(arrays[name]).to(device, dtype)
+        _vit_counts(reset=True)
+        row: dict = {}
+        if on_card:  # the launches by the counters and by the profiler, of one forward
+            out, row["profiled"] = profiled_kernels(lambda: forward(images))
+        else:
+            out = forward(images)
+        out = out.float()
+        row["launches"] = _vit_counts()
+        parts = distributed.all_gather_rows(out.contiguous())
+        row["rank_spread"] = max(float((p - parts[0]).abs().max()) for p in parts)
+        if on_card and spec.get("timed"):
+            row.update(_timed_forward(forward, images))
+        report["batches"][name] = row
+        outs[name] = out.cpu().numpy()
+        if spec.get("against_single"):
+            with torch.inference_mode():
+                outs[f"single/{name}"] = single(images).float().cpu().numpy()
+            row["single_max_abs_diff"] = float(np.abs(outs[name] - outs[f"single/{name}"]).max())
+    if rank == 0:
+        np.savez(job_dir / "result.npz", **outs)
+    print(f"VIT {rank} {json.dumps(report)}", flush=True)
+
+
 def _check_replicated(module) -> None:
     """Every rank's parameters and buffers equal rank 0's, bitwise."""
     import torch
@@ -286,7 +473,7 @@ def main(argv: list[str]) -> None:
         print(f"{_OK_SENTINEL} pid={distributed.process_index()}", flush=True)
     elif mode == "jobs":
         kinds = {"step": _step_job, "train": _train_job, "sp_eval": _sp_eval_job, "cli": _cli_job,
-                 "collectives": _collectives_job}  # fmt: skip
+                 "collectives": _collectives_job, "vit": _vit_job}  # fmt: skip
         for job in jobs:
             kinds[job["kind"]](job["spec"], Path(job.get("dir", ".")))
         print(f"{_OK_SENTINEL} pid={distributed.process_index()}", flush=True)

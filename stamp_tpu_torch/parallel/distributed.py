@@ -34,7 +34,11 @@ holding all of its local devices).
   ``all_gather`` out), so under gloo every collective on a CUDA tensor is
   staged through pinned host tensors; the step itself still runs on the
   card.  gloo has no reduce-scatter either: there it is an all-reduce of
-  the whole tensor and a slice.  A collective that fails raises.
+  the whole tensor and a slice.  ``send_`` and ``recv_`` are the
+  point-to-point pair the pipeline-parallel extractor passes its
+  activations with (``pp_extractor.py``); tensor parallelism
+  (``tp_extractor.py``) all-reduces f32 and i32 partial sums with
+  ``all_reduce_``.  A collective that fails raises.
 """
 
 from __future__ import annotations
@@ -179,6 +183,21 @@ def process_count() -> int:
 def local_device_index() -> int:
     """This rank's card: ``rank % torch.cuda.device_count()``."""
     return process_index() % max(torch.cuda.device_count(), 1)
+
+
+def rank_device() -> torch.device:
+    """This rank's card (``local_device_index``)."""
+    return torch.device("cuda", local_device_index())
+
+
+def group_size(ranks: tuple[int, ...] | None = None) -> int:
+    """The number of ranks in ``ranks`` (None: the world)."""
+    return process_count() if ranks is None else len(ranks)
+
+
+def group_index(ranks: tuple[int, ...] | None = None) -> int:
+    """This rank's place among ``ranks`` (None: the world)."""
+    return process_index() if ranks is None else ranks.index(process_index())
 
 
 @dataclass(frozen=True)
@@ -388,16 +407,37 @@ def all_reduce_(
     return tensor
 
 
-def broadcast_(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s values into ``tensor`` on every rank; returns it."""
-    if not dist.is_initialized():
+def broadcast_(tensor: torch.Tensor, src: int = 0, ranks: tuple[int, ...] | None = None) -> torch.Tensor:
+    """Rank ``src``'s values into ``tensor`` on every rank of ``ranks``
+    (None: the world); returns it."""
+    if not dist.is_initialized() or (ranks is not None and len(ranks) == 1):
         return tensor
+    group = _process_group(ranks)
     if _staged(tensor):
         host = _host_copy(tensor)
-        dist.broadcast(host, src=src)
+        dist.broadcast(host, src=src, group=group)
         tensor.copy_(host)
     else:
-        dist.broadcast(tensor, src=src)
+        dist.broadcast(tensor, src=src, group=group)
+    return tensor
+
+
+def send_(tensor: torch.Tensor, dst: int) -> None:
+    """Send ``tensor`` to rank ``dst``, whose ``recv_`` takes it; returns
+    once the transport holds it."""
+    tensor = tensor.contiguous()
+    dist.send(_host_copy(tensor) if _staged(tensor) else tensor, dst=dst)
+
+
+def recv_(tensor: torch.Tensor, src: int) -> torch.Tensor:
+    """Rank ``src``'s ``send_`` into ``tensor`` (contiguous, of the sent
+    shape and dtype); returns it."""
+    if _staged(tensor):
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        dist.recv(host, src=src)
+        tensor.copy_(host)
+    else:
+        dist.recv(tensor, src=src)
     return tensor
 
 
@@ -416,7 +456,7 @@ def all_gather_rows(tensor: torch.Tensor, ranks: tuple[int, ...] | None = None) 
     if not dist.is_initialized() or (ranks is not None and len(ranks) == 1):
         return [tensor]
     group = _process_group(ranks)
-    n = process_count() if ranks is None else len(ranks)
+    n = group_size(ranks)
     tensor = tensor.contiguous()
     if _staged(tensor):
         host = _host_copy(tensor)
@@ -446,8 +486,7 @@ def reduce_scatter_seq(tensor: torch.Tensor, dim: int, ranks: tuple[int, ...] | 
     of the whole tensor, then the slice."""
     if not dist.is_initialized() or (ranks is not None and len(ranks) == 1):
         return tensor
-    n = process_count() if ranks is None else len(ranks)
-    index = process_index() if ranks is None else ranks.index(process_index())
+    n, index = group_size(ranks), group_index(ranks)
     share = tensor.shape[dim] // n
     if _backend == "gloo":
         whole = all_reduce_(tensor.contiguous().clone(), ranks=ranks)

@@ -586,6 +586,62 @@ def test_ln_quant_dense_raises_on_what_it_does_not_take(gen):
         lnd.ln_quant_dense(x, g, b, s_x, wq.t().contiguous().t(), ws, d)
 
 
+# the two entry forms tensor parallelism uses at SwiGLU's fc2 (K sharded,
+# the inner LayerNorm's statistics all-reduced): UNI2's at tp = 2 and 4
+# (M = 64·265, K = 2,048 and 1,024, N = 1,536), ragged M, K and N, odd N
+ENTRY_FORM_SHAPES = [(16960, 2048, 1536), (16960, 1024, 1536), (300, 136, 200), (1000, 264, 7)]
+
+
+@pytest.mark.parametrize("m,k,n", ENTRY_FORM_SHAPES)
+def test_ln_dense_entry_forms(gen, m, k, n):
+    """The caller's statistics in place of the kernel's, and the partial-sum
+    epilogue: the f32 accumulators against the plain version's, and with
+    the bias added and the cast done in PyTorch, bitwise the kernel's own
+    epilogue (the same two f32 operations)."""
+    x, g, b = _randn(gen, m, k), _randn(gen, k), _randn(gen, k)
+    w, d = _randn(gen, n, k, scale=k**-0.5), _randn(gen, n)
+    stats = lnd.row_stats(x, 1e-6)
+    before, partial_before = lnd.LAUNCHES, lnd.PARTIAL_LAUNCHES
+    full = lnd.ln_dense(x, g, b, w, d, stats=stats)
+    acc = lnd.ln_dense(x, g, b, w, stats=stats, partial=True)
+    assert (lnd.LAUNCHES, lnd.PARTIAL_LAUNCHES) == (before + 2, partial_before + 1)
+    assert acc.dtype == torch.float32 and acc.shape == (m, n)
+    assert _rel_err(full, lnd.ln_dense_reference(x, g, b, w, d, stats=stats)) <= TOL
+    assert _rel_err(acc, lnd.ln_dense_reference(x, g, b, w, stats=stats, partial=True)) <= TOL
+    assert torch.equal((acc + d.float()).bfloat16(), full)
+    # the caller's statistics equal to the kernel's own: the same output within the bf16 cast
+    assert _rel_err(full, lnd.ln_dense(x, g, b, w, d)) <= TOL
+
+
+@pytest.mark.parametrize("m,k,n", ENTRY_FORM_SHAPES)
+def test_ln_quant_dense_entry_forms(gen, m, k, n):
+    """int8: with the caller's statistics the normalized activation is the
+    plain version's bit for bit, so the partial-sum form's i32 sums equal
+    the plain ones exactly, and dequantized in PyTorch they are the
+    kernel's own epilogue bitwise."""
+    x, g, b, s_x, wq, ws, d = _quant_inputs(gen, m, k, n, 4.0, True)
+    stats = lnd.row_stats(x, 1e-6)
+    before = lnd.QUANT_PARTIAL_LAUNCHES
+    acc = lnd.ln_quant_dense(x, g, b, s_x, wq, ws, stats=stats, partial=True)
+    assert lnd.QUANT_PARTIAL_LAUNCHES == before + 1
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, lnd.ln_quant_dense_reference(x, g, b, s_x, wq, ws, stats=stats, partial=True))
+    full = lnd.ln_quant_dense(x, g, b, s_x, wq, ws, d, stats=stats)
+    assert torch.equal((acc.float() * (s_x / 127.0) * ws + d.float()).bfloat16(), full)
+    assert _rel_err(full, lnd.ln_quant_dense_reference(x, g, b, s_x, wq, ws, d)) <= TOL
+
+
+def test_entry_forms_raise_on_what_they_do_not_take(gen):
+    x, g, b = _randn(gen, 64, 64), _randn(gen, 64), _randn(gen, 64)
+    w, d = _randn(gen, 32, 64), _randn(gen, 32)
+    with pytest.raises(ValueError, match="no dense bias"):
+        lnd.ln_dense(x, g, b, w, d, partial=True)
+    with pytest.raises(ValueError, match="stats must be"):
+        lnd.ln_dense(x, g, b, w, stats=lnd.row_stats(x, 1e-6).double())
+    with pytest.raises(ValueError, match="stats must be"):
+        lnd.ln_dense(x, g, b, w, stats=lnd.row_stats(x[:8], 1e-6))
+
+
 def test_int8_virchow_forward(gen):
     """An int8 Virchow (full width, depth 2; LayerScale γ = 1 so that the
     blocks move the residual stream) calibrated on the card: its forward on

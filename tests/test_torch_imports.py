@@ -139,6 +139,12 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
         "stamp_tpu_torch.parallel._fleet_launch",
         "stamp_tpu_torch.parallel._dist_dryrun",
         "stamp_tpu_torch.parallel._extract_fleet_dryrun",
+        "stamp_tpu_torch.parallel.tp_extractor",
+        "stamp_tpu_torch.parallel.pp_extractor",
+        "stamp_tpu_torch.mcp",
+        "stamp_tpu_torch.mcp._minimal_mcp",
+        "stamp_tpu_torch.mcp.server",
+        "stamp_tpu_torch.utils.shapecheck",
     } <= set(seen.pop("imported"))
     assert seen == {
         "jax": [], "flax": [], "stamp_tpu": [], "triton": False, "h5py": False,
@@ -149,7 +155,8 @@ def test_port_imports_without_jax_triton_h5py_or_nvcc(tmp_path):
 _IMPORT_PARALLEL = _REFUSE + r"""
 import importlib
 
-for name in ("distributed", "mesh", "prefetch", "_fleet_launch", "_dist_dryrun", "_extract_fleet_dryrun"):
+for name in ("distributed", "mesh", "prefetch", "_fleet_launch", "_dist_dryrun", "_extract_fleet_dryrun", "tp_extractor",
+             "pp_extractor"):
     importlib.import_module("stamp_tpu_torch.parallel." + name)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
@@ -269,3 +276,14 @@ def test_port_sources_name_no_jax_import():
                 for module in " ".join(words[1:]).split(" import ")[0].split(","):
                     top = module.strip().split(" ")[0].split(".")[0]
                     assert top not in ("jax", "flax", "jaxlib", "stamp_tpu"), f"{src}: {line}"
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """The two packages' module lists: every ``stamp_tpu/**/*.py`` has a
+    file of the same path in ``stamp_tpu_torch/``, but the flax weight
+    helpers, which the port keeps as ``encoding/encoder/_weights.py``."""
+    jax_modules = {p.relative_to(REPO / "stamp_tpu") for p in (REPO / "stamp_tpu").rglob("*.py")}
+    port_modules = {p.relative_to(REPO / "stamp_tpu_torch") for p in (REPO / "stamp_tpu_torch").rglob("*.py")}
+    missing = {str(p) for p in jax_modules - port_modules}
+    assert missing == {"encoding/encoder/_flax_params.py"}
+    assert (REPO / "stamp_tpu_torch" / "encoding" / "encoder" / "_weights.py").is_file()
