@@ -844,7 +844,7 @@ def phase_main_path(card: str) -> dict:
     if launches != expected:
         _fail(f"kernel launches {launches}, expected {expected} for {batches} batches")
     # the driver's stage timer, which --profile switched on for this run
-    forward_s = extract.profiling.timer.seconds["preprocess/device_forward"]
+    forward_s = extract.profiling.timer.seconds["extract/forward"]
     row = dict(tiles=n, batches=batches, launches=launches, wall_s=wall,
                forward_s=forward_s, forward_tiles_per_s=n / forward_s)  # fmt: skip
     print(f"[4 main path] {json.dumps(row)} on {card}")
@@ -907,7 +907,7 @@ def phase_int8_main_path(card: str, bf16_row: dict) -> dict:
     cos = (feats * bf16).sum(1) / (np.linalg.norm(feats, axis=1) * np.linalg.norm(bf16, axis=1))
     if not cos.min() >= INT8_COSINE_MIN:
         _fail(f"int8 against bf16 features: min per-tile cosine {cos.min()} < {INT8_COSINE_MIN}")
-    forward_s = extract.profiling.timer.seconds["preprocess/device_forward"]
+    forward_s = extract.profiling.timer.seconds["extract/forward"]
     row = dict(tiles=n, batches=batches, launches=launches, wall_s=wall, forward_s=forward_s,
                forward_tiles_per_s=n / forward_s, bf16_forward_tiles_per_s=bf16_row["forward_tiles_per_s"],
                min_cosine_vs_bf16=float(cos.min()), mean_cosine_vs_bf16=float(cos.mean()))  # fmt: skip
@@ -3098,7 +3098,7 @@ def _extract_run(card: str, family: str, root: Path, slides: Path, *, int8: bool
     timer = extract.profiling.timer.seconds
     row = dict(family=family, precision="int8" if int8 else "bfloat16", macenko=macenko, tiles=n,
                batches=math.ceil(n / BATCH), launches={k: v for k, v in launches.items() if v}, wall_s=wall,
-               forward_s=timer["preprocess/device_forward"], macenko_s=timer.get("preprocess/macenko"))  # fmt: skip
+               forward_s=timer["extract/forward"], macenko_s=timer.get("preprocess/macenko"))  # fmt: skip
     print(f"[13 extractor zoo] preprocess {json.dumps(row)} on {card}")
     return row, feats, coords
 

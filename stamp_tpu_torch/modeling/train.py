@@ -447,9 +447,16 @@ def forward_batch(model: TaskModel, batch: tuple, key_mask: np.ndarray | None, d
     """The backbone on one host batch: a tile batch's bags, with its
     coordinates and ``key_mask`` where the backbone takes them
     (``uses_coords``), or a slide/patient batch's vectors.  ``kwargs`` go
-    to the module (``train``, ``generator``)."""
+    to the module (``train``, ``generator``).  A training tile batch
+    counts ``train/tiles`` (its valid tiles, from ``sizes`` where it lies
+    in host memory: no count reads the device) and ``train/rows`` (the
+    B·T rows handed to the backbone, padding included)."""
     if len(batch) == 4:
-        bags, coords, _sizes, _targets = batch
+        bags, coords, sizes, _targets = batch
+        if kwargs.get("train") and profiling.recording():
+            if not (isinstance(sizes, torch.Tensor) and sizes.device.type != "cpu"):
+                profiling.count("train/tiles", int(np.sum(np.asarray(sizes))))
+            profiling.count("train/rows", bags.shape[0] * bags.shape[1])
         if model.uses_coords:
             kwargs.update(
                 coords=_to_device(coords, device),
@@ -611,11 +618,14 @@ def _train_model_impl(
         feed = _bucketed(train_dl) if pad_train_buckets else ((b, None) for b in train_dl)
         if mesh is not None:
             feed = _mesh_feed(feed, mesh)
-        for batch, key_mask in prefetch_to_device(feed, size=2, device=device):
-            with profiling.stage("train/step"):
-                loss, outputs = step(batch, key_mask, global_step)
-                if profiling.timer.enabled and device.type == "cuda":
-                    torch.cuda.synchronize(device)  # the device time belongs to the step
+        batches = prefetch_to_device(feed, size=2, device=device)
+        while True:
+            with profiling.stage("train/feed_wait"):  # the time the step waits for its batch
+                fed = next(batches, None)
+            if fed is None:
+                break
+            batch, key_mask = fed
+            loss, outputs = step(batch, key_mask, global_step)
             train_losses.append(loss)
             if is_survival:
                 train_outputs.append(outputs.float().cpu().numpy().reshape(-1))

@@ -51,6 +51,7 @@ import torch
 from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 from stamp_tpu_torch.parallel import distributed
 from stamp_tpu_torch.parallel.distributed import Mesh, make_global_mesh, replicate_global, split_local_rows
+from stamp_tpu_torch.utils.profiling import stage
 
 
 def make_mesh(n_devices: int | None = None, axes: Sequence[str] = ("dp",), shape: Sequence[int] | None = None) -> Mesh:
@@ -206,28 +207,36 @@ def make_dp_train_step(
     tiles (None: every axis is data-parallel).  ``count`` (updates done so
     far) sets the learning rate from ``schedule`` before the update.  With
     ``mesh`` None (or of one rank) the step is the single-device one: no
-    collective."""
+    collective.  A step is the span ``train/step`` around ``train/forward``
+    (with the gather of the rows), ``train/loss``, ``train/backward``,
+    ``train/allreduce`` (under a mesh) and ``train/optimizer``."""
     if sp_axis is not None and (mesh is None or sp_axis not in mesh.axis_names):
         raise ValueError(f"sp_axis {sp_axis!r} is not an axis of the mesh {None if mesh is None else mesh.shape}")
     params = [p for p in task_model.module.parameters() if p.requires_grad]
     parallel = mesh is not None and mesh.size > 1
 
     def step(batch: tuple, key_mask: torch.Tensor | None, count: int) -> tuple[torch.Tensor, Any]:
-        targets = batch[-1]
-        group = step_group(mesh, batch[0].shape[0], sp_axis=sp_axis)
-        outputs = forward(batch, key_mask, group)
-        if parallel:
-            outputs = _gather_rows(outputs, mesh, group, sp_axis)
-        loss = task_model.loss(outputs, targets)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            _all_reduce_grads(params)
-        for param_group in optimizer.param_groups:
-            param_group["lr"] = schedule(count)  # optax: schedule(updates done so far)
-        optimizer.step()
-        detached = {k: v.detach() for k, v in outputs.items()} if isinstance(outputs, Mapping) else outputs.detach()
-        return loss.detach(), detached
+        with stage("train/step"):
+            targets = batch[-1]
+            group = step_group(mesh, batch[0].shape[0], sp_axis=sp_axis)
+            with stage("train/forward"):
+                outputs = forward(batch, key_mask, group)
+                if parallel:
+                    outputs = _gather_rows(outputs, mesh, group, sp_axis)
+            with stage("train/loss"):
+                loss = task_model.loss(outputs, targets)
+            with stage("train/backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            if mesh is not None:
+                with stage("train/allreduce"):
+                    _all_reduce_grads(params)
+            with stage("train/optimizer"):
+                for param_group in optimizer.param_groups:
+                    param_group["lr"] = schedule(count)  # optax: schedule(updates done so far)
+                optimizer.step()
+            detached = {k: v.detach() for k, v in outputs.items()} if isinstance(outputs, Mapping) else outputs.detach()
+            return loss.detach(), detached
 
     return step
 

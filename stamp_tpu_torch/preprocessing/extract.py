@@ -225,18 +225,12 @@ def _extract_slide(
     for batch, coords in _batched_tiles(slide_path, extractor, tiling):
         if macenko_device is not None:
             with profiling.stage("preprocess/macenko"):
-                # the normalized batch stays on the device for the forward;
-                # profiling syncs here to attribute the time to this stage
+                # the normalized batch stays on the device for the forward
                 batch = macenko_normalize(torch.from_numpy(batch).to(macenko_device))
-                if profiling.timer.enabled and batch.is_cuda:
-                    torch.cuda.synchronize(batch.device)
         # device tensors accumulate without a sync — the next batch's
-        # transfer and compute queue behind this one
-        with profiling.stage("preprocess/device_forward"):
-            feats = extractor.forward(batch)
-            if profiling.timer.enabled:
-                # attribute the device wait here rather than at the h5 write
-                feats = feats.cpu()
+        # transfer and compute queue behind this one (the forward's own
+        # spans, extract/*, time it)
+        feats = extractor.forward(batch)
         feat_batches.append(feats)
         coord_batches.append(coords)
 

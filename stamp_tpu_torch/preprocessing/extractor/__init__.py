@@ -49,6 +49,7 @@ from stamp_tpu_torch.models.vit_image import (
     select_timm_state_dict,
     vit_quant_sites,
 )
+from stamp_tpu_torch.utils.profiling import stage
 
 _logger = logging.getLogger("stamp")
 
@@ -181,15 +182,16 @@ def int8_tower_state(
 
     def model_for(x: torch.Tensor) -> nn.Module:
         if "int8" not in state:
-            observe = state.pop("observe")
-            act_stats = calibrate_act_stats(observe, x)
-            with torch.no_grad():
-                qstate = quantize_sites(observe.state_dict(), sites)
-            with torch.device("meta"):
-                qmodel = build_int8()
-            # assign: int8 weights, f32 scales and the rest keep their dtypes
-            qmodel.load_state_dict({**qstate, **act_stats}, assign=True)
-            state["int8"] = qmodel.eval()
+            with stage("extract/calibrate"):
+                observe = state.pop("observe")
+                act_stats = calibrate_act_stats(observe, x)
+                with torch.no_grad():
+                    qstate = quantize_sites(observe.state_dict(), sites)
+                with torch.device("meta"):
+                    qmodel = build_int8()
+                # assign: int8 weights, f32 scales and the rest keep their dtypes
+                qmodel.load_state_dict({**qstate, **act_stats}, assign=True)
+                state["int8"] = qmodel.eval()
         return state["int8"]
 
     return model_for
@@ -223,7 +225,10 @@ def tower_extractor(
     without a sync.  With int8 requested (``set_int8_extraction`` or
     STAMP_INT8_EXTRACTION=1) the first, padded batch calibrates the
     observe-mode tower and every forward runs the int8 one
-    (``int8_tower_state``)."""
+    (``int8_tower_state``).  A forward is the span ``extract/forward``
+    around ``extract/upload`` (the copy to ``device`` and the pad),
+    ``extract/normalize``, ``extract/calibrate`` (the calibrating call
+    only) and ``extract/tower`` (the tower's launches)."""
     use_int8 = _int8_requested()
     with torch.device("meta"):  # no memory and no init until weights arrive
         model = build("observe" if use_int8 else "off")
@@ -243,17 +248,19 @@ def tower_extractor(
         """Non-blocking: returns the device tensor so consecutive batches
         queue on the stream; callers materialize at write time.  A batch
         already on ``device`` stays there."""
-        images = torch.as_tensor(batch).to(device)
-        n = images.shape[0]
-        pad_to = max(batch_floor(), n)
-        if n < pad_to:
-            # pad to the steady-state batch: one shape for every forward
-            images = torch.cat([images, images.new_zeros((pad_to - n, *images.shape[1:]))])
-        with torch.inference_mode():
-            x = ((images.float() - mean_t) / std_t).to(dtype)
-        tower = model_for(x)  # the first, padded batch calibrates, as in the JAX package
-        with torch.inference_mode():
-            return apply(tower, x).float()[:n]
+        with stage("extract/forward"):
+            with stage("extract/upload"):
+                images = torch.as_tensor(batch).to(device)
+                n = images.shape[0]
+                pad_to = max(batch_floor(), n)
+                if n < pad_to:
+                    # pad to the steady-state batch: one shape for every forward
+                    images = torch.cat([images, images.new_zeros((pad_to - n, *images.shape[1:]))])
+            with stage("extract/normalize"), torch.inference_mode():
+                x = ((images.float() - mean_t) / std_t).to(dtype)
+            tower = model_for(x)  # the first, padded batch calibrates, as in the JAX package
+            with stage("extract/tower"), torch.inference_mode():
+                return apply(tower, x).float()[:n]
 
     return Extractor(
         identifier=identifier,

@@ -865,3 +865,122 @@ def test_prefetch_copies_on_a_side_stream(gen, monkeypatch):
     for (x, d, _), (gx, gd, gnone) in zip(batches, got, strict=True):
         assert gx.is_cuda and torch.equal(gx, torch.from_numpy(x).cuda())
         assert torch.equal(gd["t"], torch.from_numpy(d["t"]).cuda()) and gnone is None
+
+
+# --- the program's spans on the card ---------------------------------------------
+
+
+def _conv_extractor():
+    """A ``tower_extractor`` around a small convolutional tower (no kernel
+    of the port's to build), batches of 64 tiles of 224 px on the card."""
+    from stamp_tpu_torch.preprocessing.extractor import tower_extractor
+
+    def build(quant: str) -> torch.nn.Module:
+        return torch.nn.Sequential(torch.nn.Conv2d(3, 256, 3, padding=1), torch.nn.Conv2d(256, 256, 3, padding=1),
+                                   torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten())  # fmt: skip
+
+    def load(model: torch.nn.Module) -> torch.nn.Module:
+        model.to_empty(device="cpu")
+        g = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+        return model
+
+    return tower_extractor(identifier="test-conv", build=build, load=load, sites=[], device=torch.device("cuda"),
+                           input_px=224, feat_dim=256, mean=(0.5, 0.5, 0.5), std=(0.25, 0.25, 0.25),
+                           apply=lambda tower, x: tower(x.permute(0, 3, 1, 2)))  # fmt: skip
+
+
+def test_the_upload_span_ends_at_its_copy(gen, monkeypatch):
+    """Under a CUDA trace, each ``extract/upload`` span (a blocking copy of
+    a pinned batch) holds the CUDA runtime call that waits for its copy,
+    queued behind the previous batch's tower, and ends within 200 µs after
+    that call returns: the span lies on the trace's host clock.  (The
+    profiler maps device times onto the host clock with a drift of up to
+    milliseconds in some traces, so the device copy itself is only
+    counted.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stamp_tpu_torch.utils import profiling
+
+    monkeypatch.setenv("STAMP_EXTRACT_BATCH", "64")
+    monkeypatch.delenv("STAMP_INT8_EXTRACTION", raising=False)
+    extractor = _conv_extractor()
+    g = torch.Generator().manual_seed(0)
+    batches = [torch.randint(0, 256, (64, 224, 224, 3), generator=g, dtype=torch.uint8).pin_memory() for _ in range(8)]
+    extractor.forward(batches[0])  # cuDNN's choice of algorithms, outside the trace
+    torch.cuda.synchronize()
+    profiling.timer.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            extractor.forward(batch)
+        torch.cuda.synchronize()
+    uploads = [r for r in profiling.records() if isinstance(r, profiling.Span) and r.name == "extract/upload"]
+    events = prof.profiler.kineto_results.events()
+    copies = [e for e in events if e.device_type() == DeviceType.CUDA and "HtoD" in e.name()]
+    runtime = [(e.start_ns(), e.end_ns()) for e in events
+               if e.device_type() == DeviceType.CPU and e.name().startswith("cuda")]  # fmt: skip
+    assert len(uploads) == len(copies) == 8
+    for i, span in enumerate(uploads):
+        start, end = max(((s, e) for s, e in runtime if span.start_ns <= s and e <= span.end_ns), key=lambda se: se[1])
+        assert 0 <= span.end_ns - end <= 200_000, (i, span, start, end)
+        if i:  # behind the previous batch's tower: the wait is most of the span
+            assert end - start > (span.end_ns - span.start_ns) / 2, (i, span, start, end)
+    profiling.timer.reset()
+
+
+class _Batches:
+    """A re-iterable feed of host tile batches (bags, coords, sizes, targets)."""
+
+    def __init__(self, batches: list) -> None:
+        self.batches = batches
+
+    def __iter__(self):
+        yield from self.batches
+
+
+def test_profile_adds_no_sync_to_training(gen, monkeypatch, tmp_path):
+    """``train_model_`` on the card calls ``torch.cuda.synchronize`` as
+    often with the stage timer on (``--profile``) as without it, and the
+    timer sees every step."""
+    import contextlib
+
+    import numpy as np
+
+    from stamp_tpu_torch.modeling.tasks import LitTileClassifier
+    from stamp_tpu_torch.modeling.train import train_model_
+    from stamp_tpu_torch.models.vision_transformer import VisionTransformer
+    from stamp_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(0)
+
+    def batches(n: int) -> _Batches:
+        return _Batches([(rng.normal(size=(2, 16, 8)).astype(np.float32), np.zeros((2, 16, 2), np.float32),
+                          np.array([16, 16]), np.eye(2, dtype=np.float32)) for _ in range(n)])  # fmt: skip
+
+    train, valid = batches(4), batches(1)
+    synced = []
+    synchronize = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        synced.append(1)
+        return synchronize(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    syncs = {}
+    for profiled in (False, True):
+        synced.clear()
+        task = LitTileClassifier(
+            model_class=VisionTransformer, ground_truth_label="label", categories=["a", "b"],
+            category_weights=np.array([0.5, 0.5], dtype=np.float32), dim_input=8, total_steps=8, max_lr=1e-4,
+            div_factor=25.0, dim_model=16, dim_feedforward=16, n_heads=2, n_layers=1, dropout=0.0, use_alibi=False,
+        )  # fmt: skip
+        with profiling.stage_table() if profiled else contextlib.nullcontext():
+            train_model_(output_dir=tmp_path / str(profiled), model=task, train_dl=train, valid_dl=valid,
+                         max_epochs=1, patience=1, device=torch.device("cuda", 0))  # fmt: skip
+            if profiled:
+                assert profiling.timer.calls["train/step"] == 4 and profiling.timer.calls["train/feed_wait"] == 5
+        syncs[profiled] = len(synced)
+    assert syncs[True] == syncs[False], syncs

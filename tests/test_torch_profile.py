@@ -163,3 +163,199 @@ def test_preprocess_spreads_over_two_cards(tmp_path, monkeypatch, stamp_logger_h
     for rank in range(2):
         share = distributed.shard_worklist(paths, index=rank, count=2)
         assert f"extraction fleet: process {rank}/2 takes {len(share)} slides" in log
+
+
+# --- the program's spans and counters ---------------------------------------------
+
+
+@pytest.fixture
+def recording():
+    """The stage timer on, its sums and ring empty; off again afterwards."""
+    profiling.timer.reset()
+    profiling.timer.enabled = True
+    try:
+        yield profiling.timer
+    finally:
+        profiling.timer.enabled = False
+        profiling.timer.reset()
+
+
+def _spans(name: str | None = None) -> list[profiling.Span]:
+    return [r for r in profiling.records() if isinstance(r, profiling.Span) and name in (None, r.name)]
+
+
+def _counts(name: str) -> list[int]:
+    return [r.n for r in profiling.records() if isinstance(r, profiling.Count) and r.name == name]
+
+
+def test_spans_record_their_parent_times_and_self_time(recording):
+    import threading
+    import time
+
+    def nest(tag: str) -> None:
+        with profiling.stage(f"{tag}/outer"):
+            time.sleep(0.002)
+            with profiling.stage(f"{tag}/inner"):
+                time.sleep(0.004)
+            with profiling.stage(f"{tag}/inner"):
+                pass
+
+    other = threading.Thread(target=nest, args=("thread",))
+    with profiling.stage("main/top"):  # open while the other thread nests: no span of that thread is its child
+        other.start()
+        nest("main")
+        other.join(timeout=30)
+    assert not other.is_alive()
+    by_index = {s.index: s for s in _spans()}
+    (top,) = _spans("main/top")
+    for tag, root_parent in (("main", top.index), ("thread", None)):
+        (outer,) = _spans(f"{tag}/outer")
+        inner = _spans(f"{tag}/inner")
+        assert outer.parent == root_parent and [s.parent for s in inner] == [outer.index] * 2
+        root = top.index if tag == "main" else outer.index
+        assert outer.root == root and all(s.root == root for s in inner)
+        assert len({outer.thread, *(s.thread for s in inner)}) == 1
+        assert all(outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns for s in inner)
+        assert inner[0].end_ns - inner[0].start_ns >= 4_000_000 and inner[0].self_ns == inner[0].end_ns - inner[0].start_ns
+        children = sum(s.end_ns - s.start_ns for s in inner)
+        assert outer.self_ns == outer.end_ns - outer.start_ns - children and outer.self_ns >= 2_000_000
+    assert _spans("thread/outer")[0].thread != top.thread
+    assert by_index[top.index].self_ns == top.end_ns - top.start_ns - sum(
+        s.end_ns - s.start_ns for s in _spans("main/outer"))  # fmt: skip
+    assert recording.calls["main/inner"] == 2 and recording.calls["thread/outer"] == 1
+
+
+def test_counts_add_up(recording):
+    for n in (3, 4, 5):
+        profiling.count("tiles", n)
+    assert _counts("tiles") == [3, 4, 5] and recording.counts["tiles"] == 12
+    times = [r.time_ns for r in profiling.records()]
+    assert times == sorted(times)
+    assert "tiles" in recording.report() and "12" in recording.report()
+
+
+def test_the_stage_table_shares_self_time(recording):
+    import time
+
+    with profiling.stage("outer"):
+        time.sleep(0.01)
+        with profiling.stage("inner"):
+            time.sleep(0.02)
+    lines = recording.report().splitlines()
+    assert lines[0].split() == ["stage", "calls", "total", "s", "self", "s", "share"]
+    shares = {line.split()[0]: float(line.split()[-1].rstrip("%")) for line in lines[1:]}
+    assert sum(shares.values()) == pytest.approx(100.0, abs=0.2) and shares["inner"] > shares["outer"]
+    assert recording.self_seconds["outer"] < recording.seconds["outer"]
+
+
+def test_the_ring_keeps_its_bound():
+    timer = profiling.StageTimer(ring=4)
+    timer.enabled = True
+    for i in range(10):
+        with timer.stage(f"s{i}"):
+            pass
+    timer.count("c", 1)
+    assert [getattr(r, "name") for r in timer.records()] == ["s7", "s8", "s9", "c"]
+    assert sum(timer.calls.values()) == 10 and timer.counts["c"] == 1
+
+
+def test_program_spans_share_the_profiler_clock():
+    """Under ``torch.profiler`` each span is a range of the trace, and its
+    times lie within 50 µs of the range's (the profiler's host clock is
+    ``time.time_ns()``'s)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):  # the first range of a process sets the profiler up
+        with profiling.stage("warm-up"):
+            pass
+    profiling.timer.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert profiling.recording() and not profiling.timer.enabled
+        for i in range(20):
+            with profiling.stage(f"clock/{i}"):
+                torch.ones(64).sum()
+    spans = {s.name: s for s in _spans() if s.name.startswith("clock/")}
+    ranges = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU and e.name() in spans}  # fmt: skip
+    assert set(ranges) == set(spans)
+    for name, span in spans.items():
+        assert abs(span.start_ns - ranges[name].start_ns()) <= 50_000, name
+        assert abs(span.end_ns - ranges[name].end_ns()) <= 50_000, name
+    profiling.timer.reset()
+    assert not profiling.recording()
+
+
+def _tiny_extractor(monkeypatch, int8: bool):
+    from stamp_tpu_torch.models import vit_image
+    from stamp_tpu_torch.preprocessing.extractor import make_vit_extractor
+
+    monkeypatch.setitem(vit_image.VIT_CONFIGS, "test-tiny", vit_image.ViTConfig(
+        patch_size=32, embed_dim=64, depth=1, num_heads=2))  # fmt: skip
+    monkeypatch.setenv("STAMP_RANDOM_WEIGHTS", "1")
+    monkeypatch.setenv("STAMP_EXTRACT_BATCH", "4")
+    if int8:
+        monkeypatch.setenv("STAMP_INT8_EXTRACTION", "1")
+    else:
+        monkeypatch.delenv("STAMP_INT8_EXTRACTION", raising=False)
+    return make_vit_extractor(identifier="test-tiny", arch="test-tiny", device=torch.device("cpu"))
+
+
+def _tiny_step():
+    """A tiny whole-slide training step (the MIL ViT, AdamW, one cycle) as
+    ``_train_model_impl`` builds it, and one bag of 5 tiles padded to 8."""
+    from stamp_tpu_torch.modeling.tasks import LitTileClassifier
+    from stamp_tpu_torch.modeling.train import forward_batch
+    from stamp_tpu_torch.models.vision_transformer import VisionTransformer
+    from stamp_tpu_torch.parallel.mesh import make_dp_train_step
+
+    task = LitTileClassifier(
+        model_class=VisionTransformer, ground_truth_label="label", categories=["a", "b"],
+        category_weights=np.array([0.5, 0.5], dtype=np.float32), dim_input=8, total_steps=10, max_lr=1e-4,
+        div_factor=25.0, dim_model=16, dim_feedforward=16, n_heads=2, n_layers=1, dropout=0.0, use_alibi=False,
+    )  # fmt: skip
+    cpu = torch.device("cpu")
+    optimizer = task.make_optimizer(task.module.parameters())
+    step = make_dp_train_step(task, optimizer, None, schedule=task.lr_schedule(),
+                              forward=lambda batch, key_mask, group: forward_batch(
+                                  task, batch, key_mask, cpu, train=True, group=group))  # fmt: skip
+    bags = np.zeros((1, 8, 8), dtype=np.float32)
+    bags[0, :5] = np.random.default_rng(0).normal(size=(5, 8))
+    batch = (bags, np.zeros((1, 8, 2), dtype=np.float32), np.array([5]), torch.tensor([[1.0, 0.0]]))
+    return step, batch, np.arange(8)[None] < 5
+
+
+def test_no_profiler_and_no_timer_record_nothing(monkeypatch):
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: opened.append(name))
+    profiling.timer.reset()
+    assert not profiling.recording()
+    extractor = _tiny_extractor(monkeypatch, int8=False)
+    extractor.forward(np.zeros((3, 224, 224, 3), dtype=np.uint8))
+    step, batch, key_mask = _tiny_step()
+    step(batch, key_mask, 0)
+    assert profiling.records() == [] and not profiling.timer.calls and not profiling.timer.counts and opened == []
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_the_extractor_forward_is_spanned(monkeypatch, recording, int8):
+    extractor = _tiny_extractor(monkeypatch, int8)
+    batch = np.random.default_rng(0).integers(0, 256, (3, 224, 224, 3), dtype=np.uint8)
+    for call in range(2):
+        recording.reset()
+        extractor.forward(batch)
+        (forward,) = _spans("extract/forward")
+        children = [s for s in _spans() if s.parent == forward.index]
+        want = ["extract/upload", "extract/normalize"] + (["extract/calibrate"] if int8 and call == 0 else [])
+        assert [s.name for s in children] == want + ["extract/tower"], call
+        assert all(s.root == forward.index for s in children) and forward.parent is None
+        assert forward.self_ns == forward.end_ns - forward.start_ns - sum(s.end_ns - s.start_ns for s in children)
+
+
+def test_the_training_step_is_spanned_and_counts_its_rows(recording):
+    step, batch, key_mask = _tiny_step()
+    step(batch, key_mask, 0)
+    (top,) = _spans("train/step")
+    children = [s.name for s in _spans() if s.parent == top.index]
+    assert children == ["train/forward", "train/loss", "train/backward", "train/optimizer"]  # no mesh, no all-reduce
+    assert _counts("train/tiles") == [5] and _counts("train/rows") == [8]
