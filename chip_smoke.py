@@ -4671,7 +4671,7 @@ def _mp_expected(parallel: str, quant: str) -> tuple[dict, dict]:
     counts = {"fused_qkv_mha": blocks, "ln_dense": 0, "ln_dense_partial": 0, "ln_quant_dense": 0,
               "ln_quant_dense_partial": 0} | {name: 3 * blocks, f"{name}_partial": partial}  # fmt: skip
     profiled = {"fused_qkv_attn": blocks, "ln_dense": 0, "ln_dense_partial": 0, "ln_quant_dense": 0,
-                "ln_quant_dense_partial": 0, "ln_row_stats": 3 * blocks} | {
+                "ln_quant_dense_partial": 0, "ln_normalize": 3 * blocks} | {
         name: 3 * blocks - partial, f"{name}_partial": partial}  # fmt: skip
     return counts, profiled
 

@@ -6,18 +6,24 @@ one part taken out, then times each build at the three UNI2 sites
 (M = 16,960; K×N = 1536×4608, 1536×8192, 4096×1536) on one NVIDIA GPU:
 
 * ``as_is``: the kernels unchanged;
-* ``no_layernorm``: the raw x fragment goes to the tensor cores as it is
-  (no LayerNorm, no quantization: the A transform's cost);
+* ``no_layernorm``: the normalization pass writes the raw x as A (bf16) or
+  folds each 8 raw values into 8 bytes (int8): the same loads and stores,
+  no LayerNorm, no quantization (the A transform's arithmetic);
 * ``no_stores``: the epilogue stores nothing (the compiler then drops the
   epilogue's arithmetic too: the epilogue's cost).
 
 The ablated builds compute wrong results; only their times mean anything.
 Each time is the mean of two medians of 20 samples of back-to-back calls
-(CUDA events; every build timed twice, in turns), the row-statistics kernel
+(CUDA events; every build timed twice, in turns), the normalization pass
 included.  Run from the repository root on a
 machine with a CUDA card and ``nvcc``:
 
-    python3 scripts/ln_gemm_sm90_probe.py
+    python3 scripts/ln_gemm_sm90_probe.py [--against DIR]
+
+``--against DIR`` also builds the sources of another tree's
+``stamp_tpu_torch/ops/csrc`` (``git archive <commit> | tar -x -C DIR``) as
+the variant ``other``, times it in the same turns, and prints the largest
+|Δ| between its outputs and ``as_is``'s on the same inputs (``*_max_diff``).
 
 It prints the card's name and power limit, then one JSON line per site.
 """
@@ -44,32 +50,33 @@ SITES = ((16960, 1536, 4608, "norm1→qkv"), (16960, 1536, 8192, "norm2→fc1"),
 ABLATIONS = {
     "as_is": [],
     "no_layernorm": [
-        ("ln_dense.cu", "    a[0] = ln_pair(raw[0], f.rstd[0], shift[0], g_lo, b_lo);\n"
-                        "    a[1] = ln_pair(raw[1], f.rstd[1], shift[1], g_lo, b_lo);\n"
-                        "    a[2] = ln_pair(raw[2], f.rstd[0], shift[0], g_hi, b_hi);\n"
-                        "    a[3] = ln_pair(raw[3], f.rstd[1], shift[1], g_hi, b_hi);",
-         "    for (int i = 0; i < 4; ++i) a[i] = raw[i];"),
-        ("ln_quant_dense.cu", "a[h + 2 * half] = quantize4(raw, g, b, f.mean[h], f.rstd[h], f.factor);",
-         "a[h + 2 * half] = raw.x ^ raw.y;"),
+        ("ln_dense.cu", "y[i] = ln_pair(pairs[i], rstd, shift, make_float2(g[2 * i], g[2 * i + 1]), "
+                        "make_float2(b[2 * i], b[2 * i + 1]));",
+         "y[i] = pairs[i];"),
+        ("ln_quant_dense.cu", "make_uint2(quantize4(make_uint2(raw.x, raw.y), g, b, mean, rstd, inv),\n" + " " * 46
+                              + "quantize4(make_uint2(raw.z, raw.w), g + 4, b + 4, mean, rstd, inv));",
+         "make_uint2(raw.x ^ raw.z, raw.y ^ raw.w);"),
     ],
     "no_stores": [("ln_gemm_sm90.cuh", "if (row + 8 * h < m && col < n)", "if (row + 8 * h < -1)")],
 }  # fmt: skip
 
 
-def build(variant: str, source: str) -> Path:
-    """Compile one kernel source with the variant's ablation into a library."""
+def build(variant: str, source: str, csrc: Path = _build.CSRC_DIR) -> Path:
+    """Compile one kernel source of ``csrc`` with the variant's ablation into a library."""
     d = OUT / variant
     d.mkdir(parents=True, exist_ok=True)
+    for path in csrc.glob("*.cuh"):  # the source's headers, ablated where the variant says
+        shutil.copy(path, d / path.name)
     for name in ("ln_gemm_sm90.cuh", source):
-        text = (_build.CSRC_DIR / name).read_text()
-        for file, old, new in ABLATIONS[variant]:
+        text = (csrc / name).read_text()
+        for file, old, new in ABLATIONS.get(variant, []):
             if file == name:
                 if old not in text:
                     raise SystemExit(f"{variant}: {file} no longer holds {old!r}")
                 text = text.replace(old, new)
         (d / name).write_text(text)
     lib = d / f"{Path(source).stem}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC_DIR), "-o", str(lib), str(d / source)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(d / source)]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
     return lib
 
@@ -92,8 +99,16 @@ def median_ms(fn, samples: int = 20, reps: int = 10) -> float:
 
 
 def main() -> None:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", type=Path, help="another tree of the repository, built as variant 'other'")
+    args = parser.parse_args()
+    variants = {variant: _build.CSRC_DIR for variant in ABLATIONS}
+    if args.against is not None:
+        variants["other"] = args.against.resolve() / "stamp_tpu_torch" / "ops" / "csrc"
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,10 +116,10 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0])
     shutil.rmtree(OUT, ignore_errors=True)
     libs = {}
-    for variant in ABLATIONS:
+    for variant, csrc in variants.items():
         for kind, source, entry in (("bf16", "ln_dense.cu", "stamp_ln_dense"),
                                     ("int8", "ln_quant_dense.cu", "stamp_ln_quant_dense")):  # fmt: skip
-            fn = getattr(ctypes.CDLL(str(build(variant, source))), entry)
+            fn = getattr(ctypes.CDLL(str(build(variant, source, csrc))), entry)
             fn.argtypes, fn.restype = _build._SIGNATURES[entry], ctypes.c_int
             libs[(kind, variant)] = fn
 
@@ -120,21 +135,29 @@ def main() -> None:
         ws = 1e-3 * torch.ones(n, device=dev)
         s_x = torch.tensor([5.0], device=dev)
         bias = (0.1 * torch.randn(n, device=dev, generator=gen)).bfloat16()
-        scratch = torch.empty(2 * k + 2 * m, device=dev)
+        scratch = torch.empty(2 * m + m * k, device=dev)  # room for [μ, 1/σ, A] and for an older [γ, β, μ, 1/σ]
         out = torch.empty(m, n, device=dev, dtype=torch.bfloat16)
         row = {"site": site, "m": m, "k": k, "n": n}
         samples: dict[str, list[float]] = {}
+        outputs = {}
         # every build twice, in turns (forward, then backward), on one card
         for key in [*libs, *reversed(libs)]:
             kind, variant = key
             fn = libs[key]
-            args = (x, g, b, w, bias) if kind == "bf16" else (x, g, b, s_x, wq, ws, bias)
+            inputs = (x, g, b, w, bias) if kind == "bf16" else (x, g, b, s_x, wq, ws, bias)
             # no caller statistics (NULL), the bf16 epilogue (partial 0)
-            ptrs = [*(t.data_ptr() for t in args), None, scratch.data_ptr(), out.data_ptr(), 0]
+            ptrs = [*(t.data_ptr() for t in inputs), None, scratch.data_ptr(), out.data_ptr(), 0]
             call = lambda: fn(*ptrs, m, n, k, 1e-6, 0, stream)  # noqa: E731
             if call() != 0:
                 raise SystemExit(f"{kind} {variant}: launch failed")
+            torch.cuda.synchronize()
+            if key not in outputs:
+                outputs[key] = out.clone()
             samples.setdefault(f"{kind}_{variant}_ms", []).append(median_ms(call))
+        for kind in ("bf16", "int8"):
+            if (kind, "other") in outputs:
+                diff = (outputs[(kind, "other")].float() - outputs[(kind, "as_is")].float()).abs().max().item()
+                row[f"{kind}_other_max_diff"] = diff
         print(json.dumps(row | {name: statistics.mean(v) for name, v in samples.items()}), flush=True)
 
 

@@ -1,34 +1,34 @@
 // The Hopper core shared by ln_dense.cu and ln_quant_dense.cu: a GEMM
-//   out[M, N] = epilogue(transform(LayerNorm(x))[M, K] · W[N, K]ᵀ)
-// whose LayerNorm (and, for int8, quantization) is applied to the A operand
-// in registers, so the normalized activation never reaches device memory.
+//   out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ),  A = transform(LayerNorm(x))
+// whose A operand (the LayerNorm of x, and for int8 its quantization) is
+// formed once per element, by a pass that issues no wgmma, and read by the
+// GEMM from shared memory.
 //
 // Two kernels, launched on the caller's stream by the op's C entry point:
-//   1. ln_row_stats_kernel: μ and 1/σ of every row of x, once, one warp per
-//      row, two passes in f32 (μ, then mean((x − μ)²), then rsqrt(σ² + eps)),
-//      and γ, β converted to f32, into an f32 scratch the wrapper allocates:
-//      [γ (K), β (K), μ (M), 1/σ (M)].  A caller that holds the rows'
-//      statistics already (tensor parallelism: SwiGLU's inner LayerNorm over
-//      a K sharded across ranks, its sums all-reduced) passes them as
-//      [μ (M), 1/σ (M)] f32; the kernel then converts γ, β only, and the
-//      GEMM reads the caller's statistics.
+//   1. ln_normalize_kernel<Op::Norm>: one warp per row, 8 rows a block.  μ
+//      and 1/σ of the row in f32, two passes (μ, then mean((x − μ)²), then
+//      rsqrt(σ² + eps)), the row held in registers up to K = 4,096; then the
+//      row's A: each 8 columns of raw x normalized with γ, β in f32 and cast
+//      (Norm::apply8: bf16, or bf16 then int8), written to the A buffer
+//      [M, a_ld bytes] of the scratch the wrapper allocates:
+//      [μ (M), 1/σ (M)] f32, then A 16-byte aligned.  A caller that holds the
+//      rows' statistics already (tensor parallelism: SwiGLU's inner
+//      LayerNorm over a K sharded across ranks, its sums all-reduced) passes
+//      them as [μ (M), 1/σ (M)] f32 and the kernel normalizes with those.
+//      Each A element is formed once, where the GEMM would form it again for
+//      every output tile (N / 256 times).
 //   2. ln_gemm_kernel<Op>: persistent (one block per SM, gridDim.x =
 //      min(tiles, SMs)), warp-specialized, 384 threads:
 //      * warpgroup 2 is the producer (40 registers, setmaxnreg): one thread
-//        issues TMA loads of raw x boxes [128, 64] bf16, W boxes [256, BK]
-//        (128-byte rows, 128-byte swizzle) and γ, β of the K block into a
-//        ring of Op::kStages shared-memory stages, each paced by a "full"
-//        (TMA bytes landed) and an "empty" (both consumers done) mbarrier;
+//        issues TMA loads of A boxes [128, 128 bytes] and W boxes [256, BK]
+//        (128-byte rows, 128-byte swizzle) into a ring of kStages
+//        shared-memory stages, each paced by a "full" (TMA bytes landed)
+//        and an "empty" (both consumers done) mbarrier;
 //      * warpgroups 0 and 1 are the consumers (232 registers), 64 rows of the
-//        128 × 256 tile each.  For every wgmma k-step a thread reads its raw
-//        A fragment from the swizzled stage, applies the LayerNorm with its
-//        rows' μ, 1/σ (read once per tile) and the stage's γ, β in f32, and
-//        packs the result into the wgmma A registers (Op::load_a: bf16, or
-//        bf16 then int8); wgmma.mma_async multiplies A from registers by B
-//        (W) from shared memory.  Each k-step's A fragment has its own
-//        registers, so it is normalized while the two previous k-steps'
-//        wgmmas run (kPending groups stay in flight).  A stage is released
-//        once the wgmmas that read it completed;
+//        128 × 256 tile each: wgmma.mma_async with both operands from shared
+//        memory (SS), the k-steps of a stage as one wgmma group; a stage is
+//        released once the next stage's group is issued and its own
+//        completed;
 //      * Op::epilogue writes the tile straight from the accumulator
 //        registers with masked 16-byte stores (store_tile): no
 //        shared-memory tile.  An op's partial-sum form (its kPartial
@@ -37,18 +37,18 @@
 //        slice, which the caller all-reduces across ranks before the
 //        epilogue's arithmetic.
 // Output tiles are walked in a grouped order (kGroupM row tiles at a time,
-// the row tile fastest), so the blocks in flight share W tiles and x rows in
-// L2.  TMA zero-fills everything past M, N and K; γ and β past K are zero,
-// so an A element past K is exactly 0 after the LayerNorm.
+// the row tile fastest), so the blocks in flight share W tiles and A rows in
+// L2.  TMA zero-fills everything past M, N and K, so an A element past K is
+// exactly 0.
 //
-// The three swizzle agreements: TMA writes every box with
+// The two swizzle agreements: TMA writes every box with
 // CU_TENSOR_MAP_SWIZZLE_128B (16-byte chunk c of row r stored at chunk
-// c ^ (r % 8) of a 128-byte row, in 1024-byte-aligned boxes); swz() below
-// reads raw x with the same XOR; smem_desc_sw128() tells wgmma the same
-// layout (layout type 1, 8-row groups 1024 bytes apart).
+// c ^ (r % 8) of a 128-byte row, in 1024-byte-aligned boxes);
+// smem_desc_sw128() tells wgmma the same layout (layout type 1, 8-row groups
+// 1024 bytes apart).
 //
-// fused_qkv_attn.cu includes this header for its fragment helpers only
-// (smem_addr, ldmatrix_x4, pack_bf16, quad_transpose).
+// fused_qkv_attn.cu and fused_qkv_long.cu include this header for its
+// fragment helpers only (swz, ldmatrix_x4, pack_bf16, quad_transpose).
 
 #pragma once
 
@@ -72,11 +72,12 @@ constexpr int kConsumers = 2;   // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kGroupM = 8;      // row tiles walked together
 constexpr int kRowBytes = 128;  // one swizzled box row
-constexpr int kXBoxBytes = kBM * kRowBytes;  // a raw x box: [128, 64] bf16
+constexpr int kABytes = kBM * kRowBytes;  // an A box: [128, 64] bf16 or [128, 128] int8
+constexpr int kWBytes = kBN * kRowBytes;  // a W box
+constexpr int kStages = 4;                // 48 KB a stage
 constexpr int kConsumerRegs = 232, kProducerRegs = 40;  // 2·128·232 + 128·40 ≤ 65,536
-constexpr int kPending = 2;     // wgmma groups a consumer leaves in flight (1 or 2)
 
-// ---- row statistics ---------------------------------------------------------
+// ---- the normalization pass ---------------------------------------------------
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -92,68 +93,92 @@ __device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
   }
 }
 
-// scratch = [γ (k), β (k), μ (m), 1/σ (m)] in f32; 8 rows per block, k a
-// multiple of 8.  A lane keeps the first kRowVecs of its 16-byte vectors of
-// the row in registers (the whole row up to K = 4,096), so the second pass
-// reads x again only past that.
+// A lane keeps the first kRowVecs of its 16-byte vectors of the row in
+// registers (the whole row up to K = 4,096), so the second pass and the
+// normalization read x again only past that.
 constexpr int kRowVecs = 16;
 
-// With stat_rows = 0 (the caller gives the statistics) only γ, β are
-// converted.
+// Norm supplies: kElemBytes (of an A element: 2 or 1), Params (the op's)
+// and
+//   float factor(const Params&);
+//   void apply8(uint8_t* a, uint4 raw, const bf16* gamma, const bf16* beta, float mean, float rstd, float factor);
+// a_ld: bytes from one A row to the next (16-byte aligned); k a multiple of
+// 8.  stats_out ([μ (m), 1/σ (m)]) is written only where the caller gives
+// no statistics.
+template <class Norm>
 __global__ void __launch_bounds__(256)
-ln_row_stats_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gamma,
-                    const __nv_bfloat16* __restrict__ beta, float* __restrict__ scratch, int m, int k,
-                    float eps, int stat_rows) {
-  for (int i = blockIdx.x * 256 + threadIdx.x; i < k; i += gridDim.x * 256) {
-    scratch[i] = __bfloat162float(gamma[i]);
-    scratch[k + i] = __bfloat162float(beta[i]);
-  }
-  float* stats = scratch + 2 * k;
+ln_normalize_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gamma,
+                    const __nv_bfloat16* __restrict__ beta, const float* __restrict__ given,
+                    float* __restrict__ stats_out, uint8_t* __restrict__ a, int a_ld, int m, int k, float eps,
+                    const typename Norm::Params params) {
   const int row = blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= stat_rows) return;
+  if (row >= m) return;
   const __nv_bfloat16* xr = x + (size_t)row * k;
   uint4 held[kRowVecs];
-  float f[8];
-  float s = 0.0f;
 #pragma unroll
   for (int i = 0; i < kRowVecs; ++i) {
     const int c = (i * 32 + lane) * 8;
     held[i] = c < k ? *reinterpret_cast<const uint4*>(xr + c) : make_uint4(0, 0, 0, 0);
   }
+  float mean, rstd;
+  if (given != nullptr) {
+    mean = given[row];
+    rstd = given[m + row];
+  } else {
+    float f[8];
+    float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kRowVecs; ++i) {
-    unpack8(held[i], f);  // zeros past k add nothing
-    for (int e = 0; e < 8; ++e) s += f[e];
-  }
-  for (int c = (kRowVecs * 32 + lane) * 8; c < k; c += 32 * 8) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
-    for (int e = 0; e < 8; ++e) s += f[e];
-  }
-  const float mean = warp_sum(s) / (float)k;
-  float v = 0.0f;
+    for (int i = 0; i < kRowVecs; ++i) {
+      unpack8(held[i], f);  // zeros past k add nothing
+      for (int e = 0; e < 8; ++e) s += f[e];
+    }
+    for (int c = (kRowVecs * 32 + lane) * 8; c < k; c += 32 * 8) {
+      unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+      for (int e = 0; e < 8; ++e) s += f[e];
+    }
+    mean = warp_sum(s) / (float)k;
+    float v = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kRowVecs; ++i) {
-    if ((i * 32 + lane) * 8 < k) {
-      unpack8(held[i], f);
+    for (int i = 0; i < kRowVecs; ++i) {
+      if ((i * 32 + lane) * 8 < k) {
+        unpack8(held[i], f);
+        for (int e = 0; e < 8; ++e) {
+          const float d = f[e] - mean;
+          v += d * d;
+        }
+      }
+    }
+    for (int c = (kRowVecs * 32 + lane) * 8; c < k; c += 32 * 8) {
+      unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
       for (int e = 0; e < 8; ++e) {
         const float d = f[e] - mean;
         v += d * d;
       }
     }
-  }
-  for (int c = (kRowVecs * 32 + lane) * 8; c < k; c += 32 * 8) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
-    for (int e = 0; e < 8; ++e) {
-      const float d = f[e] - mean;
-      v += d * d;
+    rstd = rsqrtf(warp_sum(v) / (float)k + eps);
+    if (lane == 0) {
+      stats_out[row] = mean;
+      stats_out[m + row] = rstd;
     }
   }
-  const float rstd = rsqrtf(warp_sum(v) / (float)k + eps);
-  if (lane == 0) {
-    stats[row] = mean;
-    stats[m + row] = rstd;
+  const float factor = Norm::factor(params);
+  uint8_t* ar = a + (size_t)row * a_ld;
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int c = (i * 32 + lane) * 8;
+    if (c < k) Norm::apply8(ar + c * Norm::kElemBytes, held[i], gamma + c, beta + c, mean, rstd, factor);
   }
+  for (int c = (kRowVecs * 32 + lane) * 8; c < k; c += 32 * 8)
+    Norm::apply8(ar + c * Norm::kElemBytes, *reinterpret_cast<const uint4*>(xr + c), gamma + c, beta + c, mean, rstd,
+                 factor);
+}
+
+// γ, β of 8 columns, bf16 → f32
+__device__ __forceinline__ void affine8(const __nv_bfloat16* gamma, const __nv_bfloat16* beta, float g[8],
+                                        float b[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(gamma), g);
+  unpack8(*reinterpret_cast<const uint4*>(beta), b);
 }
 
 // ---- swizzled boxes ---------------------------------------------------------------
@@ -174,12 +199,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 
 // Accumulator layout of both wgmmas below (m64n256, per warp w of the
 // warpgroup, g = lane / 4, t = lane % 4): d[4j + 2h + e] is row 16w + g + 8h,
-// column 8j + 2t + e.  A fragment (registers, k16 bf16 or k32 int8): warp w
-// holds rows 16w..16w+15 in mma.sync's m16 A layout.
+// column 8j + 2t + e.  Both operands come from shared memory by descriptor
+// (K-major, 128-byte swizzle): A [64, k16 bf16 or k32 int8], B [256, same].
 
-__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
@@ -190,8 +215,8 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], const uint32_t 
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132,"
-      " p, 1, 1, 0;\n"
+      "}, %128, %129,"
+      " p, 1, 1, 0, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -209,12 +234,12 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], const uint32_t 
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
@@ -225,7 +250,7 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], const uint32_t (&a)
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132,"
+      "}, %128, %129,"
       " p;\n"
       "}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
@@ -244,7 +269,7 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], const uint32_t (&a)
         "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
         "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // ---- the epilogue's stores -----------------------------------------------------
@@ -354,16 +379,6 @@ __device__ __forceinline__ void store_acc(const T (&acc)[kBN / 2], T* __restrict
 
 // ---- the kernel ---------------------------------------------------------------
 
-// What a consumer thread needs for its A fragment: its lane, the first row
-// r0 of its warp's 16 rows of the tile (the thread's rows are r0 + lane/4
-// and r0 + lane/4 + 8), those rows' μ and 1/σ, and the op's activation
-// factor (int8: 127/s_x).
-struct Frag {
-  int lane, r0;
-  float mean[2], rstd[2];
-  float factor;
-};
-
 // origin of output tile `tile` in the grouped order: kGroupM row tiles at
 // a time, the row tile fastest, so the blocks in flight share W tiles
 __device__ __forceinline__ void tile_origin(int tile, int m_tiles, int n_tiles, int& m0, int& n0) {
@@ -375,42 +390,28 @@ __device__ __forceinline__ void tile_origin(int tile, int m_tiles, int n_tiles, 
   n0 = (in_group / rows) * kBN;
 }
 
-template <class Op>
-__host__ __device__ constexpr int stage_bytes() {
-  return Op::kXBoxes * kXBoxBytes + kBN * kRowBytes + 2 * Op::kBK * 4;
+constexpr int smem_bytes() {  // the ring, its 2·kStages barriers, 1024 of alignment slack
+  return kStages * (kABytes + kWBytes) + 2 * kStages * 8 + 1024;
 }
 
-template <class Op>
-__host__ __device__ constexpr int smem_bytes() {  // the ring, its 2·kStages barriers, 1024 of alignment slack
-  return Op::kStages * stage_bytes<Op>() + 2 * Op::kStages * 8 + 1024;
-}
-
-// Op supplies: kBK (K per stage), kStages, kKSteps (wgmma
-// k-steps per stage), kXBoxes (64-column raw x boxes per stage), Acc (float
-// or int), Params (epilogue arguments) and
-//   float factor(const Params&);
-//   void load_a(uint32_t (&a)[4], const uint8_t* x_stage, const float* gb_stage, int ks, const Frag&);
-//   void mma(Acc (&acc)[kBN / 2], const uint32_t (&a)[4], uint64_t desc_b);
+// Op supplies: kBK (K per stage: 128 bytes of A), kKSteps (wgmma k-steps per
+// stage), Norm (its normalization, above), Acc (float or int), Params (the
+// epilogue's arguments, Norm's too) and
+//   void mma(Acc (&acc)[kBN / 2], uint64_t desc_a, uint64_t desc_b);
 //   void epilogue(const Acc (&acc)[kBN / 2], const Params&, int row, int n0, int m, int n, int lane);
-// W boxes are [kBN, 128 bytes]; γ, β of a stage are [2][kBK] f32.
 template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
-ln_gemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
-               const __grid_constant__ CUtensorMap g_map, const __grid_constant__ CUtensorMap b_map,
-               const float* __restrict__ stats, const typename Op::Params params, int m, int n, int k) {
-  constexpr int S = Op::kStages;
-  constexpr int kXBytes = Op::kXBoxes * kXBoxBytes;
-  constexpr int kWBytes = kBN * kRowBytes;
-  constexpr uint32_t kTxBytes = stage_bytes<Op>();
-  static_assert(kXBytes % 1024 == 0 && kWBytes % 1024 == 0, "swizzled boxes need 1024-byte alignment");
+ln_gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap w_map,
+               const typename Op::Params params, int m, int n, int k) {
+  constexpr int S = kStages;
+  static_assert(kABytes % 1024 == 0 && kWBytes % 1024 == 0, "swizzled boxes need 1024-byte alignment");
 
   extern __shared__ uint8_t smem_raw[];
   // aligned by an offset from the shared array, so that the compiler still
-  // knows every pointer below is shared memory (LDS, not generic loads)
-  uint8_t* x_ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* w_ring = x_ring + S * kXBytes;
-  float* gb_ring = reinterpret_cast<float*>(w_ring + S * kWBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(gb_ring + S * 2 * Op::kBK);
+  // knows every pointer below is shared memory
+  uint8_t* a_ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* w_ring = a_ring + S * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(w_ring + S * kWBytes);
   uint64_t* empty = full + S;
 
   const int m_tiles = (m + kBM - 1) / kBM;
@@ -439,68 +440,44 @@ ln_gemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant_
         for (int kb = 0; kb < num_kb; ++kb, ++c) {
           const int s = c % S;
           mbar_wait(&empty[s], ((c / S) & 1) ^ 1);  // round 0 passes: the ring starts empty
-          mbar_expect_tx(&full[s], kTxBytes);
-          const int k0 = kb * Op::kBK;
-          for (int b = 0; b < Op::kXBoxes; ++b)
-            tma_load_2d(x_ring + s * kXBytes + b * kXBoxBytes, &x_map, &full[s], k0 + 64 * b, m0);
-          tma_load_2d(w_ring + s * kWBytes, &w_map, &full[s], k0, n0);
-          tma_load_1d(gb_ring + s * 2 * Op::kBK, &g_map, &full[s], k0);
-          tma_load_1d(gb_ring + s * 2 * Op::kBK + Op::kBK, &b_map, &full[s], k0);
+          mbar_expect_tx(&full[s], kABytes + kWBytes);
+          tma_load_2d(a_ring + s * kABytes, &a_map, &full[s], kb * Op::kBK, m0);
+          tma_load_2d(w_ring + s * kWBytes, &w_map, &full[s], kb * Op::kBK, n0);
         }
       }
     }
   } else {
-    // consumers: LayerNorm on the A fragment, wgmma, epilogue
+    // consumers: SS wgmma on the stage's A and W boxes, epilogue
     reg_alloc<kConsumerRegs>();
-    Frag f;
-    f.lane = threadIdx.x % 32;
-    f.r0 = 64 * wg + 16 * ((threadIdx.x / 32) % 4);
-    f.factor = Op::factor(params);
+    const int lane = threadIdx.x % 32;
+    const int r0 = 64 * wg + 16 * ((threadIdx.x / 32) % 4);  // the warp's first row of the tile
     const bool signals = threadIdx.x % 128 == 0;  // one arrival per warpgroup on "empty"
     uint32_t c = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       int m0, n0;
       tile_origin(tile, m_tiles, n_tiles, m0, n0);
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + f.r0 + f.lane / 4 + 8 * h;
-        f.mean[h] = row < m ? stats[row] : 0.0f;
-        f.rstd[h] = row < m ? stats[m + row] : 0.0f;
-      }
       typename Op::Acc acc[kBN / 2];
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
-      // one A register set per k-step of a stage: step j + 1's set is
-      // written while steps j − 1 and j run, into the set of step j − 3
-      // (complete: at most kPending ≤ 2 wgmma groups stay in flight)
-      uint32_t a[Op::kKSteps][4];
-      mbar_wait(&full[c % S], (c / S) & 1);
-      Op::load_a(a[0], x_ring + (c % S) * kXBytes, gb_ring + (c % S) * 2 * Op::kBK, 0, f);
       for (int kb = 0; kb < num_kb; ++kb, ++c) {
         const int s = c % S;
-        const uint64_t desc = smem_desc_sw128(w_ring + s * kWBytes);
+        mbar_wait(&full[s], (c / S) & 1);
+        const uint64_t desc_a = smem_desc_sw128(a_ring + s * kABytes + wg * 64 * kRowBytes);
+        const uint64_t desc_b = smem_desc_sw128(w_ring + s * kWBytes);
+        fence_operands(acc);
+        wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < Op::kKSteps; ++ks) {
-          fence_operands(acc);
-          wgmma_fence();  // A registers were just written
-          Op::mma(acc, a[ks], desc + 2 * ks);
-          wgmma_commit();
-          if (ks + 1 < Op::kKSteps) {
-            Op::load_a(a[ks + 1], x_ring + s * kXBytes, gb_ring + s * 2 * Op::kBK, ks + 1, f);
-          } else if (kb + 1 < num_kb) {  // the next stage's first step
-            const int next = (c + 1) % S;
-            mbar_wait(&full[next], ((c + 1) / S) & 1);
-            Op::load_a(a[0], x_ring + next * kXBytes, gb_ring + next * 2 * Op::kBK, 0, f);
-          }
-          wgmma_wait<kPending>();
-          fence_operands(acc);
-          // the previous stage's last wgmma completed: release it to the producer
-          if (ks == kPending - 1 && kb > 0 && signals) mbar_arrive(&empty[(c - 1) % S]);
-        }
+        for (int ks = 0; ks < Op::kKSteps; ++ks) Op::mma(acc, desc_a + 2 * ks, desc_b + 2 * ks);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operands(acc);
+        // the previous stage's wgmmas completed: release it to the producer
+        if (kb > 0 && signals) mbar_arrive(&empty[(c - 1) % S]);
       }
       wgmma_wait<0>();
       fence_operands(acc);
       if (signals) mbar_arrive(&empty[(c - 1) % S]);
-      Op::epilogue(acc, params, m0 + f.r0 + f.lane / 4, n0, m, n, f.lane);
+      Op::epilogue(acc, params, m0 + r0 + lane / 4, n0, m, n, lane);
     }
   }
 }
@@ -525,57 +502,47 @@ inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, int ele
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// map of an f32 vector [len] read in boxes of `box` elements, zero fill past the end
-inline cudaError_t encode_1d(CUtensorMap* map, const void* ptr, int len, int box) {
-  PFN_cuTensorMapEncodeTiled encode;
-  cudaError_t err = tensor_map_encoder(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[1] = {(cuuint64_t)len};
-  const cuuint64_t strides[1] = {(cuuint64_t)len * 4};  // unused at rank 1
-  const cuuint32_t boxes[1] = {(cuuint32_t)box};
-  const cuuint32_t elem_strides[1] = {1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides,
-                            boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
+// Bytes of the scratch the wrapper allocates: [μ (m), 1/σ (m)] f32, then
+// the A buffer [m, a_ld] 16-byte aligned (a_ld: 2k for bf16, k rounded up to
+// 16 for int8).
+inline size_t a_offset(int m) { return ((size_t)8 * m + 15) / 16 * 16; }
 
-// Row statistics, then the GEMM, on `stream`.  x: [m, k] bf16 (k % 8 == 0),
-// w: [n, w_ld] with w_type (w_ld >= k, a 16-byte row; columns past k are
-// not read), gamma/beta: [k] bf16, stats: [μ (m), 1/σ (m)] f32 of the
-// caller or NULL, scratch: [2k] f32 with the caller's statistics, else
-// [2k + 2m].
+// The normalization pass, then the GEMM, on `stream`.  x: [m, k] bf16
+// (k % 8 == 0), w: [n, w_ld] with w_type (w_ld >= k, a 16-byte row; columns
+// past k are not read), gamma/beta: [k] bf16, stats: [μ (m), 1/σ (m)] f32 of
+// the caller or NULL, scratch: as a_offset says.
 template <class Op>
 cudaError_t launch(const void* x, const void* gamma, const void* beta, const void* w,
-                   CUtensorMapDataType w_type, int w_ld, const float* stats, float* scratch,
+                   CUtensorMapDataType w_type, int w_ld, const float* stats, void* scratch,
                    const typename Op::Params& params, int m, int n, int k, float eps, int device,
                    cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
   if (m <= 0 || n <= 0 || k <= 0 || tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  using Norm = typename Op::Norm;
+  constexpr int kElem = Norm::kElemBytes;
+  const int a_ld = kElem == 2 ? 2 * k : (k + 15) / 16 * 16;  // bytes
+  uint8_t* a = static_cast<uint8_t*>(scratch) + a_offset(m);
   const int w_elem = w_type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
-  CUtensorMap x_map, w_map, g_map, b_map;
-  if ((err = encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, k, kBM, 64)) != cudaSuccess ||
-      (err = encode_2d(&w_map, w_type, w_elem, w, n, k, w_ld, kBN, kRowBytes / w_elem)) != cudaSuccess ||
-      (err = encode_1d(&g_map, scratch, k, Op::kBK)) != cudaSuccess ||
-      (err = encode_1d(&b_map, scratch + k, k, Op::kBK)) != cudaSuccess)
+  const CUtensorMapDataType a_type = kElem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap a_map, w_map;
+  if ((err = encode_2d(&a_map, a_type, kElem, a, m, k, a_ld / kElem, kBM, kRowBytes / kElem)) != cudaSuccess ||
+      (err = encode_2d(&w_map, w_type, w_elem, w, n, k, w_ld, kBN, kRowBytes / w_elem)) != cudaSuccess)
     return err;
-  constexpr int kSmem = smem_bytes<Op>();
+  constexpr int kSmem = smem_bytes();
   err = cudaFuncSetAttribute(ln_gemm_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
 
-  const int stat_rows = stats == nullptr ? m : 0;
-  ln_row_stats_kernel<<<stats == nullptr ? (m + 7) / 8 : (k + 255) / 256, 256, 0, stream>>>(
+  ln_normalize_kernel<Norm><<<(m + 7) / 8, 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gamma),
-      static_cast<const __nv_bfloat16*>(beta), scratch, m, k, eps, stat_rows);
+      static_cast<const __nv_bfloat16*>(beta), stats, static_cast<float*>(scratch), a, a_ld, m, k, eps, params);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_gemm_kernel<Op><<<(int)(tiles < sms ? tiles : sms), kThreads, kSmem, stream>>>(
-      x_map, w_map, g_map, b_map, stats == nullptr ? scratch + 2 * k : stats, params, m, n, k);
+  ln_gemm_kernel<Op><<<(int)(tiles < sms ? tiles : sms), kThreads, kSmem, stream>>>(a_map, w_map, params, m, n, k);
   return cudaGetLastError();
 }
 

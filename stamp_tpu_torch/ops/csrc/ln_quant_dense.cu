@@ -1,4 +1,4 @@
-// LayerNorm → int8 quantize → int8 matmul → dequantize, as one kernel (W8A8):
+// LayerNorm → int8 quantize → int8 matmul → dequantize, as one op (W8A8):
 //   y   = cast_bf16(LN_f32(x)·γ + β)
 //   q   = clip(rint(y · (127 / s_x)), −127, 127)              (int8)
 //   out = cast_bf16(Σ_k q·W_q (i32) · (s_x / 127) · w_scale[n] + dense_bias[n])
@@ -11,24 +11,22 @@
 // sites (M = 64·265 = 16,960 rows; K×N = 1536×4608, 1536×8192, 4096×1536)
 // the product is 2·M·K·N = 213 to 427 G int8 operations, 0.11 to 0.22 ms at
 // the 1,979 TOPS peak, against 200 to 340 MB of bf16 x, int8 weights and
-// bf16 output (0.06 to 0.10 ms at 3.35 TB/s).  The unfused form adds a
-// LayerNorm pass and an int8 round trip of the activation through device
-// memory.
+// bf16 output (0.06 to 0.10 ms at 3.35 TB/s).  The int8 A the statistics
+// pass writes (M·K bytes) halves the activation bytes the GEMM reads.
 //
 // What the design does about it: ln_dense.cu's Hopper core
-// (ln_gemm_sm90.cuh) with an int8 A transform.  A stage holds a 128-wide K
-// block: two raw x boxes [128, 64] bf16 and one W_q box [256, 128] int8
-// (128-byte swizzle), 3 stages.  Per wgmma k32 step a
-// consumer thread reads its 16 raw x values (8-byte loads from the swizzled
-// box), normalizes them in f32 with every step rounded on its own (no FMA
-// contraction, as the plain version's separate operations), rounds to bf16,
-// multiplies by 127/s_x (formed in f32 first), clamps to ±127, rounds half
-// to even (as jnp.round and torch.round: see quantize4) and packs four int8
-// into each A register of wgmma m64n256k32 s8·s8 → s32 (both
-// operands K-major).  The i32 sums are exact.  The epilogue converts them
-// to f32 (rounded), multiplies by s_x/127 and w_scale, adds the dense bias
-// in f32 and casts once to bf16.  s_x is read on the device: the host never
-// waits for it.
+// (ln_gemm_sm90.cuh) with an int8 A.  The row-statistics pass quantizes each
+// element once: it normalizes the row's raw x in f32 with every step
+// rounded on its own (no FMA contraction, as the plain version's separate
+// operations), rounds to bf16, multiplies by 127/s_x (formed in f32 first),
+// clamps to ±127, rounds half to even (as jnp.round and torch.round: see
+// quantize4) and writes the int8 A [M, K] (rows padded to 16 bytes) to a
+// scratch.  The GEMM reads A [128, 128] and W_q [256, 128] int8 boxes
+// (128-byte swizzle) into a 4-stage ring and runs wgmma m64n256k32
+// s8·s8 → s32 with both operands from shared memory (K-major).  The i32
+// sums are exact.  The epilogue converts them to f32 (rounded), multiplies
+// by s_x/127 and w_scale, adds the dense bias in f32 and casts once to
+// bf16.  s_x is read on the device: the host never waits for it.
 //
 // As ln_dense.cu, two more entry forms serve tensor parallelism: the rows'
 // μ and 1/σ given by the caller, and the partial-sum epilogue
@@ -49,8 +47,8 @@ __device__ __forceinline__ float bf16_hi(uint32_t pair) { return __uint_as_float
 // [−127, 127] first (the same result as rounding first), v + 1.5·2²³ is
 // rounded to an integer by the f32 add itself, and the low byte of its bit
 // pattern is the two's-complement int8.
-__device__ __forceinline__ uint32_t quantize4(uint2 raw, const float (&g)[4], const float (&b)[4], float mean,
-                                              float rstd, float inv) {
+__device__ __forceinline__ uint32_t quantize4(uint2 raw, const float* g, const float* b, float mean, float rstd,
+                                              float inv) {
   const float x[4] = {bf16_lo(raw.x), bf16_hi(raw.x), bf16_lo(raw.y), bf16_hi(raw.y)};
   float y[4];
 #pragma unroll
@@ -77,42 +75,33 @@ struct LnQuantDenseParams {
   void* out;                  // [m, n]: bf16, or the i32 sums in the partial-sum form
 };
 
-template <bool kPartial>
-struct LnQuantDenseOp {
-  static constexpr int kBK = 128;     // one 128-byte box row of int8 W
-  static constexpr int kKSteps = 4;   // wgmma k32 steps per stage
-  static constexpr int kXBoxes = 2;   // two 64-column bf16 boxes of raw x
-  static constexpr int kStages = 3;  // 65 KB a stage
-  using Acc = int;
+// the normalization pass's part: 8 columns of a row of A, two quantize4,
+// low column first
+struct LnQuantNorm {
+  static constexpr int kElemBytes = 1;
   using Params = LnQuantDenseParams;
 
   __device__ static float factor(const Params& p) { return __fdiv_rn(127.0f, p.s_x[0]); }
 
-  // A fragment of k-step ks (columns 32·ks .. of the stage): register
-  // h + 2·half holds row g + 8h, columns 32·ks + 16·half + 4t .. +3, read as
-  // 8 bytes from x box ks / 2 (g = lane / 4, t = lane % 4)
-  __device__ static void load_a(uint32_t (&a)[4], const uint8_t* xs, const float* gb, int ks,
-                                const ln_gemm::Frag& f) {
-    const uint8_t* box = xs + (ks >> 1) * ln_gemm::kXBoxBytes;
-    const int t = f.lane % 4;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = (ks & 1) * 32 + 16 * half + 4 * t;  // within the 64-column box
-      const int kcol = 32 * ks + 16 * half + 4 * t;       // within the stage
-      const float4 g4 = *reinterpret_cast<const float4*>(gb + kcol);
-      const float4 b4 = *reinterpret_cast<const float4*>(gb + kBK + kcol);
-      const float g[4] = {g4.x, g4.y, g4.z, g4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = f.r0 + f.lane / 4 + 8 * h;
-        const uint2 raw = *reinterpret_cast<const uint2*>(box + ln_gemm::swz(row, col / 8) + (col % 8) * 2);
-        a[h + 2 * half] = quantize4(raw, g, b, f.mean[h], f.rstd[h], f.factor);
-      }
-    }
+  __device__ static void apply8(uint8_t* a, uint4 raw, const __nv_bfloat16* gamma, const __nv_bfloat16* beta,
+                                float mean, float rstd, float inv) {
+    float g[8], b[8];
+    ln_gemm::affine8(gamma, beta, g, b);
+    *reinterpret_cast<uint2*>(a) = make_uint2(quantize4(make_uint2(raw.x, raw.y), g, b, mean, rstd, inv),
+                                              quantize4(make_uint2(raw.z, raw.w), g + 4, b + 4, mean, rstd, inv));
   }
+};
 
-  __device__ static void mma(int (&acc)[ln_gemm::kBN / 2], const uint32_t (&a)[4], uint64_t desc) {
-    ln_gemm::wgmma_s8_n256(acc, a, desc, 1);
+template <bool kPartial>
+struct LnQuantDenseOp {
+  static constexpr int kBK = 128;    // one 128-byte box row of int8
+  static constexpr int kKSteps = 4;  // wgmma k32 steps per stage
+  using Norm = LnQuantNorm;
+  using Acc = int;
+  using Params = LnQuantDenseParams;
+
+  __device__ static void mma(int (&acc)[ln_gemm::kBN / 2], uint64_t desc_a, uint64_t desc_b) {
+    ln_gemm::wgmma_s8_n256(acc, desc_a, desc_b, 1);
   }
 
   // exact i32 sums → f32 · s_x/127 · w_scale + dense bias, one cast (the
@@ -154,11 +143,12 @@ extern "C" {
 // [n, k16] int8 (nn.Linear layout, its rows padded to k16 = k rounded up to
 // 16, the 16-byte row TMA needs; the columns past k are not read);
 // w_scale: [n] f32; dense_bias: [n] bf16 or NULL; stats: [μ (m), 1/σ (m)]
-// f32 or NULL (then computed here); scratch: [2k] f32 with stats, else
-// [2k + 2m]; out: [m, n] bf16, or with `partial` the i32 sums (dense_bias
-// NULL).  All contiguous, 16-byte aligned, k a multiple of 8.  Launches the
-// row statistics (or γ, β's conversion alone) and the GEMM on `stream`.
-// Returns a cudaError_t.
+// f32 or NULL (then computed here and written to the scratch's head);
+// scratch: [μ (m), 1/σ (m)] f32, then the int8 A [m, k16] at byte 8m
+// rounded up to 16; out: [m, n] bf16, or with `partial` the i32 sums
+// (dense_bias NULL).  All contiguous, 16-byte aligned, k a multiple of 8.
+// Launches the normalization pass and the GEMM on `stream`.  Returns a
+// cudaError_t.
 int stamp_ln_quant_dense(const void* x, const void* gamma, const void* beta, const void* s_x,
                          const void* w, const void* w_scale, const void* dense_bias, const void* stats,
                          void* scratch, void* out, int partial, int m, int n, int k, float eps, int device,
@@ -167,14 +157,13 @@ int stamp_ln_quant_dense(const void* x, const void* gamma, const void* beta, con
   const LnQuantDenseParams p{static_cast<const float*>(s_x), static_cast<const float*>(w_scale),
                              static_cast<const __nv_bfloat16*>(dense_bias), out};
   const float* given = static_cast<const float*>(stats);
-  float* f32_scratch = static_cast<float*>(scratch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr CUtensorMapDataType kW = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const int w_ld = (k + 15) / 16 * 16;
-  return partial ? ln_gemm::launch<LnQuantDenseOp<true>>(x, gamma, beta, w, kW, w_ld, given, f32_scratch, p, m, n,
-                                                         k, eps, device, s)
-                 : ln_gemm::launch<LnQuantDenseOp<false>>(x, gamma, beta, w, kW, w_ld, given, f32_scratch, p, m,
-                                                          n, k, eps, device, s);
+  return partial ? ln_gemm::launch<LnQuantDenseOp<true>>(x, gamma, beta, w, kW, w_ld, given, scratch, p, m, n, k, eps,
+                                                         device, s)
+                 : ln_gemm::launch<LnQuantDenseOp<false>>(x, gamma, beta, w, kW, w_ld, given, scratch, p, m, n, k,
+                                                          eps, device, s);
 }
 
 }  // extern "C"

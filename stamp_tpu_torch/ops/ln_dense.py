@@ -4,9 +4,9 @@ Counterpart of ``stamp_tpu.ops.ln_dense.ln_dense``: every pre-LN block of
 the extractor ViTs feeds a LayerNorm straight into a matmul (norm1→qkv,
 norm2→fc1 and SwiGLU's inner norm→fc2).  On a CUDA tensor ``ln_dense``
 launches the hand-written Hopper kernels in ``csrc/ln_dense.cu`` (row
-statistics, then a TMA-fed wgmma GEMM that applies the LayerNorm to its A
-operand in registers: the normalized activation never reaches device
-memory); on a CPU tensor it runs the plain PyTorch version,
+statistics and the normalized A, each element formed once, into a scratch
+the wrapper allocates, then a TMA-fed wgmma GEMM that reads A and W from
+shared memory); on a CPU tensor it runs the plain PyTorch version,
 ``ln_dense_reference``.  There is no fallback between the two: a CUDA tensor
 the kernel does not take raises.  Unlike the TPU kernel there is no tile
 gate — every row count launches.  Forward only.
@@ -110,6 +110,13 @@ def _check_shape(what: str, m: int, k: int, n: int) -> None:
         raise ValueError(f"{what}: unsupported shape M={m}, K={k}, N={n}")
 
 
+def _scratch(m: int, a_row_bytes: int, device) -> torch.Tensor:
+    """The kernels' scratch: [μ (M), 1/σ (M)] f32, then the normalized A
+    [M, a_row_bytes] at byte 8·M rounded up to 16 (``ln_gemm::a_offset``)."""
+    nbytes = (8 * m + 15) // 16 * 16 + m * a_row_bytes
+    return torch.empty((nbytes + 3) // 4, dtype=torch.float32, device=device)
+
+
 def _check_forms(what: str, x: torch.Tensor, m: int, stats: torch.Tensor | None, partial: bool, dense_bias) -> None:
     """Raise on ``stats`` the kernel cannot read ([2, M] f32, contiguous,
     16-byte aligned, on x's card) or a dense bias in the partial-sum form."""
@@ -177,8 +184,7 @@ def ln_dense(
     _check_shape("ln_dense", m, k, n)
 
     out = torch.empty((m, n), dtype=torch.float32 if partial else x.dtype, device=x.device)
-    # f32 γ, β; the rows' μ, 1/σ unless the caller gives them
-    scratch = torch.empty(2 * k + (0 if stats is not None else 2 * m), dtype=torch.float32, device=x.device)
+    scratch = _scratch(m, 2 * k, x.device)  # the rows' μ, 1/σ; A in bf16
     err = _build.load_library().stamp_ln_dense(
         x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), weight.data_ptr(),
         None if dense_bias is None else dense_bias.data_ptr(), None if stats is None else stats.data_ptr(),
@@ -316,8 +322,7 @@ def ln_quant_dense(
         weight_q = torch.nn.functional.pad(weight_q, (0, -k % 16))
 
     out = torch.empty((m, n), dtype=torch.int32 if partial else x.dtype, device=x.device)
-    # f32 γ, β; the rows' μ, 1/σ unless the caller gives them
-    scratch = torch.empty(2 * k + (0 if stats is not None else 2 * m), dtype=torch.float32, device=x.device)
+    scratch = _scratch(m, (k + 15) // 16 * 16, x.device)  # the rows' μ, 1/σ; A in int8, 16-byte rows
     err = _build.load_library().stamp_ln_quant_dense(
         x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), s_x.data_ptr(),
         weight_q.data_ptr(), w_scale.data_ptr(),

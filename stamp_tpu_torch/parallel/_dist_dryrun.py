@@ -301,8 +301,8 @@ def profiled_kernels(fn) -> tuple:
     """(``fn()``, the launches of rows 1–3's kernels in the call by the
     CUDA events of a ``torch.profiler`` trace, by kernel: the attention
     kernel, the LayerNorm GEMM in each of its four instances (the bf16 and
-    int8 ops, each with the bf16 or the partial-sum epilogue) and the row
-    statistics kernel)."""
+    int8 ops, each with the bf16 or the partial-sum epilogue) and the
+    normalization pass before it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -312,7 +312,7 @@ def profiled_kernels(fn) -> tuple:
     counts = {e.key: e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
     kinds = {"fused_qkv_attn": "fused_qkv_attn_one_pass_kernel", "ln_dense": "LnDenseOp<false>",
              "ln_dense_partial": "LnDenseOp<true>", "ln_quant_dense": "LnQuantDenseOp<false>",
-             "ln_quant_dense_partial": "LnQuantDenseOp<true>", "ln_row_stats": "ln_row_stats_kernel"}  # fmt: skip
+             "ln_quant_dense_partial": "LnQuantDenseOp<true>", "ln_normalize": "ln_normalize_kernel"}  # fmt: skip
     return out, {kind: sum(n for key, n in counts.items() if text in key) for kind, text in kinds.items()}
 
 

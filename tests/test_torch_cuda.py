@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from flash_bwd_util import holes, skip_case_inputs
+from stamp_tpu_torch.ops import _build
 from stamp_tpu_torch.ops import flash_attention as attn
 from stamp_tpu_torch.ops import ln_dense as lnd
 
@@ -119,6 +120,46 @@ def test_ln_dense_kernels_are_deterministic(gen):
     x, g, b, s_x, wq, ws, d = _quant_inputs(gen, 1000, 1536, 4608, 4.0, True)
     args = (x, g, b, s_x, wq, ws, d)
     assert torch.equal(lnd.ln_quant_dense(*args), lnd.ln_quant_dense(*args))
+
+
+def _fma_f32(a, b, c):
+    """fmaf(a, b, c) of f32 tensors, rounded once as the kernel's FMAs: a·b
+    is exact in f64, and TwoSum recovers the f64 sum's rounding error
+    exactly, which settles the one case where rounding that sum to f32
+    rounds twice: a sum that lands exactly halfway between two f32 values."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    r = s.float()
+    inf = torch.tensor(float("inf"), device=r.device)
+    below = torch.where(r.double() <= s, r, torch.nextafter(r, -inf))
+    above = torch.where(r.double() >= s, r, torch.nextafter(r, inf))
+    tie = (s == (below.double() + above.double()) / 2) & (err != 0)
+    return torch.where(tie, torch.where(err > 0, above, below), r)
+
+
+# UNI2's K (qkv and fc1; fc2), and tails of 8 and 16 past the last 64-wide box
+@pytest.mark.parametrize("m,k", [(16960, 1536), (1000, 4096), (1000, 264), (300, 272)])
+def test_ln_dense_identity_readback(gen, m, k):
+    """The bf16 A the kernel normalizes, read back through an identity weight
+    (no bias): each output sums one A element times 1 with zeros, so it is
+    exact in f32 and in the cast, and equals bitwise
+    bf16(fma(fma(x, 1/σ, −μ·(1/σ)), γ, β)) with the μ and 1/σ that the
+    normalization pass wrote to the scratch."""
+    x, g, b = _randn(gen, m, k), _randn(gen, k), _randn(gen, k)
+    eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+    scratch = lnd._scratch(m, 2 * k, x.device)
+    out = torch.empty(m, k, device="cuda", dtype=torch.bfloat16)
+    err = _build.load_library().stamp_ln_dense(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), eye.data_ptr(), None, None, scratch.data_ptr(), out.data_ptr(),
+        0, m, k, k, 1e-6, x.device.index, torch.cuda.current_stream().cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "ln_dense")
+    mean, rstd = scratch[:m], scratch[m : 2 * m]
+    y = _fma_f32(_fma_f32(x.float(), rstd[:, None], (-mean * rstd)[:, None]), g.float(), b.float())
+    assert torch.equal(out, y.bfloat16())
+    assert torch.equal(lnd.ln_dense(x, g, b, eye), out)
 
 
 def test_kernels_raise_on_what_they_do_not_take(gen):
