@@ -74,14 +74,20 @@ Phases (each prints at least one line; any failure exits non-zero):
    default MIL ViT (``vit`` and ``vit`` + ALiBi, width 512, UNI2 inputs) on
    twelve synthetic patients of 2,100 to 12,000 tiles (T = 4,097, 8,193,
    16,385) with a planted signal; checks ``metrics.csv``, that each backward
-   kernel ran 2 layers × training steps times, that ``model.ckpt`` deploys,
-   and one training step at T = 8,193 on the kernel path against the plain
-   path, from the initial and from the trained weights; the step time at
-   each T and a ``torch.profiler`` split of one step at T = 16,385.
+   kernel ran 2 layers × training steps times and the ALiBi statistic's
+   kernel (``pairwise_distance_sums``) once a training step, that
+   ``model.ckpt`` deploys, and one training step at T = 8,193 on the kernel
+   path against the plain path (the flash kernels and the statistic's
+   kernel swapped for their plain versions), from the initial and from the
+   trained weights; the step time at each T, the statistic's kernel at each
+   T on the model's coordinates and mask against its plain version (and
+   both against float64), timed beside it with its bound, and a
+   ``torch.profiler`` split of one step at T = 16,385.
 8. crossval: ``python -m stamp_tpu_torch -c config.yaml crossval`` on the
    same cohort (2 folds, 2 epochs, batches of 2, the default ``bag_size`` of
    512: training on the einsum path, validation and fold exports through
-   the forward kernels); checks each fold's checkpoint, that its metrics
+   the forward kernels; the ALiBi statistic's kernel once a training step,
+   at 512 tiles too); checks each fold's checkpoint, that its metrics
    and predictions are finite, and holds fold 0's exported probabilities
    against its checkpoint on the kernel path and the plain path.
 
@@ -223,7 +229,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    ``phase_parallel``): (a) ``train`` with ``mesh_shape: {dp: 1}`` (a
    process group of one, NCCL) on phase 7's cohort and configs, its
    ``model.ckpt`` against phase 7's (≤ 1e-6 of max |param|, bitwise
-   expected) and rows 4–8 launched as in phase 7; (b) a fleet of two ranks
+   expected) and rows 4–8 and the ALiBi statistic's kernel launched as in
+   phase 7; (b) a fleet of two ranks
    sharing the card (gloo, collectives staged through pinned host
    memory): whole-slide ``train`` with ``{dp: 2}`` against (a) (≤ 1e-6,
    bitwise expected) and ALiBi at ``bag_size: 512``, ``batch_size: 4``
@@ -242,8 +249,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    staged) trains phase 7's ``vit`` and ALiBi configs on whole slides
    with ``mesh_shape: {sp: 2}`` (rows 4–8 at Tq = T/2 + 1 against T + 1
    gathered keys): each ``model.ckpt`` against phase 7's (≤ 1e-5 of max
-   |param|), each rank's rows 4–8 launches equal to phase 7's run, their
-   sum printed as ``sp_launches``; one ``{sp: 2}`` step at T = 4,097 on the
+   |param|), each rank's launches of rows 4–8 and of the ALiBi statistic's
+   kernel equal to phase 7's run, their sum printed as ``sp_launches``; one ``{sp: 2}`` step at T = 4,097 on the
    card, its all-reduced gradients against one process's (≤ 1e-3 of each
    tensor's largest, a limit the doubled gradients fail); (b) in the same fleet,
    ``make_sp_eval_forward`` of phase 7's ``vit`` on a 16,384-tile bag
@@ -281,9 +288,11 @@ without its ``torch.profiler`` trace), so their rates are untraced; 16a's
 ranks and 16c run ``--profile`` itself.  The line before the last is
 ``{"kernels": [...]}``: each kernel's launches on its main path (phase 4,
 4b, 6, 7 or 9, rows 1–3 also phase 13's; the MIL forward's, phases 6 and 7;
-rows 4–8 also ``heatmaps_launches``, phase 11's; rows 1, 2 and 4–8 also
-``parallel_launches``, phase 15's in-process runs; rows 4–8 also
-``sp_launches``, phase 16's ``sp`` training on both ranks; rows 1–3 also
+the ALiBi statistic's ``alibi_pair_sums``, phases 7 and 8's training;
+rows 4–8 also ``heatmaps_launches``, phase 11's; rows 1, 2, 4–8 and the
+statistic also ``parallel_launches``, phase 15's in-process runs; rows 4–8
+and the statistic also ``sp_launches``, phase 16's ``sp`` training on both
+ranks; rows 1–3 also
 ``tp_launches`` and ``pp_launches``, phase 17's on both ranks, rows 2 and 3
 the ``forms`` TP runs at fc2 and row 1 the heads of a rank, ``tp_heads``;
 row 1 also its
@@ -1757,11 +1766,39 @@ _COUNTERS = (
     "FLASH_MHA_LAUNCHES", "FLASH_ALIBI_MHA_LAUNCHES", "FLASH_MHA_BWD_LAUNCHES",
     "FLASH_ALIBI_MHA_BWD_LAUNCHES", "DIST_WEIGHTED_SUM_LAUNCHES",
 )  # fmt: skip
+#: ``ops/attention.py``'s counter of the ALiBi statistic's kernel (one launch a training forward)
+_PAIR_SUMS = "ALIBI_PAIR_SUMS_LAUNCHES"
+# the statistic's kernel against its plain version (relative, on the sum of
+# distances): f32 sums of ≤ 4,096 distances a thread, added across blocks in
+# f64, against a plain f32 sum of 512-row blocks; both within a few 1e-7 of
+# the float64 sum at phase 7's buckets (tests/test_torch_cuda.py's
+# PAIR_SUMS_RTOL holds the kernel to 1e-5 of it at 4.3·10⁹ pairs)
+PAIR_SUMS_TOL = 1e-5
+
+
+def _reset_training_launches() -> None:
+    """The flash kernels' counters and the ALiBi statistic's to 0."""
+    from stamp_tpu_torch.ops import attention, flash_attention
+
+    for name in _COUNTERS:
+        setattr(flash_attention, name, 0)
+    setattr(attention, _PAIR_SUMS, 0)
+
+
+def _training_launches() -> dict[str, int]:
+    """The counters ``_reset_training_launches`` zeroes, by name."""
+    from stamp_tpu_torch.ops import attention, flash_attention
+
+    return {name: getattr(flash_attention, name) for name in _COUNTERS} | {_PAIR_SUMS: getattr(attention, _PAIR_SUMS)}
 
 
 @contextlib.contextmanager
 def _plain_flash():
-    """The flash autograd Functions with their plain forward and backward."""
+    """The flash autograd Functions with their plain forward and backward,
+    and the ALiBi statistic's kernel with its plain version (where the
+    model looks it up)."""
+    from stamp_tpu_torch.models import vision_transformer as vit
+    from stamp_tpu_torch.ops import attention
     from stamp_tpu_torch.ops import flash_attention as attn
 
     def alibi_forward(q, k, v, coords_q, coords_k, dist_scale, key_mask, scale=None):
@@ -1774,11 +1811,13 @@ def _plain_flash():
              attn._flash_alibi_backward_reference)  # fmt: skip
     for name, fn in zip(names, plain):
         setattr(attn, name, fn)
+    vit.pairwise_distance_sums = attention.pairwise_distance_sums_reference
     try:
         yield
     finally:
         for name, fn in zip(names, saved):
             setattr(attn, name, fn)
+        vit.pairwise_distance_sums = attention.pairwise_distance_sums
 
 
 def _training_step(module, batch) -> tuple:
@@ -1840,16 +1879,44 @@ def _whole_bag(path: Path, dev) -> tuple:
     return bags, coords, (torch.arange(bucket, device=dev) < n)[None]
 
 
+def _pair_sums_row(coords, mask) -> dict:
+    """``pairwise_distance_sums`` (the ALiBi statistic's kernel) on [1, T, 2]
+    coordinates and their mask against its plain version, on the same
+    inputs, and against the same sums in float64; both timed in turns, with
+    the kernel's bound (6 f32 operations a valid pair against the
+    coordinates and mask read once, as ``alibi_pair_sums_roofline``
+    counts)."""
+    from stamp_tpu_torch.ops import attention
+
+    total, pairs = attention.pairwise_distance_sums(coords, mask=mask)
+    plain_total, plain_pairs = attention.pairwise_distance_sums_reference(coords, mask=mask)
+    f64_total, f64_pairs = attention.pairwise_distance_sums_reference(coords.double(), mask=mask)
+    err = abs(total.item() - plain_total.item()) / plain_total.item()
+    row = dict(shape=list(coords.shape), valid=int(mask.sum()), rel_err=err, tol=PAIR_SUMS_TOL,
+               rel_err_f64=abs(total.item() - f64_total.item()) / f64_total.item(),
+               plain_rel_err_f64=abs(plain_total.item() - f64_total.item()) / f64_total.item())  # fmt: skip
+    # the count exactly (an f64 count); the plain version counts in f32, inexact past 2²⁴ pairs
+    if not (err <= PAIR_SUMS_TOL and pairs.item() == f64_pairs.item()
+            and abs(plain_pairs.item() - pairs.item()) <= PAIR_SUMS_TOL * pairs.item()):  # fmt: skip
+        _fail(f"alibi_pair_sums {row}: sums ({total.item()}, {pairs.item()}) against the plain version's "
+              f"({plain_total.item()}, {plain_pairs.item()}), beyond {PAIR_SUMS_TOL}")  # fmt: skip
+    timed = _compare_timed(lambda: attention.pairwise_distance_sums(coords, mask=mask),
+                           lambda: attention.pairwise_distance_sums_reference(coords, mask=mask), iters=5)  # fmt: skip
+    bound, by = _bound(9 * 2 * coords.shape[1], {"fp32": 6.0 * pairs.item()})
+    return row | dict(ms=timed["kernel"], plain_ms=timed["plain"], bound_ms=bound, bound_by=by)
+
+
 def phase_train(card: str) -> dict:
     import numpy as np
     import pandas as pd
     import torch
     import yaml
 
+    import torch.nn.functional as F
+
     from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
     from stamp_tpu_torch.models import vision_transformer as vit
-    from stamp_tpu_torch.ops import flash_attention as attn
     from stamp_tpu_torch.utils import profiling
 
     root = WORK / "train"
@@ -1869,13 +1936,12 @@ def phase_train(card: str) -> dict:
                 "model_params": {"vit": {"use_alibi": use_alibi}},
             },
         }))  # fmt: skip
-        for name in _COUNTERS:
-            setattr(attn, name, 0)
+        _reset_training_launches()
         t0 = time.perf_counter()
         _staged_cli(["-c", str(config), "train"])  # exits non-zero on failure
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: getattr(attn, name) for name in _COUNTERS}
+        launches = _training_launches()
         step_s = profiling.timer.seconds["train/step"]
 
         metrics = pd.read_csv(out / "lightning_logs/version_0/metrics.csv")
@@ -1886,12 +1952,13 @@ def phase_train(card: str) -> dict:
             _fail(f"{variant}: losses or learning rates are not finite: {metrics.to_dict('list')}")
         steps = int(metrics["step"].iloc[-1])
         bwd = "FLASH_ALIBI_MHA_BWD_LAUNCHES" if use_alibi else "FLASH_MHA_BWD_LAUNCHES"
-        expected = {name: 0 for name in _COUNTERS if "BWD" in name or "DIST" in name}
+        expected = {name: 0 for name in _COUNTERS if "BWD" in name or "DIST" in name} | {_PAIR_SUMS: 0}
         expected[bwd] = MIL_LAYERS * steps
-        if use_alibi:
+        if use_alibi:  # the statistic once a training forward, for both layers
             expected["DIST_WEIGHTED_SUM_LAUNCHES"] = MIL_LAYERS * steps
+            expected[_PAIR_SUMS] = steps
         if {name: launches[name] for name in expected} != expected:
-            _fail(f"{variant}: backward launches {launches}, expected {expected} ({MIL_LAYERS} layers × {steps} steps)")
+            _fail(f"{variant}: training launches {launches}, expected {expected} ({MIL_LAYERS} layers × {steps} steps)")
         model, variables = load_model_from_ckpt(out / "model.ckpt")
         row = dict(variant=variant, steps=steps, launches=launches, wall_s=wall, train_step_s=step_s,
                    steps_per_s=steps / step_s, metrics=metrics.to_dict("list"))  # fmt: skip
@@ -1922,6 +1989,10 @@ def phase_train(card: str) -> dict:
                 _training_step(module, batch)
                 times.append((time.perf_counter() - t1) * 1e3)
             step_row = dict(variant=variant, tiles=n, seq_len=bucket + 1, step_ms=statistics.median(times[1:]))
+            if use_alibi:  # the statistic's kernel on the model's coordinates and mask (the CLS at (0, 0) first)
+                row = _pair_sums_row(F.pad(coords, (0, 0, 1, 0)), F.pad(key_mask, (1, 0), value=True))
+                print(f"[7 train] alibi_pair_sums {json.dumps(row)} on {card}")
+                result.setdefault("pair_sums", []).append(row)
             if bucket + 1 == 8193:
                 for weights_from, state in (("initial", initial), ("trained", start)):
                     check = _step_against_plain(module, state, batch)
@@ -1980,7 +2051,6 @@ def phase_crossval(card: str) -> dict:
     from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.modeling.deploy import load_model_from_ckpt
     from stamp_tpu_torch.models import vision_transformer as vit
-    from stamp_tpu_torch.ops import flash_attention as attn
 
     root = WORK / "train"  # phase 7's cohort
     out = root / "crossval"
@@ -1998,13 +2068,12 @@ def phase_crossval(card: str) -> dict:
             "model_params": {"vit": {"use_alibi": True}},
         },
     }))  # fmt: skip
-    for name in _COUNTERS:
-        setattr(attn, name, 0)
+    _reset_training_launches()
     t0 = time.perf_counter()
     main(["-c", str(config), "crossval"])  # exits non-zero on failure
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: getattr(attn, name) for name in _COUNTERS}
+    launches = _training_launches()
     folds = []
     for fold in range(2):
         split = out / f"split-{fold}"
@@ -2018,7 +2087,7 @@ def phase_crossval(card: str) -> dict:
         probs = preds[["label_neg", "label_pos"]].to_numpy()
         if not np.isfinite(probs).all() or not np.allclose(probs.sum(axis=1), 1.0, atol=1e-5):
             _fail(f"crossval: {split} probabilities not finite or not summing to 1: {probs}")
-        folds.append(dict(patients=len(preds), metrics=metrics.to_dict("list")))
+        folds.append(dict(patients=len(preds), steps=int(metrics["step"].iloc[-1]), metrics=metrics.to_dict("list")))
     if sum(f["patients"] for f in folds) != len(TRAIN_TILES):
         _fail(f"crossval: fold predictions cover {folds} patients, expected {len(TRAIN_TILES)} in all")
     # training at 512 tiles stays on the einsum path; validation (every
@@ -2027,6 +2096,10 @@ def phase_crossval(card: str) -> dict:
     expected = MIL_LAYERS * len(TRAIN_TILES) * (CROSSVAL_EPOCHS + 1)
     if launches["FLASH_ALIBI_MHA_LAUNCHES"] != expected or launches["FLASH_ALIBI_MHA_BWD_LAUNCHES"]:
         _fail(f"crossval: launches {launches}, expected {expected} forward, no backward")
+    # the ALiBi statistic runs on the card in every training forward, on the einsum path too
+    steps = sum(f["steps"] for f in folds)
+    if launches[_PAIR_SUMS] != steps:
+        _fail(f"crossval: {launches[_PAIR_SUMS]} launches of the ALiBi statistic's kernel, expected {steps} (one a step)")
 
     # fold 0's exported probabilities against its checkpoint on the kernel
     # path and on the plain path
@@ -3951,7 +4024,8 @@ def phase_parallel(card: str, trained: dict) -> dict:
     (a) ``train`` with ``mesh_shape: {dp: 1}`` (a process group of one, NCCL)
     on phase 7's cohort and configs (``vit`` and ALiBi, 512 wide, 8 heads,
     2 layers, whole slides): its ``model.ckpt`` against phase 7's (the same
-    run without a mesh), rows 4–8 launched as in phase 7.  (b) an explicit
+    run without a mesh), rows 4–8 and the ALiBi statistic's kernel launched
+    as in phase 7.  (b) an explicit
     fleet of two ranks sharing the card (gloo, collectives staged through
     pinned host memory): whole-slide ``train`` of both variants with
     ``{dp: 2}`` (a batch of one cycled to two rows: both ranks hold the same
@@ -3986,7 +4060,6 @@ def phase_parallel(card: str, trained: dict) -> dict:
 
     from stamp_tpu_torch.__main__ import main
     from stamp_tpu_torch.modeling import train
-    from stamp_tpu_torch.ops import flash_attention as attn
     from stamp_tpu_torch.parallel._dist_dryrun import launch_local_fleet
     from stamp_tpu_torch.parallel.prefetch import prefetch_to_device
 
@@ -4001,13 +4074,12 @@ def phase_parallel(card: str, trained: dict) -> dict:
     for variant, use_alibi in (("vit", False), ("alibi", True)):
         config = _train_yaml(cohort, f"{variant}-dp1", mesh_shape={"dp": 1},
                              model_params={"vit": {"use_alibi": use_alibi}})  # fmt: skip
-        for name in _COUNTERS:
-            setattr(attn, name, 0)
+        _reset_training_launches()
         t0 = time.perf_counter()
         main(["-c", str(config), "train"])  # exits non-zero on failure
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: getattr(attn, name) for name in _COUNTERS}
+        launches = _training_launches()
         if launches != trained["runs"][variant]["launches"]:
             _fail(f"(a) {variant} dp=1: launches {launches}, phase 7's {trained['runs'][variant]['launches']}")
         diff, scale = _ckpt_diff(cohort / f"{variant}-dp1" / "model.ckpt", cohort / variant / "model.ckpt")
@@ -4317,8 +4389,10 @@ def phase_sequence(card: str, trained: dict) -> dict:
     and ALiBi configs with ``mesh_shape: {sp: 2}`` (each rank half of every
     bucket-padded bag: Tq = T/2 + 1 queries against the T + 1 gathered
     keys), each ``model.ckpt`` against phase 7's (``SP_PARAM_TOL`` of max
-    |param|), each rank's launches of rows 4–8 (counted in the ranks, set
-    to 0 before each command) equal to phase 7's run, their sum
+    |param|), each rank's launches of rows 4–8 and of the ALiBi statistic's
+    kernel (its rows against the whole sequence's keys, once a step;
+    counted in the ranks, set to 0 before each command) equal to phase 7's
+    run, their sum
     ``sp_launches``; both ranks run with ``--profile``, and each rank's
     trace gives its mean ``train/step`` and the share of each epoch its own
     kernels leave idle (the card's other rank is in another trace), beside
@@ -4388,15 +4462,15 @@ def phase_sequence(card: str, trained: dict) -> dict:
         _fail(f"(16a) the fleet did not run on gloo with staged collectives: see {root / 'fleet.log'}")
     ranks = [json.loads(line.split(" ", 2)[2]) | {"rank": int(line.split(" ", 2)[1])}
              for line in log.splitlines() if line.startswith("LAUNCHES ")]  # fmt: skip
-    sp_launches = {name: 0 for name in _COUNTERS}
+    sp_launches = {name: 0 for name in (*_COUNTERS, _PAIR_SUMS)}
     for variant, config in configs.items():
         runs = [r for r in ranks if r["config"] == str(config)]
         want = trained["runs"][variant]["launches"]
         for r in runs:
-            got = {name: r[name] for name in _COUNTERS}
+            got = {name: r[name] for name in want}
             if got != want:
                 _fail(f"(16a) {variant} sp=2 rank {r['rank']}: launches {got}, phase 7's {want}")
-            for name in _COUNTERS:
+            for name in sp_launches:
                 sp_launches[name] += got[name]
         if len(runs) != 2:
             _fail(f"(16a) {variant}: {len(runs)} ranks reported their launches, expected 2")
@@ -5075,7 +5149,7 @@ def main() -> None:
     _timed_phase("5 whole model", phase_whole_model, card)
     deploy = _timed_phase("6 deploy", phase_deploy, card)
     trained = _timed_phase("7 train", phase_train, card)
-    _timed_phase("8 crossval", phase_crossval, card)
+    crossval = _timed_phase("8 crossval", phase_crossval, card)
     titan = _timed_phase("9 titan", phase_titan, card)
     _timed_phase("10 statistics", phase_statistics, card)
     heatmaps = _timed_phase("11 heatmaps", phase_heatmaps, card)
@@ -5104,13 +5178,14 @@ def main() -> None:
     quant_rows = quant["ln_quant_dense"][:UNI2_SITES]
     # phase 15: (a)'s two mesh runs (rows 4–8), (c)'s two in-process preprocess runs (rows 1–2)
     parallel_launches = parallel["extract"]["launches"] | {
-        counter: sum(row["launches"][counter] for row in parallel["dp1"]) for counter in _COUNTERS
+        counter: sum(row["launches"][counter] for row in parallel["dp1"]) for counter in (*_COUNTERS, _PAIR_SUMS)
     }
     # phase 13's preprocess runs launch rows 1–3 too (CONCH, CONCH1.5, KEEP, TICON)
     zoo_launches = {k: sum(r["launches"].get(k, 0) for r in extractors["runs"])
                     for k in ("fused_qkv_mha", "fused_qkv_long", "ln_dense", "ln_quant_dense")}  # fmt: skip
     two_pass = next(r for r in extractors["two_pass"] if r["heads"] == 16)  # CONCH1.5, [64, 785, 3072]
     alibi2d_row = next(r for r in alibi2d["flash_alibi2d_mha"] if r["shape"][1] == 16385)
+    pair_row = next(r for r in trained["pair_sums"] if r["shape"][1] == 16385)
     summary = {"kernels": [
         {
             "name": "fused_qkv_mha",
@@ -5238,6 +5313,21 @@ def main() -> None:
             "bound_ms": alibi2d_row["bound_ms"],
             "bound_by": alibi2d_row["bound_by"],
             "library_ms": alibi2d_row["sdpa_f32_dense_bias_ms"],
+        },
+        {
+            "name": "alibi_pair_sums",
+            "route": "cuda",
+            "source": "stamp_tpu_torch/ops/csrc/alibi_stats.cu",
+            "replaces": "stamp_tpu/ops/attention.py:77",  # mean_pairwise_distance (XLA, no Pallas kernel)
+            # one a training step: phase 7's ALiBi training and phase 8's crossval
+            "launches": trained["runs"]["alibi"]["launches"][_PAIR_SUMS] + crossval["launches"][_PAIR_SUMS],
+            "max_rel_err": max(r["rel_err"] for r in trained["pair_sums"]),  # against the plain version, phase 7
+            "ms": pair_row["ms"],  # [1, 16385, 2], 12,001 valid (phase 7's largest bag and its CLS)
+            "plain_ms": pair_row["plain_ms"],
+            "bound_ms": pair_row["bound_ms"],
+            "bound_by": pair_row["bound_by"],
+            "parallel_launches": parallel_launches[_PAIR_SUMS],  # phase 15 (a)
+            "sp_launches": sequence["sp_launches"][_PAIR_SUMS],  # phase 16 (a), both ranks
         },
     ]}
     print(json.dumps(summary))

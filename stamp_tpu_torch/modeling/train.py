@@ -449,13 +449,19 @@ def forward_batch(model: TaskModel, batch: tuple, key_mask: np.ndarray | None, d
     (``uses_coords``), or a slide/patient batch's vectors.  ``kwargs`` go
     to the module (``train``, ``generator``).  A training tile batch
     counts ``train/tiles`` (its valid tiles, from ``sizes`` where it lies
-    in host memory: no count reads the device) and ``train/rows`` (the
-    B·T rows handed to the backbone, padding included)."""
+    in host memory: no count reads the device), ``train/rows`` (the B·T
+    rows handed to the backbone, padding included) and, for a spatial-ALiBi
+    backbone, ``train/alibi_pairs`` (the ordered pairs of valid tokens, the
+    CLS token counted, that its distance statistic sums: Σ (size + 1)²,
+    from ``sizes`` in host memory too)."""
     if len(batch) == 4:
         bags, coords, sizes, _targets = batch
         if kwargs.get("train") and profiling.recording():
             if not (isinstance(sizes, torch.Tensor) and sizes.device.type != "cpu"):
-                profiling.count("train/tiles", int(np.sum(np.asarray(sizes))))
+                tiles = np.asarray(sizes, dtype=np.int64)
+                profiling.count("train/tiles", int(np.sum(tiles)))
+                if getattr(model.module, "use_alibi", False):
+                    profiling.count("train/alibi_pairs", int(np.sum((tiles + 1) ** 2)))
             profiling.count("train/rows", bags.shape[0] * bags.shape[1])
         if model.uses_coords:
             kwargs.update(

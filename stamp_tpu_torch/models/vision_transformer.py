@@ -31,9 +31,12 @@ the ``generator`` the caller passes; vanilla attention takes the flash path
 in training only when ``dropout`` is 0 (the kernels have no attention
 dropout), ALiBi always does; each ALiBi block updates its Welford running
 mean once per training forward, under ``no_grad``, from the mean pairwise
-distance of the bag (streamed on the flash path, dense on the einsum path;
-the CLS token at (0, 0) counts as a tile, as in the JAX module) and uses the
-updated mean in the same forward.  In a step over a mesh of ranks the
+distance of the bag (the CLS token at (0, 0) counts as a tile, as in the
+JAX module) and uses the updated mean in the same forward.  Every block's
+statistic is the same number (the same coordinates and masks), so the
+forward computes it once (``pairwise_distance_sums``: one kernel on the
+card, row blocks on the CPU; the span ``train/alibi_stats``) and hands it
+to each block's update.  In a step over a mesh of ranks the
 distance total and the pair count are summed over the ranks
 (``StepGroup.sum``) before the division, so the statistic is the whole
 batch's, as XLA computes it under the JAX package's mesh.  The JAX
@@ -92,6 +95,7 @@ from stamp_tpu_torch.ops.attention import (
     pairwise_distances,
 )
 from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
+from stamp_tpu_torch.utils import profiling
 from stamp_tpu_torch.utils.shapecheck import Bool, Float, shapechecked
 
 # At or above this many tokens (tiles + CLS), attention takes the flash
@@ -199,19 +203,17 @@ class MultiHeadALiBi(nn.Module):
         *,
         coords: torch.Tensor,  # [B, Q, 2] µm, the queries'
         key_mask: torch.Tensor | None,  # [B, K], the keys'
-        train: bool = False,
+        mean_distance: torch.Tensor | None = None,  # training: the bag's mean pairwise distance (Welford update)
         store: dict | None = None,
         sow_weights: bool = False,
         group: StepGroup = SINGLE,
         coords_k: torch.Tensor | None = None,  # [B, K, 2]: under ``group``, the whole sequence's
-        query_mask: torch.Tensor | None = None,  # [B, Q]: the rows the statistic counts (default: key_mask)
     ) -> torch.Tensor:
         q = _to_heads(self.q_proj(x), self.num_heads)
         # the whole sequence's keys and values under ``group``, gathered in one collective
         kv = _whole(torch.cat([self.k_proj(x), self.v_proj(x)], dim=-1), group)
         k, v = (_to_heads(t, self.num_heads) for t in kv.chunk(2, dim=-1))
         coords_k = coords if coords_k is None else coords_k
-        query_mask = key_mask if query_mask is None else query_mask
         b, h, s, d = q.shape
         tk = k.shape[2]
         if store is not None:
@@ -221,14 +223,11 @@ class MultiHeadALiBi(nn.Module):
         use_flash = _use_flash(tk)
         if not use_flash:
             distances = pairwise_distances(coords, coords_k)  # [B, Q, K]
-        if train:
+        if mean_distance is not None:
             # Welford update (reference vision_tranformer.py:23-31), reduced
             # to the scalar mean pairwise distance of this bag
-            with torch.no_grad():  # the counted rows against the whole sequence's keys
-                total, n_pairs = pairwise_distance_sums(coords, mask=query_mask, coords_k=coords_k, key_mask=key_mask)
-                # a ratio of sums: in a step over a mesh, over the whole batch
-                mean_d = group.sum(total) / torch.clamp_min(group.sum(n_pairs), 1.0)
-                self.running_mean.copy_(self.running_mean + (mean_d - self.running_mean) / self.items_so_far)
+            with torch.no_grad():
+                self.running_mean.copy_(self.running_mean + (mean_distance - self.running_mean) / self.items_so_far)
                 self.items_so_far.add_(1.0)
         if use_flash:
             km = _flat_mask(key_mask, b, h, tk, x.device)
@@ -288,13 +287,13 @@ class TransformerBlock(nn.Module):
         sow_weights: bool = False,
         group: StepGroup = SINGLE,
         coords_k: torch.Tensor | None = None,
-        query_mask: torch.Tensor | None = None,
+        mean_distance: torch.Tensor | None = None,
     ) -> torch.Tensor:
         h = self.attn_norm(x)
         collect = dict(store=store, sow_weights=sow_weights, group=group)
         if self.use_alibi:
             attn_out = self.mhsa(
-                h, coords=coords, key_mask=key_mask, train=train, coords_k=coords_k, query_mask=query_mask, **collect
+                h, coords=coords, key_mask=key_mask, mean_distance=mean_distance, coords_k=coords_k, **collect
             )
         else:
             attn_out = self.mhsa(h, key_mask=key_mask, train=train, generator=generator, **collect)
@@ -322,6 +321,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.n_layers = n_layers
         self.dropout = dropout
+        self.use_alibi = use_alibi
         self.head_dim = dim_model // n_heads
         self.project = nn.Linear(dim_input, dim_model)
         self.class_token = nn.Parameter(torch.randn(dim_model))
@@ -360,17 +360,24 @@ class VisionTransformer(nn.Module):
         if key_mask is not None:
             key_mask = torch.cat([key_mask.new_ones(b, 1), key_mask], dim=1)
         # the keys' coordinates and mask: the whole sequence's under sp
-        coords_k, key_mask_k, query_mask = coords, key_mask, None
+        coords_k, key_mask_k, query_mask = coords, key_mask, key_mask
         if group.seq_parts > 1:
             coords_k = _whole(coords, group)
             key_mask_k = None if key_mask is None else _whole(key_mask, group)
             query_mask = torch.ones_like(coords[..., 0], dtype=torch.bool) if key_mask is None else key_mask.clone()
             query_mask[:, 0] = group.seq_index == 0  # the CLS row counts once
+        mean_distance = None
+        if train and self.use_alibi:
+            with profiling.stage("train/alibi_stats"), torch.no_grad():
+                # this rank's counted rows against the whole sequence's keys
+                total, n_pairs = pairwise_distance_sums(coords, mask=query_mask, coords_k=coords_k, key_mask=key_mask_k)
+                # a ratio of sums: in a step over a mesh, over the whole batch
+                mean_distance = group.sum(total) / torch.clamp_min(group.sum(n_pairs), 1.0)
         for i in range(self.n_layers):
             store = None if intermediates is None else intermediates.setdefault(f"block_{i}", {})
             x = getattr(self, f"block_{i}")(
                 x, coords=coords, key_mask=key_mask_k, train=train, generator=generator, store=store,
-                sow_weights=sow_weights, group=group, coords_k=coords_k, query_mask=query_mask,
+                sow_weights=sow_weights, group=group, coords_k=coords_k, mean_distance=mean_distance,
             )  # fmt: skip
         return self.head(self.norm(x)[:, 0])
 

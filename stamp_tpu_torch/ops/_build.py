@@ -87,6 +87,9 @@ _SIGNATURES = {
     ],
     # bh, ta, tb, head_dim, bytes (an int64 out)
     "stamp_dist_weighted_sum_workspace": [_INT, _INT, _INT, _INT, _PTR],
+    # coords, mask|NULL, coords_k, key_mask|NULL, out (f64 [2]), b, tq, tk,
+    # device, stream
+    "stamp_alibi_pair_sums": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
 }  # fmt: skip
 # entry points that return something else than a cudaError_t: name → (argtypes, restype)
 _OTHER_SIGNATURES = {"stamp_cuda_error_string": ([_INT], ctypes.c_char_p)}

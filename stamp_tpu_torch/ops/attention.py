@@ -16,8 +16,9 @@ afterwards, so a bucket-padded bag gives the result of the unpadded one.
 Training adds attention dropout (drawn from an explicit generator; in a
 step over a mesh the whole batch's masks, ``StepGroup.draw``) and
 ``pairwise_distance_sums``, the total and pair count of the ALiBi Welford
-statistic streamed in row blocks, kept apart so that a step over a mesh
-sums them over ranks before it divides.  Queries and keys may differ in
+statistic, kept apart so that a step over a mesh sums them over ranks
+before it divides: on the card one kernel (``csrc/alibi_stats.cu``), on the
+CPU its plain version streamed in row blocks.  Queries and keys may differ in
 number (``Q`` ≠ ``K``): under sequence parallelism a rank holds its own
 share of the queries and the whole sequence's keys.
 """
@@ -28,9 +29,12 @@ import math
 
 import torch
 
+from stamp_tpu_torch.ops import _build
 from stamp_tpu_torch.ops.step_group import SINGLE, StepGroup
 
 _NEG_INF = -1e30
+#: ``pairwise_distance_sums``'s kernel launches since the last reset (the main path's proof of use)
+ALIBI_PAIR_SUMS_LAUNCHES = 0
 
 
 def masked_softmax(
@@ -98,24 +102,16 @@ def pairwise_distances(coords_q: torch.Tensor, coords_k: torch.Tensor) -> torch.
     return torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1), 0.0))
 
 
-def pairwise_distance_sums(
-    coords: torch.Tensor,  # [B, T, 2]
+def pairwise_distance_sums_reference(
+    coords: torch.Tensor,
     *,
-    mask: torch.Tensor | None = None,  # [B, T] True = valid tile
+    mask: torch.Tensor | None = None,
     block: int = 512,
-    coords_k: torch.Tensor | None = None,  # [B, K, 2]
-    key_mask: torch.Tensor | None = None,  # [B, K]
+    coords_k: torch.Tensor | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the Euclidean distances over all ordered pairs of valid
-    tiles, number of such pairs), in row blocks of ``block`` tiles (no
-    [B, T, T] tensor).  With ``mask`` (bucket-padded bags) only valid–valid
-    pairs count.  The numerator and denominator of
-    ``stamp_tpu/ops/attention.py:77-115`` (``mean_pairwise_distance``).
-
-    With ``coords_k`` the pairs are (row of ``coords``, row of
-    ``coords_k``), the latter valid where ``key_mask`` says: a rank's share
-    of the rows against the whole sequence, whose sums over the sequence
-    group are the whole bag's."""
+    """Plain PyTorch version of ``pairwise_distance_sums``, in row blocks of
+    ``block`` tiles (no [B, T, T] tensor), in the coordinates' dtype."""
     row_valid = mask.to(coords.dtype) if mask is not None else coords.new_ones(coords.shape[:2])
     if coords_k is None:
         coords_k, col_valid = coords, row_valid
@@ -127,6 +123,69 @@ def pairwise_distance_sums(
         rows = row_valid[:, start : start + block]
         total = total + torch.sum(d * rows[:, :, None] * col_valid[:, None, :])
     return total, torch.sum(torch.sum(row_valid, dim=1) * torch.sum(col_valid, dim=1))
+
+
+def pairwise_distance_sums(
+    coords: torch.Tensor,  # [B, T, 2]
+    *,
+    mask: torch.Tensor | None = None,  # [B, T] True = valid tile
+    block: int = 512,
+    coords_k: torch.Tensor | None = None,  # [B, K, 2]
+    key_mask: torch.Tensor | None = None,  # [B, K]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the Euclidean distances over all ordered pairs of valid
+    tiles, number of such pairs).  With ``mask`` (bucket-padded bags) only
+    valid–valid pairs count.  The numerator and denominator of
+    ``stamp_tpu/ops/attention.py:77-115`` (``mean_pairwise_distance``).
+
+    With ``coords_k`` the pairs are (row of ``coords``, row of
+    ``coords_k``), the latter valid where ``key_mask`` says: a rank's share
+    of the rows against the whole sequence, whose sums over the sequence
+    group are the whole bag's.
+
+    On a CUDA tensor one kernel (``csrc/alibi_stats.cu``) reads the
+    coordinates and masks once and returns both as float64 scalars (f32
+    sums within a block, f64 across blocks); it takes f32 coordinates and
+    bool masks, contiguous.  On the CPU the plain version streams row blocks
+    of ``block`` tiles, in the coordinates' dtype."""
+    if coords.device.type == "cpu":
+        return pairwise_distance_sums_reference(coords, mask=mask, block=block, coords_k=coords_k, key_mask=key_mask)
+    if coords.device.type != "cuda":
+        raise ValueError(f"pairwise_distance_sums: unsupported device {coords.device}")
+    if coords_k is None:
+        coords_k, key_mask = coords, mask
+    b, tq = coords.shape[:2]
+    tk = coords_k.shape[1]
+    if coords.shape != (b, tq, 2) or coords_k.shape != (b, tk, 2) or not (0 < b <= 65535 and tq > 0 and tk > 0):
+        raise ValueError(
+            f"pairwise_distance_sums: coords must be [B, T, 2] and coords_k [B, K, 2], got "
+            f"{tuple(coords.shape)}, {tuple(coords_k.shape)}"
+        )
+    tensors = {"coords": (coords, None), "coords_k": (coords_k, None), "mask": (mask, (b, tq)),
+               "key_mask": (key_mask, (b, tk))}  # fmt: skip
+    for name, (t, mask_shape) in tensors.items():
+        if t is None:
+            continue
+        if t.device != coords.device:
+            raise ValueError(f"pairwise_distance_sums: {name} is on {t.device}, coords on {coords.device}")
+        if mask_shape is not None and (t.dtype != torch.bool or t.shape != mask_shape):
+            raise ValueError(f"pairwise_distance_sums: {name} must be bool {list(mask_shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")  # fmt: skip
+        if mask_shape is None and t.dtype != torch.float32:
+            raise TypeError(f"pairwise_distance_sums: the CUDA kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous() or (mask_shape is None and t.data_ptr() % 8):
+            aligned = "" if mask_shape else " and 8-byte aligned"
+            raise ValueError(f"pairwise_distance_sums: {name} must be contiguous{aligned}")
+    out = torch.zeros(2, dtype=torch.float64, device=coords.device)
+    err = _build.load_library().stamp_alibi_pair_sums(
+        coords.data_ptr(), None if mask is None else mask.data_ptr(), coords_k.data_ptr(),
+        None if key_mask is None else key_mask.data_ptr(), out.data_ptr(), b, tq, tk,
+        coords.device.index, torch.cuda.current_stream(coords.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "pairwise_distance_sums")
+    global ALIBI_PAIR_SUMS_LAUNCHES
+    ALIBI_PAIR_SUMS_LAUNCHES += 1
+    return out[0], out[1]
 
 
 def alibi_attention(

@@ -19,8 +19,9 @@ layer as a real fleet would.  A worker runs one of:
     largest difference between ranks), ``collectives`` (the sequence
     collective with autograd, checked in each rank), ``cli`` (one CLI
     command with the spec's ``flags``, such as ``--profile``; the kernel
-    launch counts of ``ops.flash_attention`` are set to 0 before it and
-    printed after it as ``LAUNCHES <rank> <json>``) and ``vit`` (an
+    launch counts of ``ops.flash_attention`` and ``ops.attention`` (the
+    ALiBi statistic's kernel) are set to 0 before it and printed after it
+    as ``LAUNCHES <rank> <json>``) and ``vit`` (an
     extractor ViT's ``make_tp_forward`` or ``make_pp_forward`` over the
     world on the spec's images, ``vit_state``'s weights, with
     ``against_single`` also the whole model in the rank; rank 0 writes
@@ -226,14 +227,15 @@ def _collectives_job(spec: dict, job_dir: Path) -> None:
 
 def _cli_job(spec: dict, job_dir: Path) -> None:
     from stamp_tpu_torch.__main__ import main as cli
-    from stamp_tpu_torch.ops import flash_attention
+    from stamp_tpu_torch.ops import attention, flash_attention
     from stamp_tpu_torch.parallel import distributed
 
-    counters = [name for name in vars(flash_attention) if name.endswith("LAUNCHES")]
-    for name in counters:
-        setattr(flash_attention, name, 0)
+    counters = [(module, name) for module in (flash_attention, attention) for name in vars(module)
+                if name.endswith("LAUNCHES")]  # fmt: skip
+    for module, name in counters:
+        setattr(module, name, 0)
     cli(["-c", spec["config"], *spec.get("flags", []), spec["command"]])  # exits non-zero on failure
-    launches = {name: getattr(flash_attention, name) for name in counters}
+    launches = {name: getattr(module, name) for module, name in counters}
     print(f"LAUNCHES {distributed.process_index()} {json.dumps(dict(config=spec['config'], **launches))}", flush=True)
 
 

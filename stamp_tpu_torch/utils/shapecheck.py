@@ -39,8 +39,11 @@ CHECKS = 0
 MAX_SIGNATURES = 4096
 
 
-class ShapeError(TypeError):
-    """A call whose tensors break its annotations."""
+class ShapeError(TypeError, ValueError):
+    """A call whose tensors break its annotations.  Both a ``TypeError`` and
+    a ``ValueError``: it comes before a wrapper's own checks, which raise
+    ``ValueError`` on a shape or mask the kernel does not take, so a caller
+    that catches those catches it too."""
 
 
 @dataclass(frozen=True)

@@ -11,6 +11,7 @@ import torch
 
 from flash_bwd_util import holes, skip_case_inputs
 from stamp_tpu_torch.ops import _build
+from stamp_tpu_torch.ops import attention as attn_ops
 from stamp_tpu_torch.ops import flash_attention as attn
 from stamp_tpu_torch.ops import ln_dense as lnd
 
@@ -1025,3 +1026,103 @@ def test_profile_adds_no_sync_to_training(gen, monkeypatch, tmp_path):
                 assert profiling.timer.calls["train/step"] == 4 and profiling.timer.calls["train/feed_wait"] == 5
         syncs[profiled] = len(synced)
     assert syncs[True] == syncs[False], syncs
+
+
+# --- the ALiBi statistic's kernel and rows 6–8 at a 20× whole slide's length ---
+
+
+def _slide_coords(n_valid: int, t: int, bags: int = 1) -> torch.Tensor:
+    """[bags, t, 2]: the class token at (0, 0), then tiles 224 µm apart, 128
+    to a row (the benchmark's grid), zeros past ``n_valid``."""
+    idx = torch.arange(t - 1, device="cuda")
+    grid = torch.stack([idx % 128, idx // 128], dim=-1).float() * 224.0
+    coords = torch.cat([torch.zeros(1, 2, device="cuda"), grid])
+    coords[n_valid:] = 0.0
+    return coords.expand(bags, t, 2).contiguous()
+
+
+def _f64_pair_sums(coords, mask, coords_k, key_mask, block=1024):
+    """The statistic summed in float64 on the card, in row blocks."""
+    total, c, ck = 0.0, coords.double(), coords_k.double()
+    kw = key_mask.double()
+    for s in range(0, c.shape[1], block):
+        d = torch.cdist(c[:, s : s + block], ck)  # f64
+        total += float((d * mask[:, s : s + block, None].double() * kw[:, None, :]).sum())
+    return total, int((mask.sum(1).double() * key_mask.sum(1).double()).sum())
+
+
+# Each thread sums ≤ 4,096 distances in f32 (a relative error of order
+# √4096·2⁻²⁴ ≈ 4e-6 a thread, of either sign, so ~1e-7 over thousands of
+# threads), the square root is sqrt.approx (relative error ≤ 2⁻²³), blocks
+# add in f64: 1e-5 of the float64 sum holds that with room and refuses a
+# sum of f32 partials by a single running f32 total (≈ 1e-3 at 4.3·10⁹ pairs).
+PAIR_SUMS_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("case", ["slide-65537", "holes", "sp-share", "one-row"])
+def test_alibi_pair_sums_kernel_against_float64(gen, case):
+    if case == "slide-65537":  # the longest bucket with a 48,000-tile slide and its CLS
+        coords = _slide_coords(48_001, 65_537)
+        mask = (torch.arange(65_537, device="cuda") < 48_001)[None]
+        rows = dict(coords=coords, mask=mask)
+        keys = dict(coords_k=coords, key_mask=mask)
+    elif case == "holes":  # three bags, scattered invalid tiles, ragged block edges
+        coords = _slide_coords(2_999, 3_001, bags=3) + torch.rand(3, 3_001, 2, device="cuda", generator=gen) * 50.0
+        mask = torch.rand(3, 3_001, device="cuda", generator=gen) < 0.7
+        rows, keys = dict(coords=coords, mask=mask), dict(coords_k=coords, key_mask=mask)
+    elif case == "sp-share":  # a rank's rows against the whole sequence's keys
+        whole = _slide_coords(9_000, 10_241, bags=2)
+        key_mask = (torch.arange(10_241, device="cuda") < 9_000).expand(2, -1).contiguous()
+        rows = dict(coords=whole[:, 2_000:5_000].contiguous(), mask=key_mask[:, 2_000:5_000].contiguous())
+        keys = dict(coords_k=whole, key_mask=key_mask)
+    else:  # one row, no masks
+        coords = torch.rand(1, 1, 2, device="cuda", generator=gen) * 1000.0
+        rows = dict(coords=coords, mask=torch.ones(1, 1, dtype=torch.bool, device="cuda"))
+        keys = dict(coords_k=_slide_coords(5, 5), key_mask=torch.ones(1, 5, dtype=torch.bool, device="cuda"))
+    before = attn_ops.ALIBI_PAIR_SUMS_LAUNCHES
+    if case == "one-row":  # no masks: every row and key counts
+        total, n_pairs = attn_ops.pairwise_distance_sums(rows["coords"], coords_k=keys["coords_k"])
+    else:
+        total, n_pairs = attn_ops.pairwise_distance_sums(rows["coords"], mask=rows["mask"], **keys)
+    assert attn_ops.ALIBI_PAIR_SUMS_LAUNCHES == before + 1 and total.dtype == torch.float64
+    want_total, want_pairs = _f64_pair_sums(rows["coords"], rows["mask"], keys["coords_k"], keys["key_mask"])
+    assert int(n_pairs) == want_pairs
+    assert abs(float(total) - want_total) <= PAIR_SUMS_RTOL * want_total
+
+
+def test_rows_6_to_8_at_65537_against_the_blocked_reference(gen):
+    """One ALiBi layer's attention at the longest bucket of 20× whole slides
+    ([8, 65,537, 64], a 48,000-tile slide, the bucket padding masked) through
+    the flash forward and backward (rows 6–8), against the benchmark's
+    blocked float32 reference on the unpadded tokens (TF32 off): the output,
+    its softmax part, dq, dk, dv over the valid rows and keys, and
+    d dist_scale.  dO is zero on the padded rows, as in the model."""
+    from benchmark.reference.mil_vit_alibi import attention
+
+    h, t, n, d = 8, 65_537, 48_001, 64
+    q, k, v = (torch.randn(h, t, d, device="cuda", generator=gen) for _ in range(3))
+    coords = _slide_coords(n, t)[0]
+    key_mask = (torch.arange(t, device="cuda") < n).expand(h, t).contiguous()
+    ref_mean = torch.cdist(coords[:n].double()[::16], coords[:n].double()[::16]).mean().float()
+    dist_scale = torch.rand(h, device="cuda", generator=gen) / ref_mean
+    do = torch.randn(h, t, d, device="cuda", generator=gen) * key_mask[..., None]
+    cq = coords.expand(h, t, 2).contiguous()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, dist_scale)]
+    out = attn.flash_alibi_mha(leaves[0], leaves[1], leaves[2], cq, cq, leaves[3], key_mask)
+    got = [out.detach(), *torch.autograd.grad(out, leaves, do)]
+    out_sm = attn._flash_alibi_forward(q, k, v, cq, cq, dist_scale, key_mask)[1]
+
+    ref_leaves = [x[:, :n].clone().requires_grad_(True) for x in (q, k, v)] + [dist_scale.clone().requires_grad_(True)]
+    ref_out = attention(*ref_leaves[:3], coords[:n], ref_leaves[3])
+    want = [ref_out.detach(), *torch.autograd.grad(ref_out, ref_leaves, do[:, :n])]
+    with torch.no_grad():
+        want_sm = attention(q[:, :n], k[:, :n], v[:, :n], coords[:n], torch.zeros_like(dist_scale))
+    # the output and dv are dominated by D·V and its transpose (f32-accurate in
+    # the kernels); the softmax part, dq and dk by the TF32 products
+    assert _rel_err(got[0][:, :n], want[0]) <= DACC_TOL
+    assert _rel_err(out_sm[:, :n], want_sm) <= FLASH_TOL
+    for g_, w_ in zip(got[1:3], want[1:3]):
+        assert _rel_err(g_[:, :n], w_) <= FLASH_TOL
+    assert _rel_err(got[3][:, :n], want[3]) <= DACC_TOL
+    assert not got[2][:, n:].any() and not got[1][:, n:].any()
+    assert _rel_err(got[4], want[4]) <= DACC_TOL
