@@ -383,6 +383,9 @@ DEPLOY_TILES = (2500, 6000, 12000, 20000)
 # training cohort: four patients in each bucket, T = 4,097, 8,193, 16,385
 TRAIN_TILES = (2100, 2600, 3200, 3900, 4400, 5200, 6100, 7300, 8400, 9600, 10900, 12000)
 TRAIN_EPOCHS = 2
+# phase 7's third run: the vit with STAMP's attention dropout (config.yaml's
+# 0.25), rows 4–5's dropout forms in training at every bucket
+TRAIN_DROPOUT = 0.25
 CROSSVAL_EPOCHS = 2
 UNI2_DIM = 1536
 MIL_LAYERS = 2
@@ -1764,7 +1767,13 @@ def _write_train_cohort(root: Path) -> None:
 
 _COUNTERS = (
     "FLASH_MHA_LAUNCHES", "FLASH_ALIBI_MHA_LAUNCHES", "FLASH_MHA_BWD_LAUNCHES",
-    "FLASH_ALIBI_MHA_BWD_LAUNCHES", "DIST_WEIGHTED_SUM_LAUNCHES",
+    "FLASH_ALIBI_MHA_BWD_LAUNCHES", "DIST_WEIGHTED_SUM_LAUNCHES", "FLASH_MHA_DROPOUT_LAUNCHES",
+    "FLASH_MHA_DROPOUT_BWD_LAUNCHES",
+)  # fmt: skip
+#: phase 7's runs: (variant, the ``vit`` model_params), reused by phases 15 (a) and 16 (a)
+_TRAIN_VARIANTS = (
+    ("vit", {"use_alibi": False}), ("alibi", {"use_alibi": True}),
+    ("vit_dropout", {"use_alibi": False, "dropout": TRAIN_DROPOUT}),
 )  # fmt: skip
 #: ``ops/attention.py``'s counter of the ALiBi statistic's kernel (one launch a training forward)
 _PAIR_SUMS = "ALIBI_PAIR_SUMS_LAUNCHES"
@@ -1807,7 +1816,7 @@ def _plain_flash():
 
     names = ("_flash_forward", "_flash_alibi_forward", "_flash_backward", "_flash_alibi_backward")
     saved = [getattr(attn, n) for n in names]
-    plain = (attn._flash_forward_reference, alibi_forward, attn._flash_backward_reference,
+    plain = (attn._flash_forward_plain, alibi_forward, attn._flash_backward_plain,
              attn._flash_alibi_backward_reference)  # fmt: skip
     for name, fn in zip(names, plain):
         setattr(attn, name, fn)
@@ -1821,14 +1830,17 @@ def _plain_flash():
 
 
 def _training_step(module, batch) -> tuple:
-    """Loss and parameter gradients of one training step (no update)."""
+    """Loss and parameter gradients of one training step (no update); the
+    dropout masks (if the model has dropout) from a generator seeded alike
+    in every call."""
     import torch
 
     from stamp_tpu_torch.modeling.tasks import weighted_cross_entropy
 
     bags, coords, key_mask, targets, weights = batch
     module.zero_grad(set_to_none=True)
-    logits = module(bags, coords=coords, key_mask=key_mask, train=True)
+    generator = torch.Generator(device=bags.device).manual_seed(0)
+    logits = module(bags, coords=coords, key_mask=key_mask, train=True, generator=generator)
     loss = weighted_cross_entropy(logits, targets, weights)
     loss.backward()
     torch.cuda.synchronize()
@@ -1923,7 +1935,8 @@ def phase_train(card: str) -> dict:
     _write_train_cohort(root)
     dev = torch.device("cuda:0")
     result: dict = {"runs": {}}
-    for variant, use_alibi in (("vit", False), ("alibi", True)):
+    for variant, vit_params in _TRAIN_VARIANTS:
+        use_alibi, dropping = vit_params["use_alibi"], "dropout" in vit_params
         out = root / variant
         config = root / f"{variant}.yaml"
         config.write_text(yaml.safe_dump({
@@ -1933,7 +1946,7 @@ def phase_train(card: str) -> dict:
             },
             "advanced_config": {
                 "bag_size": None, "max_epochs": TRAIN_EPOCHS, "seed": 0, "accelerator": "cuda", "num_workers": 4,
-                "model_params": {"vit": {"use_alibi": use_alibi}},
+                "model_params": {"vit": vit_params},
             },
         }))  # fmt: skip
         _reset_training_launches()
@@ -1953,6 +1966,11 @@ def phase_train(card: str) -> dict:
         steps = int(metrics["step"].iloc[-1])
         bwd = "FLASH_ALIBI_MHA_BWD_LAUNCHES" if use_alibi else "FLASH_MHA_BWD_LAUNCHES"
         expected = {name: 0 for name in _COUNTERS if "BWD" in name or "DIST" in name} | {_PAIR_SUMS: 0}
+        if dropping:  # every bucket is at or above the flash threshold: every training attention call drops there
+            bwd = "FLASH_MHA_DROPOUT_BWD_LAUNCHES"
+            expected["FLASH_MHA_DROPOUT_LAUNCHES"] = MIL_LAYERS * steps
+        else:
+            expected["FLASH_MHA_DROPOUT_LAUNCHES"] = 0
         expected[bwd] = MIL_LAYERS * steps
         if use_alibi:  # the statistic once a training forward, for both layers
             expected["DIST_WEIGHTED_SUM_LAUNCHES"] = MIL_LAYERS * steps
@@ -2094,8 +2112,9 @@ def phase_crossval(card: str) -> dict:
     # epoch) and the fold exports run every held-out bag (T ≥ 4,097)
     # through the kernels
     expected = MIL_LAYERS * len(TRAIN_TILES) * (CROSSVAL_EPOCHS + 1)
-    if launches["FLASH_ALIBI_MHA_LAUNCHES"] != expected or launches["FLASH_ALIBI_MHA_BWD_LAUNCHES"]:
-        _fail(f"crossval: launches {launches}, expected {expected} forward, no backward")
+    if (launches["FLASH_ALIBI_MHA_LAUNCHES"] != expected or launches["FLASH_ALIBI_MHA_BWD_LAUNCHES"]
+            or launches["FLASH_MHA_DROPOUT_LAUNCHES"] or launches["FLASH_MHA_DROPOUT_BWD_LAUNCHES"]):  # fmt: skip
+        _fail(f"crossval: launches {launches}, expected {expected} forward, no backward, no dropout")
     # the ALiBi statistic runs on the card in every training forward, on the einsum path too
     steps = sum(f["steps"] for f in folds)
     if launches[_PAIR_SUMS] != steps:
@@ -4022,8 +4041,9 @@ def phase_parallel(card: str, trained: dict) -> dict:
     """15: the parallel layer (``stamp_tpu_torch.parallel``) on the card.
 
     (a) ``train`` with ``mesh_shape: {dp: 1}`` (a process group of one, NCCL)
-    on phase 7's cohort and configs (``vit`` and ALiBi, 512 wide, 8 heads,
-    2 layers, whole slides): its ``model.ckpt`` against phase 7's (the same
+    on phase 7's cohort and configs (``vit``, ALiBi and ``vit`` with
+    attention dropout, 512 wide, 8 heads, 2 layers, whole slides): its
+    ``model.ckpt`` against phase 7's (the same
     run without a mesh), rows 4–8 and the ALiBi statistic's kernel launched
     as in phase 7.  (b) an explicit
     fleet of two ranks sharing the card (gloo, collectives staged through
@@ -4071,9 +4091,8 @@ def phase_parallel(card: str, trained: dict) -> dict:
     result: dict = {}
 
     # (a) a mesh of one rank
-    for variant, use_alibi in (("vit", False), ("alibi", True)):
-        config = _train_yaml(cohort, f"{variant}-dp1", mesh_shape={"dp": 1},
-                             model_params={"vit": {"use_alibi": use_alibi}})  # fmt: skip
+    for variant, vit_params in _TRAIN_VARIANTS:
+        config = _train_yaml(cohort, f"{variant}-dp1", mesh_shape={"dp": 1}, model_params={"vit": vit_params})
         _reset_training_launches()
         t0 = time.perf_counter()
         main(["-c", str(config), "train"])  # exits non-zero on failure
@@ -4385,8 +4404,8 @@ def phase_sequence(card: str, trained: dict) -> dict:
     one ``preprocess``, on the one card.
 
     (a) a fleet of two ranks sharing the card (gloo, collectives staged
-    through pinned host memory): whole-slide ``train`` of phase 7's ``vit``
-    and ALiBi configs with ``mesh_shape: {sp: 2}`` (each rank half of every
+    through pinned host memory): whole-slide ``train`` of phase 7's ``vit``,
+    ALiBi and dropout configs with ``mesh_shape: {sp: 2}`` (each rank half of every
     bucket-padded bag: Tq = T/2 + 1 queries against the T + 1 gathered
     keys), each ``model.ckpt`` against phase 7's (``SP_PARAM_TOL`` of max
     |param|), each rank's launches of rows 4–8 and of the ALiBi statistic's
@@ -4396,8 +4415,8 @@ def phase_sequence(card: str, trained: dict) -> dict:
     ``sp_launches``; both ranks run with ``--profile``, and each rank's
     trace gives its mean ``train/step`` and the share of each epoch its own
     kernels leave idle (the card's other rank is in another trace), beside
-    the trace of the same config's run in this process, (c)'s.  In the same
-    fleet, one ``{sp: 2}`` step per config at phase 7's widths on a bag of
+    the trace of the same config's run in this process, (c)'s (``vit`` and
+    ALiBi).  In the same fleet, one ``{sp: 2}`` step of ``vit`` and of ALiBi at phase 7's widths on a bag of
     ``SP_STEP_TILES`` tiles on the card, its all-reduced gradients against
     the same step in this process (``SP_GRAD_TOL``; Adam's first update,
     lr·sign(g), would hide a gradient counted twice from the checkpoints).
@@ -4433,9 +4452,8 @@ def phase_sequence(card: str, trained: dict) -> dict:
     result: dict = {}
 
     # (a) and (b): one fleet of two ranks on the card
-    configs = {variant: _train_yaml(cohort, f"{variant}-sp2", mesh_shape={"sp": 2},
-                                    model_params={"vit": {"use_alibi": variant == "alibi"}})
-               for variant in ("vit", "alibi")}  # fmt: skip
+    configs = {variant: _train_yaml(cohort, f"{variant}-sp2", mesh_shape={"sp": 2}, model_params={"vit": vit_params})
+               for variant, vit_params in _TRAIN_VARIANTS}  # fmt: skip
     rng = np.random.default_rng(16)
     side = math.isqrt(SP_EVAL_TILES)
     idx = np.arange(SP_EVAL_TILES)
@@ -4449,7 +4467,7 @@ def phase_sequence(card: str, trained: dict) -> dict:
     spec = dict(ckpt=str(cohort / "vit" / "model.ckpt"), device=dev.type, mesh_shape={"sp": 2})
     jobs = [dict(kind="cli", spec=dict(config=str(configs[v]), command="train", flags=["--profile"])) for v in configs]
     jobs.append(dict(kind="sp_eval", spec=spec, dir=str(eval_dir)))
-    step_jobs = {variant: _sp_step_job(root, variant) for variant in configs}
+    step_jobs = {variant: _sp_step_job(root, variant) for variant in ("vit", "alibi")}
     jobs += [job for job, _ in step_jobs.values()]
     (root / "jobs.json").write_text(json.dumps(jobs))
     t0 = time.perf_counter()
@@ -4485,7 +4503,7 @@ def phase_sequence(card: str, trained: dict) -> dict:
     if not all(sp_launches.values()):
         _fail(f"(16a) a kernel of rows 4–8 never ran under sp: {sp_launches}")
     result["sp_launches"] = sp_launches
-    print(f"[16a sp=2] sp_launches {json.dumps(sp_launches)}; fleet {fleet_s:.1f} s for two train runs, (b) and "
+    print(f"[16a sp=2] sp_launches {json.dumps(sp_launches)}; fleet {fleet_s:.1f} s for three train runs, (b) and "
           f"two steps, gloo {backend}, staged {staged} on {card}")  # fmt: skip
     # one sharded step on the card: its all-reduced gradients against one process's
     for variant, (job, arrays) in step_jobs.items():
@@ -4528,7 +4546,7 @@ def phase_sequence(card: str, trained: dict) -> dict:
         return 1e3 * profiling.timer.seconds["train/step"] / profiling.timer.calls["train/step"]
 
     result["profile"] = []
-    for variant in configs:
+    for variant in ("vit", "alibi"):
         params = {"vit": {"use_alibi": variant == "alibi"}}
         plain = _train_yaml(cohort, f"{variant}-plain16", model_params=params)
         profiled = _train_yaml(cohort, f"{variant}-profile16", model_params=params)
@@ -4580,7 +4598,7 @@ def phase_sequence(card: str, trained: dict) -> dict:
 
     # (a)'s steps on the shared card against the same config's run in one
     # process, both traced (the sp ranks ran with --profile; 16c's runs)
-    for row, single in zip(result["train"], result["profile"], strict=True):
+    for row, single in zip(result["train"][:2], result["profile"], strict=True):
         variant = row["variant"]
         timing = {"single (16c)": _trace_summary(cohort / f"{variant}-profile16" / "profile" / "stamp.pt.trace.json")}
         for r in range(2):

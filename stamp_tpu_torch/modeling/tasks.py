@@ -230,7 +230,17 @@ class LitBaseClassifier(TaskModel):
         return self._n_outputs
 
     def loss(self, outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        return weighted_cross_entropy(outputs, targets, torch.from_numpy(self.class_weights).to(outputs.device))
+        return weighted_cross_entropy(outputs, targets, self._class_weights_on(outputs.device))
+
+    def _class_weights_on(self, device: torch.device) -> torch.Tensor:
+        """``class_weights`` as a tensor on ``device``, copied there once (again
+        only when ``class_weights`` is replaced or the device changes): a copy
+        from pageable host memory waits for all the work queued on the card,
+        so one a step held the host until the step's forward was done."""
+        cached = getattr(self, "_device_class_weights", None)
+        if cached is None or cached[0] is not self.class_weights or cached[1].device != device:
+            cached = self._device_class_weights = (self.class_weights, torch.from_numpy(self.class_weights).to(device))
+        return cached[1]
 
     def validation_metrics(self, outputs, targets) -> dict[str, float]:
         from stamp_tpu_torch.statistics.metrics import roc_auc_score

@@ -27,9 +27,15 @@ at the start of the forward, naming ``python -m stamp_tpu``.
 ``train=True`` is the JAX module's training forward
 (``stamp_tpu/models/vision_transformer.py:43-46, 90-121, 166-207, 279-281,
 355``): dropout after ``project`` and inside the feed-forward, drawn from
-the ``generator`` the caller passes; vanilla attention takes the flash path
-in training only when ``dropout`` is 0 (the kernels have no attention
-dropout), ALiBi always does; each ALiBi block updates its Welford running
+the ``generator`` the caller passes; both attentions take the flash path
+in training too.  Vanilla attention's dropout there is the flash
+wrapper's (``flash_attention.AttentionDropout``), from the uniform draws
+the einsum path would make (``ops.attention.dropout_draws``: the same
+``torch.rand``, of the same shape, in the same order), for heads up to
+``flash_attention.FLASH_DROPOUT_MAX_HEAD_DIM`` wide (a wider head with
+dropout takes the einsum path); each training call with attention
+dropout counts ``train/attn_dropout_flash`` or ``train/attn_dropout_einsum``
+by the path it took.  Each ALiBi block updates its Welford running
 mean once per training forward, under ``no_grad``, from the mean pairwise
 distance of the bag (the CLS token at (0, 0) counts as a tile, as in the
 JAX module) and uses the updated mean in the same forward.  Every block's
@@ -90,6 +96,7 @@ from stamp_tpu_torch.ops.attention import (
     alibi_attention,
     attention_weights,
     dropout,
+    dropout_draws,
     multi_head_attention,
     pairwise_distance_sums,
     pairwise_distances,
@@ -169,12 +176,22 @@ class MultiHeadSelfAttention(nn.Module):
             store["attn_q"], store["attn_k"] = q, k
             if sow_weights:
                 store["attn_weights"] = attention_weights(q, k, key_mask)
-        # the flash kernels have no attention dropout: in training they are
-        # taken only when dropout is off (the MIL default)
-        if _use_flash(tk) and not (train and self.dropout > 0.0):
-            km = _flat_mask(key_mask, b, h, tk, x.device)
-            out = flash_attention.flash_mha(_flat(q), _flat(k), _flat(v), km).reshape(b, h, s, d)
+        # attention dropout: the flash path draws what the einsum path would
+        dropping = train and self.dropout > 0.0 and generator is not None
+        if _use_flash(tk) and (not dropping or d <= flash_attention.FLASH_DROPOUT_MAX_HEAD_DIM):
+            args = (_flat(q), _flat(k), _flat(v), _flat_mask(key_mask, b, h, tk, x.device))
+            if dropping:
+                profiling.count("train/attn_dropout_flash", 1)
+                draws = dropout_draws((b, h, s, tk), generator, x.device, group, seq_dim=2, lead=1)
+                keep = flash_attention.AttentionDropout(_flat(draws), self.dropout)
+                del draws  # the pack frees them (f32 [B·H, S, T]) once it has the bits
+                out = flash_attention.flash_mha(*args, keep=keep)
+            else:
+                out = flash_attention.flash_mha(*args)
+            out = out.reshape(b, h, s, d)
         else:
+            if dropping:
+                profiling.count("train/attn_dropout_einsum", 1)
             out = multi_head_attention(
                 q, k, v, key_mask=key_mask, dropout_rate=self.dropout, generator=generator, group=group, lead=1
             )

@@ -79,6 +79,25 @@ _SIGNATURES = {
     ],
     # bh, tq, tk, head_dim, bytes (an int64 out)
     "stamp_flash_attn_bwd_workspace": [_INT, _INT, _INT, _INT, _PTR],
+    # draws, mask, bits, bh, tq, tk, keep_below, device, stream
+    "stamp_flash_keep_pack": [_PTR, _PTR, _PTR, _INT, _INT, _INT, ctypes.c_float, _INT, _PTR],
+    # q, k, v, mask, bits, workspace, o, lse, bh, tq, tk, head_dim, scale,
+    # inv_keep, device, stream
+    "stamp_flash_attn_fwd_drop": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+        _INT, ctypes.c_float, ctypes.c_float, _INT, _PTR,
+    ],
+    # bh, tq, tk, head_dim, bytes (an int64 out)
+    "stamp_flash_attn_fwd_drop_workspace": [_INT, _INT, _INT, _INT, _PTR],
+    # q, k, v, mask, dout, out, lse, bits, workspace, dq, dk, dv, bh, tq,
+    # tk, head_dim, scale, inv_keep, device, stream
+    "stamp_flash_attn_bwd_drop": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _INT, _INT, _INT, _INT, ctypes.c_float, ctypes.c_float, _INT,
+        _PTR,
+    ],
+    # bh, tq, tk, head_dim, bytes (an int64 out)
+    "stamp_flash_attn_bwd_drop_workspace": [_INT, _INT, _INT, _INT, _PTR],
     # ca, cb, val, b_mask|NULL, a_mask|NULL, workspace, out, bh, ta, tb,
     # head_dim, device, stream
     "stamp_dist_weighted_sum": [

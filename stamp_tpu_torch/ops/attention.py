@@ -65,12 +65,28 @@ def dropout(
     the sequence)."""
     if rate == 0.0 or generator is None:
         return x
-
-    def uniform(shape):
-        return torch.rand(shape, generator=generator, device=x.device)
-
-    keep = group.draw(x.shape, uniform, seq_dim=seq_dim, lead=lead) < 1.0 - rate
+    keep = dropout_draws(x.shape, generator, x.device, group, seq_dim=seq_dim, lead=lead) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def dropout_draws(
+    shape: tuple[int, ...],
+    generator: torch.Generator,
+    device: torch.device,
+    group: StepGroup = SINGLE,
+    *,
+    seq_dim: int | None = None,
+    lead: int = 0,
+) -> torch.Tensor:
+    """The uniform float32 draws ``dropout`` compares with 1 − rate for an
+    ``x`` of ``shape``: one ``torch.rand`` from ``generator`` (in a step
+    over a mesh, this rank's part of the whole batch's draw).  The flash
+    path's attention dropout takes the same draws."""
+
+    def uniform(s):
+        return torch.rand(s, generator=generator, device=device)
+
+    return group.draw(shape, uniform, seq_dim=seq_dim, lead=lead)
 
 
 def attention_weights(q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor | None) -> torch.Tensor:

@@ -93,6 +93,24 @@
 // are zero (TMA's fill and the pre-pass's padding), queries past Tq have
 // lse = +inf.  Head widths d ∈ {32, 64, 128}.
 //
+// Attention dropout (the port's addition, FlashAttention-2's dropout
+// backward; the Pallas kernels have none): with the forward's keep bits M
+// (flash_attn.cu) and O the dropped output, D = rowsum(dO∘O) as above,
+//   dV = (P∘M)ᵀ·dO / (1 − rate),  dS = P∘(M∘dP / (1 − rate) − D)·scale.
+// Kernels 1–4 with kDrop compute every product f32-accurate, as three TF32
+// products (hi·hi + hi·lo + lo·hi; the pre-pass writes both parts of each
+// copy, dS and P are split in registers), each tile's dQ, dK and dV
+// product into a fresh accumulator added to the sum in rounded f32 (the
+// tensor cores' f32 accumulation does not round to nearest).  Both parts
+// double the shared memory a row takes, so the dropout form takes 32 rows
+// of the other side a step; kernel 3 keeps 128 queries a block and reads
+// the key mask from global memory (the stage would pass 227 KB), kernel 4
+// takes 64 keys a block with one consumer warpgroup, its dV and dK
+// products one after the other (the registers of one tile accumulator).
+// The keep bits are read from global memory into the score fragments'
+// layout: kernel 3 one word a query row, kernel 4 one word a query column
+// (the word of its 16 keys).  Head widths 32 and 64.
+//
 // The distance-weighted sum is three launches, on the same machinery:
 //   5. dws_prepass_kernel, 128 b a block: the b coordinates padded, one
 //      liveness flag per 32 b (a b the b-mask keeps with a nonzero value
@@ -140,19 +158,30 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x·log2 e)
 // past that ptxas serializes the wgmmas.  Shared memory per block at d = 64:
 // 217 KB (dQ: 3 stages of k, v, kᵀ) and 200 KB (dK/dV: 2 stages of q, dO,
 // qᵀ, dOᵀ).
-template <int D>
+// The dropout form (kDrop, both TF32 parts of every copy): at d = 64 the
+// dQ kernel's 2 stages of 48 KB beside 128 KB of q and dO (225 KB), the
+// dK/dV kernel's 2 stages of 65 KB beside 64 KB of k and v (195 KB).
+template <int D, bool kDrop = false>
 struct Cfg;
 template <>
 struct Cfg<32> {
-  static constexpr int kGroups = 2, kTile = 64, kDqStages = 4, kDkvStages = 4;
+  static constexpr int kDqGroups = 2, kDkvGroups = 2, kTile = 64, kDqStages = 4, kDkvStages = 4;
 };
 template <>
 struct Cfg<64> {
-  static constexpr int kGroups = 2, kTile = 64, kDqStages = 3, kDkvStages = 2;
+  static constexpr int kDqGroups = 2, kDkvGroups = 2, kTile = 64, kDqStages = 3, kDkvStages = 2;
 };
 template <>
 struct Cfg<128> {
-  static constexpr int kGroups = 1, kTile = 32, kDqStages = 3, kDkvStages = 2;
+  static constexpr int kDqGroups = 1, kDkvGroups = 1, kTile = 32, kDqStages = 3, kDkvStages = 2;
+};
+template <>
+struct Cfg<32, true> {
+  static constexpr int kDqGroups = 2, kDkvGroups = 1, kTile = 32, kDqStages = 4, kDkvStages = 4;
+};
+template <>
+struct Cfg<64, true> {
+  static constexpr int kDqGroups = 2, kDkvGroups = 1, kTile = 32, kDqStages = 2, kDkvStages = 2;
 };
 
 struct BwdParams {
@@ -184,9 +213,35 @@ struct BwdParams {
   int* qcount;          // [bh]
   int* kcount;          // [bh]
   int* any_valid;       // [bh] the sequence has a valid key
-  int tq, tk, tq_pad, tk_pad;
+  // the dropout form: the keep bits and the TF32 low parts of the copies
+  const uint32_t* bits;  // [bh, tq, kwords]
+  float* qr_lo;
+  float* kr_lo;
+  float* vr_lo;
+  float* dor_lo;
+  float* qt_lo;
+  float* kt_lo;
+  float* dot_lo;
+  int tq, tk, tq_pad, tk_pad, kwords;
   float scale;
+  float inv_keep;       // 1 / (1 − rate)
 };
+
+// The dropout form's maps of the TF32 low parts (none in the plain form):
+// kernel 3's own q and dO rows and its stages' k, v and kᵀ; kernel 4's own
+// k and v rows and its stages' q, dO, qᵀ and dOᵀ.
+template <bool kDrop>
+struct DqLowMaps {
+  CUtensorMap q_own, do_own, k, v, kt;
+};
+template <>
+struct DqLowMaps<false> {};
+template <bool kDrop>
+struct DkvLowMaps {
+  CUtensorMap k_own, v_own, q, dout, qt, dot;
+};
+template <>
+struct DkvLowMaps<false> {};
 
 // ---- 1. the pre-pass --------------------------------------------------------------
 
@@ -194,8 +249,9 @@ struct BwdParams {
 // Query side: D, the padded lse and the liveness flags first; the TF32 and
 // transposed copies of q and dO only where one of the 128 dO rows is not
 // zero (the dQ and dK/dV kernels read no other rows of them).  Key side:
-// the copies of k, v and kᵀ, the key mask as f32 and its flags.
-template <int D>
+// the copies of k, v and kᵀ, the key mask as f32 and its flags.  The
+// dropout form also writes every copy's TF32 low part.
+template <int D, bool kDrop = false>
 __global__ void __launch_bounds__(kPreThreads) flash_bwd_prepass_kernel(const BwdParams p) {
   __shared__ float tile[kHalf][D + 1];
   const int bh = blockIdx.y, r0 = blockIdx.x * kPreRows;
@@ -240,6 +296,16 @@ __global__ void __launch_bounds__(kPreThreads) flash_bwd_prepass_kernel(const Bw
         __syncthreads();
         write_transposed<D>(tile, dot, h0, p.tq_pad);
         __syncthreads();
+        if constexpr (kDrop) {
+          round_rows<D, true, true>(tile, p.q + qb * D, p.qr_lo + qb * D, h0, p.tq);
+          __syncthreads();
+          write_transposed<D>(tile, p.qt_lo + (long)bh * D * p.tq_pad, h0, p.tq_pad);
+          __syncthreads();
+          round_rows<D, true, true>(tile, p.dout + qb * D, p.dor_lo + qb * D, h0, p.tq);
+          __syncthreads();
+          write_transposed<D>(tile, p.dot_lo + (long)bh * D * p.tq_pad, h0, p.tq_pad);
+          __syncthreads();
+        }
       }
     }
   }
@@ -250,6 +316,13 @@ __global__ void __launch_bounds__(kPreThreads) flash_bwd_prepass_kernel(const Bw
       __syncthreads();
       write_transposed<D>(tile, p.kt + (long)bh * D * p.tk_pad, h0, p.tk_pad);
       round_rows<D, false>(nullptr, p.v + kb * D, p.vr + kb * D, h0, p.tk);
+      if constexpr (kDrop) {
+        __syncthreads();
+        round_rows<D, true, true>(tile, p.k + kb * D, p.kr_lo + kb * D, h0, p.tk);
+        __syncthreads();
+        write_transposed<D>(tile, p.kt_lo + (long)bh * D * p.tk_pad, h0, p.tk_pad);
+        round_rows<D, false, true>(nullptr, p.v + kb * D, p.vr_lo + kb * D, h0, p.tk);
+      }
       bool valid = false;
       if (threadIdx.x < kHalf) {
         const int row = h0 + threadIdx.x;
@@ -310,62 +383,101 @@ __global__ void __launch_bounds__(64) flash_bwd_lists_kernel(const BwdParams p) 
 // Shared memory of kernel 3, in 1024-byte-aligned blocks: the block's own
 // rows (q and dO: A of the score products), then the ring's stages (k and
 // v: B of the score products, N = kTile; kᵀ: B of dQ += dS·k, N = d; the key
-// mask), then the barriers.
-template <int D>
+// mask), then the barriers.  The dropout form holds each copy's high part,
+// then its low part (kParts of each; own: q, dO, q_lo, dO_lo), and no mask.
+template <int D, bool kDrop = false>
 struct DqLayout {
-  using C = Cfg<D>;
-  using Own = Boxes<64 * C::kGroups, D>;
+  using C = Cfg<D, kDrop>;
+  static constexpr int kParts = kDrop ? 2 : 1;
+  using Own = Boxes<64 * C::kDqGroups, D>;
   using Rows = Boxes<C::kTile, D>;
   using Cols = Boxes<D, C::kTile>;
-  static constexpr int kV = Rows::kBytes, kKt = 2 * Rows::kBytes, kVal = kKt + Cols::kBytes;
-  static constexpr uint32_t kTx = kVal + C::kTile * 4;
+  static constexpr int kV = kParts * Rows::kBytes, kKt = 2 * kParts * Rows::kBytes, kVal = kKt + kParts * Cols::kBytes;
+  static constexpr uint32_t kTx = kVal + (kDrop ? 0 : C::kTile * 4);
   static constexpr int kStage = round_up(kTx, 1024);
-  static constexpr int kOwnBytes = 2 * Own::kBytes;
+  static constexpr int kOwnBytes = 2 * kParts * Own::kBytes;
   static constexpr int kSmem = ring_smem(kOwnBytes, C::kDqStages, kStage);
 };
 
 // Kernel 4's: k and v (A of the score products), then stages of q and dO
 // (B of the score products), qᵀ and dOᵀ (B of dK += dSᵀ·q and dV += Pᵀ·dO),
-// lse and D.
-template <int D>
+// lse and D.  The dropout form: both parts of each copy, as in kernel 3.
+template <int D, bool kDrop = false>
 struct DkvLayout {
-  using C = Cfg<D>;
-  using Own = Boxes<64 * C::kGroups, D>;
+  using C = Cfg<D, kDrop>;
+  static constexpr int kParts = kDrop ? 2 : 1;
+  using Own = Boxes<64 * C::kDkvGroups, D>;
   using Rows = Boxes<C::kTile, D>;
   using Cols = Boxes<D, C::kTile>;
-  static constexpr int kDo = Rows::kBytes, kQt = 2 * Rows::kBytes, kDot = kQt + Cols::kBytes;
-  static constexpr int kLse = kDot + Cols::kBytes, kDvec = kLse + C::kTile * 4;
+  static constexpr int kDo = kParts * Rows::kBytes, kQt = 2 * kParts * Rows::kBytes, kDot = kQt + kParts * Cols::kBytes;
+  static constexpr int kLse = kDot + kParts * Cols::kBytes, kDvec = kLse + C::kTile * 4;
   static constexpr uint32_t kTx = kDvec + C::kTile * 4;
   static constexpr int kStage = round_up(kTx, 1024);
-  static constexpr int kOwnBytes = 2 * Own::kBytes;
+  static constexpr int kOwnBytes = 2 * kParts * Own::kBytes;
   static constexpr int kSmem = ring_smem(kOwnBytes, C::kDkvStages, kStage);
 };
 
 // The block's own rows [row0, row0 + 64·kGroups) of two [bh, n, d] copies
-// into shared memory, on `bar`.
+// into shared memory, on `bar`; with lo_a and lo_b (the dropout form) also
+// their low parts after them.
 template <int D, class Own>
 __device__ __forceinline__ void load_own(uint8_t* own, const CUtensorMap* a_map, const CUtensorMap* b_map,
-                                         uint64_t* bar, int row0, int bh) {
-  mbar_expect_tx(bar, 2 * Own::kBytes);
+                                         uint64_t* bar, int row0, int bh, const CUtensorMap* lo_a = nullptr,
+                                         const CUtensorMap* lo_b = nullptr) {
+  mbar_expect_tx(bar, (lo_a == nullptr ? 2 : 4) * Own::kBytes);
   for (int b = 0; b < D / 32; ++b) {
     tma_load_3d(own + b * Own::kBoxBytes, a_map, bar, 32 * b, row0, bh);
     tma_load_3d(own + Own::kBytes + b * Own::kBoxBytes, b_map, bar, 32 * b, row0, bh);
+    if (lo_a != nullptr) {
+      tma_load_3d(own + 2 * Own::kBytes + b * Own::kBoxBytes, lo_a, bar, 32 * b, row0, bh);
+      tma_load_3d(own + 3 * Own::kBytes + b * Own::kBoxBytes, lo_b, bar, 32 * b, row0, bh);
+    }
+  }
+}
+
+// A·B of one k-step j into acc (scale_d as wgmma takes it), SS: with kDrop
+// three TF32 products, A_hi·B_hi + A_hi·B_lo + A_lo·B_hi, the low parts
+// `a_lo` and `b_lo` bytes after the high parts.
+template <bool kDrop, int kArows, int kBrows, int N>
+__device__ __forceinline__ void product_ss(float (&acc)[N], const uint8_t* a, int a_lo, uint32_t a_off,
+                                           const uint8_t* b, int b_lo, int j) {
+  wgmma_tf32_ss(acc, kstep_desc<kArows>(a, j) + a_off, kstep_desc<kBrows>(b, j), j);
+  if constexpr (kDrop) {
+    wgmma_tf32_ss(acc, kstep_desc<kArows>(a, j) + a_off, kstep_desc<kBrows>(b + b_lo, j), 1);
+    wgmma_tf32_ss(acc, kstep_desc<kArows>(a + a_lo, j) + a_off, kstep_desc<kBrows>(b, j), 1);
+  }
+}
+
+// The dropout form's product over one tile's sequence into a fresh tile
+// accumulator, RS: three TF32 products a k-step, A's parts from registers,
+// B's (transposed copies, [D, kT]) `b_lo` bytes apart.
+template <int D, int kT, int N>
+__device__ __forceinline__ void product_rs3(float (&tile)[N], const uint32_t (&hi)[kT / 8][4],
+                                            const uint32_t (&lo)[kT / 8][4], const uint8_t* b, int b_lo) {
+#pragma unroll
+  for (int j = 0; j < kT / 8; ++j) {
+    wgmma_tf32_rs(tile, hi[j], kstep_desc<D>(b, j), j);
+    wgmma_tf32_rs(tile, hi[j], kstep_desc<D>(b + b_lo, j), 1);
+    wgmma_tf32_rs(tile, lo[j], kstep_desc<D>(b, j), 1);
   }
 }
 
 // Kernel 3: dQ for 64·kGroups queries of one (batch·head), looping over the
 // live key tiles.  Maps: q and dO rows (TF32 copies, boxes [64·kGroups, 32]),
 // k and v rows (boxes [kTile, 32]), kᵀ ([bh, d, tk_pad], boxes [d, 32]) and
-// the key mask as f32 ([bh, tk_pad], boxes [kTile]).
-template <int D>
-__global__ void __launch_bounds__(128 * (Cfg<D>::kGroups + 1), 1)
+// the key mask as f32 ([bh, tk_pad], boxes [kTile]); with kDrop the low
+// parts' maps (`lo`).
+template <int D, bool kDrop = false>
+__global__ void __launch_bounds__(128 * (Cfg<D, kDrop>::kDqGroups + 1), 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
                     const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
                     const __grid_constant__ CUtensorMap kt_map, const __grid_constant__ CUtensorMap kval_map,
-                    const BwdParams p) {
-  using C = Cfg<D>;
-  using L = DqLayout<D>;
-  constexpr int S = C::kDqStages, kRows = 64 * C::kGroups, kT = C::kTile;
+                    const BwdParams p, const __grid_constant__ DqLowMaps<kDrop> lo) {
+  using C = Cfg<D, kDrop>;
+  using L = DqLayout<D, kDrop>;
+  constexpr int S = C::kDqStages, kRows = 64 * C::kDqGroups, kT = C::kTile;
+  constexpr int kLo = kDrop ? kT / 8 : 1;  // fragments of the dropout form's low parts
+  static_assert(!kDrop || kT == 32, "the dropout form: one keep word a row a tile");
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   float* dq = p.dq + (long)bh * p.tq * D;
 
@@ -378,15 +490,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
   }
 
   extern __shared__ uint8_t smem_raw[];
-  const Ring ring = make_ring<L::kOwnBytes, S, L::kStage, C::kGroups>(smem_raw);
+  const Ring ring = make_ring<L::kOwnBytes, S, L::kStage, C::kDqGroups>(smem_raw);
   const int count = p.kcount[bh];
   const int* list = p.klist + (long)bh * (p.tk_pad / kUnit);
 
   const int wg = threadIdx.x / 128;
-  if (wg == C::kGroups) {
+  if (wg == C::kDqGroups) {
     // producer: one thread keeps the ring full
-    if (threadIdx.x == C::kGroups * 128) {
-      load_own<D, typename L::Own>(ring.own, &q_map, &do_map, ring.own_bar, q0, bh);
+    if (threadIdx.x == C::kDqGroups * 128) {
+      if constexpr (kDrop) {
+        load_own<D, typename L::Own>(ring.own, &q_map, &do_map, ring.own_bar, q0, bh, &lo.q_own, &lo.do_own);
+      } else {
+        load_own<D, typename L::Own>(ring.own, &q_map, &do_map, ring.own_bar, q0, bh);
+      }
       for (int n = 0; n < count; ++n) {
         const int s = n % S;
         mbar_wait(&ring.empty[s], ((n / S) & 1) ^ 1);  // round 0 passes: the ring starts empty
@@ -396,10 +512,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
         for (int b = 0; b < D / 32; ++b) {
           tma_load_3d(st + b * L::Rows::kBoxBytes, &k_map, &ring.full[s], 32 * b, k0, bh);
           tma_load_3d(st + L::kV + b * L::Rows::kBoxBytes, &v_map, &ring.full[s], 32 * b, k0, bh);
+          if constexpr (kDrop) {
+            tma_load_3d(st + L::Rows::kBytes + b * L::Rows::kBoxBytes, &lo.k, &ring.full[s], 32 * b, k0, bh);
+            tma_load_3d(st + L::kV + L::Rows::kBytes + b * L::Rows::kBoxBytes, &lo.v, &ring.full[s], 32 * b, k0, bh);
+          }
         }
-        for (int b = 0; b < kT / 32; ++b)
+        for (int b = 0; b < kT / 32; ++b) {
           tma_load_3d(st + L::kKt + b * L::Cols::kBoxBytes, &kt_map, &ring.full[s], k0 + 32 * b, 0, bh);
-        tma_load_2d(st + L::kVal, &kval_map, &ring.full[s], k0, bh);
+          if constexpr (kDrop)
+            tma_load_3d(st + L::kKt + L::Cols::kBytes + b * L::Cols::kBoxBytes, &lo.kt, &ring.full[s], k0 + 32 * b,
+                        0, bh);
+        }
+        if constexpr (!kDrop) tma_load_2d(st + L::kVal, &kval_map, &ring.full[s], k0, bh);
       }
     }
     return;
@@ -425,11 +549,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
 
   // dQ += dS·k of tile n runs on while tile n + 1's scores are issued: its
   // A fragments stay reserved (fence_frags), and its stage is released
-  // after the next wait
+  // after the next wait (the dropout form adds its tile accumulator then)
   float acc[D / 2];
+  float tacc[kDrop ? D / 2 : 1];
   uint32_t a[kT / 8][4];
+  uint32_t a_lo[kLo][4];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if constexpr (kDrop) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) tacc[i] = 0.f;
+  }
   for (int n = 0; n < count; ++n) {
     const int s = n % S;
     mbar_wait(&ring.full[s], (n / S) & 1);
@@ -438,48 +568,91 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
       continue;
     }
     const uint8_t* st = ring.stages + s * L::kStage;
+    // the dropout form: the tile's keep words of this thread's rows and its keys' mask
+    uint32_t keep[2];
+    float2 kvalid[kT / 8];
+    if constexpr (kDrop) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + g + 8 * h;
+        keep[h] = row < p.tq ? p.bits[((long)bh * p.tq + row) * p.kwords + list[n]] : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j)
+        kvalid[j] = *reinterpret_cast<const float2*>(p.kval + (long)bh * p.tk_pad + list[n] * kT + 8 * j + 2 * t);
+    }
 
     float sc[kT / 2], dp[kT / 2];
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)  // s = q·kᵀ
-      wgmma_tf32_ss(sc, kstep_desc<kRows>(q_own, j) + wg_rows, kstep_desc<kT>(st, j), j);
+      product_ss<kDrop, kRows, kT>(sc, q_own, 2 * L::Own::kBytes, wg_rows, st, L::Rows::kBytes, j);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)  // dP = dO·vᵀ
-      wgmma_tf32_ss(dp, kstep_desc<kRows>(do_own, j) + wg_rows, kstep_desc<kT>(st + L::kV, j), j);
+      product_ss<kDrop, kRows, kT>(dp, do_own, 2 * L::Own::kBytes, wg_rows, st + L::kV, L::Rows::kBytes, j);
     wgmma_commit();
     wgmma_wait<0>();  // this tile's scores, and the previous tile's dQ product
     fence_operands(sc);
     fence_operands(dp);
     fence_operands(acc);
     fence_frags(a);
+    if constexpr (kDrop) {
+      fence_frags(a_lo);
+      fence_operands(tacc);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = __fadd_rn(acc[i], tacc[i]);
+    }
     if (n > 0 && signals) mbar_arrive(&ring.empty[(n - 1) % S]);
 
     // dS, as TF32 A fragments of dQ += dS·k (depth order within each 8)
     const float* kval = reinterpret_cast<const float*>(st + L::kVal);
 #pragma unroll
     for (int j = 0; j < kT / 8; ++j) {
-      const float2 valid = *reinterpret_cast<const float2*>(kval + 8 * j + 2 * t);
+      float2 valid;
+      if constexpr (kDrop) {
+        valid = kvalid[j];
+      } else {
+        valid = *reinterpret_cast<const float2*>(kval + 8 * j + 2 * t);
+      }
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float sv = ((e & 1) ? valid.y : valid.x) > 0.f ? sc[4 * j + e] * p.scale : kNegInf;
         const float pr = exp2f((sv - lse[e >> 1]) * kLog2e);
-        ds[e] = pr * (dp[4 * j + e] - dvec[e >> 1]) * p.scale;
+        if constexpr (kDrop) {  // element e: query g + 8·(e / 2), key 8j + 2t + e % 2 of the tile
+          const bool kept = (keep[e >> 1] >> (8 * j + 2 * t + (e & 1))) & 1u;
+          ds[e] = pr * ((kept ? dp[4 * j + e] * p.inv_keep : 0.f) - dvec[e >> 1]) * p.scale;
+        } else {
+          ds[e] = pr * (dp[4 * j + e] - dvec[e >> 1]) * p.scale;
+        }
       }
-      a[j][0] = to_tf32(ds[0]);
-      a[j][1] = to_tf32(ds[2]);
-      a[j][2] = to_tf32(ds[1]);
-      a[j][3] = to_tf32(ds[3]);
+      if constexpr (kDrop) {
+        split_frag(ds, a[j], a_lo[j]);
+      } else {
+        a[j][0] = to_tf32(ds[0]);
+        a[j][1] = to_tf32(ds[2]);
+        a[j][2] = to_tf32(ds[1]);
+        a[j][3] = to_tf32(ds[3]);
+      }
     }
     wgmma_fence();
+    if constexpr (kDrop) {
+      product_rs3<D, kT>(tacc, a, a_lo, st + L::kKt, L::Cols::kBytes);
+    } else {
 #pragma unroll
-    for (int j = 0; j < kT / 8; ++j) wgmma_tf32_rs(acc, a[j], kstep_desc<D>(st + L::kKt, j), 1);
+      for (int j = 0; j < kT / 8; ++j) wgmma_tf32_rs(acc, a[j], kstep_desc<D>(st + L::kKt, j), 1);
+    }
     wgmma_commit();
   }
   wgmma_wait<0>();
   fence_operands(acc);
   fence_frags(a);
+  if constexpr (kDrop) {
+    fence_frags(a_lo);
+    fence_operands(tacc);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = __fadd_rn(acc[i], tacc[i]);
+  }
   if (wg_live && count > 0 && signals) mbar_arrive(&ring.empty[(count - 1) % S]);
   store_acc<D>(dq, acc, row0, p.tq, g, t);
 }
@@ -487,17 +660,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_cons
 // Kernel 4: dK and dV for 64·kGroups keys of one (batch·head), looping over
 // the live query tiles, on the transposed scores Sᵀ = k·qᵀ.  Maps: k and v
 // rows (boxes [64·kGroups, 32]), q and dO rows (boxes [kTile, 32]), qᵀ and
-// dOᵀ (boxes [d, 32]), lse and D padded ([bh, tq_pad], boxes [kTile]).
-template <int D>
-__global__ void __launch_bounds__(128 * (Cfg<D>::kGroups + 1), 1)
+// dOᵀ (boxes [d, 32]), lse and D padded ([bh, tq_pad], boxes [kTile]); with
+// kDrop the low parts' maps (`lo`).
+template <int D, bool kDrop = false>
+__global__ void __launch_bounds__(128 * (Cfg<D, kDrop>::kDkvGroups + 1), 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
                      const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
                      const __grid_constant__ CUtensorMap qt_map, const __grid_constant__ CUtensorMap dot_map,
                      const __grid_constant__ CUtensorMap lse_map, const __grid_constant__ CUtensorMap dvec_map,
-                     const BwdParams p) {
-  using C = Cfg<D>;
-  using L = DkvLayout<D>;
-  constexpr int S = C::kDkvStages, kRows = 64 * C::kGroups, kT = C::kTile;
+                     const BwdParams p, const __grid_constant__ DkvLowMaps<kDrop> lo) {
+  using C = Cfg<D, kDrop>;
+  using L = DkvLayout<D, kDrop>;
+  constexpr int S = C::kDkvStages, kRows = 64 * C::kDkvGroups, kT = C::kTile;
+  static_assert(!kDrop || (kT == 32 && C::kDkvGroups == 1), "the dropout form: 32 queries a step, one warpgroup");
   const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
   float* dk = p.dk + (long)bh * p.tk * D;
   float* dv = p.dv + (long)bh * p.tk * D;
@@ -518,13 +693,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_con
   }
 
   extern __shared__ uint8_t smem_raw[];
-  const Ring ring = make_ring<L::kOwnBytes, S, L::kStage, C::kGroups>(smem_raw);
+  const Ring ring = make_ring<L::kOwnBytes, S, L::kStage, C::kDkvGroups>(smem_raw);
   const int* list = p.qlist + (long)bh * (p.tq_pad / kUnit);
 
   const int wg = threadIdx.x / 128;
-  if (wg == C::kGroups) {
-    if (threadIdx.x == C::kGroups * 128) {
-      load_own<D, typename L::Own>(ring.own, &k_map, &v_map, ring.own_bar, k0, bh);
+  if (wg == C::kDkvGroups) {
+    if (threadIdx.x == C::kDkvGroups * 128) {
+      if constexpr (kDrop) {
+        load_own<D, typename L::Own>(ring.own, &k_map, &v_map, ring.own_bar, k0, bh, &lo.k_own, &lo.v_own);
+      } else {
+        load_own<D, typename L::Own>(ring.own, &k_map, &v_map, ring.own_bar, k0, bh);
+      }
       for (int n = 0; n < count; ++n) {
         const int s = n % S;
         mbar_wait(&ring.empty[s], ((n / S) & 1) ^ 1);
@@ -534,10 +713,21 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_con
         for (int b = 0; b < D / 32; ++b) {
           tma_load_3d(st + b * L::Rows::kBoxBytes, &q_map, &ring.full[s], 32 * b, q0, bh);
           tma_load_3d(st + L::kDo + b * L::Rows::kBoxBytes, &do_map, &ring.full[s], 32 * b, q0, bh);
+          if constexpr (kDrop) {
+            tma_load_3d(st + L::Rows::kBytes + b * L::Rows::kBoxBytes, &lo.q, &ring.full[s], 32 * b, q0, bh);
+            tma_load_3d(st + L::kDo + L::Rows::kBytes + b * L::Rows::kBoxBytes, &lo.dout, &ring.full[s], 32 * b,
+                        q0, bh);
+          }
         }
         for (int b = 0; b < kT / 32; ++b) {
           tma_load_3d(st + L::kQt + b * L::Cols::kBoxBytes, &qt_map, &ring.full[s], q0 + 32 * b, 0, bh);
           tma_load_3d(st + L::kDot + b * L::Cols::kBoxBytes, &dot_map, &ring.full[s], q0 + 32 * b, 0, bh);
+          if constexpr (kDrop) {
+            tma_load_3d(st + L::kQt + L::Cols::kBytes + b * L::Cols::kBoxBytes, &lo.qt, &ring.full[s], q0 + 32 * b,
+                        0, bh);
+            tma_load_3d(st + L::kDot + L::Cols::kBytes + b * L::Cols::kBoxBytes, &lo.dot, &ring.full[s],
+                        q0 + 32 * b, 0, bh);
+          }
         }
         tma_load_2d(st + L::kLse, &lse_map, &ring.full[s], q0, bh);
         tma_load_2d(st + L::kDvec, &dvec_map, &ring.full[s], q0, bh);
@@ -573,15 +763,30 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_con
       continue;
     }
     const uint8_t* st = ring.stages + s * L::kStage;
+    // the dropout form: the keep words of the tile's queries 8j + 2t + f
+    // that hold this thread's keys (rows g and g + 8 of a warp's 16, in one
+    // 32-key word)
+    uint32_t keep[kT / 8][2];
+    if constexpr (kDrop) {
+      const int word = (row0 + g) / 32;
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const int q = list[n] * kT + 8 * j + 2 * t + f;
+          keep[j][f] = q < p.tq ? p.bits[((long)bh * p.tq + q) * p.kwords + word] : 0u;
+        }
+      }
+    }
 
     float sc[kT / 2], dp[kT / 2];
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)  // sᵀ = k·qᵀ
-      wgmma_tf32_ss(sc, kstep_desc<kRows>(k_own, j) + wg_rows, kstep_desc<kT>(st, j), j);
+      product_ss<kDrop, kRows, kT>(sc, k_own, 2 * L::Own::kBytes, wg_rows, st, L::Rows::kBytes, j);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)  // dPᵀ = v·dOᵀ
-      wgmma_tf32_ss(dp, kstep_desc<kRows>(v_own, j) + wg_rows, kstep_desc<kT>(st + L::kDo, j), j);
+      product_ss<kDrop, kRows, kT>(dp, v_own, 2 * L::Own::kBytes, wg_rows, st + L::kDo, L::Rows::kBytes, j);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sc);
@@ -590,36 +795,76 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_con
     // Pᵀ and dSᵀ (element e: key row g + 8·(e / 2), query column 8j + 2t + e % 2)
     const float* lse = reinterpret_cast<const float*>(st + L::kLse);
     const float* dvec = reinterpret_cast<const float*>(st + L::kDvec);
-    uint32_t pa[kT / 8][4], da[kT / 8][4];
+    if constexpr (kDrop) {
+      // Pᵀ∘Mᵀ / (1 − rate) into sc and dSᵀ into dp, in place; then dV's
+      // product, and dK's in the same registers once dV's has completed
 #pragma unroll
-    for (int j = 0; j < kT / 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * t);
-      const float2 d2 = *reinterpret_cast<const float2*>(dvec + 8 * j + 2 * t);
-      float pt[4], ds[4];
+      for (int j = 0; j < kT / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(dvec + 8 * j + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float sv = key_valid[e >> 1] ? sc[4 * j + e] * p.scale : kNegInf;
-        pt[e] = exp2f((sv - ((e & 1) ? l2.y : l2.x)) * kLog2e);
-        ds[e] = pt[e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * p.scale;
+        for (int e = 0; e < 4; ++e) {
+          const float sv = key_valid[e >> 1] ? sc[4 * j + e] * p.scale : kNegInf;
+          const float pt = exp2f((sv - ((e & 1) ? l2.y : l2.x)) * kLog2e);
+          const bool kept = (keep[j][e & 1] >> ((row0 + g + 8 * (e >> 1)) % 32)) & 1u;
+          const float dpm = kept ? dp[4 * j + e] * p.inv_keep : 0.f;
+          sc[4 * j + e] = kept ? pt * p.inv_keep : 0.f;
+          dp[4 * j + e] = pt * (dpm - ((e & 1) ? d2.y : d2.x)) * p.scale;
+        }
       }
-      pa[j][0] = to_tf32(pt[0]);
-      pa[j][1] = to_tf32(pt[2]);
-      pa[j][2] = to_tf32(pt[1]);
-      pa[j][3] = to_tf32(pt[3]);
-      da[j][0] = to_tf32(ds[0]);
-      da[j][1] = to_tf32(ds[2]);
-      da[j][2] = to_tf32(ds[1]);
-      da[j][3] = to_tf32(ds[3]);
+      float tile[D / 2];
+      uint32_t hi[kT / 8][4], lo_frag[kT / 8][4];
+      // sum += A·B over the tile's queries, A from `a` (accumulator layout), B the transposed copy at `b`
+      auto product = [&](const float (&a)[kT / 2], float (&sum)[D / 2], const uint8_t* b) {
+#pragma unroll
+        for (int j = 0; j < kT / 8; ++j) {
+          const float c[4] = {a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]};
+          split_frag(c, hi[j], lo_frag[j]);
+        }
+        wgmma_fence();
+        product_rs3<D, kT>(tile, hi, lo_frag, b, L::Cols::kBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(tile);
+        fence_frags(hi);
+        fence_frags(lo_frag);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) sum[i] = __fadd_rn(sum[i], tile[i]);
+      };
+      product(sc, acc_dv, st + L::kDot);  // dV += (Pᵀ∘Mᵀ)·dO / (1 − rate)
+      product(dp, acc_dk, st + L::kQt);   // dK += dSᵀ·q
+    } else {
+      uint32_t pa[kT / 8][4], da[kT / 8][4];
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(dvec + 8 * j + 2 * t);
+        float pt[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float sv = key_valid[e >> 1] ? sc[4 * j + e] * p.scale : kNegInf;
+          pt[e] = exp2f((sv - ((e & 1) ? l2.y : l2.x)) * kLog2e);
+          ds[e] = pt[e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * p.scale;
+        }
+        pa[j][0] = to_tf32(pt[0]);
+        pa[j][1] = to_tf32(pt[2]);
+        pa[j][2] = to_tf32(pt[1]);
+        pa[j][3] = to_tf32(pt[3]);
+        da[j][0] = to_tf32(ds[0]);
+        da[j][1] = to_tf32(ds[2]);
+        da[j][2] = to_tf32(ds[1]);
+        da[j][3] = to_tf32(ds[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) wgmma_tf32_rs(acc_dv, pa[j], kstep_desc<D>(st + L::kDot, j), 1);  // dV += Pᵀ·dO
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) wgmma_tf32_rs(acc_dk, da[j], kstep_desc<D>(st + L::kQt, j), 1);  // dK += dSᵀ·q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc_dv);
+      fence_operands(acc_dk);
     }
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) wgmma_tf32_rs(acc_dv, pa[j], kstep_desc<D>(st + L::kDot, j), 1);  // dV += Pᵀ·dO
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) wgmma_tf32_rs(acc_dk, da[j], kstep_desc<D>(st + L::kQt, j), 1);  // dK += dSᵀ·q
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(acc_dv);
-    fence_operands(acc_dk);
     if (signals) mbar_arrive(&ring.empty[s]);
   }
   store_acc<D>(dk, acc_dk, row0, p.tk, g, t);
@@ -874,8 +1119,9 @@ dist_weighted_sum_kernel(const __grid_constant__ CUtensorMap hi_map, const __gri
 // ---- host side --------------------------------------------------------------------
 
 // The workspace, carved from `base` (or from address 0, to size it) in
-// 256-byte-aligned arrays; returns its bytes.
-inline size_t carve_workspace(BwdParams* p, uint8_t* base, int bh, int tq, int tk, int d) {
+// 256-byte-aligned arrays (the dropout form's low parts last); returns its
+// bytes.
+inline size_t carve_workspace(BwdParams* p, uint8_t* base, int bh, int tq, int tk, int d, bool drop = false) {
   const size_t tq_pad = round_up(tq, kPad), tk_pad = round_up(tk, kPad);
   size_t at = 0;
   auto take = [&](size_t bytes) {
@@ -901,20 +1147,28 @@ inline size_t carve_workspace(BwdParams* p, uint8_t* base, int bh, int tq, int t
   p->qcount = reinterpret_cast<int*>(take(i * bh));
   p->kcount = reinterpret_cast<int*>(take(i * bh));
   p->any_valid = reinterpret_cast<int*>(take(i * bh));
+  if (drop) {
+    p->qr_lo = reinterpret_cast<float*>(take(f * bh * tq * d));
+    p->dor_lo = reinterpret_cast<float*>(take(f * bh * tq * d));
+    p->kr_lo = reinterpret_cast<float*>(take(f * bh * tk * d));
+    p->vr_lo = reinterpret_cast<float*>(take(f * bh * tk * d));
+    p->qt_lo = reinterpret_cast<float*>(take(f * bh * d * tq_pad));
+    p->dot_lo = reinterpret_cast<float*>(take(f * bh * d * tq_pad));
+    p->kt_lo = reinterpret_cast<float*>(take(f * bh * d * tk_pad));
+  }
   return at;
 }
 
 // The pre-pass and the lists go first; the host encodes the tensor maps of
 // kernels 3 and 4 while the card runs them.
-template <int D>
+template <int D, bool kDrop = false>
 cudaError_t launch_bwd(const BwdParams& p, int bh, cudaStream_t stream) {
-  using C = Cfg<D>;
-  constexpr int kRows = 64 * C::kGroups;
-  constexpr int kBlockThreads = 128 * (C::kGroups + 1);
-  constexpr int kDqSmem = DqLayout<D>::kSmem, kDkvSmem = DkvLayout<D>::kSmem;
+  using C = Cfg<D, kDrop>;
+  constexpr int kDqRows = 64 * C::kDqGroups, kDkvRows = 64 * C::kDkvGroups;
+  constexpr int kDqSmem = DqLayout<D, kDrop>::kSmem, kDkvSmem = DkvLayout<D, kDrop>::kSmem;
   cudaError_t err;
-  flash_bwd_prepass_kernel<D><<<dim3((p.tq_pad > p.tk_pad ? p.tq_pad : p.tk_pad) / kPreRows, bh), kPreThreads, 0,
-                                stream>>>(p);
+  flash_bwd_prepass_kernel<D, kDrop><<<dim3((p.tq_pad > p.tk_pad ? p.tq_pad : p.tk_pad) / kPreRows, bh),
+                                       kPreThreads, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   flash_bwd_lists_kernel<C::kTile><<<bh, 64, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -927,10 +1181,10 @@ cudaError_t launch_bwd(const BwdParams& p, int bh, cudaStream_t stream) {
       (err = encode_rows(&do_map, p.dor, bh, p.tq, D, C::kTile)) != cudaSuccess ||
       (err = encode_rows(&k_map, p.kr, bh, p.tk, D, C::kTile)) != cudaSuccess ||
       (err = encode_rows(&v_map, p.vr, bh, p.tk, D, C::kTile)) != cudaSuccess ||
-      (err = encode_rows(&q_own, p.qr, bh, p.tq, D, kRows)) != cudaSuccess ||
-      (err = encode_rows(&do_own, p.dor, bh, p.tq, D, kRows)) != cudaSuccess ||
-      (err = encode_rows(&k_own, p.kr, bh, p.tk, D, kRows)) != cudaSuccess ||
-      (err = encode_rows(&v_own, p.vr, bh, p.tk, D, kRows)) != cudaSuccess ||
+      (err = encode_rows(&q_own, p.qr, bh, p.tq, D, kDqRows)) != cudaSuccess ||
+      (err = encode_rows(&do_own, p.dor, bh, p.tq, D, kDqRows)) != cudaSuccess ||
+      (err = encode_rows(&k_own, p.kr, bh, p.tk, D, kDkvRows)) != cudaSuccess ||
+      (err = encode_rows(&v_own, p.vr, bh, p.tk, D, kDkvRows)) != cudaSuccess ||
       (err = encode_cols(&qt_map, p.qt, bh, p.tq_pad, D)) != cudaSuccess ||
       (err = encode_cols(&dot_map, p.dot, bh, p.tq_pad, D)) != cudaSuccess ||
       (err = encode_cols(&kt_map, p.kt, bh, p.tk_pad, D)) != cudaSuccess ||
@@ -938,16 +1192,32 @@ cudaError_t launch_bwd(const BwdParams& p, int bh, cudaStream_t stream) {
       (err = encode_vec(&dvec_map, p.dvec, bh, p.tq_pad, C::kTile)) != cudaSuccess ||
       (err = encode_vec(&kval_map, p.kval, bh, p.tk_pad, C::kTile)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  DqLowMaps<kDrop> dq_lo;
+  DkvLowMaps<kDrop> dkv_lo;
+  if constexpr (kDrop) {
+    if ((err = encode_rows(&dq_lo.q_own, p.qr_lo, bh, p.tq, D, kDqRows)) != cudaSuccess ||
+        (err = encode_rows(&dq_lo.do_own, p.dor_lo, bh, p.tq, D, kDqRows)) != cudaSuccess ||
+        (err = encode_rows(&dq_lo.k, p.kr_lo, bh, p.tk, D, C::kTile)) != cudaSuccess ||
+        (err = encode_rows(&dq_lo.v, p.vr_lo, bh, p.tk, D, C::kTile)) != cudaSuccess ||
+        (err = encode_cols(&dq_lo.kt, p.kt_lo, bh, p.tk_pad, D)) != cudaSuccess ||
+        (err = encode_rows(&dkv_lo.k_own, p.kr_lo, bh, p.tk, D, kDkvRows)) != cudaSuccess ||
+        (err = encode_rows(&dkv_lo.v_own, p.vr_lo, bh, p.tk, D, kDkvRows)) != cudaSuccess ||
+        (err = encode_rows(&dkv_lo.q, p.qr_lo, bh, p.tq, D, C::kTile)) != cudaSuccess ||
+        (err = encode_rows(&dkv_lo.dout, p.dor_lo, bh, p.tq, D, C::kTile)) != cudaSuccess ||
+        (err = encode_cols(&dkv_lo.qt, p.qt_lo, bh, p.tq_pad, D)) != cudaSuccess ||
+        (err = encode_cols(&dkv_lo.dot, p.dot_lo, bh, p.tq_pad, D)) != cudaSuccess)
+      return err;
+  }
+  if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   kDqSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   kDkvSmem)) != cudaSuccess)
     return err;
-  flash_bwd_dq_kernel<D><<<dim3(p.tq_pad / kRows, bh), kBlockThreads, kDqSmem, stream>>>(
-      q_own, do_own, k_map, v_map, kt_map, kval_map, p);
+  flash_bwd_dq_kernel<D, kDrop><<<dim3(p.tq_pad / kDqRows, bh), 128 * (C::kDqGroups + 1), kDqSmem, stream>>>(
+      q_own, do_own, k_map, v_map, kt_map, kval_map, p, dq_lo);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D><<<dim3(p.tk_pad / kRows, bh), kBlockThreads, kDkvSmem, stream>>>(
-      k_own, v_own, q_map, do_map, qt_map, dot_map, lse_map, dvec_map, p);
+  flash_bwd_dkv_kernel<D, kDrop><<<dim3(p.tk_pad / kDkvRows, bh), 128 * (C::kDkvGroups + 1), kDkvSmem, stream>>>(
+      k_own, v_own, q_map, do_map, qt_map, dot_map, lse_map, dvec_map, p, dkv_lo);
   return cudaGetLastError();
 }
 
@@ -997,6 +1267,31 @@ bool bwd_shape_ok(int bh, int tq, int tk, int head_dim) {
          tq <= (1 << 30) - kPad && tk <= (1 << 30) - kPad;
 }
 
+// The parameters of kernels 1–4 over a workspace carved from `workspace`.
+BwdParams make_bwd_params(const void* q, const void* k, const void* v, const void* mask, const void* dout,
+                          const void* out, const void* lse, void* workspace, void* dq, void* dk, void* dv, int bh,
+                          int tq, int tk, int head_dim, float scale, bool drop) {
+  BwdParams p = {};
+  carve_workspace(&p, static_cast<uint8_t*>(workspace), bh, tq, tk, head_dim, drop);
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.dout = static_cast<const float*>(dout);
+  p.out = static_cast<const float*>(out);
+  p.lse = static_cast<const float*>(lse);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.tq = tq;
+  p.tk = tk;
+  p.tq_pad = round_up(tq, kPad);
+  p.tk_pad = round_up(tk, kPad);
+  p.kwords = (tk + 31) / 32;
+  p.scale = scale;
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1022,23 +1317,8 @@ int stamp_flash_attn_bwd(const void* q, const void* k, const void* v, const void
   if (!bwd_shape_ok(bh, tq, tk, head_dim)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  BwdParams p;
-  carve_workspace(&p, static_cast<uint8_t*>(workspace), bh, tq, tk, head_dim);
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.dout = static_cast<const float*>(dout);
-  p.out = static_cast<const float*>(out);
-  p.lse = static_cast<const float*>(lse);
-  p.dq = static_cast<float*>(dq);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  p.tq = tq;
-  p.tk = tk;
-  p.tq_pad = round_up(tq, kPad);
-  p.tk_pad = round_up(tk, kPad);
-  p.scale = scale;
+  const BwdParams p = make_bwd_params(q, k, v, mask, dout, out, lse, workspace, dq, dk, dv, bh, tq, tk, head_dim,
+                                      scale, false);
   auto s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
@@ -1048,6 +1328,35 @@ int stamp_flash_attn_bwd(const void* q, const void* k, const void* v, const void
     default:
       return launch_bwd<128>(p, bh, s);
   }
+}
+
+// Bytes of the workspace stamp_flash_attn_bwd_drop needs for these shapes
+// (stamp_flash_attn_bwd's and the low parts), written as an int64 to
+// *bytes.  Returns a cudaError_t.
+int stamp_flash_attn_bwd_drop_workspace(int bh, int tq, int tk, int head_dim, void* bytes) {
+  if (!bwd_shape_ok(bh, tq, tk, head_dim) || head_dim == 128) return cudaErrorInvalidValue;
+  BwdParams p;
+  *static_cast<long long*>(bytes) = (long long)carve_workspace(&p, nullptr, bh, tq, tk, head_dim, true);
+  return cudaSuccess;
+}
+
+// As stamp_flash_attn_bwd, for the forward with attention dropout: bits
+// [bh, tq, ⌈tk/32⌉] the forward's keep bits, out its (dropped) output,
+// inv_keep = 1 / (1 − rate); workspace of stamp_flash_attn_bwd_drop_workspace
+// bytes.  d in (32, 64).  Returns a cudaError_t.
+int stamp_flash_attn_bwd_drop(const void* q, const void* k, const void* v, const void* mask, const void* dout,
+                              const void* out, const void* lse, const void* bits, void* workspace, void* dq, void* dk,
+                              void* dv, int bh, int tq, int tk, int head_dim, float scale, float inv_keep, int device,
+                              void* stream) {
+  if (!bwd_shape_ok(bh, tq, tk, head_dim) || head_dim == 128) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  BwdParams p = make_bwd_params(q, k, v, mask, dout, out, lse, workspace, dq, dk, dv, bh, tq, tk, head_dim, scale,
+                                true);
+  p.bits = static_cast<const uint32_t*>(bits);
+  p.inv_keep = inv_keep;
+  auto s = static_cast<cudaStream_t>(stream);
+  return head_dim == 32 ? launch_bwd<32, true>(p, bh, s) : launch_bwd<64, true>(p, bh, s);
 }
 
 // Bytes of the workspace stamp_dist_weighted_sum needs for these shapes,

@@ -41,6 +41,15 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
+// x's TF32 high part (cvt.rna), or with kLow its low part: x − high,
+// rounded to TF32 (the split of three-product TF32 arithmetic: hi·hi +
+// hi·lo + lo·hi carries 22 of f32's 24 mantissa bits of each operand)
+template <bool kLow>
+__device__ __forceinline__ float tf32_part(float x) {
+  const float hi = __uint_as_float(to_tf32(x));
+  return kLow ? __uint_as_float(to_tf32(x - hi)) : hi;
+}
+
 // ---- TF32 wgmma: m64nNk8, D (f32) += A·B --------------------------------------
 // Accumulator (per warp w of the warpgroup, g = lane / 4, t = lane % 4):
 // d[4j + 2h + e] is row 16w + g + 8h, column 8j + 2t + e.  A in registers
@@ -172,6 +181,17 @@ __device__ __forceinline__ uint64_t kstep_desc(const uint8_t* block, int j) {
 // the magnitude.  Equal to to_tf32 for every finite x and ±inf.
 __device__ __forceinline__ uint32_t tf32_round(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
 
+// An A fragment's four values (a = (c0, c2, c1, c3), the depth order
+// above) as TF32 high and low parts, for three-product arithmetic
+__device__ __forceinline__ void split_frag(const float (&c)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = tf32_round(x[i]);
+    lo[i] = tf32_round(x[i] - __uint_as_float(hi[i]));
+  }
+}
+
 // √x by the special-function unit (sqrt.approx.ftz.f32: relative error of
 // order 2^-23; √0 = 0, subnormal squares flush to 0)
 __device__ __forceinline__ float sqrt_approx(float x) {
@@ -241,10 +261,10 @@ __host__ __device__ constexpr int ring_smem(int own_bytes, int stages, int stage
 
 // ---- pre-pass copies ----------------------------------------------------------------
 
-// Rows [r0, r0 + 64) of src [n, D], TF32-rounded, into dst (rows < n; none
-// with a null dst) and, with kToTile, into `tile` (zero past n).  Run by a
-// whole pre-pass block.
-template <int D, bool kToTile>
+// Rows [r0, r0 + 64) of src [n, D], TF32-rounded (with kLow: their TF32
+// low parts, tf32_part), into dst (rows < n; none with a null dst) and,
+// with kToTile, into `tile` (zero past n).  Run by a whole pre-pass block.
+template <int D, bool kToTile, bool kLow = false>
 __device__ __forceinline__ void round_rows(float (*tile)[D + 1], const float* __restrict__ src,
                                            float* __restrict__ dst, int r0, int n) {
   constexpr int kVecs = D / 4;
@@ -253,10 +273,10 @@ __device__ __forceinline__ void round_rows(float (*tile)[D + 1], const float* __
     const long row = r0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < n) x = *reinterpret_cast<const float4*>(src + row * D + c);
-    x.x = __uint_as_float(to_tf32(x.x));
-    x.y = __uint_as_float(to_tf32(x.y));
-    x.z = __uint_as_float(to_tf32(x.z));
-    x.w = __uint_as_float(to_tf32(x.w));
+    x.x = tf32_part<kLow>(x.x);
+    x.y = tf32_part<kLow>(x.y);
+    x.z = tf32_part<kLow>(x.z);
+    x.w = tf32_part<kLow>(x.w);
     if (dst != nullptr && row < n) *reinterpret_cast<float4*>(dst + row * D + c) = x;
     if constexpr (kToTile) {
       tile[r][c] = x.x;

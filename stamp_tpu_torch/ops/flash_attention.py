@@ -34,6 +34,18 @@ distance-weighted sum below for D·V first (a 3×TF32 split accurate to
 f32), then that kernel with an epilogue that writes ``O − dist_scale·dacc``.
 The plain versions run everything in f32.
 
+``flash_mha`` also takes attention dropout (``AttentionDropout``: the
+uniform draws ``ops.attention.dropout`` would make for the weights, and the
+rate), which the JAX package's kernels do not have: a pack kernel turns the
+draws into keep bits [BH, Q, ⌈K/32⌉] (``csrc/flash_attn.cu``), the forward
+multiplies each tile of probabilities by its bits before P·V and divides
+by (1 − rate) at the end (the row sums and the lse stay the undropped
+softmax's), and the backward runs FlashAttention-2's dropout backward
+(dV = (P∘M)ᵀ·dO/(1 − rate), dS = P∘(M∘dP/(1 − rate) − rowsum(dO∘O))).
+These dropout forms compute every product f32-accurate, as three TF32
+products (hi·hi + hi·lo + lo·hi, as the distance-weighted sum below), for
+head widths up to 64.
+
 Both are ``torch.autograd.Function``s whose backward is the JAX package's
 (``_flash_core_bwd``, ``_alibi_core_bwd``): the probabilities are recomputed
 from the saved lse, and a pre-pass kernel (TF32 and transposed copies,
@@ -71,6 +83,10 @@ FLASH_MHA_LAUNCHES = 0
 FLASH_ALIBI_MHA_LAUNCHES = 0
 #: the backward of ``flash_mha`` (its dQ and dK/dV kernels)
 FLASH_MHA_BWD_LAUNCHES = 0
+#: ``flash_mha`` with attention dropout (the pack and the dropout forward)
+FLASH_MHA_DROPOUT_LAUNCHES = 0
+#: its backward (the dropout forms of the dQ and dK/dV kernels)
+FLASH_MHA_DROPOUT_BWD_LAUNCHES = 0
 #: the backward of ``flash_alibi_mha`` (the same two kernels)
 FLASH_ALIBI_MHA_BWD_LAUNCHES = 0
 #: ``_dist_weighted_sum`` (the ALiBi backward's bias branch)
@@ -81,6 +97,8 @@ _HEAD_DIMS = (64, 80)  # fused_qkv_attn.cu's and fused_qkv_long.cu's template in
 #: ``kMaxKeys``); a longer one runs the two-pass kernel
 ONE_PASS_MAX_N = 272
 _FLASH_HEAD_DIMS = (32, 64, 128)  # flash_attn.cu's and flash_attn_bwd.cu's template instances
+#: the widest head the dropout forms of the flash kernels take (their instances: 32 and 64)
+FLASH_DROPOUT_MAX_HEAD_DIM = 64
 _NEG_INF = -1e30
 
 
@@ -172,21 +190,83 @@ def _pairwise_distances(coords_q: torch.Tensor, coords_k: torch.Tensor) -> torch
     return dist.sqrt_()
 
 
+class AttentionDropout:
+    """Attention dropout of one ``flash_mha`` call: ``rate`` and the
+    uniform float32 draws [BH, Q, K] that ``ops.attention.dropout`` would
+    compare with 1 − rate for the same [BH, Q, K] weights (a weight is kept
+    where its draw lies below).  The forward packs the draws into ``bits``
+    ([BH, Q, ⌈K/32⌉] int32: bit j of word w is key 32w + j, set where that
+    key is valid and kept) and lets the draws go; the backward reads the
+    bits."""
+
+    def __init__(self, draws: torch.Tensor, rate: float) -> None:
+        self.draws: torch.Tensor | None = draws
+        self.rate = float(rate)
+        self.bits: torch.Tensor | None = None
+
+    def pack(self, key_mask: torch.Tensor, packer) -> torch.Tensor:
+        """The keep bits, packed by ``packer(draws, rate, key_mask)`` at the first call."""
+        if self.bits is None:
+            self.bits = packer(self.draws, self.rate, key_mask)
+            self.draws = None
+        return self.bits
+
+
+def _pack_keep_reference(draws: torch.Tensor, rate: float, key_mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the pack: [BH, Q, K] draws and the [BH, K]
+    key mask → keep bits [BH, Q, ⌈K/32⌉] int32 (see ``AttentionDropout``)."""
+    bh, tq, tk = draws.shape
+    keep = (draws < 1.0 - rate) & key_mask[:, None, :]
+    words = -(-tk // 32)
+    keep = torch.nn.functional.pad(keep, (0, 32 * words - tk)).view(bh, tq, words, 32)
+    bits = torch.zeros((bh, tq, words), dtype=torch.int32, device=draws.device)
+    for j in range(32):
+        bits |= keep[..., j].int() << j
+    return bits
+
+
+def _unpack_keep(bits: torch.Tensor, tk: int) -> torch.Tensor:
+    """The keep bits as a bool mask [BH, Q, tk]."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    keep = (bits[..., None] >> shifts) & 1
+    return keep.view(*bits.shape[:-1], -1)[..., :tk].bool()
+
+
 def _flash_forward_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, scale: float | None = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    scale: float | None = None,
+    keep: torch.Tensor | None = None,
+    rate: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash forward: (out [BH, Q, d], lse
     [BH, Q]), all in f32, scores scaled by ``scale`` (d^-1/2 when None).
-    Materialises the [BH, Q, K] scores, updated in place to keep one such
-    tensor alive."""
+    With ``keep`` ([BH, Q, K] bool) the probabilities it drops are 0 in
+    P·V and the output is divided by 1 − ``rate`` too; the lse is the
+    undropped softmax's.  Materialises the [BH, Q, K] scores, updated in
+    place to keep one such tensor alive."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = torch.matmul(q, k.transpose(-1, -2)).mul_(scale)
     s.masked_fill_(~key_mask[:, None, :], _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = s.sub_(m).exp_()
     denom = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
-    out = torch.matmul(p, v).div_(denom)
+    if keep is None:
+        out = torch.matmul(p, v).div_(denom)
+    else:
+        out = torch.matmul(p.masked_fill_(~keep, 0.0), v).div_(denom * (1.0 - rate))
     return out, (m + denom.log()).squeeze(-1)
+
+
+def _flash_forward_plain(q, k, v, key_mask, scale=None, keep: AttentionDropout | None = None):
+    """``_flash_forward`` in plain PyTorch on any device: the plain pack of
+    ``keep``'s draws, then the plain forward."""
+    if keep is None:
+        return _flash_forward_reference(q, k, v, key_mask, scale)
+    bits = keep.pack(key_mask, _pack_keep_reference)
+    return _flash_forward_reference(q, k, v, key_mask, scale, _unpack_keep(bits, k.shape[1]), keep.rate)
 
 
 def _flash_alibi_forward_reference(
@@ -328,19 +408,81 @@ def _launch_flash_alibi(q, k, v, key_mask, coords_q, coords_k, dist_scale, scale
     return out, o, dacc, lse
 
 
+def _check_dropout_args(what: str, q, k, keep: AttentionDropout) -> None:
+    """Raise on attention dropout the dropout kernels do not take."""
+    bh, tq, d = q.shape
+    if d > FLASH_DROPOUT_MAX_HEAD_DIM:
+        raise ValueError(f"{what}: attention dropout takes head widths up to {FLASH_DROPOUT_MAX_HEAD_DIM}, got {d}")
+    if not 0.0 <= keep.rate < 1.0:
+        raise ValueError(f"{what}: dropout rate {keep.rate} is not in [0, 1)")
+    t = keep.draws if keep.bits is None else keep.bits
+    want = (bh, tq, k.shape[1]) if keep.bits is None else (bh, tq, -(-k.shape[1] // 32))
+    dtype = torch.float32 if keep.bits is None else torch.int32
+    if t.shape != want or t.dtype != dtype or t.device != q.device:
+        raise ValueError(f"{what}: dropout's {'draws' if keep.bits is None else 'bits'} must be {dtype} {list(want)} "
+                         f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")  # fmt: skip
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{what}: dropout's draws or bits must be contiguous and 16-byte aligned")
+
+
+def _pack_keep(draws: torch.Tensor, rate: float, key_mask: torch.Tensor) -> torch.Tensor:
+    """The pack kernel (``stamp_flash_keep_pack``): ``_pack_keep_reference``
+    on the card.  It reads the draws of the 32-key words that hold a valid
+    key only (the others' bits are 0)."""
+    bh, tq, tk = draws.shape
+    bits = torch.empty((bh, tq, -(-tk // 32)), dtype=torch.int32, device=draws.device)
+    err = _build.load_library().stamp_flash_keep_pack(
+        draws.data_ptr(), key_mask.data_ptr(), bits.data_ptr(), bh, tq, tk, 1.0 - rate,
+        draws.device.index, torch.cuda.current_stream(draws.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "flash_mha's dropout pack")
+    return bits
+
+
+def _launch_flash_drop(q, k, v, key_mask, bits, rate, scale=None):
+    """``stamp_flash_attn_fwd_drop`` (the dropout forward's pre-pass, tile
+    list and attention kernel) with its workspace.  Returns (o, lse)."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    scale = d**-0.5 if scale is None else scale
+    workspace = _workspace("stamp_flash_attn_fwd_drop_workspace", "flash_mha", q.device, bh, tq, tk, d)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    err = _build.load_library().stamp_flash_attn_fwd_drop(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), bits.data_ptr(), workspace.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, tq, tk, d, scale, 1.0 / (1.0 - rate),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "flash_mha with dropout")
+    return o, lse
+
+
 def _flash_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, scale: float | None = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    scale: float | None = None,
+    keep: AttentionDropout | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out [BH, Q, d], lse [BH, Q]) of masked flash attention, scores
-    scaled by ``scale`` (d^-1/2 when None)."""
+    scaled by ``scale`` (d^-1/2 when None).  With ``keep`` the weights are
+    dropped as its draws say and the kept ones scaled by 1 / (1 − rate):
+    on the card the pack kernel first (``keep.bits``), then the dropout
+    forward; the lse stays the undropped softmax's."""
     if q.device.type == "cpu":
-        return _flash_forward_reference(q, k, v, key_mask, scale)
+        return _flash_forward_plain(q, k, v, key_mask, scale, keep)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     _check_flash_args("flash_mha", q, k, v, key_mask)
-    o, lse = _launch_flash(q, k, v, key_mask, scale)
-    global FLASH_MHA_LAUNCHES
-    FLASH_MHA_LAUNCHES += 1
+    global FLASH_MHA_LAUNCHES, FLASH_MHA_DROPOUT_LAUNCHES
+    if keep is None:
+        o, lse = _launch_flash(q, k, v, key_mask, scale)
+        FLASH_MHA_LAUNCHES += 1
+        return o, lse
+    _check_dropout_args("flash_mha", q, k, keep)
+    o, lse = _launch_flash_drop(q, k, v, key_mask, keep.pack(key_mask, _pack_keep), keep.rate, scale)
+    FLASH_MHA_DROPOUT_LAUNCHES += 1
     return o, lse
 
 
@@ -350,6 +492,8 @@ def flash_mha(
     k: Float[torch.Tensor, "bh k d"],
     v: Float[torch.Tensor, "bh k d"],
     key_mask: Bool[torch.Tensor, "bh k"],
+    *,
+    keep: AttentionDropout | None = None,
 ) -> torch.Tensor:
     """Masked flash attention over flattened (batch×head) sequences.
 
@@ -358,14 +502,21 @@ def flash_mha(
             to 128, zero-padded to the next of (32, 64, 128) when it is none
             of them (``flash_width``).
         key_mask: [BH, K] bool, True = valid key.
+        keep: attention dropout (training), for d up to
+            ``FLASH_DROPOUT_MAX_HEAD_DIM``: the weights its draws drop are 0
+            and the others scaled by 1 / (1 − rate), as
+            ``ops.attention.dropout`` does to them.
 
     Returns: [BH, Q, d].  Differentiable in q, k and v.
     """
     d = q.shape[-1]
     width = flash_width("flash_mha", d)
+    if keep is not None and width > FLASH_DROPOUT_MAX_HEAD_DIM:
+        raise ValueError(f"flash_mha: attention dropout takes head widths up to {FLASH_DROPOUT_MAX_HEAD_DIM}, got {d}")
+    extra = () if keep is None else (keep,)
     if width == d:
-        return _FlashMHA.apply(q, k, v, key_mask, d**-0.5)
-    return _FlashMHA.apply(*_pad_heads(width, q, k, v), key_mask, d**-0.5)[..., :d]
+        return _FlashMHA.apply(q, k, v, key_mask, d**-0.5, *extra)
+    return _FlashMHA.apply(*_pad_heads(width, q, k, v), key_mask, d**-0.5, *extra)[..., :d]
 
 
 def _flash_alibi_forward(
@@ -432,20 +583,39 @@ def _flash_backward_reference(
     lse: torch.Tensor,
     do: torch.Tensor,
     scale: float | None = None,
+    keep: torch.Tensor | None = None,
+    rate: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash backward (``_flash_core_bwd``):
-    (dq, dk, dv), all in f32, from the forward's output and lse.
+    (dq, dk, dv), all in f32, from the forward's output and lse.  With
+    ``keep`` (the forward's [BH, Q, K] bool mask and ``rate``),
+    FlashAttention-2's dropout backward: dV = (P∘M)ᵀ·dO / (1 − rate) and
+    dS = P∘(M∘dP / (1 − rate) − rowsum(dO∘O)), O the dropped output.
     Materialises the [BH, Q, K] probabilities, updated in place to keep two
-    such tensors alive."""
+    such tensors alive (three with ``keep``)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     dvec = (do * out).sum(dim=-1, keepdim=True)
     p = torch.matmul(q, k.transpose(-1, -2)).mul_(scale)
     p.masked_fill_(~key_mask[:, None, :], _NEG_INF)
     p = p.sub_(lse[:, :, None]).exp_()
-    dv = torch.matmul(p.transpose(-1, -2), do)
-    ds = torch.matmul(do, v.transpose(-1, -2)).sub_(dvec).mul_(p).mul_(scale)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    if keep is None:
+        dv = torch.matmul(p.transpose(-1, -2), do)
+    else:
+        dv = torch.matmul(torch.where(keep, p / (1.0 - rate), 0.0).transpose(-1, -2), do)
+        dp = torch.where(keep, dp / (1.0 - rate), 0.0)
+    ds = dp.sub_(dvec).mul_(p).mul_(scale)
     del p
     return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+
+
+def _flash_backward_plain(q, k, v, key_mask, out, lse, do, scale=None, keep: AttentionDropout | None = None):
+    """``_flash_backward`` in plain PyTorch on any device (``keep`` as the
+    forward left it: packed)."""
+    if keep is None:
+        return _flash_backward_reference(q, k, v, key_mask, out, lse, do, scale)
+    mask = _unpack_keep(keep.pack(key_mask, _pack_keep_reference), k.shape[1])
+    return _flash_backward_reference(q, k, v, key_mask, out, lse, do, scale, mask, keep.rate)
 
 
 def _dist_weighted_sum_reference(
@@ -487,6 +657,25 @@ def _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale=None):
     return dq, dk, dv
 
 
+def _launch_flash_bwd_drop(q, k, v, key_mask, out, lse, do, bits, rate, scale=None):
+    """The dropout backward on the card (``stamp_flash_attn_bwd_drop``: its
+    pre-pass, the tile lists, the dQ and the dK/dV kernels) with its
+    workspace."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    workspace = _workspace("stamp_flash_attn_bwd_drop_workspace", "flash attention backward", q.device, bh, tq, tk, d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _build.load_library().stamp_flash_attn_bwd_drop(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+        do.data_ptr(), out.data_ptr(), lse.data_ptr(), bits.data_ptr(), workspace.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, tq, tk, d, scale, 1.0 / (1.0 - rate), q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )  # fmt: skip
+    _build.check(err, "flash attention backward with dropout")
+    return dq, dk, dv
+
+
 def _check_bwd_args(what: str, q, out, lse, do) -> None:
     """Raise on backward inputs the CUDA kernels do not take."""
     if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
@@ -510,17 +699,26 @@ def _flash_backward(
     lse: torch.Tensor,
     do: torch.Tensor,
     scale: float | None = None,
+    keep: AttentionDropout | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``flash_mha`` for the upstream gradient ``do``."""
+    """(dq, dk, dv) of ``flash_mha`` for the upstream gradient ``do``; with
+    ``keep`` (as the forward packed it) the dropout backward."""
     if q.device.type == "cpu":
-        return _flash_backward_reference(q, k, v, key_mask, out, lse, do, scale)
+        return _flash_backward_plain(q, k, v, key_mask, out, lse, do, scale, keep)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha backward: unsupported device {q.device}")
     _check_flash_args("flash_mha backward", q, k, v, key_mask)
     _check_bwd_args("flash_mha backward", q, out, lse, do)
-    grads = _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale)
-    global FLASH_MHA_BWD_LAUNCHES
-    FLASH_MHA_BWD_LAUNCHES += 1
+    global FLASH_MHA_BWD_LAUNCHES, FLASH_MHA_DROPOUT_BWD_LAUNCHES
+    if keep is None:
+        grads = _launch_flash_bwd(q, k, v, key_mask, out, lse, do, scale)
+        FLASH_MHA_BWD_LAUNCHES += 1
+        return grads
+    if keep.bits is None:
+        raise ValueError("flash_mha backward: dropout's keep bits are missing (the forward packs them)")
+    _check_dropout_args("flash_mha backward", q, k, keep)
+    grads = _launch_flash_bwd_drop(q, k, v, key_mask, out, lse, do, keep.bits, keep.rate, scale)
+    FLASH_MHA_DROPOUT_BWD_LAUNCHES += 1
     return grads
 
 
@@ -627,20 +825,22 @@ def _flash_alibi_backward(
 
 class _FlashMHA(torch.autograd.Function):
     """``flash_mha`` with the flash backward (``_flash_core`` and its VJP);
-    ``scale`` is d^-1/2 of the unpadded head width."""
+    ``scale`` is d^-1/2 of the unpadded head width; ``keep`` (attention
+    dropout, or None) keeps its bits, not its draws, for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, scale):
-        out, lse = _flash_forward(q, k, v, key_mask, scale)
+    def forward(ctx, q, k, v, key_mask, scale, keep=None):
+        dropout = {} if keep is None else {"keep": keep}
+        out, lse = _flash_forward(q, k, v, key_mask, scale, **dropout)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.dropout = scale, dropout
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse, do.contiguous(), ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse, do.contiguous(), ctx.scale, **ctx.dropout)
+        return dq, dk, dv, None, None, None
 
 
 class _FlashALiBiMHA(torch.autograd.Function):

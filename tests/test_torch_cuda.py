@@ -429,6 +429,82 @@ def test_flash_autograd_functions_launch_the_backward_kernels(gen):
     assert all(torch.isfinite(leaf.grad).all() for leaf in leaves)
 
 
+# Attention dropout on rows 4–5: the keep bits from the einsum path's own
+# draws.  Every product is f32-accurate (three TF32 products), so the flash
+# layer holds the einsum layer in full f32 to f32's rounding over the keys.
+DROPOUT_RATE = 0.25
+DROPOUT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("tq,tk", [(5, 33), (70, 1000), (129, 4097), (3, 16385)])
+def test_keep_pack_kernel_is_the_plain_pack(gen, tq, tk):
+    """The pack against ``draw < 1 − rate`` on the valid keys, bitwise, at
+    ragged K, with holes in the mask and a sequence with no valid key."""
+    draws = torch.rand((3, tq, tk), device="cuda", generator=gen)
+    key_mask = torch.rand((3, tk), device="cuda", generator=gen) < 0.7
+    key_mask[1] = False
+    bits = attn._pack_keep(draws, DROPOUT_RATE, key_mask)
+    assert bits.shape == (3, tq, -(-tk // 32)) and bits.dtype == torch.int32
+    assert torch.equal(bits, attn._pack_keep_reference(draws, DROPOUT_RATE, key_mask))
+    assert torch.equal(attn._unpack_keep(bits, tk), (draws < 1.0 - DROPOUT_RATE) & key_mask[:, None, :])
+
+
+def _dropout_layer(q, k, v, key_mask, do, path):
+    """One attention layer with dropout over [8, T, 64] as one bag of 8
+    heads, its draws from a generator seeded alike on both paths: the
+    output and (dq, dk, dv)."""
+    leaves = [x[None].clone().requires_grad_() for x in (q, k, v)]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    if path == "flash":
+        draws = attn_ops.dropout_draws((1, *q.shape[:2], k.shape[1]), g, q.device)
+        keep = attn.AttentionDropout(draws[0], DROPOUT_RATE)
+        del draws
+        out = attn.flash_mha(*(x[0] for x in leaves), key_mask, keep=keep)[None]
+    else:
+        out = attn_ops.multi_head_attention(*leaves, key_mask=key_mask[:1], dropout_rate=DROPOUT_RATE, generator=g)
+    out.backward(do[None])
+    return out.detach()[0], [x.grad[0] for x in leaves]
+
+
+@pytest.mark.parametrize("masked", ["valid-60", "every-key-masked"])
+@pytest.mark.parametrize("t", [4097, 16385])
+def test_flash_dropout_against_the_einsum_path(gen, t, masked):
+    """Rows 4–5 with keep bits against the einsum path (``ops.attention``,
+    f32 with TF32 off) on the same draws, at [8, T, 64]: the output and dq,
+    dk, dv to 1e-5 of each one's largest.  With every key masked the einsum
+    path's weights are all 0 and so are the keep bits: everything is 0 on
+    both.  Each launch counts once in the dropout counters alone."""
+    q, k, v, key_mask, _, _ = _flash_inputs(gen, 8, t, 64)
+    if masked == "every-key-masked":
+        key_mask = torch.zeros_like(key_mask)
+    do = torch.randn(8, t, 64, device="cuda", generator=gen)
+    counts = (attn.FLASH_MHA_LAUNCHES, attn.FLASH_MHA_BWD_LAUNCHES, attn.FLASH_MHA_DROPOUT_LAUNCHES,
+              attn.FLASH_MHA_DROPOUT_BWD_LAUNCHES)  # fmt: skip
+    got = _dropout_layer(q, k, v, key_mask, do, "flash")
+    assert (attn.FLASH_MHA_LAUNCHES, attn.FLASH_MHA_BWD_LAUNCHES, attn.FLASH_MHA_DROPOUT_LAUNCHES,
+            attn.FLASH_MHA_DROPOUT_BWD_LAUNCHES) == (counts[0], counts[1], counts[2] + 1, counts[3] + 1)  # fmt: skip
+    torch.cuda.empty_cache()
+    want = _dropout_layer(q, k, v, key_mask, do, "einsum")
+    torch.cuda.empty_cache()
+    for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+        if masked == "every-key-masked":
+            assert not a.any() and not b.any()
+        else:
+            assert _rel_err(a, b) <= DROPOUT_TOL
+
+
+def test_flash_dropout_raises_on_what_it_does_not_take(gen):
+    q, k, v, key_mask, _, _ = _flash_inputs(gen, 2, 300, 64)
+    draws = torch.rand((2, 300, 300), device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="head widths"):
+        attn.flash_mha(*(torch.randn(2, 300, 128, device="cuda") for _ in range(3)), key_mask,
+                       keep=attn.AttentionDropout(draws, DROPOUT_RATE))  # fmt: skip
+    with pytest.raises(ValueError, match="draws"):
+        attn._flash_forward(q, k, v, key_mask, keep=attn.AttentionDropout(draws[:, :, :299], DROPOUT_RATE))
+    with pytest.raises(ValueError, match="rate"):
+        attn._flash_forward(q, k, v, key_mask, keep=attn.AttentionDropout(draws, 1.0))
+
+
 # The backward's tile-skipping cases (their inputs: tests/flash_bwd_util.py):
 # whole masked 64- and 128-key tiles between valid keys, a sequence with no
 # valid key, the last and first MIL layers' dO, ragged and unequal Tq, Tk,

@@ -330,3 +330,196 @@ def test_pairwise_distance_sums_cpu_path_matches_a_float64_sum(form):
     want_total, want_pairs = _f64_pair_sums(rows.astype(np.float64), row_valid, coords.astype(np.float64), valid)
     assert float(n_pairs) == want_pairs
     assert abs(float(total) - want_total) <= 1e-5 * want_total
+
+
+# --- the vit model's training steps with attention dropout, on both paths ---
+
+
+def _vit_task():
+    from stamp_tpu_torch.modeling.tasks import LitTileClassifier
+
+    task = LitTileClassifier(
+        model_class=torch_vit.VisionTransformer, ground_truth_label="label", categories=["0", "1"],
+        category_weights=_CLASS_WEIGHTS, total_steps=_SCHEDULE["total_steps"], max_lr=_SCHEDULE["max_lr"],
+        div_factor=_SCHEDULE["div_factor"], use_alibi=False, **_ALIBI_TRAIN,
+    )  # fmt: skip
+    torch_vit.init_random_weights_(task.module, torch.Generator().manual_seed(17))
+    return task
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+@pytest.mark.parametrize("path", ["einsum", "flash"])
+def test_vit_training_steps_with_dropout_match_the_reference(padded, path, monkeypatch):
+    """Three whole-slide steps of the port's ``vit`` (dropout 0.25 on the
+    projection, the attention weights and the feed-forward) against
+    ``benchmark/reference/mil_vit.py``'s ``train`` replaying the same
+    generator, as the ``mil_vit.train.wholeslide`` cell checks the program:
+    each step's loss and gradient and each parameter's change after the
+    last step.  On the flash path the attention dropout is the flash
+    wrapper's (``AttentionDropout``), from the draws the einsum path would
+    make.  Both sides plain float32 on the CPU; a change is compared where
+    the reference's gradients are not nought to rounding (a key's bias under
+    softmax moves by round-off alone, which AdamW scales up to the learning
+    rate)."""
+    from benchmark.reference import mil_vit as reference
+    from stamp_tpu_torch.modeling.train import forward_batch
+    from stamp_tpu_torch.parallel.mesh import make_dp_train_step
+
+    if path == "flash":
+        monkeypatch.setattr(torch_vit, "FLASH_ATTENTION_MIN_SEQ", 16)
+    calls = []
+    wrapper = flash_attention.flash_mha
+    monkeypatch.setattr(flash_attention, "flash_mha", lambda *a, **k: calls.append("keep" in k) or wrapper(*a, **k))
+    task = _vit_task()
+    state = {k: v.detach().clone() for k, v in task.module.state_dict().items()}
+    optimizer = task.make_optimizer(task.module.parameters())
+    generator = torch.Generator().manual_seed(19)
+    step = make_dp_train_step(
+        task, optimizer, None, schedule=task.lr_schedule(),
+        forward=lambda batch, key_mask, group: forward_batch(task, batch, key_mask, torch.device("cpu"), train=True,
+                                                             generator=generator, group=group),
+    )  # fmt: skip
+    params = dict(task.module.named_parameters())
+    batches = _alibi_batches(padded)
+    losses, grads, before = [], [], {k: torch.zeros_like(p) for k, p in params.items()}
+    for count, (batch, key_mask, _n) in enumerate(batches):
+        loss, _ = step(batch, key_mask, count)
+        losses.append(float(loss))
+        after = {k: optimizer.state[p]["exp_avg"].clone() for k, p in params.items()}
+        grads.append({k: (after[k] - 0.9 * before[k]) / 0.1 for k in params})
+        before = after
+    assert calls == ([True] * 2 * len(batches) if path == "flash" else [])
+
+    ref_batches = [(b[0][:, :n], b[3], b[0].shape[1]) for b, _k, n in batches]
+    ref = reference.train(state, ref_batches, torch.from_numpy(_CLASS_WEIGHTS), _ALIBI_CONFIG, _SCHEDULE,
+                          generator=torch.Generator().manual_seed(19))  # fmt: skip
+    np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)
+    for got, want in zip(grads, ref["grads"]):
+        for k in params:
+            scale = float(want[k].abs().max())
+            assert float((got[k] - want[k]).abs().max()) <= 1e-4 * max(scale, 1e-3), k
+    for k, p in params.items():
+        moved = torch.stack([g[k].abs() for g in ref["grads"]]).amax(0) > 1e-4 * max(
+            float(g[k].abs().max()) for g in ref["grads"])
+        change = (p.detach() - state[k])[moved]
+        want = ref["change"][k][moved]
+        assert float((change - want).abs().max()) <= 1e-3 * float(want.abs().max()), k
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+def test_attention_dropout_takes_the_same_draws_on_both_paths(padded, monkeypatch):
+    """One training forward and backward of the ``vit`` with dropout 0.25
+    from equal seeds, once on the einsum path and once on the flash path:
+    the same logits and gradients (to 1e-6 of each leaf's largest), and the
+    generator's state after both is the same (the flash path drew the same
+    ``torch.rand`` calls, of the same shapes, in the same order)."""
+    task = _vit_task()
+    (batch, key_mask, _n), = _alibi_batches(padded, tiles=(300,))
+    bags, coords = batch[0], batch[1]
+    mask = key_mask if padded else None
+
+    def run(min_seq):
+        monkeypatch.setattr(torch_vit, "FLASH_ATTENTION_MIN_SEQ", min_seq)
+        task.module.zero_grad()
+        generator = torch.Generator().manual_seed(23)
+        out = task.module(bags, coords=coords, key_mask=mask, train=True, generator=generator)
+        (out * torch.tensor([1.0, -2.0])).sum().backward()
+        grads = {k: p.grad.clone() for k, p in task.module.named_parameters()}
+        return out.detach(), grads, generator.get_state()
+
+    einsum, flash = run(4096), run(16)
+    torch.testing.assert_close(flash[0], einsum[0], rtol=0, atol=1e-6 * float(einsum[0].abs().max()))
+    for k, want in einsum[1].items():
+        assert float((flash[1][k] - want).abs().max()) <= 1e-6 * max(float(want.abs().max()), 1e-3), k
+    assert torch.equal(flash[2], einsum[2])
+
+
+@pytest.mark.parametrize("min_seq", [16, 4096], ids=["flash", "einsum"])
+def test_attention_dropout_is_counted_by_path(min_seq, monkeypatch):
+    """While recording, each training attention call with dropout counts
+    ``train/attn_dropout_flash`` or ``train/attn_dropout_einsum`` by the
+    path it took (one a layer); an eval forward counts neither."""
+    from stamp_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch_vit, "FLASH_ATTENTION_MIN_SEQ", min_seq)
+    task = _vit_task()
+    (batch, key_mask, _n), = _alibi_batches(True, tiles=(300,))
+    monkeypatch.setattr(profiling.timer, "enabled", True)
+    profiling.timer.reset()
+    try:
+        generator = torch.Generator().manual_seed(0)
+        task.module(batch[0], coords=batch[1], key_mask=key_mask, train=True, generator=generator)
+        with torch.no_grad():
+            task.module(batch[0], coords=batch[1], key_mask=key_mask)
+        counts = [(r.name, r.n) for r in profiling.records() if hasattr(r, "n")]
+    finally:
+        profiling.timer.reset()
+    path = "flash" if min_seq == 16 else "einsum"
+    assert counts == [(f"train/attn_dropout_{path}", 1)] * _ALIBI_TRAIN["n_layers"]
+
+
+def test_the_loss_copies_the_class_weights_once():
+    """The classifier's loss puts its class weights on the outputs' device
+    once and reuses them (a copy from pageable memory each step would wait
+    for the card's queue), again only when ``class_weights`` is replaced;
+    the loss is the same as with a fresh copy."""
+    from stamp_tpu_torch.modeling.tasks import weighted_cross_entropy
+
+    task = _vit_task()
+    logits = torch.randn(3, 2, generator=torch.Generator().manual_seed(29))
+    targets = torch.eye(2)[[0, 1, 1]]
+    first = task.loss(logits, targets)
+    weights = task._class_weights_on(logits.device)
+    assert task.loss(logits, targets).item() == first.item()
+    assert task._class_weights_on(logits.device) is weights
+    assert torch.equal(weights, torch.from_numpy(_CLASS_WEIGHTS))
+    assert first.item() == weighted_cross_entropy(logits, targets, torch.from_numpy(_CLASS_WEIGHTS)).item()
+    task.class_weights = np.array([0.7, 0.3], np.float32)
+    assert torch.equal(task._class_weights_on(logits.device), torch.tensor([0.7, 0.3]))
+
+
+@pytest.mark.parametrize("tq,tk", [(5, 33), (70, 1000)])
+def test_plain_keep_pack_is_the_compare(tq, tk):
+    """The plain pack (the card's pack kernel's plain version): bit j of
+    word w set where key 32w + j is valid and its draw lies below 1 − rate;
+    the words past K are 0, and unpacking gives the compare back."""
+    g = torch.Generator().manual_seed(tk)
+    draws = torch.rand((3, tq, tk), generator=g)
+    key_mask = torch.rand((3, tk), generator=g) < 0.7
+    key_mask[1] = False
+    bits = flash_attention._pack_keep_reference(draws, 0.25, key_mask)
+    assert bits.shape == (3, tq, -(-tk // 32)) and bits.dtype == torch.int32
+    whole = flash_attention._unpack_keep(bits, 32 * bits.shape[-1])
+    assert torch.equal(whole[..., :tk], (draws < 0.75) & key_mask[:, None, :])
+    assert not whole[..., tk:].any()
+
+
+@pytest.mark.parametrize("masked", ["valid-60", "every-key-masked"])
+def test_plain_flash_dropout_matches_the_einsum_path(masked):
+    """``flash_mha`` with ``AttentionDropout`` on the CPU (the plain pack,
+    forward and backward with the keep mask) against ``ops.attention``'s
+    einsum path on the same draws: output and dq, dk, dv to 1e-6 of each
+    one's largest; with every key masked both are 0."""
+    from stamp_tpu_torch.ops import attention as attn_ops
+
+    g = torch.Generator().manual_seed(31)
+    t, bh, d = 301, 4, 16
+    q, k, v = (torch.randn(bh, t, d, generator=g) for _ in range(3))
+    key_mask = (torch.arange(t) < (180 if masked == "valid-60" else 0)).expand(bh, t).contiguous()
+    do = torch.randn(bh, t, d, generator=g)
+    results = []
+    for path in ("flash", "einsum"):
+        leaves = [x[None].clone().requires_grad_() for x in (q, k, v)]
+        draws = torch.Generator().manual_seed(7)
+        if path == "flash":
+            keep = flash_attention.AttentionDropout(attn_ops.dropout_draws((1, bh, t, t), draws, q.device)[0], 0.25)
+            out = flash_attention.flash_mha(*(x[0] for x in leaves), key_mask, keep=keep)[None]
+        else:
+            out = attn_ops.multi_head_attention(*leaves, key_mask=key_mask[:1], dropout_rate=0.25, generator=draws)
+        out.backward(do[None])
+        results.append([out.detach(), *(x.grad for x in leaves)])
+    for got, want in zip(*results):
+        if masked == "every-key-masked":
+            assert not got.any() and not want.any()
+        else:
+            assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
